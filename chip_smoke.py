@@ -11,27 +11,39 @@ on):
     parallel) into _build/dynamo_tpu_torch/<hash>/
  3. K2 paged_kv_write vs plain at Llama-3-8B geometry: bit-exact outside
     scratch page 0
- 4. K1 ragged_paged_attention vs plain at Llama-3-8B geometry, bf16 and
+ 4. K3 paged_kv_write_pages vs plain at Llama-3-8B geometry (KVH 8, P 16,
+    D 128, bf16): bit-exact outside page 0, several padding slots aimed at
+    page 0
+ 5. K1 ragged_paged_attention vs plain at Llama-3-8B geometry, bf16 and
     fp32, on a ragged mix (decode rows to 4096 tokens of context, chunk
     rows straddling pages, padding rows that must be exact zeros) and on
     decode rows alone (the split-KV path); in bf16 also with q = 0, where
     the output is each row's exact mean of the V rows it can see
- 5. main path: Llama-3-8B at full width and depth (random weights from a
+ 6. K4 paged_attention_decode vs plain at Llama-3-8B geometry, bf16 and
+    fp32: length-0 lanes (exact zeros), lengths at page edges (1, 15, 16,
+    17, 32), contexts to 4096 (the split-KV path); in bf16 also q = 0
+ 7. main paths: Llama-3-8B at full width and depth (random weights from a
     seed) served through `dynamo_tpu_torch.run`'s pipeline, a batch of 10
-    chat requests of 16..1500 bytes; launch counts zeroed just before and
-    read just after; greedy determinism
- 6. kernel path vs plain path at 8B: one mixed ragged round (bf16
-    logits within a stated tolerance)
- 7. round profile at 8B: host wall time (with the round's one sync) and
-    device busy time (torch.profiler's CUDA kernels and copies) of a bare
-    decode round and a bare mixed round, device time by kernel class
- 8. kernel path vs plain path at 2 layers, full width, fp32: greedy
-    streams identical over 16 steps
- 9. numbers: at the main path's shapes, each kernel held against its
-    plain version once more (K1 also with q = 0), then kernel / plain /
-    library times (CUDA events, median of 20, L2 flushed between
-    launches), bounds from bytes and flops, the batch's output tok/s and
-    TTFT p50
+    chat requests of 16..1500 bytes, prefill_chunk_budget 512; first the
+    phase path (the default: k = 8 bursts, pipelined), then the ragged
+    path (DYN_ATTENTION_IMPL=ragged) on the same weights; each with the
+    launch counts zeroed just before and read just after (phase: K2, K3,
+    K4 > 0 and K1 = 0; ragged: K1, K2 > 0 and K3 = K4 = 0); greedy
+    determinism
+ 8. kernel path vs plain path at 8B: one mixed ragged round and one
+    mixed_prefill_decode step (logits within a stated tolerance)
+ 9. profiles at 8B: host wall time (with the one sync) and device busy time
+    (torch.profiler's CUDA kernels and copies) of a bare ragged decode
+    round, a bare ragged mixed round and a bare 8-step decode burst, device
+    time by kernel class; each path's engine batch once more with kernel
+    tracing only (host wall vs device busy)
+10. kernel path vs plain path at 2 layers, full width, fp32: greedy
+    streams identical over 16 steps x 3 requests across phase-kernel,
+    phase-plain, ragged-kernel and ragged-plain
+11. numbers: at the main paths' shapes, each kernel held against its
+    plain version once more, then kernel / plain / library times (CUDA
+    events, median of 20, L2 flushed between launches), bounds from bytes
+    and flops, and each path's output tok/s and TTFT p50
 
 The last three lines of stdout are the kernels JSON, the nvidia-smi line
 and `{"ok": true, "device": {...}}`.
@@ -79,9 +91,15 @@ K1_FP32_TOL = {"atol": 2e-5, "rtol": 2e-5}   # the reference's parity check
 # (2^-8 relative): one key too many or too few moves a row's mean by about
 # |v| / context, above that for every context these checks use
 K1_UNIFORM_TOL = {"atol": 1e-5, "rtol": 4e-3}
-# 8B mixed round, kernel vs plain path in bf16: the attention outputs
-# differ by bf16 roundings that 32 layers carry to the logits (measured
-# 0.094 at max |logit| 4.8 on an H100 80GB HBM3, 700 W)
+# K4 against its plain version: fp32 at the reference's kernel-parity
+# tolerance; bf16 as K1 (K4 computes in fp32 from the bf16 inputs and
+# rounds its output once, so it sits well inside K1's limits); q = 0 as K1
+K4_FP32_TOL = K1_FP32_TOL
+K4_BF16_TOL = K1_BF16_TOL
+K4_UNIFORM_TOL = K1_UNIFORM_TOL
+# 8B mixed round / mixed step, kernel vs plain path in bf16: the attention
+# outputs differ by bf16 roundings that 32 layers carry to the logits
+# (measured 0.094 at max |logit| 4.8 on an H100 80GB HBM3, 700 W)
 LOGITS_BF16_TOL = 0.15
 PLAIN_ROW_BLOCK = 64      # the plain K1 gathers whole contexts per row
 
@@ -184,6 +202,50 @@ def k2_bound_ms(page_ids, kvh, d, esize, peaks):
                  peaks[1], peaks)
 
 
+def k3_bound_ms(page_ids, kvh, p, d, esize, peaks):
+    """Least time for K3's work: every slot's page id; the K and V pages of
+    the slots that land outside scratch page 0 read and written once, plus
+    one page-0 slot (all padding slots write the same page)."""
+    n_pad = int((page_ids == 0).sum())
+    kept = page_ids.numel() - n_pad + min(n_pad, 1)
+    return bound(4 * kept * kvh * p * d * esize + 4 * page_ids.numel(), 0.0,
+                 peaks[1], peaks)
+
+
+def k4_bound_ms(lengths, tables, h, kvh, d, p, esize, peaks):
+    """Least time for K4's work on these inputs. Bytes: q of the lanes with
+    a length, every output lane (padding lanes write zeros), the lengths,
+    the table entries of the pages the lanes can see and those pages' K and
+    V once each. Flops: 4 per (head, visible key, d)."""
+    lens = [int(x) for x in lengths.tolist()]
+    pages = [(b, j) for b, n in enumerate(lens) for j in range(-(-n // p))]
+    unique = {int(tables[b, j]) for b, j in pages}
+    n_valid = sum(1 for n in lens if n > 0)
+    nbytes = ((n_valid + len(lens)) * h * d * esize + 4 * len(lens)
+              + 4 * len(pages) + 2 * len(unique) * kvh * p * d * esize)
+    flops = 4 * h * d * sum(lens)
+    return bound(nbytes, flops, peaks[1] if esize == 2 else peaks[2], peaks)
+
+
+def decode_case(torch, gen, dev, dtype, lengths, n_pages, max_pages, h, kvh,
+                p, d, zero_q=False):
+    """K4 inputs: one query per lane, each lane its own pages (never page
+    0). Returns (q, k_pages, v_pages, lengths, tables) on `dev`."""
+    b = len(lengths)
+    tables = torch.zeros(b, max_pages, dtype=torch.int32)
+    free = (1 + torch.randperm(n_pages - 1, generator=gen)).tolist()
+    for i, n in enumerate(lengths):
+        need = -(-n // p)
+        tables[i, :need] = torch.tensor(free[:need], dtype=torch.int32)
+        free = free[need:]
+    q = torch.zeros(b, h, d) if zero_q else torch.randn(b, h, d,
+                                                        generator=gen)
+    kp = torch.randn(kvh, n_pages, p, d, generator=gen)
+    vp = torch.randn(kvh, n_pages, p, d, generator=gen)
+    return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+            torch.tensor(lengths, dtype=torch.int32).to(dev), tables.to(dev))
+
+
 def uniform_check(ragged, plain_k1, torch, kp, vp, qpos, lanes, tables,
                   h, label):
     """K1 in bf16 with q = 0 against the plain version in fp32 on the same
@@ -228,9 +290,11 @@ def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
                          jobs: str, out_path: str):
     """The batch once more, through a fresh engine, with CUPTI kernel
     tracing only (no host-op recording, so the host runs at its normal
-    pace), and host clocks around the engine's device-blocking calls (its
-    rounds and first-token sampling). Returns (wall_s, device_busy_s or
-    None, rounds, seconds inside those calls)."""
+    pace), and host clocks around the engine's device-blocking calls it
+    makes on its own methods (ragged: its rounds and first-token
+    sampling; phase: first-token sampling only — its chunk rounds,
+    bursts and mixed steps run inside closures). Returns (wall_s,
+    device_busy_s or None, rounds, seconds inside the clocked calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     inside = [0.0]
@@ -265,8 +329,12 @@ def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
 
 def kernel_class(name: str) -> str:
     low = name.lower()
+    if "paged_decode" in low or "decode_combine" in low:
+        return "K4 paged_attention_decode"
     if any(w in low for w in ("ragged_tile", "ragged_fp32", "combine")):
         return "K1 ragged_paged_attention"
+    if "paged_kv_write_pages" in low:
+        return "K3 paged_kv_write_pages"
     if "paged_kv_write" in low:
         return "K2 paged_kv_write"
     if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
@@ -279,17 +347,21 @@ def kernel_class(name: str) -> str:
 
 
 def profile_rounds(torch, llama, model, dev, n_pad_mixed: int):
-    """Bare ragged rounds of `model` outside the engine, as the engine
-    runs them: host arrays copied to the card, the step, the packed result
-    copied back (its one sync). Returns {label: (wall_ms, busy_ms,
-    kernels_per_round, {class: ms}, [(ms, kernel), ...] top 5)}; busy_ms
-    is None where the profiler saw no device activity."""
+    """Bare device steps of `model` outside the engine, as the engine runs
+    them: host arrays copied to the card, the step, the packed result
+    copied back (its one sync) — a ragged decode round and a ragged mixed
+    round, and the phase path's 8-step decode burst over the same 8 lanes.
+    Returns {label: (wall_ms, busy_ms, kernels_per_step, {class: ms},
+    [(ms, kernel), ...] top 5)}; busy_ms is None where the profiler saw no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = model.cfg
     P, bmax = cfg.page_size, 8
     ctx = [44, 73, 133, 233, 383, 653, 853, 1033]
     kc, vc = llama.init_cache(cfg, 1 + 72 * (bmax + 1), dev)
+    for cache in kc + vc:           # attention over real-valued keys
+        cache.normal_()
 
     def host_round(chunk: int):
         """(chunk rows of lane 0 at positions chunk..2*chunk-1) + the
@@ -319,49 +391,76 @@ def profile_rounds(torch, llama, model, dev, n_pad_mixed: int):
             model, kc, vc, *(a.to(dev) for a in args))
         return packed.cpu()
 
+    def burst(args):
+        return llama.decode_multi_step(
+            model, kc, vc, *(a.to(dev) for a in args), num_steps=8).cpu()
+
+    # the phase path's burst: the same 8 decode lanes, 8 fused steps
+    tables = torch.zeros(bmax, cfg.max_pages_per_seq, dtype=torch.int32)
+    for i in range(bmax):
+        tables[i, :72] = torch.arange(73 + 72 * i, 145 + 72 * i)
+    z = torch.zeros(bmax, dtype=torch.int64)
+    burst_args = [torch.randint(0, cfg.vocab_size, (bmax,),
+                                dtype=torch.int32),
+                  torch.tensor(ctx, dtype=torch.int32) - 1, tables,
+                  torch.ones(bmax, dtype=torch.bool), z, z,
+                  torch.zeros(bmax), torch.ones(bmax), z]
     out = {}
     with torch.inference_mode():
-        for label, chunk in (("decode", 0), ("mixed", 512)):
-            args = host_round(chunk)
-            for _ in range(3):
-                one(args)
-            walls = []
-            for _ in range(10):
-                t0 = time.perf_counter()
-                one(args)
-                walls.append(1e3 * (time.perf_counter() - t0))
-            reps = 5
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    one(args)
-            by_class, n_kernels, top = {}, 0, []
-            for e in prof.key_averages():
-                if e.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                ms = e.self_device_time_total / 1e3 / reps
-                cls = kernel_class(e.key)
-                by_class[cls] = by_class.get(cls, 0.0) + ms
-                n_kernels += e.count
-                top.append((ms, e.key))
-            busy = sum(by_class.values()) or None
-            out[label] = (statistics.median(walls), busy, n_kernels / reps,
-                          by_class, sorted(top, reverse=True)[:5])
+        for label, fn, args in (("decode", one, host_round(0)),
+                                ("mixed", one, host_round(512)),
+                                ("burst", burst, burst_args)):
+            out[label] = measure(torch, lambda: fn(args), ProfilerActivity,
+                                 profile)
     del kc, vc
     return out
 
 
+def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
+    """Host wall (median of 10) of `step` (which ends in its one sync),
+    then `reps` more under torch.profiler: (wall_ms, busy_ms or None,
+    device ops per step, {class: ms}, top 5 [(ms, kernel)])."""
+    for _ in range(3):
+        step()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+    by_class, n_kernels, top = {}, 0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / reps
+        cls = kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        n_kernels += e.count
+        top.append((ms, e.key))
+    busy = sum(by_class.values()) or None
+    return (statistics.median(walls), busy, n_kernels / reps, by_class,
+            sorted(top, reverse=True)[:5])
+
+
 @contextlib.contextmanager
-def plain_path(ragged, kernels, torch):
-    """Swap both kernels' wrappers for their plain versions (this
-    script's comparison only; the package has no such switch)."""
-    saved = ragged.ragged_paged_attention, kernels.paged_kv_write
+def plain_path(ragged, kernels, attention, torch):
+    """Swap every kernel's wrapper for its plain version (this script's
+    comparison only; the package has no such switch)."""
+    saved = (ragged.ragged_paged_attention, kernels.paged_kv_write,
+             kernels.paged_kv_write_pages, attention.paged_attention_decode)
     ragged.ragged_paged_attention = blocked_plain_attention(ragged, torch)
     kernels.paged_kv_write = kernels.paged_kv_write_ref
+    kernels.paged_kv_write_pages = kernels.paged_kv_write_pages_ref
+    attention.paged_attention_decode = attention.paged_attention_decode_ref
     try:
         yield
     finally:
-        ragged.ragged_paged_attention, kernels.paged_kv_write = saved
+        (ragged.ragged_paged_attention, kernels.paged_kv_write,
+         kernels.paged_kv_write_pages,
+         attention.paged_attention_decode) = saved
 
 
 def main() -> int:
@@ -372,7 +471,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from dynamo_tpu_torch.engine import cuda_build, kernels, ragged
+    from dynamo_tpu_torch.engine import attention, cuda_build, kernels, ragged
     from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
     from dynamo_tpu_torch.llm.entrypoint import build_torch_engine
     from dynamo_tpu_torch.models import llama
@@ -434,7 +533,31 @@ def main() -> int:
     log(f"[k2] paged_kv_write B={B} KVH={KVH} D={D} P={P} N={N_PAGES}: "
         f"bit-exact outside page 0")
 
-    # 4. K1 vs plain ---------------------------------------------------------
+    # 4. K3 vs plain ---------------------------------------------------------
+    M = 40
+    k_blocks = torch.randn(M, KVH, P, D, generator=gen).to(dev, torch.bfloat16)
+    v_blocks = torch.randn(M, KVH, P, D, generator=gen).to(dev, torch.bfloat16)
+    slot_ids = (1 + torch.randperm(N_PAGES - 1, generator=gen)[:M]) \
+        .to(torch.int32)
+    slot_ids[[5, 17, 30, 31, 39]] = 0      # padding slots → scratch page 0
+    slot_ids = slot_ids.to(dev)
+    want_k, want_v = kc.clone(), vc.clone()
+    kernels.paged_kv_write_pages_ref(want_k, want_v, k_blocks, v_blocks,
+                                     slot_ids)
+    got_k, got_v = kc.clone(), vc.clone()
+    kernels.paged_kv_write_pages(got_k, got_v, k_blocks, v_blocks, slot_ids)
+    torch.cuda.synchronize()
+    k3_err = max((got_k[:, 1:].float() - want_k[:, 1:].float()).abs().max()
+                 .item(), (got_v[:, 1:].float() - want_v[:, 1:].float())
+                 .abs().max().item())
+    if k3_err != 0.0 or not (torch.equal(got_k[:, 1:], want_k[:, 1:])
+                             and torch.equal(got_v[:, 1:], want_v[:, 1:])):
+        raise AssertionError(f"K3 differs from its plain version: {k3_err}")
+    log(f"[k3] paged_kv_write_pages M={M} (5 padding slots on page 0) "
+        f"KVH={KVH} P={P} D={D} N={N_PAGES}: bit-exact outside page 0")
+    del kc, vc, got_k, got_v, want_k, want_v
+
+    # 5. K1 vs plain ---------------------------------------------------------
     decode_ctx = [1, 17, 100, 511, 1024, 2047, 3000, 4096]
     mixes = {   # (decode contexts, chunks (start, rows), padding rows)
         "mixed": (decode_ctx, [(1000, 100), (0, 60), (7, 25)], 12),
@@ -475,25 +598,66 @@ def main() -> int:
                           tables_d, H, f"{label} ctx<=4096")
         del kp, vp
 
-    # 5. main path ---------------------------------------------------------
+    # 6. K4 vs plain ---------------------------------------------------------
+    k4_lengths = {  # lanes: page edges, empty lanes, long contexts
+        "edges": [1, 15, 16, 17, 32, 0, 33, 0],
+        "long": [0, 100, 511, 1024, 2047, 3000, 4096, 4000],
+    }
+    k4_err = {}
+    for (label, lens), (dtype, tol) in itertools.product(
+            k4_lengths.items(), ((torch.bfloat16, K4_BF16_TOL),
+                                 (torch.float32, K4_FP32_TOL))):
+        args = decode_case(torch, gen, dev, dtype, lens, N_PAGES, MAX_PAGES,
+                           H, KVH, P, D)
+        splits = ragged.num_splits(len(lens), KVH, MAX_PAGES,
+                                   ragged.sm_count(dev))
+        got = attention.paged_attention_decode(*args)
+        want = attention.paged_attention_decode_ref(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        empty = args[3] == 0
+        if not torch.all(got[empty] == 0):
+            raise AssertionError("K4 length-0 lanes are not exact zeros")
+        err = (got.float() - want.float()).abs().max().item()
+        k4_err[dtype] = max(k4_err.get(dtype, 0.0), err)
+        log(f"[k4] paged_attention_decode {label} {str(dtype)[6:]} "
+            f"lanes={len(lens)} splits={splits} lengths={lens}: max_abs_err "
+            f"{err:.3e} ({tol})")
+        if dtype == torch.bfloat16:
+            zq = (torch.zeros_like(args[0]),) + args[1:]
+            got = attention.paged_attention_decode(*zq)
+            want = attention.paged_attention_decode_ref(
+                *[a.float() if a.is_floating_point() else a for a in zq])
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want, **K4_UNIFORM_TOL)
+            log(f"[k4] {label} uniform attention (q = 0) bf16 vs fp32 plain: "
+                f"max_abs_err {(got.float() - want).abs().max().item():.3e} "
+                f"({K4_UNIFORM_TOL})")
+        del args, got, want
+
+    # 7. main paths --------------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     ckpt = os.path.join(work, "llama3-8b")
     os.makedirs(ckpt)
     with open(os.path.join(ckpt, "config.json"), "w") as f:
         json.dump(LLAMA3_8B_CONFIG, f)
     t0 = time.perf_counter()
+    os.environ.pop("DYN_ATTENTION_IMPL", None)     # the default: phase
     engine, card = build_torch_engine(
         ckpt, "llama3-8b", num_pages=N_PAGES, max_batch_size=8,
-        prefill_chunk_budget=512, random_init=True, rng_seed=0,
-        device="cuda")
+        prefill_chunk_budget=512, decode_steps_per_sync=8,
+        pipeline_bursts=True, random_init=True, rng_seed=0, device="cuda")
     torch.cuda.synchronize()
+    if engine.ragged:
+        raise AssertionError("the default engine is not on the phase path")
     log(f"[main] Llama-3-8B random init + {N_PAGES}-page KV pool in "
         f"{time.perf_counter() - t0:.1f}s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     jobs = write_jobs(os.path.join(work, "jobs.jsonl"), seed=0)
     args = type("Args", (), {"tokenizer": "auto", "context_length": None,
                              "max_tokens": 32})()
-    pipeline = build_pipeline_for(card, engine, args)
+    model = engine.model
+    cfg = model.cfg
 
     async def greedy_on(eng, prompt, n):
         toks = []
@@ -503,48 +667,78 @@ def main() -> int:
             toks.extend(o.get("token_ids", ()))
         return toks
 
-    async def serve():
-        """The batch with launch counts zeroed just before and read just
-        after, then greedy determinism; one event loop for the engine."""
-        try:
-            tokens_before, rounds_before = engine.tokens_emitted, \
-                engine.rounds
-            cuda_build.reset_launch_counts()
-            t0 = time.perf_counter()
-            results = await run_batch(pipeline, card.name, jobs, 32,
-                                      os.path.join(work, "out.jsonl"))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {k: v.launches for k, v in cuda_build.KERNELS.items()}
-            out_tokens = engine.tokens_emitted - tokens_before
-            n_rounds = engine.rounds - rounds_before
-            ttft = list(engine.ttft_s)
-            prompt = list(range(40, 140))
-            same = await asyncio.gather(greedy_on(engine, prompt, 12),
-                                        greedy_on(engine, prompt, 12))
-            return results, wall, launches, out_tokens, n_rounds, ttft, same
-        finally:
-            await engine.close()
+    def serve_batch(eng, label, must_launch, must_not_launch):
+        """The batch through the pipeline with launch counts zeroed just
+        before and read just after, then greedy determinism; one event
+        loop for the engine, which is closed at the end."""
+        pipeline = build_pipeline_for(card, eng, args)
 
-    results, wall, launches, out_tokens, n_rounds, ttft, (a, b) = \
-        asyncio.run(serve())
-    log(f"[main] {len(results)} requests, {out_tokens} output tokens in "
-        f"{wall:.2f}s; {n_rounds} ragged rounds; launches {launches}")
-    for r in results:
-        if r["finish_reason"] not in ("length", "eos") \
-                or r["completion_tokens"] < 1:
-            raise AssertionError(f"request did not finish right: {r}")
-    for kname, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {kname} never launched on the "
-                                 f"main path")
-    if a != b or len(a) != 12:
-        raise AssertionError(f"greedy streams differ: {a} vs {b}")
-    log(f"[main] greedy determinism: two identical requests -> {a[:6]}...")
+        async def go():
+            try:
+                cuda_build.reset_launch_counts()
+                t0 = time.perf_counter()
+                results = await run_batch(pipeline, card.name, jobs, 32,
+                                          os.path.join(work, "out.jsonl"))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k: v.launches
+                            for k, v in cuda_build.KERNELS.items()}
+                out_tokens, n_rounds = eng.tokens_emitted, eng.rounds
+                ttft = list(eng.ttft_s)
+                prompt = list(range(40, 140))
+                same = await asyncio.gather(greedy_on(eng, prompt, 12),
+                                            greedy_on(eng, prompt, 12))
+                return (results, wall, launches, out_tokens, n_rounds,
+                        ttft, same)
+            finally:
+                await eng.close()
 
-    # 6. kernel path vs plain path ------------------------------------------
-    model = engine.model
-    cfg = model.cfg
+        results, wall, launches, out_tokens, n_rounds, ttft, (a, b) = \
+            asyncio.run(go())
+        log(f"[main] {label} path: {len(results)} requests, {out_tokens} "
+            f"output tokens in {wall:.2f}s; {n_rounds} device dispatches "
+            f"({eng.pipelined_bursts} pipelined bursts); launches "
+            f"{launches}")
+        for r in results:
+            if r["finish_reason"] not in ("length", "eos") \
+                    or r["completion_tokens"] < 1:
+                raise AssertionError(f"request did not finish right: {r}")
+        for kname in must_launch:
+            if launches[kname] == 0:
+                raise AssertionError(f"kernel {kname} never launched on the "
+                                     f"{label} main path")
+        for kname in must_not_launch:
+            if launches[kname] != 0:
+                raise AssertionError(f"kernel {kname} launched on the "
+                                     f"{label} main path")
+        if a != b or len(a) != 12:
+            raise AssertionError(f"greedy streams differ: {a} vs {b}")
+        log(f"[main] {label} greedy determinism: two identical requests -> "
+            f"{a[:6]}...")
+        return {"wall": wall, "launches": launches, "tokens": out_tokens,
+                "rounds": n_rounds, "ttft": ttft, "stream": a}
+
+    phase = serve_batch(engine, "phase",
+                        ("paged_kv_write", "paged_kv_write_pages",
+                         "paged_attention_decode"),
+                        ("ragged_paged_attention",))
+    del engine
+    torch.cuda.empty_cache()
+    ragged_eng = TorchEngine(TorchEngineConfig(
+        model=cfg, num_pages=N_PAGES, max_batch_size=8,
+        prefill_chunk_budget=512, attention_impl="ragged", device="cuda"),
+        model=model)
+    ragged_run = serve_batch(ragged_eng, "ragged",
+                             ("ragged_paged_attention", "paged_kv_write"),
+                             ("paged_kv_write_pages",
+                              "paged_attention_decode"))
+    del ragged_eng
+    torch.cuda.empty_cache()
+    log(f"[main] greedy stream of the same 100-token prompt, phase vs "
+        f"ragged path (bf16, may differ by near-ties): "
+        f"{'identical' if phase['stream'] == ragged_run['stream'] else 'differ'}")
+
+    # 8. kernel path vs plain path ------------------------------------------
 
     def mixed_round(kcache, vcache):
         """Round 1: two chunks (300 and 200 tokens); round 2: lane 0's
@@ -576,74 +770,141 @@ def main() -> int:
                            [0] * 100 + [1], [99, 99], [100, 100])
         return torch.cat([ch1, ch2]).float(), packed2[1, 0, 0].float()
 
-    caches = [llama.init_cache(cfg, 64, dev) for _ in range(2)]
+    def mixed_step(kcache, vcache):
+        """One mixed_prefill_decode step on caches holding random K/V:
+        page-aligned chunks of 512 and 300 tokens from cursors 0 and 64
+        (K3) beside 8 decode lanes at positions 40..1000 (K2, K4), 2 burst
+        steps, top-8 logprobs. Returns (chunk logits (2, V), the decode
+        lanes' step-0 top-8 logprobs (8, 8))."""
+        g = torch.Generator().manual_seed(6)
+        g_dev = torch.Generator(device=dev).manual_seed(6)
+        for c in kcache + vcache:
+            c.copy_(torch.randn(c.shape, generator=g_dev, device=dev))
+        ch_tables = torch.zeros(2, cfg.max_pages_per_seq, dtype=torch.int32)
+        ch_tables[0, :32] = torch.arange(1, 33)
+        ch_tables[1, :24] = torch.arange(33, 57)
+        ch_tok = torch.randint(0, 256, (2, 512), generator=g,
+                               dtype=torch.int32)
+        ch_cached = torch.tensor([0, 64], dtype=torch.int32)
+        ch_lens = torch.tensor([512, 364], dtype=torch.int32)
+        pos = torch.tensor([40, 73, 133, 233, 383, 653, 853, 1000],
+                           dtype=torch.int32)
+        d_tables = torch.zeros(8, cfg.max_pages_per_seq, dtype=torch.int32)
+        for i in range(8):
+            d_tables[i, :64] = torch.arange(57 + 64 * i, 121 + 64 * i)
+        z = torch.zeros(8, dtype=torch.int64)
+        a = [ch_tok, ch_tables, ch_cached, ch_lens,
+             torch.randint(0, 256, (8,), generator=g, dtype=torch.int32),
+             pos, d_tables, torch.ones(8, dtype=torch.bool), z, z,
+             torch.zeros(8), torch.ones(8), z]
+        packed, ch_logits = llama.mixed_prefill_decode(
+            model, kcache, vcache, *(x.to(dev) for x in a), num_steps=2,
+            aligned=True, topk_lp=8)
+        return ch_logits.float(), packed[10:18, 0].T.float()
+
     with torch.inference_mode():
+        caches = [llama.init_cache(cfg, 64, dev) for _ in range(2)]
         k_logits, k_lp = mixed_round(*caches[0])
-        with plain_path(ragged, kernels, torch):
+        with plain_path(ragged, kernels, attention, torch):
             before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
             p_logits, p_lp = mixed_round(*caches[1])
             after = {k: v.launches for k, v in cuda_build.KERNELS.items()}
-    torch.cuda.synchronize()
-    if before != after:
-        raise AssertionError("the plain path launched a kernel")
-    logit_err = (k_logits - p_logits).abs().max().item()
-    log(f"[path] 8B mixed round bf16: max |logit diff| {logit_err:.4f} "
-        f"(|logits| max {p_logits.abs().max().item():.2f}, tolerance "
-        f"{LOGITS_BF16_TOL}); decode logprob diff "
-        f"{abs(k_lp.item() - p_lp.item()):.4f}; greedy agree "
-        f"{int((k_logits.argmax(-1) == p_logits.argmax(-1)).sum())}/4")
-    if not logit_err <= LOGITS_BF16_TOL:
-        raise AssertionError(f"8B logits kernel vs plain: {logit_err}")
-    del caches
+        torch.cuda.synchronize()
+        if before != after:
+            raise AssertionError("the plain path launched a kernel")
+        logit_err = (k_logits - p_logits).abs().max().item()
+        log(f"[path] 8B mixed ragged round bf16: max |logit diff| "
+            f"{logit_err:.4f} (|logits| max {p_logits.abs().max().item():.2f}"
+            f", tolerance {LOGITS_BF16_TOL}); decode logprob diff "
+            f"{abs(k_lp.item() - p_lp.item()):.4f}; greedy agree "
+            f"{int((k_logits.argmax(-1) == p_logits.argmax(-1)).sum())}/4")
+        if not logit_err <= LOGITS_BF16_TOL:
+            raise AssertionError(f"8B logits kernel vs plain: {logit_err}")
+        del caches
+        caches = [llama.init_cache(cfg, 1 + 57 + 64 * 8, dev)
+                  for _ in range(2)]
+        before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+        k_ch, k_top = mixed_step(*caches[0])
+        mid = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+        with plain_path(ragged, kernels, attention, torch):
+            p_ch, p_top = mixed_step(*caches[1])
+            after = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+        torch.cuda.synchronize()
+        for kname in ("paged_kv_write", "paged_kv_write_pages",
+                      "paged_attention_decode"):
+            if mid[kname] == before[kname]:
+                raise AssertionError(f"the mixed step skipped {kname}")
+        if mid != after:
+            raise AssertionError("the plain path launched a kernel")
+        ch_err = (k_ch - p_ch).abs().max().item()
+        top_err = (k_top - p_top).abs().max().item()
+        log(f"[path] 8B mixed_prefill_decode step bf16 (chunks 512 + 300, 8 "
+            f"decode lanes): chunk logits max |diff| {ch_err:.4f} (|logits| "
+            f"max {p_ch.abs().max().item():.2f}), decode top-8 logprobs max "
+            f"|diff| {top_err:.4f}, tolerance {LOGITS_BF16_TOL}; chunk greedy "
+            f"agree {int((k_ch.argmax(-1) == p_ch.argmax(-1)).sum())}/2")
+        if not max(ch_err, top_err) <= LOGITS_BF16_TOL:
+            raise AssertionError(f"8B mixed step kernel vs plain: {ch_err}, "
+                                 f"{top_err}")
+        del caches
     torch.cuda.empty_cache()
 
-    # 7. round profile -----------------------------------------------------
-    engine_round_ms = 1e3 * wall / n_rounds
-    rounds = profile_rounds(torch, llama, model, dev, n_pad_mixed=768 - 520)
-    for label, (wall_ms, busy, n_k, by_class, top) in rounds.items():
+    # 9. profiles ----------------------------------------------------------
+    profiles = profile_rounds(torch, llama, model, dev,
+                              n_pad_mixed=768 - 520)
+    for label, (wall_ms, busy, n_k, by_class, top) in profiles.items():
+        what = {"decode": "ragged decode round", "mixed":
+                "ragged mixed round", "burst": "phase decode burst (8 "
+                "steps)"}[label]
         if busy is None:
-            log(f"[profile] {label} round: wall {wall_ms:.2f} ms; device "
-                f"busy not measured (the profiler saw no device activity)")
+            log(f"[profile] {what}: wall {wall_ms:.2f} ms; device busy not "
+                f"measured (the profiler saw no device activity)")
             continue
-        log(f"[profile] {label} round (8B, bare): wall {wall_ms:.2f} ms "
-            f"(median of 10), device busy {busy:.2f} ms, idle "
+        log(f"[profile] {what} (8B, bare): wall {wall_ms:.2f} ms (median "
+            f"of 10), device busy {busy:.2f} ms, idle "
             f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%, {n_k:.0f} device "
-            f"ops per round, on {smi}")
+            f"ops, on {smi}")
         for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
             log(f"[profile]   {cls}: {ms:.3f} ms ({100 * ms / busy:.1f}% "
                 f"of busy)")
         for ms, kname in top:
             log(f"[profile]   top kernel {ms:.3f} ms: {kname[:90]}")
-    log(f"[profile] engine (phase 5): {engine_round_ms:.2f} ms per round "
-        f"on average over the batch's {n_rounds} rounds (mixed and "
-        f"decode)")
-    engine2 = TorchEngine(TorchEngineConfig(
-        model=cfg, num_pages=N_PAGES, max_batch_size=8,
-        prefill_chunk_budget=512, device="cuda"), model=model)
-    b_wall, b_busy, b_rounds, b_inside = profile_engine_batch(
-        torch, engine2, build_pipeline_for(card, engine2, args), run_batch,
-        card.name, write_jobs(os.path.join(work, "jobs2.jsonl"), seed=1),
-        os.path.join(work, "out2.jsonl"))
+    for label, run, impl in (("phase", phase, "phase"),
+                             ("ragged", ragged_run, "ragged")):
+        log(f"[profile] engine (phase 7, {label}): "
+            f"{1e3 * run['wall'] / run['rounds']:.2f} ms per dispatch on "
+            f"average over the batch's {run['rounds']} dispatches")
+        eng2 = TorchEngine(TorchEngineConfig(
+            model=cfg, num_pages=N_PAGES, max_batch_size=8,
+            prefill_chunk_budget=512, attention_impl=impl, device="cuda"),
+            model=model)
+        b_wall, b_busy, b_rounds, b_inside = profile_engine_batch(
+            torch, eng2, build_pipeline_for(card, eng2, args), run_batch,
+            card.name,
+            write_jobs(os.path.join(work, f"jobs_{label}.jsonl"), seed=1),
+            os.path.join(work, f"out_{label}.jsonl"))
+        busy_txt = "not measured" if b_busy is None else \
+            f"{b_busy:.3f} s, idle {100 * max(0.0, 1 - b_busy / b_wall):.1f}%"
+        log(f"[profile] engine batch, {label} path (fresh prompts, kernels "
+            f"traced): wall {b_wall:.3f} s, {b_rounds} dispatches, "
+            f"{b_inside:.3f} s inside the engine's own device calls "
+            f"({'rounds + ' if impl == 'ragged' else ''}first-token "
+            f"sampling), device busy {busy_txt}, on {smi}")
+        del eng2
     shutil.rmtree(work)
-    busy_txt = "not measured" if b_busy is None else \
-        f"{b_busy:.3f} s, idle {100 * max(0.0, 1 - b_busy / b_wall):.1f}%"
-    log(f"[profile] engine batch (fresh prompts, kernels traced): wall "
-        f"{b_wall:.3f} s, {b_rounds} rounds, {b_inside:.3f} s inside the "
-        f"engine's device calls (rounds + first-token sampling), device "
-        f"busy {busy_txt}, on {smi}")
-    del engine2
-    del engine, model, pipeline
+    del model
     torch.cuda.empty_cache()
 
-    # 8. kernel path vs plain path, 2 layers, fp32 -------------------------
+    # 10. kernel path vs plain path, 2 layers, fp32 ------------------------
 
     cfg2 = llama.LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32)
     model2 = llama.init_params(cfg2, 1, dev)
 
-    def fp32_streams():
+    def fp32_streams(impl):
         eng = TorchEngine(TorchEngineConfig(
             model=cfg2, num_pages=128, max_batch_size=4,
-            prefill_chunk_budget=64, device="cuda"), model=model2)
+            prefill_chunk_budget=64, attention_impl=impl, device="cuda"),
+            model=model2)
 
         async def go():
             try:
@@ -656,24 +917,30 @@ def main() -> int:
                 await eng.close()
         return asyncio.run(go())
 
-    k_streams = fp32_streams()
-    with plain_path(ragged, kernels, torch):
-        p_streams = fp32_streams()
-    if k_streams != p_streams or any(len(s) != 16 for s in k_streams):
-        raise AssertionError(f"fp32 greedy streams differ:\n{k_streams}\n"
-                             f"{p_streams}")
-    log(f"[path] 2-layer full-width fp32: greedy streams identical over "
-        f"16 steps x {len(k_streams)} requests")
+    streams = {}
+    for impl in ("phase", "ragged"):
+        cuda_build.reset_launch_counts()
+        streams[f"{impl}-kernels"] = fp32_streams(impl)
+        used = sorted(k for k, v in cuda_build.KERNELS.items() if v.launches)
+        with plain_path(ragged, kernels, attention, torch):
+            streams[f"{impl}-plain"] = fp32_streams(impl)
+        log(f"[path] 2-layer fp32 {impl} path, kernels launched: {used}")
+    first = streams["phase-kernels"]
+    if any(s != first for s in streams.values()) \
+            or any(len(s) != 16 for s in first):
+        raise AssertionError(f"fp32 greedy streams differ: {streams}")
+    log(f"[path] 2-layer full-width fp32: greedy streams identical over 16 "
+        f"steps x {len(first)} requests across {sorted(streams)}")
     del model2
     torch.cuda.empty_cache()
 
-    # 9. numbers -------------------------------------------------------------
+    # 11. numbers ------------------------------------------------------------
     flush_buf = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
 
     def flush():
         flush_buf.zero_()
 
-    # the main path's biggest round: a 512-token prompt chunk (the second
+    # the ragged path's biggest round: a 512-token prompt chunk (the second
     # of a 1517-token prompt) + the fixed block of 8 decode rows, padded
     # to the 768-row bucket; and a decode-only round of 8 rows
     shapes = {
@@ -743,22 +1010,74 @@ def main() -> int:
         bound2, by2 = k2_bound_ms(pg, KVH, D, 2, peaks)
         rows[("k2", label)] = (b, ms2, plain2, bound2, by2, lib2)
         del kcw, vcw
+
+    # K3 at the phase path's chunk shape: a 480-token page-aligned chunk in
+    # the 512 bucket = 32 slots, the last 2 padding (→ page 0)
+    ids3 = torch.zeros(32, dtype=torch.int32)
+    ids3[:30] = 1 + torch.randperm(N_PAGES - 1, generator=gen)[:30]
+    ids3_d = ids3.to(dev)
+    kb3 = torch.randn(32, KVH, P, D, generator=gen).to(dev, torch.bfloat16)
+    vb3 = torch.randn(32, KVH, P, D, generator=gen).to(dev, torch.bfloat16)
+    kcw, vcw = kp.clone(), vp.clone()
+    kernels.paged_kv_write_pages(kcw, vcw, kb3, vb3, ids3_d)
+    want_k, want_v = kp.clone(), vp.clone()
+    kernels.paged_kv_write_pages_ref(want_k, want_v, kb3, vb3, ids3_d)
+    if not (torch.equal(kcw[:, 1:], want_k[:, 1:])
+            and torch.equal(vcw[:, 1:], want_v[:, 1:])):
+        raise AssertionError("K3 differs from its plain version at the main "
+                             "path's shape")
+    del want_k, want_v
+    ms3 = time_ms(torch, lambda: kernels.paged_kv_write_pages(
+        kcw, vcw, kb3, vb3, ids3_d), flush=flush)
+    plain3 = time_ms(torch, lambda: kernels.paged_kv_write_pages_ref(
+        kcw, vcw, kb3, vb3, ids3_d), flush=flush)
+    ids3_l = ids3_d.long()
+
+    def index_copy():
+        kcw.index_copy_(1, ids3_l, kb3.transpose(0, 1))
+        vcw.index_copy_(1, ids3_l, vb3.transpose(0, 1))
+
+    lib3 = time_ms(torch, index_copy, flush=flush)
+    bound3, by3 = k3_bound_ms(ids3, KVH, P, D, 2, peaks)
+    rows[("k3", "chunk")] = (32, ms3, plain3, bound3, by3, lib3)
+    del kcw, vcw
+
+    # K4 at the phase path's burst shape: 8 decode lanes, contexts 44..1033
+    lens4 = [44, 73, 133, 233, 383, 653, 853, 1033]
+    q4, _, _, l4, t4 = decode_case(torch, gen, dev, torch.bfloat16, lens4,
+                                   N_PAGES, MAX_PAGES, H, KVH, P, D)
+    ms4 = time_ms(torch, lambda: attention.paged_attention_decode(
+        q4, kp, vp, l4, t4), flush=flush)
+    plain4 = time_ms(torch, lambda: attention.paged_attention_decode_ref(
+        q4, kp, vp, l4, t4), flush=flush)
+    got = attention.paged_attention_decode(q4, kp, vp, l4, t4)
+    want = attention.paged_attention_decode_ref(q4, kp, vp, l4, t4)
+    torch.testing.assert_close(got.float(), want.float(), **K4_BF16_TOL)
+    err4 = (got.float() - want.float()).abs().max().item()
+    k4_err[torch.bfloat16] = max(k4_err[torch.bfloat16], err4)
+    log(f"[check] burst shape: K4 max_abs_err {err4:.3e} ({K4_BF16_TOL}), "
+        f"K3 bit-exact outside page 0")
+    bound4, by4 = k4_bound_ms(l4.cpu(), t4.cpu(), H, KVH, D, P, 2, peaks)
+    rows[("k4", "burst")] = (8, ms4, plain4, bound4, by4, None)
+
     for (kname, label), (n, ms, plain_ms, bnd, by, lib) in rows.items():
         log(f"[time] {kname} {label} rows={n}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{bnd:.6f} ms ({by}) on {smi}")
-    ttft_p50 = statistics.median(ttft)
-    log(f"[batch] output {out_tokens / wall:.1f} tok/s, TTFT p50 "
-        f"{ttft_p50 * 1e3:.1f} ms (min {min(ttft) * 1e3:.1f}, max "
-        f"{max(ttft) * 1e3:.1f}) over {len(ttft)} requests, Llama-3-8B "
-        f"bf16 random weights, max_tokens 32, on {smi}")
+    for label, run in (("phase", phase), ("ragged", ragged_run)):
+        ttft = run["ttft"]
+        log(f"[batch] {label} path: output {run['tokens'] / run['wall']:.1f} "
+            f"tok/s, TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms (min "
+            f"{min(ttft) * 1e3:.1f}, max {max(ttft) * 1e3:.1f}) over "
+            f"{len(ttft)} requests, Llama-3-8B bf16 random weights, "
+            f"max_tokens 32, on {smi}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
-    def entry(kname, source, replaces, key, err):
+    def entry(kname, source, replaces, key, err, run):
         n, ms, plain_ms, bnd, by, lib = rows[key]
         return {"name": kname, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[kname],
+                "replaces": replaces, "launches": run["launches"][kname],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd, "bound_by": by, "library_ms": lib}
 
@@ -766,9 +1085,18 @@ def main() -> int:
         entry("ragged_paged_attention",
               "dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
               "dynamo_tpu/engine/ragged.py:80", ("k1", "mixed"),
-              k1_err[torch.bfloat16]),
+              k1_err[torch.bfloat16], ragged_run),
         entry("paged_kv_write", "dynamo_tpu_torch/csrc/paged_kv_write.cu",
-              "dynamo_tpu/engine/kernels.py:32", ("k2", "mixed"), k2_err),
+              "dynamo_tpu/engine/kernels.py:32", ("k2", "mixed"), k2_err,
+              phase),
+        entry("paged_kv_write_pages",
+              "dynamo_tpu_torch/csrc/paged_kv_write_pages.cu",
+              "dynamo_tpu/engine/kernels.py:78", ("k3", "chunk"), k3_err,
+              phase),
+        entry("paged_attention_decode",
+              "dynamo_tpu_torch/csrc/paged_attention_decode.cu",
+              "dynamo_tpu/engine/attention.py:226", ("k4", "burst"),
+              k4_err[torch.bfloat16], phase),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

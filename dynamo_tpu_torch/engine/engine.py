@@ -1,20 +1,26 @@
-"""TorchEngine: continuous batching over the flat-token ragged step with a
-paged KV cache, in PyTorch.
+"""TorchEngine: continuous batching over a paged KV cache, in PyTorch.
 
-Port of the ragged subset of `dynamo_tpu/engine/engine.py` `TpuEngine`:
-the same engine contract (`PreprocessedRequest` dicts in through
-`generate(request, context)`, an async stream of `EngineOutput` dicts
-out, `engine.py:812`), one background scheduler task (`:1025`), and
-every device round built by `_ragged_core` (`:2435`):
-- admission with PagePool prefix reuse (`:1192`);
-- prefill either all at once in chunk rounds (prefill_chunk_budget=0,
-  `:1302`) or token-budgeted (`:1465`), each chunk round riding the same
-  flat step as the fixed decode block of max_batch_size rows when decode
-  lanes are running (`_ragged_mixed`, `:2549`);
-- one-token decode rounds (`_ragged_decode`, `:2579`);
-- first-token sampling from the chunk logits (`_first_token_packed`,
-  `:1356`; step 0, the request's seed);
-- stop ids, length, cancel, preemption, page release.
+Port of `dynamo_tpu/engine/engine.py` `TpuEngine`: the same engine
+contract (`PreprocessedRequest` dicts in through `generate(request,
+context)`, an async stream of `EngineOutput` dicts out, `engine.py:812`),
+one background scheduler task (`:1025`), admission with PagePool prefix
+reuse (`:1192`), prefill either all at once (prefill_chunk_budget=0,
+`:1302`) or token-budgeted (`:1465`), first-token sampling from the chunk
+logits (`_first_token_packed`, `:1356`; step 0, the request's seed), stop
+ids, length, cancel, preemption, page release. Two device paths, chosen
+by `TorchEngineConfig.attention_impl` as the reference chooses by
+`DYN_ATTENTION_IMPL`:
+
+- "phase" (the default, as in the reference): batched prefill chunk
+  rounds grouped by page alignment (`_chunk_round_once`, `:2595`; models
+  `prefill_batch`), fused k-step decode bursts with on-device sampling and
+  one host sync each (`_decode_iter`, `:1807`; `decode_multi_step`),
+  pipelined bursts (`pipeline_bursts`, `_pipeline_consume`, `:2934`) with
+  deferred page releases, and the budgeted scheduler's mixed chunk+burst
+  step (`_mixed_step`, `:1586`; `mixed_prefill_decode`);
+- "ragged": every round is the flat-token ragged step (`_ragged_core`,
+  `:2435`): chunk rows riding a fixed decode block of max_batch_size rows,
+  one token per lane per round.
 
 Device work runs in `asyncio.to_thread` under one device lock, with
 `torch.inference_mode()` entered inside the thread (it is thread-local).
@@ -30,7 +36,7 @@ import asyncio
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Any, AsyncIterator, Optional
+from typing import Any, AsyncIterator, Callable, Optional
 
 import numpy as np
 import torch
@@ -41,8 +47,11 @@ from dynamo_tpu_torch.engine.sampling import sample_tokens_lp
 from dynamo_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaModel,
+    decode_multi_step,
     init_cache,
     init_params,
+    mixed_prefill_decode,
+    prefill_batch,
     ragged_prefill_decode,
 )
 from dynamo_tpu_torch.protocols import (
@@ -64,16 +73,17 @@ def _topk_list(ids_vec, lps_vec, width: int) -> list:
     return [[int(ids_vec[j]), float(lps_vec[j])] for j in range(width)]
 
 
-def _next_bucket(n: int, lo: int, hi: int) -> int:
+def _next_bucket(n: int, lo: int, hi: int, align: int = 1) -> int:
     """Smallest bucket >= n from {lo·2^k, lo·3·2^(k-1)}, clamped to
-    [lo, hi] (the reference's ladder with no page alignment, as its
-    ragged rounds use it)."""
+    [lo, hi]. Mid buckets that are not multiples of `align` (the page
+    size, for prefill chunks) are skipped: a misaligned T would take the
+    chunk off the whole-page K3 write."""
     b = lo
     while b < hi:
         if n <= b:
             return b
         mid = b + b // 2
-        if n <= mid <= hi:
+        if n <= mid <= hi and mid % align == 0:
             return mid
         b *= 2
     return min(b, hi)
@@ -86,6 +96,42 @@ def _next_pow2(n: int, lo: int, hi: int) -> int:
     return min(b, hi)
 
 
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array → `device`. On CUDA through pinned memory with a
+    non-blocking copy: a copy from pageable memory would synchronise the
+    stream, so the host could not queue a burst behind one in flight."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _start_copy(packed: torch.Tensor):
+    """Queue `packed`'s copy to the host on the current stream; `_land`
+    waits for it. On CUDA the copy goes to pinned memory, non-blocking,
+    with an event recorded right behind it: waiting on that event waits
+    for this burst only, where a `.cpu()` issued later would also wait
+    for every burst queued after it."""
+    if packed.device.type != "cuda":
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _land(handle) -> np.ndarray:
+    """Block until a `_start_copy` has reached the host; its numpy."""
+    host, done = handle
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
+ATTENTION_IMPLS = ("phase", "ragged")
+
+
 @dataclass
 class TorchEngineConfig:
     model: LlamaConfig = field(default_factory=LlamaConfig.tiny)
@@ -96,14 +142,27 @@ class TorchEngineConfig:
     watermark: float = 0.95
     default_max_tokens: int = 1024
     rng_seed: int = 0
-    # pages a decode lane holds ahead of its position, as the reference's
-    # burst engine reserves them (its admission and page-growth rules are
-    # kept, so both engines schedule a workload alike)
+    # fused decode steps per burst (one host sync each) on the phase
+    # path; on the ragged path, the pages a decode lane holds ahead of its
+    # position (the reference's page-growth rule, kept on both paths)
     decode_steps_per_sync: int = 8
+    # phase path: dispatch burst N+1 (its input tokens sliced on the
+    # device from burst N's output) before burst N's results reach the
+    # host, when nothing can change the batch; lanes that finish
+    # mid-pipeline release their pages only after the in-flight burst
+    # lands
+    pipeline_bursts: bool = True
     # >0: each scheduler iteration spends at most this many prompt tokens
     # in ONE chunk round, so decode lanes emit between a long prompt's
-    # chunks; 0: every admitted prompt is prefilled to completion first
+    # chunks (fused with a decode burst where it can be); 0: every
+    # admitted prompt is prefilled to completion first
     prefill_chunk_budget: int = 0
+    # allowed prefill batch widths (ascending); None: every power of two
+    # up to max_batch_size
+    prefill_batch_widths: Optional[tuple] = None
+    # "phase" (default) or "ragged" — the reference's DYN_ATTENTION_IMPL
+    # choice (llm/entrypoint.py reads the variable)
+    attention_impl: str = "phase"
     device: str = "cuda"
 
 
@@ -168,6 +227,9 @@ class TorchEngine:
                  model: Optional[LlamaModel] = None) -> None:
         self.config = config or TorchEngineConfig()
         cfg = self.config
+        if cfg.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {cfg.attention_impl!r} is not "
+                             f"one of {ATTENTION_IMPLS}")
         self.model_cfg = cfg.model
         self.device = resolve_device(cfg.device)
         if model is None:
@@ -189,18 +251,33 @@ class TorchEngine:
         self._rng = np.random.RandomState(cfg.rng_seed)
         # serializes device access: steps write the caches in place
         self._device_lock = asyncio.Lock()
+        # decode-burst pipeline (phase path, config.pipeline_bursts): the
+        # in-flight burst awaiting its host copy, and — while one is in
+        # flight — a redirect for page releases (pages a running burst
+        # still writes must not go back to the pool)
+        self._inflight: Optional[dict] = None
+        self._defer_releases: Optional[list] = None
         # plain counters read by benchmarks: per-request time to first
-        # token (s, from enqueue) and tokens emitted
+        # token (s, from enqueue), tokens emitted, device dispatches
+        # (chunk rounds, bursts, mixed steps, ragged rounds)
         self.ttft_s: list[float] = []
         self.tokens_emitted = 0
         self.rounds = 0
+        self.pipelined_bursts = 0     # bursts dispatched behind one in flight
+
+    @property
+    def ragged(self) -> bool:
+        """True when every round is the flat-token ragged step."""
+        return self.config.attention_impl == "ragged"
 
     @property
     def _burst_lookahead(self) -> int:
         """Positions past prompt+max_tokens the admission guard budgets:
-        the reference's default (two pipelined bursts of
-        decode_steps_per_sync), so both engines admit the same requests."""
-        return 2 * self.config.decode_steps_per_sync
+        one burst of decode_steps_per_sync, two with pipelined bursts (one
+        in flight) — the reference's rule on both paths, so both engines
+        admit the same requests."""
+        k = self.config.decode_steps_per_sync
+        return 2 * k if self.config.pipeline_bursts else k
 
     # -- engine contract ----------------------------------------------------
 
@@ -270,6 +347,7 @@ class TorchEngine:
                 await self._loop_task
             except asyncio.CancelledError:
                 pass
+        self._drain_inflight_sync()
         for s in self._running + self._waiting:
             s.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=FINISH_CANCELLED).to_dict())
@@ -288,6 +366,12 @@ class TorchEngine:
     async def _scheduler_loop(self) -> None:
         while not self._stopped:
             if not self._waiting and not self._running:
+                if self._inflight is not None:
+                    # the last lane finished while a pipelined burst was
+                    # in flight: land it now, or its deferred pages stay
+                    # out of the pool while the engine idles
+                    await asyncio.to_thread(self._drain_inflight_sync)
+                    continue
                 self._wake.clear()
                 await self._wake.wait()
                 continue
@@ -304,7 +388,23 @@ class TorchEngine:
                 logger.exception("engine scheduler iteration failed")
                 self._fail_all()
 
+    def _drain_inflight_sync(self) -> None:
+        """Tear down the burst pipeline: block until the in-flight burst
+        has landed (its writes reach pages that must not be handed out
+        before), then free the pages deferred behind it. Close and error
+        paths only."""
+        inf, self._inflight = self._inflight, None
+        if inf is None:
+            return
+        try:
+            _land(inf["handle"])
+        except Exception:
+            pass  # the burst itself failed; nothing is writing anymore
+        for pages in inf["deferred"]:
+            self.pool.release_sequence(pages)
+
     def _fail_all(self) -> None:
+        self._drain_inflight_sync()
         for s in self._running + self._waiting:
             s.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=FINISH_ERROR,
@@ -349,8 +449,9 @@ class TorchEngine:
     # -- prefill ------------------------------------------------------------
 
     async def _prefill_pending(self) -> bool:
-        """Prefill every admitted-but-unprefilled sequence with chunk
-        rounds, then sample all their first tokens in one call."""
+        """Prefill every admitted-but-unprefilled sequence with batched
+        chunk rounds (`_chunk_rounds`), then sample all their first tokens
+        in one call and one host sync."""
         pending = [s for s in self._running if not s.prefilled]
         if not pending:
             return False
@@ -358,39 +459,111 @@ class TorchEngine:
         def prefill_all():
             with torch.inference_mode():
                 offsets = {id(s): s.cached_len for s in pending}
-                last_logits: dict[int, Any] = {}
-                while True:
-                    ready = [s for s in pending
-                             if offsets[id(s)] < len(s.prompt)]
-                    if not ready:
-                        break
-                    last_logits.update(
-                        self._chunk_round_once(ready, offsets))
-                return self._first_token_packed(pending, last_logits)
+                return self._first_token_packed(
+                    pending, self._chunk_rounds(pending, offsets))
 
         async with self._device_lock:
             packed, tk = await asyncio.to_thread(prefill_all)
         self._emit_first_tokens(pending, packed, tk)
         return True
 
+    def _chunk_rounds(self, seqs: list[_Seq], offsets) -> dict[int, Any]:
+        """Chunk rounds over `seqs` until every prompt is on the device;
+        returns each sequence's last-round logits by id. Device-blocking."""
+        last_logits: dict[int, Any] = {}
+        while True:
+            ready = [s for s in seqs if offsets[id(s)] < len(s.prompt)]
+            if not ready:
+                return last_logits
+            last_logits.update(self._chunk_round_once(ready, offsets))
+
+    def _prefill_width(self, n: int) -> int:
+        """Prefill batch width for an n-sequence round: the next power of
+        two up to max_batch_size, or the configured prefill_batch_widths
+        ladder."""
+        cfg = self.config
+        if cfg.prefill_batch_widths:
+            bp = next((w for w in cfg.prefill_batch_widths if w >= n),
+                      cfg.prefill_batch_widths[-1])
+            return min(bp, cfg.max_batch_size)
+        return _next_pow2(n, 1, cfg.max_batch_size)
+
+    def _token_bucket(self, n: int) -> int:
+        """Prefill token bucket T for an n-token chunk: the
+        {lo·2^k, lo·3·2^(k-1)} ladder between min_prefill_bucket and
+        prefill_chunk, page-aligned. PyTorch compiles nothing per shape;
+        the buckets are kept so both engines run the same rows."""
+        cfg = self.config
+        return _next_bucket(n, cfg.min_prefill_bucket, cfg.prefill_chunk,
+                            align=self.model_cfg.page_size)
+
     def _chunk_round_once(self, ready: list[_Seq], offsets,
                           caps=None) -> dict[int, Any]:
-        """ONE flat chunk round over up to max_batch_size sequences;
-        advances `offsets`. Returns {id(s): last-token logits} for the
-        sequences whose prompt this round completed. Device-blocking."""
+        """ONE chunk round; advances `offsets`. `caps` ({id(s): tokens})
+        bounds each chunk below prefill_chunk (the budgeted scheduler's
+        token budget). Returns {id(s): last-token logits} for the
+        sequences whose prompt this round completed. Device-blocking.
+
+        Phase path: the round takes the sequences whose cursor is
+        page-aligned (or, when none is, the unaligned ones), as many as
+        the prefill width allows, padded to (width, token bucket), through
+        `prefill_batch` — aligned rounds store whole pages (K3). Ragged
+        path: up to max_batch_size chunks as flat rows."""
         cfg = self.config
-        active = ready[:cfg.max_batch_size]
-        chunk_lens = [min(len(s.prompt) - offsets[id(s)],
-                          cfg.prefill_chunk,
-                          caps[id(s)] if caps else cfg.prefill_chunk)
-                      for s in active]
-        _, ch_logits = self._ragged_core(active, offsets, chunk_lens, [], 0)
+        if self.ragged:
+            active = ready[:cfg.max_batch_size]
+            chunk_lens = self._chunk_lens(active, offsets, caps)
+            _, logits = self._ragged_core(active, offsets, chunk_lens, [],
+                                          0)
+        else:
+            # mid-page cursors need the row write; batching them with
+            # aligned ones would drag everyone onto it
+            P = self.model_cfg.page_size
+            aligned_s = [s for s in ready if offsets[id(s)] % P == 0]
+            active = aligned_s or ready
+            bp = self._prefill_width(len(active))
+            active = active[:bp]
+            chunk_lens = self._chunk_lens(active, offsets, caps)
+            chunk = self._chunk_arrays(active, offsets, chunk_lens, bp)
+            logits = prefill_batch(
+                self.model, self.k_cache, self.v_cache,
+                *map(self._dev, chunk), aligned=bool(aligned_s))
+            self.rounds += 1
         done: dict[int, Any] = {}
         for i, s in enumerate(active):
             offsets[id(s)] += chunk_lens[i]
             if offsets[id(s)] >= len(s.prompt):
-                done[id(s)] = ch_logits[i]
+                done[id(s)] = logits[i]
         return done
+
+    def _chunk_lens(self, active: list[_Seq], offsets, caps) -> list[int]:
+        cfg = self.config
+        return [min(len(s.prompt) - offsets[id(s)], cfg.prefill_chunk,
+                    caps[id(s)] if caps else cfg.prefill_chunk)
+                for s in active]
+
+    def _chunk_arrays(self, active: list[_Seq], offsets,
+                      chunk_lens: list[int], bp: int):
+        """(tokens (bp, T bucket), tables (bp, max_pages), cached (bp,),
+        seq_lens (bp,)) int32 host arrays of a phase chunk sub-batch, in
+        `prefill_batch`'s argument order; padding lanes have seq_len ==
+        cached_len == 0."""
+        mcfg = self.model_cfg
+        t_bucket = self._token_bucket(max(chunk_lens))
+        toks = np.zeros((bp, t_bucket), dtype=np.int32)
+        tables = np.zeros((bp, mcfg.max_pages_per_seq), dtype=np.int32)
+        cached = np.zeros(bp, dtype=np.int32)
+        seq_lens = np.zeros(bp, dtype=np.int32)
+        for i, s in enumerate(active):
+            off, n = offsets[id(s)], chunk_lens[i]
+            toks[i, :n] = s.prompt[off:off + n]
+            tables[i, :len(s.pages)] = s.pages
+            cached[i] = off
+            seq_lens[i] = off + n
+        return toks, tables, cached, seq_lens
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return _to_device(a, self.device)
 
     def _first_token_packed(self, pending: list[_Seq], last_logits):
         """Sample every just-prefilled sequence's FIRST token in one call:
@@ -446,8 +619,9 @@ class TorchEngine:
     async def _prefill_budgeted(self) -> bool:
         """Token-budgeted prefill step: advance pending sequences' chunk
         cursors by at most prefill_chunk_budget prompt tokens in ONE
-        round. When decode lanes are running, the round carries them too
-        (one flat step); otherwise the chunk round runs alone."""
+        round. When decode lanes are running and no burst is in flight,
+        the round carries them (`_mixed_step`); otherwise the chunk round
+        runs alone and `_decode_iter` interleaves between iterations."""
         pending = [s for s in self._running if not s.prefilled]
         if not pending:
             return False
@@ -462,13 +636,14 @@ class TorchEngine:
             s.prefill_pos = max(s.prefill_pos, s.cached_len)
         offsets = {id(s): s.prefill_pos for s in pending}
         # picks in arrival order up to the budget, page-aligned cursors
-        # first (the reference's grouping, kept so both engines pick the
-        # same chunks)
-        aligned = [s for s in pending if offsets[id(s)] % page_size == 0]
+        # first (mirrors _chunk_round_once's grouping, so the picks ARE
+        # the round's active set)
+        aligned_s = [s for s in pending if offsets[id(s)] % page_size == 0]
+        aligned = bool(aligned_s)
         picks: list[_Seq] = []
         caps: dict[int, int] = {}
         rem = cfg.prefill_chunk_budget
-        for s in aligned or pending:
+        for s in aligned_s or pending:
             if rem <= 0 or len(picks) >= cfg.max_batch_size:
                 break
             take = min(len(s.prompt) - offsets[id(s)], cfg.prefill_chunk,
@@ -480,13 +655,15 @@ class TorchEngine:
             rem -= take
         if not picks:
             return False
+        picks = picks[:self._prefill_width(len(picks))]
         runnable = [s for s in self._running if s.prefilled]
         batch: list[_Seq] = []
-        if runnable:
+        if runnable and self._inflight is None:
             self._prep_decode_lanes(runnable, cfg.decode_steps_per_sync)
             batch = runnable[:cfg.max_batch_size]
         if batch:
-            return await self._ragged_mixed(picks, offsets, caps, batch)
+            return await self._mixed_step(picks, offsets, caps, batch,
+                                          aligned)
 
         def round_():
             with torch.inference_mode():
@@ -496,6 +673,47 @@ class TorchEngine:
             done_logits = await asyncio.to_thread(round_)
         for s in picks:
             s.prefill_pos = offsets[id(s)]
+        await self._finish_first_tokens(picks, done_logits)
+        return True
+
+    async def _mixed_step(self, picks: list[_Seq], offsets, caps,
+                          batch: list[_Seq], aligned: bool) -> bool:
+        """ONE device step carrying the picks' chunks and the decode
+        lanes. Phase path: `mixed_prefill_decode` — the chunk sub-batch
+        shares step 0 of a full k-step burst; ragged path: chunk rows and
+        the fixed decode block in one flat round. Decode lanes' tokens
+        emit as a plain burst's would."""
+        chunk_lens = [caps[id(s)] for s in picks]
+        tk = self.TOPK_WIDTH if any(s.wants_topk for s in batch) else 0
+        if self.ragged:
+            def dispatch():
+                with torch.inference_mode():
+                    return self._ragged_core(picks, offsets, chunk_lens,
+                                             batch, tk)
+        else:
+            k = self.config.decode_steps_per_sync
+            ch = self._chunk_arrays(picks, offsets, chunk_lens,
+                                    self._prefill_width(len(picks)))
+            d = self._burst_arrays(batch)
+
+            def dispatch():
+                with torch.inference_mode():
+                    packed, ch_logits = mixed_prefill_decode(
+                        self.model, self.k_cache, self.v_cache,
+                        *map(self._dev, ch), *map(self._dev, d),
+                        num_steps=k, aligned=aligned, topk_lp=tk)
+                    self.rounds += 1
+                    return packed.cpu().numpy(), ch_logits   # ONE sync
+
+        async with self._device_lock:
+            packed, ch_logits = await asyncio.to_thread(dispatch)
+        done_logits: dict[int, Any] = {}
+        for i, s in enumerate(picks):
+            offsets[id(s)] += chunk_lens[i]
+            s.prefill_pos = offsets[id(s)]
+            if s.prefill_pos >= len(s.prompt):
+                done_logits[id(s)] = ch_logits[i]
+        self._emit_burst(batch, packed, tk)
         await self._finish_first_tokens(picks, done_logits)
         return True
 
@@ -542,46 +760,152 @@ class TorchEngine:
                     break
                 s.pages.append(pid)
 
+    def _burst_arrays(self, batch: list[_Seq]) -> tuple:
+        """Host arrays of a phase burst over the fixed max_batch_size
+        width: (tokens, positions, page_tables, valid, seeds, steps,
+        temperature, top_p, top_k); empty lanes are invalid (length 0,
+        writes to scratch page 0)."""
+        b = self.config.max_batch_size
+        tokens = np.zeros(b, dtype=np.int32)
+        positions = np.zeros(b, dtype=np.int32)
+        tables = np.zeros((b, self.model_cfg.max_pages_per_seq),
+                          dtype=np.int32)
+        valid = np.zeros(b, dtype=bool)
+        seeds = np.zeros(b, dtype=np.int64)
+        steps = np.zeros(b, dtype=np.int64)
+        temps = np.zeros(b, dtype=np.float32)
+        top_ps = np.ones(b, dtype=np.float32)
+        top_ks = np.zeros(b, dtype=np.int64)
+        for i, s in enumerate(batch):
+            tokens[i] = s.next_token
+            positions[i] = s.pos
+            tables[i, :len(s.pages)] = s.pages
+            valid[i] = True
+            seeds[i] = s.seed & 0xFFFFFFFF
+            steps[i] = s.generated
+            temps[i] = s.req.sampling.temperature
+            top_ps[i] = s.req.sampling.top_p
+            top_ks[i] = s.req.sampling.top_k
+        return (tokens, positions, tables, valid, seeds, steps, temps,
+                top_ps, top_ks)
+
     async def _decode_iter(self) -> bool:
+        if self._inflight is not None:
+            return await self._pipeline_consume()
         runnable = [s for s in self._running if s.prefilled]
         if not runnable:
             return False
-        self._prep_decode_lanes(runnable, self.config.decode_steps_per_sync)
+        k = self.config.decode_steps_per_sync
+        self._prep_decode_lanes(runnable, k)
         if not runnable:
             return False
         batch = runnable[:self.config.max_batch_size]
         tk = self.TOPK_WIDTH if any(s.wants_topk for s in batch) else 0
+        if self.ragged:
+            def dispatch():
+                with torch.inference_mode():
+                    return self._ragged_core([], {}, [], batch, tk)[0]
+
+            async with self._device_lock:
+                packed = await asyncio.to_thread(dispatch)
+            self._emit_burst(batch, packed, tk)
+            return True
+
+        arrays = self._burst_arrays(batch)
+        pipelined = self.config.pipeline_bursts
 
         def dispatch():
             with torch.inference_mode():
-                return self._ragged_core([], {}, [], batch, tk)
+                packed = decode_multi_step(
+                    self.model, self.k_cache, self.v_cache,
+                    *map(self._dev, arrays), num_steps=k, topk_lp=tk)
+                self.rounds += 1
+                if pipelined:
+                    return packed, _start_copy(packed)    # no sync here
+                return packed.cpu().numpy()               # ONE host sync
 
         async with self._device_lock:
-            packed, _ = await asyncio.to_thread(dispatch)
-        self._emit_burst(batch, packed, tk)
-        return True
+            out = await asyncio.to_thread(dispatch)
+        if not pipelined:
+            self._emit_burst(batch, out, tk)
+            return True
+        self._inflight = {"k": k, "batch": batch, "arrays": arrays,
+                          "tk": tk, "packed": out[0], "handle": out[1],
+                          "deferred": []}
+        return await self._pipeline_consume()
 
-    async def _ragged_mixed(self, picks: list[_Seq], offsets, caps,
-                            batch: list[_Seq]) -> bool:
-        """Chunk rows + the fixed decode block in ONE flat step."""
-        chunk_lens = [caps[id(s)] for s in picks]
-        tk = self.TOPK_WIDTH if any(s.wants_topk for s in batch) else 0
+    async def _pipeline_consume(self) -> bool:
+        """Land the in-flight burst. First, when nothing can change the
+        batch, dispatch the NEXT burst, its input tokens sliced on the
+        device from the in-flight one's output (the host would compute the
+        same inputs); then wait for the in-flight burst's host copy, emit,
+        and release the pages deferred behind it."""
+        cfg, mcfg = self.config, self.model_cfg
+        inf = self._inflight
+        k, batch, tk = inf["k"], inf["batch"], inf["tk"]
+        nxt = None
+        # "nothing can change the batch": the slots are full (arrivals
+        # queue), or nothing waits and every running lane is in this
+        # burst; every lane alive; and some lane still needs tokens past
+        # this burst (else the next one is all overshoot)
+        can_spec = ((len(self._running) >= cfg.max_batch_size
+                     or (not self._waiting
+                         and len(self._running) == len(batch)))
+                    and all(s in self._running and not s.ctx.is_cancelled()
+                            for s in batch)
+                    and any(s.max_tokens - s.generated > k for s in batch))
+        if can_spec:
+            ok = True
+            for s in batch:
+                need = (s.pos + 2 * k - 1) // mcfg.page_size + 1
+                if need > mcfg.max_pages_per_seq:
+                    ok = False
+                    break
+                while len(s.pages) < need:
+                    pid = self.pool.allocate_page()
+                    if pid is None:
+                        ok = False      # pages stay attached; no leak
+                        break
+                    s.pages.append(pid)
+                if not ok:
+                    break
+            if ok:
+                (_, positions, _, valid, seeds, steps, temps, top_ps,
+                 top_ks) = inf["arrays"]
+                tables = np.zeros((cfg.max_batch_size,
+                                   mcfg.max_pages_per_seq), dtype=np.int32)
+                for i, s in enumerate(batch):
+                    tables[i, :len(s.pages)] = s.pages
+                arrays = (None, positions + k, tables, valid, seeds,
+                          steps + k, temps, top_ps, top_ks)
 
-        def dispatch():
-            with torch.inference_mode():
-                return self._ragged_core(picks, offsets, chunk_lens, batch,
-                                         tk)
+                def dispatch2():
+                    with torch.inference_mode():
+                        tokens = inf["packed"][0, k - 1].to(torch.int32)
+                        packed = decode_multi_step(
+                            self.model, self.k_cache, self.v_cache, tokens,
+                            *map(self._dev, arrays[1:]), num_steps=k,
+                            topk_lp=tk)
+                        self.rounds += 1
+                        return packed, _start_copy(packed)
 
-        async with self._device_lock:
-            packed, ch_logits = await asyncio.to_thread(dispatch)
-        done_logits: dict[int, Any] = {}
-        for i, s in enumerate(picks):
-            offsets[id(s)] += chunk_lens[i]
-            s.prefill_pos = offsets[id(s)]
-            if s.prefill_pos >= len(s.prompt):
-                done_logits[id(s)] = ch_logits[i]
-        self._emit_burst(batch, packed, tk)
-        await self._finish_first_tokens(picks, done_logits)
+                async with self._device_lock:
+                    packed2, handle2 = await asyncio.to_thread(dispatch2)
+                self.pipelined_bursts += 1
+                nxt = {"k": k, "batch": batch, "arrays": arrays, "tk": tk,
+                       "packed": packed2, "handle": handle2,
+                       "deferred": []}
+        packed = await asyncio.to_thread(_land, inf["handle"])
+        # while the next burst runs, finished lanes' pages must not return
+        # to the pool (it still writes to them)
+        self._defer_releases = nxt["deferred"] if nxt is not None else None
+        try:
+            self._emit_burst(batch, packed, tk)
+        finally:
+            self._defer_releases = None
+        for pages in inf["deferred"]:
+            self.pool.release_sequence(pages)
+        self._inflight = nxt
         return True
 
     def _ragged_bucket(self, n: int) -> int:
@@ -656,9 +980,7 @@ class TorchEngine:
             top_ps[j] = s.req.sampling.top_p
             top_ks[j] = s.req.sampling.top_k
 
-        def dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(self.device)
-
+        dev = self._dev
         packed, ch_logits = ragged_prefill_decode(
             self.model, self.k_cache, self.v_cache,
             dev(toks), dev(poss), dev(pages), dev(offs), dev(valid),
@@ -672,12 +994,14 @@ class TorchEngine:
 
     def _emit_burst(self, batch: list[_Seq], packed: np.ndarray,
                     tk: int = 0) -> None:
-        """Emit a round's tokens: packed (2 + 2*tk, 1, B)."""
-        sampled = packed[0].astype(np.int32)     # (1, B)
+        """Emit a burst's or round's tokens: packed (2 + 2*tk, K, B) — K
+        steps of a phase burst, 1 for a ragged round. A lane's tokens past
+        its finish are overshoot and dropped; one EngineOutput per lane."""
+        sampled = packed[0].astype(np.int32)     # (K, B)
         logprobs = packed[1]
         tk_ids = tk_lps = None
         if tk:
-            tk_ids = packed[2:2 + tk].astype(np.int32)   # (tk, 1, B)
+            tk_ids = packed[2:2 + tk].astype(np.int32)   # (tk, K, B)
             tk_lps = packed[2 + tk:2 + 2 * tk]
         for i, s in enumerate(batch):
             if s.finished or s not in self._running:
@@ -746,7 +1070,11 @@ class TorchEngine:
             self._running.remove(seq)
         if seq in self._waiting:
             self._waiting.remove(seq)
-        self.pool.release_sequence(seq.pages)
+        if self._defer_releases is not None:
+            # an in-flight burst still writes these pages
+            self._defer_releases.append(list(seq.pages))
+        else:
+            self.pool.release_sequence(seq.pages)
         seq.pages = []
         if emit:
             seq.queue.put_nowait(EngineOutput(

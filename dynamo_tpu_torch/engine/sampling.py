@@ -81,7 +81,9 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     32-bit words: mantissa fill of [1, 2), minus 1, affine, clamp."""
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    tiny = torch.tensor(_F32_TINY, dtype=torch.float32, device=bits.device)
+    # torch.full, not torch.tensor: no host-to-device copy (which would
+    # synchronise the stream on every sampling step of a burst)
+    tiny = torch.full((), _F32_TINY, dtype=torch.float32, device=bits.device)
     return torch.maximum(tiny, floats * (1.0 - tiny) + tiny)
 
 

@@ -5,7 +5,9 @@ Port of `dynamo_tpu/llm/entrypoint.py` `build_tpu_engine` (`:418-566`) as
 load the weights through the port's own loader (or random-init them from
 a seed), and fill the card so the pipeline builds the matching
 tokenizer. The engine runs on `device` — "cuda" by default, which raises
-when no card is present.
+when no card is present — on the phase path, or on the ragged path when
+`DYN_ATTENTION_IMPL=ragged`, as the reference reads that variable
+(`dynamo_tpu/engine/attention.py:36`).
 """
 
 from __future__ import annotations
@@ -29,18 +31,28 @@ _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
                     "tokenizer.model")
 
 
+def attention_impl_from_env() -> str:
+    """The engine path DYN_ATTENTION_IMPL selects: "ragged" for "ragged";
+    the phase path for anything else ("auto", "xla", "pallas" are all the
+    reference's phase path)."""
+    impl = os.environ.get("DYN_ATTENTION_IMPL", "auto").strip().lower()
+    return "ragged" if impl == "ragged" else "phase"
+
+
 def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                        num_pages: int = 2048, max_batch_size: int = 8,
                        prefill_chunk_budget: int = 0,
                        decode_steps_per_sync: int = 8,
+                       pipeline_bursts: bool = True,
                        random_init: bool = False, rng_seed: int = 0,
                        device: str = "cuda", **model_overrides
                        ) -> tuple[TorchEngine, ModelDeploymentCard]:
     """(TorchEngine, ModelDeploymentCard) for a checkpoint dir (or an
     already-downloaded HF-cache name). `random_init=True` skips the weight
     read and draws weights from `rng_seed` (benchmarks on synthetic
-    weights). `model_overrides` tune the config, e.g. ``max_pages_per_seq``
-    or ``num_layers`` (depth cut)."""
+    weights). The path is `attention_impl_from_env()`'s. `model_overrides`
+    tune the config, e.g. ``max_pages_per_seq`` or ``num_layers`` (depth
+    cut)."""
     dev = resolve_device(device)
     path = resolve_model(model)
     cfg = config_from_hf(path, **model_overrides)
@@ -50,6 +62,8 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                           max_batch_size=max_batch_size,
                           prefill_chunk_budget=prefill_chunk_budget,
                           decode_steps_per_sync=decode_steps_per_sync,
+                          pipeline_bursts=pipeline_bursts,
+                          attention_impl=attention_impl_from_env(),
                           rng_seed=rng_seed, device=str(dev)),
         model=params)
     has_tok = any(os.path.exists(os.path.join(path, f))

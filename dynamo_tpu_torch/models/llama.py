@@ -3,8 +3,19 @@
 Port of `dynamo_tpu/models/llama.py`: `LlamaConfig` (`:41`), random init
 (`:91`), `init_cache` (`:143`), fp32 `rms_norm` (`:161`), split-halves
 `rope` (`:167`), `_write_kv` (`:179`), `_swiglu` (`:206`), `qkv_proj`
-with the Qwen2 bias (`:236`), and the flat-token ragged step
+with the Qwen2 bias (`:236`); the phase path — `prefill_step` (`:252`),
+`paged_forward` (`:270`), `prefill_batch` (`:345`), `_decode_once`
+(`:375`), `decode_step` (`:413`), the fused k-step burst
+`decode_multi_step` (`:428`), `_mixed_forward` (`:487`) and
+`mixed_prefill_decode` (`:586`); and the flat-token ragged step
 `ragged_prefill_decode` (`:656`).
+
+Kernels per layer: the phase path writes K/V with K3
+`paged_kv_write_pages` (page-aligned prefill chunks) or K2
+`paged_kv_write` (decode rows, unaligned chunks) and reads them with K4
+`paged_attention_decode` (decode) or plain `prefill_attention` (chunks);
+the ragged step writes with K2 and reads with K1. Every write runs on
+torch's current stream before the same layer's attention reads the cache.
 
 Layout kept from the reference, so the two packages compute with the same
 weights (models/convert.py carries them across):
@@ -183,8 +194,10 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
     d_half = head_dim // 2
     exps = torch.arange(d_half, dtype=torch.float32,
                         device=positions.device) / d_half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    # torch.full, not torch.tensor: no host-to-device copy, which would
+    # synchronise the stream once per step
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                       device=positions.device), exps)
     angles = positions[..., :, None].float() * freqs
     return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
 
@@ -236,6 +249,305 @@ def qkv_proj(hn: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig
         k = k + layer.bk
         v = v + layer.bv
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# The phase path: batched prefill, fused decode bursts, mixed steps
+# ---------------------------------------------------------------------------
+
+
+def _page_ids(page_tables: torch.Tensor, positions: torch.Tensor,
+              page_size: int) -> torch.Tensor:
+    """page_tables[b, positions[b, t] // P] (int32, like positions).
+    Positions past the table (padding past a full context) clamp to its
+    last entry; the caller masks or redirects them."""
+    idx = torch.clamp(positions.long() // page_size,
+                      max=page_tables.shape[1] - 1)
+    return torch.gather(page_tables, 1, idx)
+
+
+def _chunk_kv_writer(cfg: LlamaConfig, page_tables: torch.Tensor,
+                     positions: torch.Tensor, seq_lens: torch.Tensor,
+                     aligned: bool):
+    """write(kc, vc, k, v) for one layer's (Bp, T, KVH, D) chunk K/V.
+
+    aligned and T % P == 0 (the caller guarantees every cached_len is a
+    multiple of P): whole pages through K3 — one slot per (sequence, page
+    of the chunk); a slot whose first row lies past seq_len goes to
+    scratch page 0, and a partly filled last page also takes the padding
+    rows in its tail (masked by length, overwritten by decode later).
+    Otherwise one row per token through K2 `_write_kv`, padding rows to
+    page 0."""
+    Bp, T = positions.shape
+    P, KVH, D = cfg.page_size, cfg.num_kv_heads, cfg.head_dim
+    valid = positions < seq_lens[:, None]
+    page_ids = _page_ids(page_tables, positions, P)
+    if aligned and T % P == 0:
+        slot_pages = torch.where(valid[:, ::P], page_ids[:, ::P],
+                                 torch.zeros_like(page_ids[:, ::P]))
+        slot_pages = slot_pages.reshape(-1).to(torch.int32).contiguous()
+
+        def blocks(a: torch.Tensor) -> torch.Tensor:   # → (Bp·T/P, KVH, P, D)
+            a = a.reshape(Bp, T // P, P, KVH, D).transpose(2, 3)
+            return a.reshape(Bp * (T // P), KVH, P, D).contiguous()
+
+        def write(kc, vc, k, v) -> None:
+            kernels.paged_kv_write_pages(kc, vc, blocks(k), blocks(v),
+                                         slot_pages)
+        return write
+
+    f_pages = page_ids.reshape(-1).to(torch.int32)
+    f_offs = (positions % P).reshape(-1).to(torch.int32)
+    f_valid = valid.reshape(-1)
+
+    def write(kc, vc, k, v) -> None:
+        _write_kv(kc, vc, k.reshape(Bp * T, KVH, D),
+                  v.reshape(Bp * T, KVH, D), f_pages, f_offs, f_valid)
+    return write
+
+
+def paged_forward(model: LlamaModel, k_cache: list, v_cache: list,
+                  tokens: torch.Tensor, page_tables: torch.Tensor,
+                  cached_lens: torch.Tensor, seq_lens: torch.Tensor,
+                  aligned: bool = False) -> torch.Tensor:
+    """Paged multi-token forward of a batch of prefill chunks: writes the
+    chunks' K/V into the caches (in place), attends causally against
+    cache + chunk, returns the FINAL-NORMED hidden states (Bp, T, E).
+
+    tokens: (Bp, T) int32 chunks, padded; page_tables: (Bp, max_pages)
+    int32; cached_lens/seq_lens: (Bp,) int32 — positions cached_len ..
+    cached_len+T-1, valid below seq_len."""
+    cfg = model.cfg
+    Bp, T = tokens.shape
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = model.embed[tokens.long()]                         # (Bp, T, E)
+    positions = cached_lens[:, None] + torch.arange(
+        T, dtype=cached_lens.dtype, device=tokens.device)[None, :]
+    write = _chunk_kv_writer(cfg, page_tables, positions, seq_lens, aligned)
+    kv_pages = attention.visible_pages(seq_lens, cfg.page_size,
+                                       page_tables.shape[1])
+    cos, sin = rope_tables(positions, D, cfg.rope_theta)
+    for l, layer in enumerate(model.layers):
+        hn = rms_norm(x, layer.attn_norm, cfg.rms_eps)
+        q, k, v = qkv_proj(hn, layer, cfg)
+        q = apply_rope(q.reshape(Bp, T, H, D), cos, sin)
+        k = apply_rope(k.reshape(Bp, T, KVH, D), cos, sin)
+        write(k_cache[l], v_cache[l], k, v.reshape(Bp, T, KVH, D))
+        attn = attention.prefill_attention(q, k_cache[l], v_cache[l],
+                                           page_tables, positions, seq_lens,
+                                           kv_pages)
+        x = x + attn.reshape(Bp, T, H * D) @ layer.wo
+        hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
+        x = x + _swiglu(hn, layer)
+    return rms_norm(x, model.final_norm, cfg.rms_eps)
+
+
+def _last_logits(model: LlamaModel, x: torch.Tensor,
+                 cached_lens: torch.Tensor,
+                 seq_lens: torch.Tensor) -> torch.Tensor:
+    """(Bp, V) fp32 logits of each chunk's last valid token."""
+    last = torch.clamp(seq_lens - cached_lens - 1, min=0).long()
+    x_last = x[torch.arange(x.shape[0], device=x.device), last]
+    return (x_last @ model.lm_head).float()
+
+
+def prefill_batch(model: LlamaModel, k_cache: list, v_cache: list,
+                  tokens: torch.Tensor, page_tables: torch.Tensor,
+                  cached_lens: torch.Tensor, seq_lens: torch.Tensor,
+                  aligned: bool = False) -> torch.Tensor:
+    """Prefill a BATCH of sequences' chunks in one pass (one weight
+    stream for all Bp). Arguments as `paged_forward`; `aligned`: every
+    cached_len and T are multiples of page_size, so whole pages go
+    through K3. Padding lanes (seq_len == cached_len) write only scratch
+    page 0 and give logits the engine ignores. Returns last-token logits
+    (Bp, V) fp32; the caches are updated in place."""
+    x = paged_forward(model, k_cache, v_cache, tokens, page_tables,
+                      cached_lens, seq_lens, aligned)
+    return _last_logits(model, x, cached_lens, seq_lens)
+
+
+def prefill_step(model: LlamaModel, k_cache: list, v_cache: list,
+                 tokens: torch.Tensor, page_table: torch.Tensor,
+                 cached_len: int, seq_len: int) -> torch.Tensor:
+    """Prefill one sequence: the Bp = 1 case of `prefill_batch`. tokens:
+    (T,) the uncached suffix, padded; page_table: (max_pages,). Returns
+    the last token's logits (V,)."""
+    dev = tokens.device
+    return prefill_batch(
+        model, k_cache, v_cache, tokens[None], page_table[None],
+        torch.full((1,), int(cached_len), dtype=torch.int32, device=dev),
+        torch.full((1,), int(seq_len), dtype=torch.int32, device=dev))[0]
+
+
+def _decode_once(model: LlamaModel, k_cache: list, v_cache: list,
+                 tokens: torch.Tensor, positions: torch.Tensor,
+                 page_tables: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """One decode iteration: tokens/positions (B,) int32, valid (B,) bool,
+    page_tables (B, max_pages) int32. Each layer writes the lane's K/V
+    row (K2) before K4 reads the cache. Returns logits (B, V) fp32."""
+    cfg = model.cfg
+    B = tokens.shape[0]
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = model.embed[tokens.long()]                         # (B, E)
+    page_ids = _page_ids(page_tables, positions[:, None],
+                         cfg.page_size)[:, 0].contiguous()
+    offsets = positions % cfg.page_size
+    lengths = torch.where(valid, positions + 1,
+                          torch.zeros_like(positions)).to(torch.int32)
+    cos, sin = rope_tables(positions, D, cfg.rope_theta)   # (B, 1, D/2)
+    for l, layer in enumerate(model.layers):
+        hn = rms_norm(x, layer.attn_norm, cfg.rms_eps)
+        q, k, v = qkv_proj(hn, layer, cfg)
+        q = apply_rope(q.reshape(B, H, D), cos, sin)
+        k = apply_rope(k.reshape(B, KVH, D), cos, sin)
+        _write_kv(k_cache[l], v_cache[l], k, v.reshape(B, KVH, D), page_ids,
+                  offsets, valid)
+        attn = attention.paged_attention_decode(
+            q.contiguous(), k_cache[l], v_cache[l], lengths, page_tables)
+        x = x + attn.reshape(B, H * D) @ layer.wo
+        hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
+        x = x + _swiglu(hn, layer)
+    x = rms_norm(x, model.final_norm, cfg.rms_eps)
+    return (x @ model.lm_head).float()
+
+
+def decode_step(model: LlamaModel, k_cache: list, v_cache: list,
+                tokens: torch.Tensor, positions: torch.Tensor,
+                page_tables: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """One decode iteration for a (padded) batch: logits (B, V) fp32."""
+    return _decode_once(model, k_cache, v_cache, tokens, positions,
+                        page_tables, valid)
+
+
+def _burst(model: LlamaModel, k_cache: list, v_cache: list,
+           logits0: torch.Tensor, positions: torch.Tensor,
+           page_tables: torch.Tensor, valid: torch.Tensor,
+           seeds: torch.Tensor, steps0: torch.Tensor,
+           temperature: torch.Tensor, top_p: torch.Tensor,
+           top_k: torch.Tensor, num_steps: int,
+           topk_lp: int) -> torch.Tensor:
+    """Sample step 0 from `logits0`, then run steps 1..num_steps-1 of
+    decode, each fed the previous step's sampled tokens on the device.
+    Returns packed (2 + 2*topk_lp, num_steps, B) f32."""
+    out = torch.empty((2 + 2 * topk_lp, num_steps, logits0.shape[0]),
+                      dtype=torch.float32, device=logits0.device)
+    logits = logits0
+    for i in range(num_steps):
+        if i:
+            logits = _decode_once(model, k_cache, v_cache, toks,
+                                  positions + i, page_tables, valid)
+        out[:, i] = sampling.sample_tokens_lp(
+            logits, seeds, steps0 + i, temperature, top_p, top_k,
+            topk_lp=topk_lp)
+        toks = out[0, i].to(torch.int32)    # ids are exact in f32
+    return out
+
+
+def decode_multi_step(model: LlamaModel, k_cache: list, v_cache: list,
+                      tokens: torch.Tensor, positions: torch.Tensor,
+                      page_tables: torch.Tensor, valid: torch.Tensor,
+                      seeds: torch.Tensor, steps0: torch.Tensor,
+                      temperature: torch.Tensor, top_p: torch.Tensor,
+                      top_k: torch.Tensor, num_steps: int,
+                      topk_lp: int = 0) -> torch.Tensor:
+    """`num_steps` fused decode+sample iterations with ONE host sync for
+    the caller: sampling runs on the device and each step's tokens feed
+    the next step there. Pages for positions .. positions+num_steps-1 must
+    already be in `page_tables`. Returns packed (2 + 2*topk_lp, num_steps,
+    B) f32: sampled ids, chosen-token logprobs, then top-k ids / logprobs
+    — the reference's layout. The caches are updated in place."""
+    logits0 = _decode_once(model, k_cache, v_cache, tokens, positions,
+                           page_tables, valid)
+    return _burst(model, k_cache, v_cache, logits0, positions, page_tables,
+                  valid, seeds, steps0, temperature, top_p, top_k,
+                  num_steps, topk_lp)
+
+
+def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
+                   ch_tokens: torch.Tensor, ch_tables: torch.Tensor,
+                   ch_cached: torch.Tensor, ch_seq_lens: torch.Tensor,
+                   d_tokens: torch.Tensor, d_positions: torch.Tensor,
+                   d_tables: torch.Tensor, d_valid: torch.Tensor,
+                   aligned: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer sweep over a prefill chunk sub-batch AND one decode
+    step. Each side's ops mirror `paged_forward` / `_decode_once` with
+    separate matmuls per sub-batch, so neither side's numerics move. Per
+    layer the chunk K/V are written (K3 or K2), then the decode rows (K2),
+    then `mixed_attention` reads. Returns (chunk hidden (Bp, T, E),
+    decode hidden (B, E)), both final-normed."""
+    cfg = model.cfg
+    Bp, T = ch_tokens.shape
+    B = d_tokens.shape[0]
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xc = model.embed[ch_tokens.long()]                     # (Bp, T, E)
+    c_positions = ch_cached[:, None] + torch.arange(
+        T, dtype=ch_cached.dtype, device=ch_tokens.device)[None, :]
+    write = _chunk_kv_writer(cfg, ch_tables, c_positions, ch_seq_lens,
+                             aligned)
+    kv_pages = attention.visible_pages(ch_seq_lens, cfg.page_size,
+                                       ch_tables.shape[1])
+    c_cos, c_sin = rope_tables(c_positions, D, cfg.rope_theta)
+    xd = model.embed[d_tokens.long()]                      # (B, E)
+    d_page_ids = _page_ids(d_tables, d_positions[:, None],
+                           cfg.page_size)[:, 0].contiguous()
+    d_offsets = d_positions % cfg.page_size
+    d_lengths = torch.where(d_valid, d_positions + 1,
+                            torch.zeros_like(d_positions)).to(torch.int32)
+    d_cos, d_sin = rope_tables(d_positions, D, cfg.rope_theta)
+    for l, layer in enumerate(model.layers):
+        kc, vc = k_cache[l], v_cache[l]
+        hn = rms_norm(xc, layer.attn_norm, cfg.rms_eps)
+        q, k, v = qkv_proj(hn, layer, cfg)
+        q = apply_rope(q.reshape(Bp, T, H, D), c_cos, c_sin)
+        k = apply_rope(k.reshape(Bp, T, KVH, D), c_cos, c_sin)
+        hnd = rms_norm(xd, layer.attn_norm, cfg.rms_eps)
+        qd, kd, vd = qkv_proj(hnd, layer, cfg)
+        qd = apply_rope(qd.reshape(B, H, D), d_cos, d_sin)
+        kd = apply_rope(kd.reshape(B, KVH, D), d_cos, d_sin)
+        write(kc, vc, k, v.reshape(Bp, T, KVH, D))
+        _write_kv(kc, vc, kd, vd.reshape(B, KVH, D), d_page_ids, d_offsets,
+                  d_valid)
+        attn_d, attn_c = attention.mixed_attention(
+            qd.contiguous(), q, kc, vc, d_lengths, d_tables, ch_tables,
+            c_positions, ch_seq_lens, kv_pages)
+        xc = xc + attn_c.reshape(Bp, T, H * D) @ layer.wo
+        xc = xc + _swiglu(rms_norm(xc, layer.mlp_norm, cfg.rms_eps), layer)
+        xd = xd + attn_d.reshape(B, H * D) @ layer.wo
+        xd = xd + _swiglu(rms_norm(xd, layer.mlp_norm, cfg.rms_eps), layer)
+    return (rms_norm(xc, model.final_norm, cfg.rms_eps),
+            rms_norm(xd, model.final_norm, cfg.rms_eps))
+
+
+def mixed_prefill_decode(model: LlamaModel, k_cache: list, v_cache: list,
+                         ch_tokens: torch.Tensor, ch_tables: torch.Tensor,
+                         ch_cached: torch.Tensor, ch_seq_lens: torch.Tensor,
+                         tokens: torch.Tensor, positions: torch.Tensor,
+                         page_tables: torch.Tensor, valid: torch.Tensor,
+                         seeds: torch.Tensor, steps0: torch.Tensor,
+                         temperature: torch.Tensor, top_p: torch.Tensor,
+                         top_k: torch.Tensor, num_steps: int,
+                         aligned: bool = False, topk_lp: int = 0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One MIXED step: a prefill chunk sub-batch rides along with a full
+    decode burst, so decode lanes keep emitting between a long prompt's
+    chunks. Step 0 of the burst shares the chunk's layer sweep
+    (`_mixed_forward`); steps 1..num_steps-1 are plain decode steps.
+    Sampling is `decode_multi_step`'s, so a lane's stream is the same
+    whether its burst ran mixed or plain. Chunk arguments are
+    `prefill_batch`'s, decode arguments `decode_multi_step`'s. Returns
+    (packed (2 + 2*topk_lp, num_steps, B) f32, chunk last-token logits
+    (Bp, V) f32); the caches are updated in place."""
+    xc, xd = _mixed_forward(model, k_cache, v_cache, ch_tokens, ch_tables,
+                            ch_cached, ch_seq_lens, tokens, positions,
+                            page_tables, valid, aligned)
+    ch_logits = _last_logits(model, xc, ch_cached, ch_seq_lens)
+    logits0 = (xd @ model.lm_head).float()
+    packed = _burst(model, k_cache, v_cache, logits0, positions,
+                    page_tables, valid, seeds, steps0, temperature, top_p,
+                    top_k, num_steps, topk_lp)
+    return packed, ch_logits
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ Port of `dynamo_tpu/run/main.py` for the torch engine:
 
 `out=torch:<ckpt>` serves a checkpoint directory through
 `build_torch_engine` on `--device` (default cuda; it raises without a
-card). The pipeline is OpenAIPreprocessor → Backend → TorchEngine, as
+card), on the phase path (`DYN_ATTENTION_IMPL=ragged`: the ragged
+path). The pipeline is OpenAIPreprocessor → Backend → TorchEngine, as
 `build_pipeline_for` builds it. `in=http` and `dyn://` outputs arrive with
 the worker slice.
 """
@@ -58,6 +59,10 @@ def parse_args(rest: list[str]) -> argparse.Namespace:
     p.add_argument("--num-pages", type=int, default=2048)
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--prefill-chunk-budget", type=int, default=0)
+    p.add_argument("--no-pipeline-bursts", dest="pipeline_bursts",
+                   action="store_false",
+                   help="phase path: sync each decode burst before "
+                        "dispatching the next")
     return p.parse_args(rest)
 
 
@@ -156,6 +161,7 @@ async def amain(inp: str, out: str, args) -> None:
         out[len("torch:"):], args.model_name, num_pages=args.num_pages,
         max_batch_size=args.max_batch_size,
         prefill_chunk_budget=args.prefill_chunk_budget,
+        pipeline_bursts=args.pipeline_bursts,
         random_init=args.random_init, device=args.device)
     try:
         pipeline = build_pipeline_for(card, engine, args)

@@ -8,14 +8,17 @@ machine that has only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: K2 is a copy, bit-exact. K1 in fp32 at atol/rtol 2e-5 (the
+Tolerances: K2 and K3 are copies, bit-exact outside scratch page 0. K1
+and K4 in fp32 at atol/rtol 2e-5 (the
 reference's kernel-parity tolerance); in bf16 at rtol 1.6e-2, two bf16
 ulps (2^-7 relative), since the kernel rounds P to bf16 before PV and
 both sides round the output to bf16 once, with atol 4e-3 (2^-8) for rows
 whose output is small beside its V values. With q = 0 every score is 0
 and P = 1 is exact in bf16, so the bf16 kernel's output is each row's
 fp32 mean of the V rows it can see, rounded once: held to the fp32 plain
-version at rtol 4e-3 (half a bf16 ulp), atol 1e-5.
+version at rtol 4e-3 (half a bf16 ulp), atol 1e-5. K4 in bf16 is held to
+K1's bf16 tolerances (it computes in fp32 and rounds once, so it sits well
+inside them), and with q = 0 to the same half ulp.
 """
 
 import asyncio
@@ -24,7 +27,7 @@ import copy
 import pytest
 import torch
 
-from dynamo_tpu_torch.engine import kernels, ragged
+from dynamo_tpu_torch.engine import attention, kernels, ragged
 
 pytestmark = pytest.mark.cuda
 
@@ -221,9 +224,134 @@ def test_kv_write_kernel_bit_exact_with_plain(cuda_device, dtype):
     assert torch.equal(kc, want_k) and torch.equal(vc, want_v)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kvh,p,d", [(8, 16, 128), (2, 4, 16), (1, 64, 64),
+                                     (4, 8, 32)])
+def test_k3_kernel_bit_exact_with_plain(cuda_device, dtype, kvh, p, d):
+    """Whole pages to their ids, several padding slots aimed at page 0:
+    every other page bit-exact with the plain version."""
+    g = torch.Generator().manual_seed(kvh * 100 + p + d)
+    n, m = 48, 13
+    kc = torch.randn(kvh, n, p, d, generator=g).to(cuda_device, dtype)
+    vc = torch.randn(kvh, n, p, d, generator=g).to(cuda_device, dtype)
+    kb = torch.randn(m, kvh, p, d, generator=g).to(cuda_device, dtype)
+    vb = torch.randn(m, kvh, p, d, generator=g).to(cuda_device, dtype)
+    ids = (1 + torch.randperm(n - 1, generator=g)[:m]).to(torch.int32)
+    ids[[2, 7, 8, 12]] = 0
+    ids = ids.to(cuda_device)
+    want_k, want_v = kc.clone(), vc.clone()
+    kernels.paged_kv_write_pages_ref(want_k, want_v, kb, vb, ids)
+    kernels.paged_kv_write_pages(kc, vc, kb, vb, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(kc[:, 1:], want_k[:, 1:])
+    assert torch.equal(vc[:, 1:], want_v[:, 1:])
+    pads = kb[[2, 7, 8, 12]].transpose(0, 1)       # (KVH, 4, P, D)
+    assert (pads == kc[:, 0][:, None]).any(1).all()
+
+
+def _decode_args(gen, dev, dtype, b, h, kvh, p, d, lengths, max_pages,
+                 zero_q=False):
+    n_pages = b * max_pages + 1
+    q = torch.zeros(b, h, d) if zero_q else torch.randn(b, h, d,
+                                                        generator=gen)
+    k = torch.randn(kvh, n_pages, p, d, generator=gen)
+    v = torch.randn(kvh, n_pages, p, d, generator=gen)
+    tables = (1 + torch.randperm(b * max_pages, generator=gen)) \
+        .reshape(b, max_pages).to(torch.int32)
+    return [q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
+            torch.tensor(lengths, dtype=torch.int32).to(dev), tables.to(dev)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("h,kvh,d,p", [(32, 8, 128, 16), (16, 2, 64, 32),
+                                       (8, 8, 32, 8), (4, 2, 16, 4),
+                                       (8, 1, 128, 64), (12, 4, 96, 16)])
+def test_k4_kernel_matches_plain(cuda_device, dtype, tol, h, kvh, d, p):
+    """G 1..8, D 16..128, P 4..64; lengths 0 (exact zeros), at page edges
+    and past them."""
+    gen = torch.Generator().manual_seed(h * 1000 + d * 10 + p)
+    lengths = [1, p - 1, p, p + 1, 2 * p, 0, 5 * p + 3, 0, 300]
+    max_pages = 300 // p + 2
+    args = _decode_args(gen, cuda_device, dtype, len(lengths), h, kvh, p, d,
+                        lengths, max_pages)
+    assert attention.decode_supported(h, kvh, p, d, dtype)
+    got = attention.paged_attention_decode(*args)
+    want = attention.paged_attention_decode_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.all(got[5] == 0) and torch.all(got[7] == 0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_k4_kernel_split_kv_long_contexts(cuda_device, dtype, tol):
+    """An 8-lane burst at Llama-3-8B geometry, contexts to 4096: each lane's
+    pages split across CTAs and merged; a length-0 lane stays zeros."""
+    gen = torch.Generator().manual_seed(77)
+    lengths = [1, 16, 17, 700, 1300, 4096, 0, 2048]
+    args = _decode_args(gen, cuda_device, dtype, 8, 32, 8, 16, 128, lengths,
+                        256)
+    assert ragged.num_splits(8, 8, 256, 132) > 1
+    got = attention.paged_attention_decode(*args)
+    want = attention.paged_attention_decode_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.all(got[6] == 0)
+
+
+def test_k4_kernel_bf16_uniform_is_exact_mean(cuda_device):
+    """q = 0: every lane's output is the mean of the V rows it can see, so
+    a dropped or extra key, page or split moves it by about |v| / length,
+    above half a bf16 ulp."""
+    gen = torch.Generator().manual_seed(78)
+    lengths = [1, 15, 16, 17, 32, 0, 1000, 4096]
+    args = _decode_args(gen, cuda_device, torch.bfloat16, 8, 32, 8, 16, 128,
+                        lengths, 256, zero_q=True)
+    got = attention.paged_attention_decode(*args)
+    want = attention.paged_attention_decode_ref(
+        *[a.float() if a.is_floating_point() else a for a in args])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, **UNIFORM_TOL)
+    assert torch.all(got[5] == 0)
+
+
+def test_k4_kernel_rejects_unsupported_geometry(cuda_device):
+    q = torch.zeros(2, 4, 12, device=cuda_device, dtype=torch.bfloat16)
+    kp = torch.zeros(2, 4, 4, 12, device=cuda_device, dtype=torch.bfloat16)
+    lengths = torch.ones(2, device=cuda_device, dtype=torch.int32)
+    tables = torch.zeros(2, 2, device=cuda_device, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        attention.paged_attention_decode(q, kp, kp, lengths, tables)
+
+
 def test_engine_on_card_matches_engine_on_cpu(cuda_device):
-    """Greedy fp32 streams of a tiny model are identical on the card
-    (through both kernels) and on the CPU (plain versions)."""
+    """Greedy fp32 streams of a tiny model on the ragged path are
+    identical on the card (through K1 and K2) and on the CPU (plain
+    versions)."""
+    assert _serve_tiny_on_card_and_cpu(cuda_device, "ragged") > 0
+
+
+def test_phase_engine_on_card_matches_engine_on_cpu(cuda_device):
+    """The same on the phase path, with pipelined bursts: greedy fp32
+    streams identical on the card (K2, K3, K4) and on the CPU."""
+    before = {k: kern.launches for k, kern in
+              (("k1", ragged._KERNEL), ("k2", kernels._KERNEL),
+               ("k3", kernels._PAGES_KERNEL),
+               ("k4", attention._DECODE_KERNEL))}
+    _serve_tiny_on_card_and_cpu(cuda_device, "phase")
+    after = {"k1": ragged._KERNEL.launches, "k2": kernels._KERNEL.launches,
+             "k3": kernels._PAGES_KERNEL.launches,
+             "k4": attention._DECODE_KERNEL.launches}
+    assert after["k1"] == before["k1"]
+    for k in ("k2", "k3", "k4"):
+        assert after[k] > before[k], k
+
+
+def _serve_tiny_on_card_and_cpu(cuda_device, impl: str) -> int:
+    """Serve three greedy requests on the card and on the CPU through a
+    tiny fp32 model on path `impl`; assert identical streams; return the
+    K1 launches the card run made."""
     from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
     from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
     from dynamo_tpu_torch.runtime.context import Context
@@ -237,7 +365,7 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
         eng = TorchEngine(TorchEngineConfig(
             model=mcfg, num_pages=64, max_batch_size=4, prefill_chunk=32,
             min_prefill_bucket=8, prefill_chunk_budget=12,
-            device=str(device)), model=model)
+            attention_impl=impl, device=str(device)), model=model)
 
         async def one(prompt, n):
             toks = []
@@ -256,5 +384,6 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
 
     kernels_before = ragged._KERNEL.launches
     on_card = asyncio.run(serve(cuda_device))
-    assert ragged._KERNEL.launches > kernels_before
+    k1_launches = ragged._KERNEL.launches - kernels_before
     assert on_card == asyncio.run(serve(torch.device("cpu")))
+    return k1_launches

@@ -1,6 +1,6 @@
 """TorchEngine (dynamo_tpu_torch/engine/engine.py) against the JAX
-reference's TpuEngine on its ragged path (`set_attention_impl("ragged")`,
-restored afterwards), with the JAX engine's weights carried across by
+reference's TpuEngine, both on the ragged path (`set_attention_impl("ragged")`,
+restored afterwards; `attention_impl="ragged"`), with the JAX engine's weights carried across by
 `params_from_jax`, in fp32 (bf16 near-ties flip greedy tokens between
 any two implementations).
 
@@ -42,17 +42,20 @@ def ragged_impl():
     attention.set_attention_impl(prev)
 
 
-def _engines(budget: int, seed: int = 0):
+def _engines(budget: int, seed: int = 0, impl: str = "ragged", **kw):
+    """(TpuEngine, TorchEngine) with the same fp32 weights; `impl` is the
+    torch engine's path (the JAX engine's follows the global attention
+    impl), `kw` further config fields for both."""
     jcfg = jl.LlamaConfig.tiny(dtype=jnp.float32)
     params = jl.init_params(jax.random.PRNGKey(seed), jcfg)
     jax_eng = TpuEngine(TpuEngineConfig(
-        model=jcfg, prefill_chunk_budget=budget, **ENGINE_KW),
+        model=jcfg, prefill_chunk_budget=budget, **ENGINE_KW, **kw),
         params=params)
     tcfg = tl.LlamaConfig.tiny(dtype=torch.float32)
     model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
     torch_eng = TorchEngine(TorchEngineConfig(
-        model=tcfg, prefill_chunk_budget=budget, device="cpu", **ENGINE_KW),
-        model=model)
+        model=tcfg, prefill_chunk_budget=budget, device="cpu",
+        attention_impl=impl, **ENGINE_KW, **kw), model=model)
     return jax_eng, torch_eng
 
 
@@ -102,7 +105,7 @@ async def test_workload_streams_identical_to_tpu_engine(ragged_impl, budget):
     jax_eng, torch_eng = _engines(budget)
     try:
         want = await _run_workload(jax_eng)
-        assert jax_eng.ragged_active
+        assert jax_eng.ragged_active and torch_eng.ragged
         got = await _run_workload(torch_eng)
     finally:
         await jax_eng.close()

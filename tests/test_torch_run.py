@@ -88,10 +88,24 @@ def test_mixtral_checkpoint_is_refused(tmp_path):
 
 def test_cli_serves_on_cpu_without_jax(ckpts):
     """`python -m dynamo_tpu_torch.run in=text:hi out=torch:<ckpt>
-    --device cpu` in a fresh interpreter: it answers, and at the end no
-    jax and no dynamo_tpu module was ever imported."""
+    --device cpu` in a fresh interpreter, on the default (phase) path: it
+    answers, every engine dispatch was a phase-path one (prefill rounds
+    and decode bursts), and at the end no jax and no dynamo_tpu module
+    was ever imported."""
     probe = (
         "import runpy, sys\n"
+        "from dynamo_tpu_torch.models import llama\n"
+        "calls = []\n"
+        "for name in ('prefill_batch', 'decode_multi_step', "
+        "'mixed_prefill_decode', 'ragged_prefill_decode'):\n"
+        "    def spy(*a, _f=getattr(llama, name), _n=name, **k):\n"
+        "        calls.append(_n)\n"
+        "        return _f(*a, **k)\n"
+        "    setattr(llama, name, spy)\n"
+        "import dynamo_tpu_torch.engine.engine as eng\n"
+        "for name in ('prefill_batch', 'decode_multi_step', "
+        "'mixed_prefill_decode', 'ragged_prefill_decode'):\n"
+        "    setattr(eng, name, getattr(llama, name))\n"
         "sys.argv = ['dynamo_tpu_torch.run', 'in=text:hi', "
         f"'out=torch:{ckpts['tiny']}', '--device', 'cpu', "
         "'--max-tokens', '5']\n"
@@ -99,13 +113,34 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'dynamo_tpu' or "
         "m.startswith('dynamo_tpu.'))\n"
-        "print('LOADED', bad)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        "print('LOADED', bad)\n"
+        "print('CALLS', sorted(set(calls)))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "DYN_ATTENTION_IMPL")}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", probe], env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
+    assert "CALLS ['decode_multi_step', 'prefill_batch']" in proc.stdout, \
+        proc.stdout
+
+
+@pytest.mark.parametrize("env,impl", [(None, "phase"), ("auto", "phase"),
+                                      ("xla", "phase"), ("ragged", "ragged")])
+def test_build_engine_honours_attention_impl_env(ckpts, monkeypatch, env,
+                                                 impl):
+    from dynamo_tpu_torch.llm.entrypoint import build_torch_engine
+
+    if env is None:
+        monkeypatch.delenv("DYN_ATTENTION_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("DYN_ATTENTION_IMPL", env)
+    engine, _ = build_torch_engine(ckpts["tiny"], num_pages=16,
+                                   pipeline_bursts=False, device="cpu")
+    assert engine.config.attention_impl == impl
+    assert engine.ragged == (impl == "ragged")
+    assert engine.config.pipeline_bursts is False
 
 
 async def test_batch_pipeline_on_cpu(ckpts, tmp_path):
