@@ -22,28 +22,46 @@ on):
  6. K4 paged_attention_decode vs plain at Llama-3-8B geometry, bf16 and
     fp32: length-0 lanes (exact zeros), lengths at page edges (1, 15, 16,
     17, 32), contexts to 4096 (the split-KV path); in bf16 also q = 0
- 7. main paths: Llama-3-8B at full width and depth (random weights from a
+ 7. K5 w8a8_matmul and K6 int4_matmul vs plain at the four Llama-3-8B
+    projection shapes (4096x4096 wq/wo, 4096x1024 wk/wv, 4096x14336
+    gate/up, 14336x4096 down), M in {1, 8, 40, 512}, bf16 and fp32
+    activations, with an all-zero row (sx at its 1e-12 floor): outputs
+    bit-identical
+ 8. main paths: Llama-3-8B at full width and depth (random weights from a
     seed) served through `dynamo_tpu_torch.run`'s pipeline, a batch of 10
     chat requests of 16..1500 bytes, prefill_chunk_budget 512; first the
     phase path (the default: k = 8 bursts, pipelined), then the ragged
     path (DYN_ATTENTION_IMPL=ragged) on the same weights; each with the
     launch counts zeroed just before and read just after (phase: K2, K3,
-    K4 > 0 and K1 = 0; ragged: K1, K2 > 0 and K3 = K4 = 0); greedy
-    determinism
- 8. kernel path vs plain path at 8B: one mixed ragged round and one
-    mixed_prefill_decode step (logits within a stated tolerance)
- 9. profiles at 8B: host wall time (with the one sync) and device busy time
+    K4 > 0 and K1 = K5 = K6 = 0; ragged: K1, K2 > 0 and K3 = K4 = K5 = K6
+    = 0); greedy determinism
+ 9. quantized main path: the same batch on the phase path through
+    `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
+    same random weights, quantized by the engine): w8a8 launches K5 and
+    not K6, int4 K6 and not K5, both K2, K3, K4 and not K1; greedy
+    determinism; every projection held as int8 / packed int4 only
+    (resident weight bytes printed per mode); one bare decode_step
+    launches its GEMM exactly 7 x 32 times
+10. kernel path vs plain path at 8B: one mixed ragged round and one
+    mixed_prefill_decode step in bf16, and one mixed_prefill_decode step
+    per quantized mode (logits within a stated tolerance)
+11. profiles at 8B: host wall time (with the one sync) and device busy time
     (torch.profiler's CUDA kernels and copies) of a bare ragged decode
-    round, a bare ragged mixed round and a bare 8-step decode burst, device
-    time by kernel class; each path's engine batch once more with kernel
-    tracing only (host wall vs device busy)
-10. kernel path vs plain path at 2 layers, full width, fp32: greedy
-    streams identical over 16 steps x 3 requests across phase-kernel,
-    phase-plain, ragged-kernel and ragged-plain
-11. numbers: at the main paths' shapes, each kernel held against its
+    round, a bare ragged mixed round and a bare 8-step decode burst (bf16,
+    w8a8, int4, and int8 = W8A16), device time by kernel class and device
+    ops per step; each
+    bf16 path's engine batch once more with kernel tracing only (host wall
+    vs device busy)
+12. kernel path vs plain path at 2 layers, full width, fp32: greedy
+    streams over 16 steps x 3 requests across phase-kernel, phase-plain,
+    ragged-kernel and ragged-plain — identical unquantized, and under
+    w8a8 and int4 identical up to partings at near-ties (A8_TIE_TOL)
+13. numbers: at the main paths' shapes, each kernel held against its
     plain version once more, then kernel / plain / library times (CUDA
-    events, median of 20, L2 flushed between launches), bounds from bytes
-    and flops, and each path's output tok/s and TTFT p50
+    events around device work only: the card sleeps while the host queues
+    the launches; median of 20, L2 flushed between launches), bounds from
+    bytes and operations; K5/K6 at M = 8 (burst) and 512 (chunk) beside
+    bf16 torch.matmul; each path's and mode's output tok/s and TTFT p50
 
 The last three lines of stdout are the kernels JSON, the nvidia-smi line
 and `{"ok": true, "device": {...}}`.
@@ -75,10 +93,11 @@ LLAMA3_8B_CONFIG = {
     "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
     "max_position_embeddings": 8192, "tie_word_embeddings": False,
 }
-# card peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16 and fp32 flop/s
-PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12),
-         "H100 PCIe": (2.0e12, 756e12, 51e12),
-         "H100 NVL": (3.9e12, 835e12, 60e12)}
+# card peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16 and fp32 flop/s,
+# int8 op/s
+PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12, 1979e12),
+         "H100 PCIe": (2.0e12, 756e12, 51e12, 1513e12),
+         "H100 NVL": (3.9e12, 835e12, 60e12, 1671e12)}
 # K1 in bf16 vs the plain version (fp32 softmax): |got - want| <=
 # atol + rtol * |want|. The kernel rounds P to bf16 before PV and both
 # sides round the output to bf16 once: two bf16 ulps relative (rtol), and
@@ -101,7 +120,32 @@ K4_UNIFORM_TOL = K1_UNIFORM_TOL
 # outputs differ by bf16 roundings that 32 layers carry to the logits
 # (measured 0.094 at max |logit| 4.8 on an H100 80GB HBM3, 700 W)
 LOGITS_BF16_TOL = 0.15
+# The same step under w8a8 / int4. The A8 GEMMs are bit-identical with
+# their plain versions, but each bf16 rounding difference in attention that
+# crosses an int8 step of an activation row becomes a whole step (~1/127
+# of the row's absmax), so the differences grow past the bf16 path's
+# (measured 0.156 for w8a8's decode top-8 logprobs beside bf16's 0.0935 on
+# an H100 80GB HBM3, 700 W)
+LOGITS_A8_TOL = 0.4
 PLAIN_ROW_BLOCK = 64      # the plain K1 gathers whole contexts per row
+# Greedy fp32 streams under w8a8/int4 across paths: the A8 rounding is
+# discontinuous, so an fp32 difference of one ulp in attention (kernel vs
+# plain, phase vs ragged) now and then rounds an activation to the next
+# int8 step, and the 2-layer full-width model's logits move by a few
+# hundredths. Two streams may then part at a greedy near-tie: the streams
+# must agree before it, and there each run must rank the other's token
+# within this many nats of its own (partings measured at 0.020-0.054 nats
+# on an H100 80GB HBM3, 700 W; a wrong product moves logits by O(1))
+A8_TIE_TOL = 0.15
+# the card spins this many cycles (~1 ms) before each timed launch, so the
+# host has queued the launch before the start event fires and the events
+# read device time only
+SLEEP_CYCLES = 2_000_000
+# Llama-3-8B's projections (K, N): wq/wo, wk/wv, gate/up, down
+PROJECTIONS = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
+               "gate/up": (4096, 14336), "down": (14336, 4096)}
+QUANT_MODES = ("w8a8", "int4")
+GEMM_OF = {"w8a8": "w8a8_matmul", "int4": "int4_matmul"}
 
 
 def log(msg: str) -> None:
@@ -117,7 +161,9 @@ def peaks_for(name: str) -> tuple[str, tuple[float, float, float]]:
 
 def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
     """Median of `reps` single launches timed with CUDA events; `flush`
-    (outside the timed window) evicts L2 first."""
+    (outside the timed window) evicts L2 first, and the card then sleeps
+    SLEEP_CYCLES so that the events time the device work and not the
+    host's enqueue of it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -125,6 +171,7 @@ def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -210,6 +257,14 @@ def k3_bound_ms(page_ids, kvh, p, d, esize, peaks):
     kept = page_ids.numel() - n_pad + min(n_pad, 1)
     return bound(4 * kept * kvh * p * d * esize + 4 * page_ids.numel(), 0.0,
                  peaks[1], peaks)
+
+
+def a8_bound_ms(m, k, n, bits, esize, peaks):
+    """Least time for K5's (bits 8) or K6's (bits 4) work: x read once,
+    the weights (K·N·bits/8 bytes) and scales read once, y written once;
+    2·M·K·N int8 operations at the int8 dense peak."""
+    nbytes = m * k * esize + k * n * bits // 8 + 4 * n + m * n * esize
+    return bound(nbytes, 2.0 * m * k * n, peaks[3], peaks)
 
 
 def k4_bound_ms(lengths, tables, h, kvh, d, p, esize, peaks):
@@ -337,6 +392,12 @@ def kernel_class(name: str) -> str:
         return "K3 paged_kv_write_pages"
     if "paged_kv_write" in low:
         return "K2 paged_kv_write"
+    if "w8a8_gemm" in low:
+        return "K5 w8a8_matmul GEMM"
+    if "int4_gemm" in low:
+        return "K6 int4_matmul GEMM"
+    if "quantize_rows" in low:
+        return "K5/K6 row quantize"
     if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul (cuBLAS)"
     if "memcpy" in low or "memset" in low:
@@ -346,14 +407,15 @@ def kernel_class(name: str) -> str:
     return "other (elementwise, norms, softmax, sampling)"
 
 
-def profile_rounds(torch, llama, model, dev, n_pad_mixed: int):
+def profile_rounds(torch, llama, model, dev, n_pad_mixed: int,
+                   labels=("decode", "mixed", "burst")):
     """Bare device steps of `model` outside the engine, as the engine runs
     them: host arrays copied to the card, the step, the packed result
     copied back (its one sync) — a ragged decode round and a ragged mixed
-    round, and the phase path's 8-step decode burst over the same 8 lanes.
-    Returns {label: (wall_ms, busy_ms, kernels_per_step, {class: ms},
-    [(ms, kernel), ...] top 5)}; busy_ms is None where the profiler saw no
-    device activity."""
+    round, and the phase path's 8-step decode burst over the same 8 lanes
+    (those of `labels`). Returns {label: (wall_ms, busy_ms, device ops per
+    step, {class: ms}, [(ms, kernel), ...] top 5)}; busy_ms is None where
+    the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = model.cfg
@@ -405,11 +467,14 @@ def profile_rounds(torch, llama, model, dev, n_pad_mixed: int):
                   torch.tensor(ctx, dtype=torch.int32) - 1, tables,
                   torch.ones(bmax, dtype=torch.bool), z, z,
                   torch.zeros(bmax), torch.ones(bmax), z]
+    steps = {"decode": (one, lambda: host_round(0)),
+             "mixed": (one, lambda: host_round(512)),
+             "burst": (burst, lambda: burst_args)}
     out = {}
     with torch.inference_mode():
-        for label, fn, args in (("decode", one, host_round(0)),
-                                ("mixed", one, host_round(512)),
-                                ("burst", burst, burst_args)):
+        for label in labels:
+            fn, make = steps[label]
+            args = make()
             out[label] = measure(torch, lambda: fn(args), ProfilerActivity,
                                  profile)
     del kc, vc
@@ -446,21 +511,83 @@ def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
 
 
 @contextlib.contextmanager
-def plain_path(ragged, kernels, attention, torch):
+def plain_path(ragged, kernels, attention, int4_mm, torch):
     """Swap every kernel's wrapper for its plain version (this script's
     comparison only; the package has no such switch)."""
     saved = (ragged.ragged_paged_attention, kernels.paged_kv_write,
-             kernels.paged_kv_write_pages, attention.paged_attention_decode)
+             kernels.paged_kv_write_pages, attention.paged_attention_decode,
+             int4_mm.w8a8_matmul, int4_mm.int4_matmul)
     ragged.ragged_paged_attention = blocked_plain_attention(ragged, torch)
     kernels.paged_kv_write = kernels.paged_kv_write_ref
     kernels.paged_kv_write_pages = kernels.paged_kv_write_pages_ref
     attention.paged_attention_decode = attention.paged_attention_decode_ref
+    int4_mm.w8a8_matmul = int4_mm.w8a8_matmul_ref
+    int4_mm.int4_matmul = int4_mm.int4_matmul_ref
     try:
         yield
     finally:
         (ragged.ragged_paged_attention, kernels.paged_kv_write,
-         kernels.paged_kv_write_pages,
-         attention.paged_attention_decode) = saved
+         kernels.paged_kv_write_pages, attention.paged_attention_decode,
+         int4_mm.w8a8_matmul, int4_mm.int4_matmul) = saved
+
+
+def stream_partings(a, b, tol: float) -> list:
+    """[(request, step, gap)] where greedy streams `a` and `b` (lists of
+    (tokens, top-k [[id, logprob], ...] per token) per request) part;
+    raises unless at every parting each run ranks the other's token within
+    `tol` nats of its own choice (a near-tie; past it the two continue from
+    different tokens and are not compared)."""
+    def gap(top, mine, theirs):
+        lp = dict((int(i), v) for i, v in top)
+        return lp[mine] - lp[theirs] if theirs in lp else float("inf")
+
+    partings = []
+    for r, ((ta, ka), (tb, kb)) in enumerate(zip(a, b)):
+        if len(ta) != len(tb):
+            raise AssertionError(f"request {r}: {len(ta)} vs {len(tb)} tokens")
+        step = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                    None)
+        if step is None:
+            continue
+        x, y = ta[step], tb[step]
+        g = max(gap(ka[step], x, y), gap(kb[step], y, x))
+        if not g <= tol:
+            raise AssertionError(f"request {r} parts at step {step}: tokens "
+                                 f"{x} vs {y}, logprob gap {g}")
+        partings.append((r, step, g))
+    return partings
+
+
+def a8_case(torch, gen, dev, m, k, dtype):
+    """Activations of mixed row scales for K5/K6, row 0 all zeros (its
+    scale sits at the 1e-12 floor), row 2 with an outlier."""
+    x = torch.randn(m, k, generator=gen)
+    x *= torch.logspace(-3, 2, m)[:, None]
+    x[0] = 0.0
+    if m > 2:
+        x[2, k // 3] = 500.0
+    return x.to(dev, dtype)
+
+
+def check_quantized(torch, quant, model, mode: str) -> None:
+    """Every projection is held as int8 (w8a8) or packed int4 only, with
+    its mode's activation bits; no layer holds a float tensor larger than
+    a norm or a bias."""
+    bits, act = quant._bits_of(mode), quant._act_bits_of(mode)
+    cfg = model.cfg
+    for layer in model.layers:
+        for key in quant.QUANT_KEYS:
+            w = getattr(layer, key)
+            k, n = w.shape
+            if not (isinstance(w, quant.QTensor) and w.bits == bits
+                    and w.act_bits == act and w.q.dtype == torch.int8
+                    and tuple(w.q.shape) == (n * bits // 8, k)):
+                raise AssertionError(f"{mode}: {key} is not held as "
+                                     f"{bits}-bit weights: {w}")
+        for t in layer.parameters():
+            if t.numel() > cfg.num_heads * cfg.head_dim:
+                raise AssertionError(f"{mode}: a layer holds a float tensor "
+                                     f"of {tuple(t.shape)}")
 
 
 def main() -> int:
@@ -471,7 +598,14 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from dynamo_tpu_torch.engine import attention, cuda_build, kernels, ragged
+    from dynamo_tpu_torch.engine import (
+        attention,
+        cuda_build,
+        int4_mm,
+        kernels,
+        quant,
+        ragged,
+    )
     from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
     from dynamo_tpu_torch.llm.entrypoint import build_torch_engine
     from dynamo_tpu_torch.models import llama
@@ -635,7 +769,33 @@ def main() -> int:
                 f"({K4_UNIFORM_TOL})")
         del args, got, want
 
-    # 7. main paths --------------------------------------------------------
+    # 7. K5 / K6 vs plain ---------------------------------------------------
+    a8_err = {"w8a8": 0.0, "int4": 0.0}
+    for label, (k, n) in PROJECTIONS.items():
+        w = torch.randn(k, n, generator=gen).to(dev, torch.bfloat16)
+        for mode in QUANT_MODES:
+            qt = quant.quantize(w, quant._bits_of(mode),
+                                quant._act_bits_of(mode))
+            fn, ref = ((int4_mm.w8a8_matmul, int4_mm.w8a8_matmul_ref)
+                       if mode == "w8a8" else
+                       (int4_mm.int4_matmul, int4_mm.int4_matmul_ref))
+            for m, dtype in itertools.product(
+                    (1, 8, 40, 512), (torch.bfloat16, torch.float32)):
+                x = a8_case(torch, gen, dev, m, k, dtype)
+                got, want = fn(x, qt.q, qt.s), ref(x, qt.q, qt.s)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                a8_err[mode] = max(a8_err[mode], err)
+                if not (torch.equal(got, want) and torch.all(got[0] == 0)):
+                    raise AssertionError(
+                        f"{GEMM_OF[mode]} {label} M={m} {dtype} differs from "
+                        f"its plain version: {err}")
+        del w, qt
+        log(f"[a8] K5 w8a8_matmul and K6 int4_matmul {label} K={k} N={n}, "
+            f"M in (1, 8, 40, 512), bf16 and fp32, an all-zero row: "
+            f"bit-identical with the plain versions")
+
+    # 8. main paths --------------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     ckpt = os.path.join(work, "llama3-8b")
     os.makedirs(ckpt)
@@ -659,13 +819,17 @@ def main() -> int:
     model = engine.model
     cfg = model.cfg
 
-    async def greedy_on(eng, prompt, n):
-        toks = []
+    async def greedy_on(eng, prompt, n, top=0):
+        """Greedy tokens of one request; with `top`, also each token's
+        top-`top` [[id, logprob], ...]."""
+        toks, tops = [], []
         async for o in eng.generate(
-                {"token_ids": prompt, "sampling": {"temperature": 0.0},
+                {"token_ids": prompt,
+                 "sampling": {"temperature": 0.0, "top_logprobs": top},
                  "stop": {"max_tokens": n}}, Context()):
             toks.extend(o.get("token_ids", ()))
-        return toks
+            tops.extend(o.get("top_logprobs") or ())
+        return (toks, tops) if top else toks
 
     def serve_batch(eng, label, must_launch, must_not_launch):
         """The batch through the pipeline with launch counts zeroed just
@@ -721,7 +885,8 @@ def main() -> int:
     phase = serve_batch(engine, "phase",
                         ("paged_kv_write", "paged_kv_write_pages",
                          "paged_attention_decode"),
-                        ("ragged_paged_attention",))
+                        ("ragged_paged_attention", "w8a8_matmul",
+                         "int4_matmul"))
     del engine
     torch.cuda.empty_cache()
     ragged_eng = TorchEngine(TorchEngineConfig(
@@ -731,14 +896,81 @@ def main() -> int:
     ragged_run = serve_batch(ragged_eng, "ragged",
                              ("ragged_paged_attention", "paged_kv_write"),
                              ("paged_kv_write_pages",
-                              "paged_attention_decode"))
+                              "paged_attention_decode", "w8a8_matmul",
+                              "int4_matmul"))
     del ragged_eng
     torch.cuda.empty_cache()
     log(f"[main] greedy stream of the same 100-token prompt, phase vs "
         f"ragged path (bf16, may differ by near-ties): "
         f"{'identical' if phase['stream'] == ragged_run['stream'] else 'differ'}")
 
-    # 8. kernel path vs plain path ------------------------------------------
+    # 9. quantized main path -------------------------------------------------
+
+    def bare_decode_launches(mdl):
+        """One bare decode_step over 8 lanes: the launches it made."""
+        kc, vc = llama.init_cache(cfg, 1 + 8 * 8, dev)
+        tables = torch.zeros(8, cfg.max_pages_per_seq, dtype=torch.int32)
+        tables[:, :8] = torch.arange(1, 65, dtype=torch.int32).reshape(8, 8)
+        step = [torch.arange(8, dtype=torch.int32) * 11,            # tokens
+                torch.tensor([5, 17, 40, 63, 100, 120, 7, 0],
+                             dtype=torch.int32),                      # positions
+                tables, torch.ones(8, dtype=torch.bool)]
+        with torch.inference_mode():
+            cuda_build.reset_launch_counts()
+            logits = llama.decode_step(mdl, kc, vc,
+                                       *(a.to(dev) for a in step))
+            torch.cuda.synchronize()
+            counts = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+        if not torch.isfinite(logits).all() or logits.shape != (
+                8, cfg.vocab_size):
+            raise AssertionError("bare decode_step logits are not finite")
+        return counts
+
+    bf16_bytes = quant.weight_bytes(model)
+    quantized, q_models = {}, {}
+    for mode in QUANT_MODES:
+        gemm = GEMM_OF[mode]
+        other = GEMM_OF["int4" if mode == "w8a8" else "w8a8"]
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        q_engine, _ = build_torch_engine(
+            ckpt, "llama3-8b", num_pages=N_PAGES, max_batch_size=8,
+            prefill_chunk_budget=512, decode_steps_per_sync=8,
+            pipeline_bursts=True, random_init=True, rng_seed=0,
+            quantize=mode, device="cuda")
+        torch.cuda.synchronize()
+        q_model = q_engine.model
+        check_quantized(torch, quant, q_model, mode)
+        q_bytes = quant.weight_bytes(q_model)
+        proj_bytes = sum(getattr(layer, key).nbytes
+                         for layer in q_model.layers
+                         for key in quant.QUANT_KEYS)
+        log(f"[quant] {mode}: Llama-3-8B random init (seed 0) quantized by "
+            f"the engine in {time.perf_counter() - t0:.1f}s; resident weight "
+            f"bytes {q_bytes} ({q_bytes / 2**30:.3f} GiB; projections "
+            f"{proj_bytes}, the rest embed + bf16 lm_head + norms) against "
+            f"bf16 {bf16_bytes} ({bf16_bytes / 2**30:.3f} GiB); the engine "
+            f"added {(torch.cuda.memory_allocated() - before) / 2**30:.2f} "
+            f"GiB allocated incl. its {N_PAGES}-page KV pool")
+        quantized[mode] = serve_batch(
+            q_engine, f"phase {mode}",
+            (gemm, "paged_kv_write", "paged_kv_write_pages",
+             "paged_attention_decode"), (other, "ragged_paged_attention"))
+        quantized[mode]["bytes"] = q_bytes
+        del q_engine
+        torch.cuda.empty_cache()
+        counts = bare_decode_launches(q_model)
+        want = 7 * cfg.num_layers
+        if counts[gemm] != want or counts[other] != 0:
+            raise AssertionError(f"a bare {mode} decode_step launched {gemm} "
+                                 f"{counts[gemm]} times (want {want}) and "
+                                 f"{other} {counts[other]} times")
+        log(f"[quant] one bare {mode} decode_step (8 lanes): {gemm} launched "
+            f"{counts[gemm]} = 7 x {cfg.num_layers} times; launches {counts}")
+        q_models[mode] = q_model
+    torch.cuda.empty_cache()
+
+    # 10. kernel path vs plain path -----------------------------------------
 
     def mixed_round(kcache, vcache):
         """Round 1: two chunks (300 and 200 tokens); round 2: lane 0's
@@ -770,8 +1002,9 @@ def main() -> int:
                            [0] * 100 + [1], [99, 99], [100, 100])
         return torch.cat([ch1, ch2]).float(), packed2[1, 0, 0].float()
 
-    def mixed_step(kcache, vcache):
-        """One mixed_prefill_decode step on caches holding random K/V:
+    def mixed_step(mdl, kcache, vcache):
+        """One mixed_prefill_decode step of `mdl` on caches holding random
+        K/V:
         page-aligned chunks of 512 and 300 tokens from cursors 0 and 64
         (K3) beside 8 decode lanes at positions 40..1000 (K2, K4), 2 burst
         steps, top-8 logprobs. Returns (chunk logits (2, V), the decode
@@ -798,14 +1031,14 @@ def main() -> int:
              pos, d_tables, torch.ones(8, dtype=torch.bool), z, z,
              torch.zeros(8), torch.ones(8), z]
         packed, ch_logits = llama.mixed_prefill_decode(
-            model, kcache, vcache, *(x.to(dev) for x in a), num_steps=2,
+            mdl, kcache, vcache, *(x.to(dev) for x in a), num_steps=2,
             aligned=True, topk_lp=8)
         return ch_logits.float(), packed[10:18, 0].T.float()
 
     with torch.inference_mode():
         caches = [llama.init_cache(cfg, 64, dev) for _ in range(2)]
         k_logits, k_lp = mixed_round(*caches[0])
-        with plain_path(ragged, kernels, attention, torch):
+        with plain_path(ragged, kernels, attention, int4_mm, torch):
             before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
             p_logits, p_lp = mixed_round(*caches[1])
             after = {k: v.launches for k, v in cuda_build.KERNELS.items()}
@@ -821,41 +1054,56 @@ def main() -> int:
         if not logit_err <= LOGITS_BF16_TOL:
             raise AssertionError(f"8B logits kernel vs plain: {logit_err}")
         del caches
-        caches = [llama.init_cache(cfg, 1 + 57 + 64 * 8, dev)
-                  for _ in range(2)]
-        before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
-        k_ch, k_top = mixed_step(*caches[0])
-        mid = {k: v.launches for k, v in cuda_build.KERNELS.items()}
-        with plain_path(ragged, kernels, attention, torch):
-            p_ch, p_top = mixed_step(*caches[1])
-            after = {k: v.launches for k, v in cuda_build.KERNELS.items()}
-        torch.cuda.synchronize()
-        for kname in ("paged_kv_write", "paged_kv_write_pages",
-                      "paged_attention_decode"):
-            if mid[kname] == before[kname]:
-                raise AssertionError(f"the mixed step skipped {kname}")
-        if mid != after:
-            raise AssertionError("the plain path launched a kernel")
-        ch_err = (k_ch - p_ch).abs().max().item()
-        top_err = (k_top - p_top).abs().max().item()
-        log(f"[path] 8B mixed_prefill_decode step bf16 (chunks 512 + 300, 8 "
-            f"decode lanes): chunk logits max |diff| {ch_err:.4f} (|logits| "
-            f"max {p_ch.abs().max().item():.2f}), decode top-8 logprobs max "
-            f"|diff| {top_err:.4f}, tolerance {LOGITS_BF16_TOL}; chunk greedy "
-            f"agree {int((k_ch.argmax(-1) == p_ch.argmax(-1)).sum())}/2")
-        if not max(ch_err, top_err) <= LOGITS_BF16_TOL:
-            raise AssertionError(f"8B mixed step kernel vs plain: {ch_err}, "
-                                 f"{top_err}")
-        del caches
+        for mode, mdl in (("bf16", model), *q_models.items()):
+            caches = [llama.init_cache(cfg, 1 + 57 + 64 * 8, dev)
+                      for _ in range(2)]
+            before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+            k_ch, k_top = mixed_step(mdl, *caches[0])
+            mid = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+            with plain_path(ragged, kernels, attention, int4_mm, torch):
+                p_ch, p_top = mixed_step(mdl, *caches[1])
+                after = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+            torch.cuda.synchronize()
+            for kname in ("paged_kv_write", "paged_kv_write_pages",
+                          "paged_attention_decode",
+                          *((GEMM_OF[mode],) if mode in GEMM_OF else ())):
+                if mid[kname] == before[kname]:
+                    raise AssertionError(f"the {mode} mixed step skipped "
+                                         f"{kname}")
+            if mid != after:
+                raise AssertionError("the plain path launched a kernel")
+            ch_err = (k_ch - p_ch).abs().max().item()
+            top_err = (k_top - p_top).abs().max().item()
+            tol = LOGITS_BF16_TOL if mode == "bf16" else LOGITS_A8_TOL
+            log(f"[path] 8B mixed_prefill_decode step {mode} (chunks 512 + "
+                f"300, 8 decode lanes): chunk logits max |diff| {ch_err:.4f} "
+                f"(|logits| max {p_ch.abs().max().item():.2f}), decode top-8 "
+                f"logprobs max |diff| {top_err:.4f}, tolerance {tol}; chunk "
+                f"greedy agree "
+                f"{int((k_ch.argmax(-1) == p_ch.argmax(-1)).sum())}/2")
+            if not max(ch_err, top_err) <= tol:
+                raise AssertionError(f"8B {mode} mixed step kernel vs plain: "
+                                     f"{ch_err}, {top_err}")
+            del caches
     torch.cuda.empty_cache()
 
-    # 9. profiles ----------------------------------------------------------
-    profiles = profile_rounds(torch, llama, model, dev,
-                              n_pad_mixed=768 - 520)
-    for label, (wall_ms, busy, n_k, by_class, top) in profiles.items():
+    # 11. profiles ---------------------------------------------------------
+    profiles = {("bf16", k): v for k, v in profile_rounds(
+        torch, llama, model, dev, n_pad_mixed=768 - 520).items()}
+    # "int8" (W8A16: cuBLAS over weights converted to bf16 on every call)
+    # is not a main-path cell; its burst is profiled for its step time
+    # only, on a model that shares every other tensor with the bf16 one
+    for mode, mdl in (*q_models.items(),
+                      ("int8", quant.quantize_params(model, mode="int8"))):
+        profiles[(mode, "burst")] = profile_rounds(
+            torch, llama, mdl, dev, n_pad_mixed=0, labels=("burst",))["burst"]
+        del mdl
+    for (mode, label), (wall_ms, busy, n_k, by_class, top) in \
+            profiles.items():
         what = {"decode": "ragged decode round", "mixed":
                 "ragged mixed round", "burst": "phase decode burst (8 "
-                "steps)"}[label]
+                "steps)"}[label] + f", {mode}"
+        per_step = f" ({n_k / 8:.0f} per step)" if label == "burst" else ""
         if busy is None:
             log(f"[profile] {what}: wall {wall_ms:.2f} ms; device busy not "
                 f"measured (the profiler saw no device activity)")
@@ -863,7 +1111,7 @@ def main() -> int:
         log(f"[profile] {what} (8B, bare): wall {wall_ms:.2f} ms (median "
             f"of 10), device busy {busy:.2f} ms, idle "
             f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%, {n_k:.0f} device "
-            f"ops, on {smi}")
+            f"ops{per_step}, on {smi}")
         for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
             log(f"[profile]   {cls}: {ms:.3f} ms ({100 * ms / busy:.1f}% "
                 f"of busy)")
@@ -892,19 +1140,19 @@ def main() -> int:
             f"sampling), device busy {busy_txt}, on {smi}")
         del eng2
     shutil.rmtree(work)
-    del model
+    del model, q_models
     torch.cuda.empty_cache()
 
-    # 10. kernel path vs plain path, 2 layers, fp32 ------------------------
+    # 12. kernel path vs plain path, 2 layers, fp32 ------------------------
 
     cfg2 = llama.LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32)
     model2 = llama.init_params(cfg2, 1, dev)
 
-    def fp32_streams(impl):
+    def fp32_streams(impl, mode=None):
         eng = TorchEngine(TorchEngineConfig(
             model=cfg2, num_pages=128, max_batch_size=4,
-            prefill_chunk_budget=64, attention_impl=impl, device="cuda"),
-            model=model2)
+            prefill_chunk_budget=64, attention_impl=impl, quantize=mode,
+            device="cuda"), model=model2)
 
         async def go():
             try:
@@ -912,29 +1160,50 @@ def main() -> int:
                 prompts = [torch.randint(0, 128256, (n,), generator=g)
                            .tolist() for n in (90, 33, 150)]
                 return await asyncio.gather(
-                    *(greedy_on(eng, p, 16) for p in prompts))
+                    *(greedy_on(eng, p, 16, top=8) for p in prompts))
             finally:
                 await eng.close()
         return asyncio.run(go())
 
-    streams = {}
-    for impl in ("phase", "ragged"):
-        cuda_build.reset_launch_counts()
-        streams[f"{impl}-kernels"] = fp32_streams(impl)
-        used = sorted(k for k, v in cuda_build.KERNELS.items() if v.launches)
-        with plain_path(ragged, kernels, attention, torch):
-            streams[f"{impl}-plain"] = fp32_streams(impl)
-        log(f"[path] 2-layer fp32 {impl} path, kernels launched: {used}")
-    first = streams["phase-kernels"]
-    if any(s != first for s in streams.values()) \
-            or any(len(s) != 16 for s in first):
-        raise AssertionError(f"fp32 greedy streams differ: {streams}")
-    log(f"[path] 2-layer full-width fp32: greedy streams identical over 16 "
-        f"steps x {len(first)} requests across {sorted(streams)}")
+    for mode in (None, *QUANT_MODES):
+        streams = {}
+        for impl in ("phase", "ragged"):
+            cuda_build.reset_launch_counts()
+            streams[f"{impl}-kernels"] = fp32_streams(impl, mode)
+            used = sorted(k for k, v in cuda_build.KERNELS.items()
+                          if v.launches)
+            if mode is not None and GEMM_OF[mode] not in used:
+                raise AssertionError(f"the 2-layer {mode} {impl} run never "
+                                     f"launched {GEMM_OF[mode]}")
+            with plain_path(ragged, kernels, attention, int4_mm, torch):
+                streams[f"{impl}-plain"] = fp32_streams(impl, mode)
+            log(f"[path] 2-layer fp32 {mode or 'unquantized'} {impl} path, "
+                f"kernels launched: {used}")
+        first = streams["phase-kernels"]
+        if any(len(t) != 16 for t, _ in first):
+            raise AssertionError(f"fp32 {mode} streams are short: {first}")
+        if mode is None:
+            if any([t for t, _ in s] != [t for t, _ in first]
+                   for s in streams.values()):
+                raise AssertionError(f"fp32 greedy streams differ: {streams}")
+            log(f"[path] 2-layer full-width fp32 unquantized: greedy streams "
+                f"identical over 16 steps x {len(first)} requests across "
+                f"{sorted(streams)}")
+            continue
+        partings = {k: stream_partings(first, s, A8_TIE_TOL)
+                    for k, s in streams.items() if k != "phase-kernels"}
+        log(f"[path] 2-layer full-width fp32 {mode}: greedy streams over 16 "
+            f"steps x {len(first)} requests, against phase-kernels: "
+            + "; ".join(f"{k} " + ("identical" if not v else
+                                   "parts at near-ties " + ", ".join(
+                                       f"(request {r}, step {i}, logprob "
+                                       f"gap {g:.2e})" for r, i, g in v))
+                        for k, v in sorted(partings.items()))
+            + f" (tie tolerance {A8_TIE_TOL})")
     del model2
     torch.cuda.empty_cache()
 
-    # 11. numbers ------------------------------------------------------------
+    # 13. numbers ------------------------------------------------------------
     flush_buf = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
 
     def flush():
@@ -1060,18 +1329,72 @@ def main() -> int:
     bound4, by4 = k4_bound_ms(l4.cpu(), t4.cpu(), H, KVH, D, P, 2, peaks)
     rows[("k4", "burst")] = (8, ms4, plain4, bound4, by4, None)
 
-    for (kname, label), (n, ms, plain_ms, bnd, by, lib) in rows.items():
+    del kp, vp
+    torch.cuda.empty_cache()
+
+    # K5 / K6 at the gate/up projection: M = 8 (a burst's decode step) and
+    # M = 512 (a prefill chunk), bf16 activations
+    k8, n8 = PROJECTIONS["gate/up"]
+    w_bf = torch.randn(k8, n8, generator=gen).to(dev, torch.bfloat16)
+    matmul_ms = {}
+    for mode in QUANT_MODES:
+        bits = quant._bits_of(mode)
+        qt = quant.quantize(w_bf, bits, quant._act_bits_of(mode))
+        fn, ref = ((int4_mm.w8a8_matmul, int4_mm.w8a8_matmul_ref)
+                   if mode == "w8a8" else
+                   (int4_mm.int4_matmul, int4_mm.int4_matmul_ref))
+        # the library's int8 GEMM takes plain int8 weights: K6's unpacked
+        q8 = qt.q if bits == 8 else quant._unpack4(qt.q.T).T.contiguous()
+        for m, label in ((8, "burst"), (512, "chunk")):
+            x = a8_case(torch, gen, dev, m, k8, torch.bfloat16)
+            got, want = fn(x, qt.q, qt.s), ref(x, qt.q, qt.s)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{GEMM_OF[mode]} M={m} differs from its "
+                                     f"plain version at the timed shape")
+            xq, sx = int4_mm.a8_prologue_ref(x)
+            # torch._int_mm takes more than 16 rows: pad to 32 with zeros
+            xq_lib = xq if m > 16 else torch.cat([xq, xq.new_zeros(
+                32 - m, k8)])
+
+            def library():
+                y = torch._int_mm(xq_lib, q8.T)
+                return ((y[:m].float() * sx) * qt.s).to(x.dtype)
+
+            lib_same = torch.equal(library(), got)
+            ms = time_ms(torch, lambda: fn(x, qt.q, qt.s), flush=flush)
+            plain_ms = time_ms(torch, lambda: ref(x, qt.q, qt.s), reps=5,
+                               flush=flush)
+            lib_ms = time_ms(torch, library, flush=flush)
+            matmul_ms[(mode, label)] = time_ms(torch, lambda: x @ w_bf,
+                                               flush=flush)
+            bnd, by = a8_bound_ms(m, k8, n8, bits, 2, peaks)
+            rows[(mode, label)] = (m, ms, plain_ms, bnd, by, lib_ms)
+            log(f"[check] {GEMM_OF[mode]} M={m} K={k8} N={n8} bf16: "
+                f"bit-identical with its plain version; the library yardstick "
+                f"(torch._int_mm{' on unpacked weights' if bits == 4 else ''}"
+                f" + epilogue{', rows padded to 32' if m <= 16 else ''}) "
+                f"{'agrees bit for bit' if lib_same else 'differs'}")
+        del qt, q8
+    del w_bf
+
+    for (key, label), (n, ms, plain_ms, bnd, by, lib) in rows.items():
+        kname = GEMM_OF.get(key, key)
+        extra = (f", bf16 torch.matmul {matmul_ms[(key, label)]:.4f} ms"
+                 if (key, label) in matmul_ms else "")
         log(f"[time] {kname} {label} rows={n}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}{extra}, bound "
             f"{bnd:.6f} ms ({by}) on {smi}")
-    for label, run in (("phase", phase), ("ragged", ragged_run)):
+    for label, run in (("phase", phase), ("ragged", ragged_run),
+                       *((f"phase {m}", quantized[m]) for m in QUANT_MODES)):
         ttft = run["ttft"]
         log(f"[batch] {label} path: output {run['tokens'] / run['wall']:.1f} "
             f"tok/s, TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms (min "
             f"{min(ttft) * 1e3:.1f}, max {max(ttft) * 1e3:.1f}) over "
-            f"{len(ttft)} requests, Llama-3-8B bf16 random weights, "
-            f"max_tokens 32, on {smi}")
+            f"{len(ttft)} requests, {run['rounds']} dispatches, Llama-3-8B "
+            f"random weights ({label.split()[-1] if ' ' in label else 'bf16'}"
+            f"), max_tokens 32, on {smi}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
     def entry(kname, source, replaces, key, err, run):
@@ -1097,6 +1420,12 @@ def main() -> int:
               "dynamo_tpu_torch/csrc/paged_attention_decode.cu",
               "dynamo_tpu/engine/attention.py:226", ("k4", "burst"),
               k4_err[torch.bfloat16], phase),
+        entry("w8a8_matmul", "dynamo_tpu_torch/csrc/w8a8_matmul.cu",
+              "dynamo_tpu/engine/int4_mm.py:107", ("w8a8", "burst"),
+              a8_err["w8a8"], quantized["w8a8"]),
+        entry("int4_matmul", "dynamo_tpu_torch/csrc/int4_matmul.cu",
+              "dynamo_tpu/engine/int4_mm.py:168", ("int4", "burst"),
+              a8_err["int4"], quantized["int4"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels (csrc/*.cu).
 
-Each source exports `extern "C"` launchers that take raw device pointers
+Each source (headers it includes sit beside it as `*.cuh`) exports
+`extern "C"` launchers that take raw device pointers
 and a `cudaStream_t` and return a `cudaError_t`. At first use every
 source is compiled by its own `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` process — all started together — into
@@ -46,10 +47,10 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    """Build directory keyed by the hash of every source and the flags,
-    so an edited kernel never loads a stale library."""
+    """Build directory keyed by the hash of every source and header and
+    the flags, so an edited kernel never loads a stale library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

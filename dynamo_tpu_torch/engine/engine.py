@@ -22,6 +22,11 @@ by `TorchEngineConfig.attention_impl` as the reference chooses by
   `:2435`): chunk rows riding a fixed decode block of max_batch_size rows,
   one token per lane per round.
 
+`TorchEngineConfig.quantize` ("int8" | "w8a8" | "int4") serves either path
+with quantized weights, as the reference's quantize step (`:546-594`):
+the engine quantizes the model it created in place, and a caller's model
+into a new one that shares its other tensors (`owned_params`, `:377`).
+
 Device work runs in `asyncio.to_thread` under one device lock, with
 `torch.inference_mode()` entered inside the thread (it is thread-local).
 Not in this slice, and rejected per request where a request asks for
@@ -43,6 +48,12 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.pages import PagePool
+from dynamo_tpu_torch.engine.quant import (
+    QUANTIZE_MODES,
+    is_quantized,
+    quantize_params,
+    remark_act_bits,
+)
 from dynamo_tpu_torch.engine.sampling import sample_tokens_lp
 from dynamo_tpu_torch.models.llama import (
     LlamaConfig,
@@ -163,6 +174,9 @@ class TorchEngineConfig:
     # "phase" (default) or "ragged" — the reference's DYN_ATTENTION_IMPL
     # choice (llm/entrypoint.py reads the variable)
     attention_impl: str = "phase"
+    # None, or quantized serving: "int8" (W8A16), "w8a8" (K5), "int4"
+    # (K6) — engine/quant.py
+    quantize: Optional[str] = None
     device: str = "cuda"
 
 
@@ -230,14 +244,28 @@ class TorchEngine:
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {cfg.attention_impl!r} is not "
                              f"one of {ATTENTION_IMPLS}")
+        if cfg.quantize and cfg.quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
         self.model_cfg = cfg.model
         self.device = resolve_device(cfg.device)
+        # quantization may replace weights in place only in a model the
+        # engine created: a caller's model may serve other engines
+        owned = model is None
         if model is None:
             model = init_params(self.model_cfg, cfg.rng_seed, self.device)
         elif model.cfg != self.model_cfg or model.device != self.device:
             raise ValueError(
                 f"model ({model.device}) does not match the engine's config "
                 f"and device ({self.device})")
+        if cfg.quantize:
+            # a pre-quantized model skips the pass; under w8a8 its 8-bit
+            # layer weights are re-marked A8, or the mode would silently
+            # serve W8A16 (the reference's remark_act_bits)
+            if not is_quantized(model):
+                model = quantize_params(model, mode=cfg.quantize,
+                                        inplace=owned)
+            elif cfg.quantize == "w8a8":
+                model = remark_act_bits(model, inplace=owned)
         self.model = model
         self.k_cache, self.v_cache = init_cache(self.model_cfg,
                                                 cfg.num_pages, self.device)

@@ -45,18 +45,23 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                        decode_steps_per_sync: int = 8,
                        pipeline_bursts: bool = True,
                        random_init: bool = False, rng_seed: int = 0,
+                       quantize: Optional[str] = None,
                        device: str = "cuda", **model_overrides
                        ) -> tuple[TorchEngine, ModelDeploymentCard]:
     """(TorchEngine, ModelDeploymentCard) for a checkpoint dir (or an
     already-downloaded HF-cache name). `random_init=True` skips the weight
     read and draws weights from `rng_seed` (benchmarks on synthetic
-    weights). The path is `attention_impl_from_env()`'s. `model_overrides`
-    tune the config, e.g. ``max_pages_per_seq`` or ``num_layers`` (depth
-    cut)."""
+    weights). `quantize` ("int8" | "w8a8" | "int4") serves quantized
+    weights: the loader quantizes each projection as it lands (the
+    reference's `load_llama_params_device(quantize=...)`), and a random
+    init is quantized by the engine. The path is
+    `attention_impl_from_env()`'s. `model_overrides` tune the config, e.g.
+    ``max_pages_per_seq`` or ``num_layers`` (depth cut)."""
     dev = resolve_device(device)
     path = resolve_model(model)
     cfg = config_from_hf(path, **model_overrides)
-    params = None if random_init else load_llama_params(path, cfg, dev)
+    params = None if random_init else load_llama_params(path, cfg, dev,
+                                                        quantize=quantize)
     engine = TorchEngine(
         TorchEngineConfig(model=cfg, num_pages=num_pages,
                           max_batch_size=max_batch_size,
@@ -64,7 +69,8 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                           decode_steps_per_sync=decode_steps_per_sync,
                           pipeline_bursts=pipeline_bursts,
                           attention_impl=attention_impl_from_env(),
-                          rng_seed=rng_seed, device=str(dev)),
+                          quantize=quantize, rng_seed=rng_seed,
+                          device=str(dev)),
         model=params)
     has_tok = any(os.path.exists(os.path.join(path, f))
                   for f in _TOKENIZER_FILES)

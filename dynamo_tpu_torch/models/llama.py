@@ -20,8 +20,11 @@ torch's current stream before the same layer's attention reads the cache.
 Layout kept from the reference, so the two packages compute with the same
 weights (models/convert.py carries them across):
 - weights are applied as `x @ w` (`wq: (E, H·D)`, `lm_head: (E, V)`),
-  under the reference's names; the JAX `(L, ...)` stacks are split into
-  one `LlamaLayer` per layer in an `nn.ModuleList`;
+  under the reference's names, through `engine/quant.py` `qm` as the
+  reference's every projection: a bf16 Parameter takes exactly `x @ w`; a
+  `QTensor` (quantized serving) takes the W8A16 product or, inside the
+  kernel gate, K5 (w8a8) / K6 (int4). The JAX `(L, ...)` stacks are split
+  into one `LlamaLayer` per layer in an `nn.ModuleList`;
 - dense weights in `cfg.dtype` (bf16 by default), norm gains in fp32;
   norm, softmax and logits computed in fp32;
 - the KV cache is one (KVH, num_pages, page_size, D) tensor per layer for
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dynamo_tpu_torch.engine import attention, kernels, sampling
+from dynamo_tpu_torch.engine.quant import qm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,16 +238,16 @@ def _write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
 
 
 def _swiglu(h: torch.Tensor, layer: LlamaLayer) -> torch.Tensor:
-    gate = F.silu(h @ layer.w_gate)
-    return (gate * (h @ layer.w_up)) @ layer.w_down
+    gate = F.silu(qm(h, layer.w_gate))
+    return qm(gate * qm(h, layer.w_up), layer.w_down)
 
 
 def qkv_proj(hn: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q/k/v projections with the optional Qwen2-family additive bias."""
-    q = hn @ layer.wq
-    k = hn @ layer.wk
-    v = hn @ layer.wv
+    q = qm(hn, layer.wq)
+    k = qm(hn, layer.wk)
+    v = qm(hn, layer.wv)
     if cfg.attention_bias:
         q = q + layer.bq
         k = k + layer.bk
@@ -336,7 +340,7 @@ def paged_forward(model: LlamaModel, k_cache: list, v_cache: list,
         attn = attention.prefill_attention(q, k_cache[l], v_cache[l],
                                            page_tables, positions, seq_lens,
                                            kv_pages)
-        x = x + attn.reshape(Bp, T, H * D) @ layer.wo
+        x = x + qm(attn.reshape(Bp, T, H * D), layer.wo)
         hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
         x = x + _swiglu(hn, layer)
     return rms_norm(x, model.final_norm, cfg.rms_eps)
@@ -348,7 +352,7 @@ def _last_logits(model: LlamaModel, x: torch.Tensor,
     """(Bp, V) fp32 logits of each chunk's last valid token."""
     last = torch.clamp(seq_lens - cached_lens - 1, min=0).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), last]
-    return (x_last @ model.lm_head).float()
+    return qm(x_last, model.lm_head).float()
 
 
 def prefill_batch(model: LlamaModel, k_cache: list, v_cache: list,
@@ -405,11 +409,11 @@ def _decode_once(model: LlamaModel, k_cache: list, v_cache: list,
                   offsets, valid)
         attn = attention.paged_attention_decode(
             q.contiguous(), k_cache[l], v_cache[l], lengths, page_tables)
-        x = x + attn.reshape(B, H * D) @ layer.wo
+        x = x + qm(attn.reshape(B, H * D), layer.wo)
         hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
         x = x + _swiglu(hn, layer)
     x = rms_norm(x, model.final_norm, cfg.rms_eps)
-    return (x @ model.lm_head).float()
+    return qm(x, model.lm_head).float()
 
 
 def decode_step(model: LlamaModel, k_cache: list, v_cache: list,
@@ -512,9 +516,9 @@ def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
         attn_d, attn_c = attention.mixed_attention(
             qd.contiguous(), q, kc, vc, d_lengths, d_tables, ch_tables,
             c_positions, ch_seq_lens, kv_pages)
-        xc = xc + attn_c.reshape(Bp, T, H * D) @ layer.wo
+        xc = xc + qm(attn_c.reshape(Bp, T, H * D), layer.wo)
         xc = xc + _swiglu(rms_norm(xc, layer.mlp_norm, cfg.rms_eps), layer)
-        xd = xd + attn_d.reshape(B, H * D) @ layer.wo
+        xd = xd + qm(attn_d.reshape(B, H * D), layer.wo)
         xd = xd + _swiglu(rms_norm(xd, layer.mlp_norm, cfg.rms_eps), layer)
     return (rms_norm(xc, model.final_norm, cfg.rms_eps),
             rms_norm(xd, model.final_norm, cfg.rms_eps))
@@ -543,7 +547,7 @@ def mixed_prefill_decode(model: LlamaModel, k_cache: list, v_cache: list,
                             ch_cached, ch_seq_lens, tokens, positions,
                             page_tables, valid, aligned)
     ch_logits = _last_logits(model, xc, ch_cached, ch_seq_lens)
-    logits0 = (xd @ model.lm_head).float()
+    logits0 = qm(xd, model.lm_head).float()
     packed = _burst(model, k_cache, v_cache, logits0, positions,
                     page_tables, valid, seeds, steps0, temperature, top_p,
                     top_k, num_steps, topk_lp)
@@ -595,12 +599,12 @@ def ragged_prefill_decode(model: LlamaModel, k_cache: list, v_cache: list,
         attn = attention.ragged_attention(
             q.contiguous(), k_cache[l], v_cache[l], qpos, token_lanes,
             lane_tables, page_size=cfg.page_size)          # (Tb, H, D)
-        x = x + attn.reshape(Tb, H * D) @ layer.wo
+        x = x + qm(attn.reshape(Tb, H * D), layer.wo)
         hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
         x = x + _swiglu(hn, layer)
     x = rms_norm(x, model.final_norm, cfg.rms_eps)
-    ch_logits = (x[ch_rows.long()] @ model.lm_head).float()
-    d_logits = (x[d_rows.long()] @ model.lm_head).float()
+    ch_logits = qm(x[ch_rows.long()], model.lm_head).float()
+    d_logits = qm(x[d_rows.long()], model.lm_head).float()
     packed = sampling.sample_tokens_lp(d_logits, seeds, steps0, temperature,
                                        top_p, top_k, topk_lp=topk_lp)
     return packed[:, None, :], ch_logits

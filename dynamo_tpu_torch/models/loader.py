@@ -21,10 +21,18 @@ import json
 import logging
 import mmap
 import os
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
+from dynamo_tpu_torch.engine.quant import (
+    QUANT_KEYS,
+    _act_bits_of,
+    _bits_of,
+    _lm_head_quant_ok,
+    quantize as quant_fn,
+    set_weight,
+)
 from dynamo_tpu_torch.models.llama import LlamaConfig, LlamaModel
 
 logger = logging.getLogger(__name__)
@@ -159,22 +167,41 @@ class _TensorIndex:
 
 @torch.inference_mode()
 def load_llama_params(path: str, cfg: LlamaConfig,
-                      device: "str | torch.device") -> LlamaModel:
+                      device: "str | torch.device",
+                      quantize: Optional[str] = None) -> LlamaModel:
     """`LlamaModel` on `device` from a checkpoint dir. Each tensor is read,
     moved to the device, then transposed and cast there into its
-    parameter, one tensor at a time (host memory holds one tensor)."""
-    model = LlamaModel(cfg, torch.device(device))
+    parameter, one tensor at a time (host memory holds one tensor).
+
+    `quantize` ("int8" | "w8a8" | "int4"): each projection is quantized as
+    it lands on the device, as the reference's
+    `load_llama_params_device(quantize=...)` quantizes before it stacks,
+    and the lm_head under the vocab rule (int8, act_bits 16). The model is
+    built on the meta device and every tensor is placed as it is loaded,
+    so device memory peaks at the quantized model plus one tensor being
+    quantized. The result is bit-identical to quantizing after load."""
+    dev = torch.device(device)
+    bits, act_bits = _bits_of(quantize), _act_bits_of(quantize)
+    model = LlamaModel(cfg, torch.device("meta"))
     idx = _TensorIndex(path)
     try:
-        def put(param: torch.Tensor, name: str,
+        def place(owner: torch.nn.Module, key: str, t: torch.Tensor) -> None:
+            dtype = getattr(owner, key).dtype
+            if quantize and key in QUANT_KEYS:
+                set_weight(owner, key, quant_fn(t.to(dtype), bits, act_bits))
+            else:
+                set_weight(owner, key, torch.nn.Parameter(
+                    t.to(dtype).contiguous(), requires_grad=False))
+
+        def put(owner: torch.nn.Module, key: str, name: str,
                 transpose: bool = False) -> None:
-            t = idx.get(name).to(param.device)
-            param.copy_(t.T if transpose else t)
+            t = idx.get(name).to(dev)
+            place(owner, key, t.T if transpose else t)
 
         p = "model.layers.{}."
         for i, layer in enumerate(model.layers):
-            put(layer.attn_norm, p.format(i) + "input_layernorm.weight")
-            put(layer.mlp_norm,
+            put(layer, "attn_norm", p.format(i) + "input_layernorm.weight")
+            put(layer, "mlp_norm",
                 p.format(i) + "post_attention_layernorm.weight")
             for key, hf_name in (("wq", "self_attn.q_proj"),
                                  ("wk", "self_attn.k_proj"),
@@ -183,19 +210,28 @@ def load_llama_params(path: str, cfg: LlamaConfig,
                                  ("w_gate", "mlp.gate_proj"),
                                  ("w_up", "mlp.up_proj"),
                                  ("w_down", "mlp.down_proj")):
-                put(getattr(layer, key), p.format(i) + hf_name + ".weight",
+                put(layer, key, p.format(i) + hf_name + ".weight",
                     transpose=True)
             if cfg.attention_bias:
                 for key, hf_name in (("bq", "q_proj"), ("bk", "k_proj"),
                                      ("bv", "v_proj")):
-                    put(getattr(layer, key),
-                        p.format(i) + f"self_attn.{hf_name}.bias")
-        put(model.embed, "model.embed_tokens.weight")
-        put(model.final_norm, "model.norm.weight")
+                    put(layer, key, p.format(i) + f"self_attn.{hf_name}.bias")
+        put(model, "embed", "model.embed_tokens.weight")
+        put(model, "final_norm", "model.norm.weight")
         if "lm_head.weight" in idx:
-            put(model.lm_head, "lm_head.weight", transpose=True)
+            lm = idx.get("lm_head.weight").to(dev).T
         else:  # tie_word_embeddings
-            model.lm_head.copy_(model.embed.T)
+            lm = model.embed.T
+        if quantize and _lm_head_quant_ok(lm):
+            # int8 even under int4 (logit quality), as the reference
+            set_weight(model, "lm_head",
+                       quant_fn(lm.to(model.lm_head.dtype), 8))
+        else:
+            place(model, "lm_head", lm)
     finally:
         idx.close()
+    left = [n for n, t in [*model.named_parameters(), *model.named_buffers()]
+            if t.is_meta]
+    if left:
+        raise ValueError(f"load_llama_params: {path} lacks {left[:4]}")
     return model

@@ -18,7 +18,9 @@ and P = 1 is exact in bf16, so the bf16 kernel's output is each row's
 fp32 mean of the V rows it can see, rounded once: held to the fp32 plain
 version at rtol 4e-3 (half a bf16 ulp), atol 1e-5. K4 in bf16 is held to
 K1's bf16 tolerances (it computes in fp32 and rounds once, so it sits well
-inside them), and with q = 0 to the same half ulp.
+inside them), and with q = 0 to the same half ulp. K5 and K6 (the A8
+GEMMs) compute an exact int32 product between two roundings that both
+sides make alike: bit-identical with their plain versions.
 """
 
 import asyncio
@@ -27,7 +29,7 @@ import copy
 import pytest
 import torch
 
-from dynamo_tpu_torch.engine import attention, kernels, ragged
+from dynamo_tpu_torch.engine import attention, int4_mm, kernels, quant, ragged
 
 pytestmark = pytest.mark.cuda
 
@@ -325,6 +327,110 @@ def test_k4_kernel_rejects_unsupported_geometry(cuda_device):
         attention.paged_attention_decode(q, kp, kp, lengths, tables)
 
 
+A8_MS = (1, 5, 8, 16, 17, 33, 64, 65, 127, 600)
+
+
+def _a8_inputs(gen, m, k, dtype, dev):
+    """Rows of mixed scale: an all-zero row (sx at its 1e-12 floor), an
+    outlier row, tiny and large rows."""
+    x = torch.randn(m, k, generator=gen)
+    x *= torch.logspace(-3, 2, m)[:, None]
+    x[0] = 0.0
+    if m > 2:
+        x[2, k // 3] = 500.0
+    return x.to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(128, 256), (512, 1024), (4096, 1024),
+                                 (256, 14336), (14336, 4096)])
+@pytest.mark.parametrize("bits", [8, 4], ids=["k5-w8a8", "k6-int4"])
+def test_a8_kernels_bit_identical_with_plain(cuda_device, dtype, k, n, bits):
+    """K5 / K6 against their plain versions over M 1..600 (odd M, every tile
+    config: <= 16, <= 64 and wide), several (K, N) in the gate — (4096,
+    1024) and (14336, 4096) split K at M <= 64."""
+    gen = torch.Generator().manual_seed(k * 7 + n + bits)
+    w = torch.randn(k, n, generator=gen).to(cuda_device)
+    qt = quant.quantize(w, bits, 8 if bits == 8 else 16)
+    fn, ref = ((int4_mm.w8a8_matmul, int4_mm.w8a8_matmul_ref) if bits == 8
+               else (int4_mm.int4_matmul, int4_mm.int4_matmul_ref))
+    for m in A8_MS:
+        x = _a8_inputs(gen, m, k, dtype, cuda_device)
+        got = fn(x, qt.q, qt.s)
+        want = ref(x, qt.q, qt.s)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert torch.equal(got, want), (m, (got.float() - want.float())
+                                        .abs().max().item())
+        assert torch.all(got[0] == 0)
+
+
+def test_quantize_on_card_is_bit_exact_with_cpu(cuda_device):
+    gen = torch.Generator().manual_seed(5)
+    w = (torch.randn(512, 768, generator=gen)
+         * torch.logspace(-2, 1, 768)).to(torch.bfloat16)
+    for bits in (8, 4):
+        on_card = quant.quantize(w.to(cuda_device), bits)
+        on_cpu = quant.quantize(w, bits)
+        assert torch.equal(on_card.q.cpu(), on_cpu.q)
+        assert torch.equal(on_card.s.cpu(), on_cpu.s)
+
+
+def test_a8_kernels_refuse_shapes_outside_the_gate(cuda_device):
+    x = torch.randn(4, 192, device=cuda_device)
+    q = torch.zeros(256, 192, dtype=torch.int8, device=cuda_device)
+    s = torch.ones(1, 256, device=cuda_device)
+    with pytest.raises(ValueError):
+        int4_mm.w8a8_matmul(x, q, s)                  # K = 192
+    x = torch.randn(4, 256, device=cuda_device)
+    with pytest.raises(ValueError):                   # N = 192
+        int4_mm.w8a8_matmul(x, torch.zeros(192, 256, dtype=torch.int8,
+                                           device=cuda_device), s[:, :192])
+    with pytest.raises(ValueError):                   # N/2 = 64 for int4
+        int4_mm.int4_matmul(x, torch.zeros(64, 256, dtype=torch.int8,
+                                           device=cuda_device), s[:, :128])
+    with pytest.raises(ValueError):                   # not contiguous
+        int4_mm.w8a8_matmul(x, torch.zeros(256, 512, dtype=torch.int8,
+                                           device=cuda_device)[:, ::2], s)
+    with pytest.raises(ValueError):                   # fp16 activations
+        int4_mm.w8a8_matmul(x.half(), torch.zeros(
+            256, 256, dtype=torch.int8, device=cuda_device), s)
+
+
+def test_a8_launch_counts_move_only_on_cuda(cuda_device):
+    gen = torch.Generator().manual_seed(6)
+    w = torch.randn(256, 512, generator=gen)
+    x = torch.randn(3, 256, generator=gen)
+    for bits, fn, kern in ((8, int4_mm.w8a8_matmul, int4_mm._W8A8_KERNEL),
+                           (4, int4_mm.int4_matmul, int4_mm._INT4_KERNEL)):
+        qt = quant.quantize(w, bits)
+        before = kern.launches
+        on_cpu = fn(x, qt.q, qt.s)
+        assert kern.launches == before
+        qt.to(cuda_device)
+        on_card = fn(x.to(cuda_device), qt.q, qt.s)
+        assert kern.launches == before + 1
+        assert torch.equal(on_card.cpu(), on_cpu)
+
+
+# every projection of this config is inside the kernels' gate
+A8_MODEL = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                num_kv_heads=2, head_dim=128, page_size=8)
+
+
+@pytest.mark.parametrize("mode,impl", [("w8a8", "phase"), ("int4", "phase"),
+                                       ("w8a8", "ragged"), ("int4", "ragged")])
+def test_quantized_engine_on_card_matches_engine_on_cpu(cuda_device, mode,
+                                                        impl):
+    """Greedy fp32 streams of a quantized tiny model are identical on the
+    card (through K5 or K6) and on the CPU (their plain versions)."""
+    kern = int4_mm._W8A8_KERNEL if mode == "w8a8" else int4_mm._INT4_KERNEL
+    other = int4_mm._INT4_KERNEL if mode == "w8a8" else int4_mm._W8A8_KERNEL
+    before, other_before = kern.launches, other.launches
+    _serve_tiny_on_card_and_cpu(cuda_device, impl, A8_MODEL, mode)
+    assert kern.launches > before and other.launches == other_before
+
+
 def test_engine_on_card_matches_engine_on_cpu(cuda_device):
     """Greedy fp32 streams of a tiny model on the ragged path are
     identical on the card (through K1 and K2) and on the CPU (plain
@@ -348,15 +454,18 @@ def test_phase_engine_on_card_matches_engine_on_cpu(cuda_device):
         assert after[k] > before[k], k
 
 
-def _serve_tiny_on_card_and_cpu(cuda_device, impl: str) -> int:
+def _serve_tiny_on_card_and_cpu(cuda_device, impl: str, geometry=None,
+                                quantize=None) -> int:
     """Serve three greedy requests on the card and on the CPU through a
-    tiny fp32 model on path `impl`; assert identical streams; return the
-    K1 launches the card run made."""
+    tiny fp32 model (`geometry` overrides, `quantize` mode) on path
+    `impl`; assert identical streams; return the K1 launches the card run
+    made."""
     from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
     from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
     from dynamo_tpu_torch.runtime.context import Context
 
-    mcfg = LlamaConfig.tiny(dtype=torch.float32, head_dim=32, page_size=8)
+    mcfg = LlamaConfig.tiny(dtype=torch.float32, **(
+        geometry or dict(head_dim=32, page_size=8)))
     cpu_model = init_params(mcfg, 0, torch.device("cpu"))
 
     async def serve(device):
@@ -365,7 +474,8 @@ def _serve_tiny_on_card_and_cpu(cuda_device, impl: str) -> int:
         eng = TorchEngine(TorchEngineConfig(
             model=mcfg, num_pages=64, max_batch_size=4, prefill_chunk=32,
             min_prefill_bucket=8, prefill_chunk_budget=12,
-            attention_impl=impl, device=str(device)), model=model)
+            attention_impl=impl, quantize=quantize, device=str(device)),
+            model=model)
 
         async def one(prompt, n):
             toks = []

@@ -90,8 +90,9 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
     """`python -m dynamo_tpu_torch.run in=text:hi out=torch:<ckpt>
     --device cpu` in a fresh interpreter, on the default (phase) path: it
     answers, every engine dispatch was a phase-path one (prefill rounds
-    and decode bursts), and at the end no jax and no dynamo_tpu module
-    was ever imported."""
+    and decode bursts); then an int4 engine built from the same checkpoint
+    serves a request; and at the end no jax and no dynamo_tpu module was
+    ever imported."""
     probe = (
         "import runpy, sys\n"
         "from dynamo_tpu_torch.models import llama\n"
@@ -110,6 +111,25 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
         f"'out=torch:{ckpts['tiny']}', '--device', 'cpu', "
         "'--max-tokens', '5']\n"
         "runpy.run_module('dynamo_tpu_torch.run', run_name='__main__')\n"
+        "import asyncio\n"
+        "from dynamo_tpu_torch.engine.quant import QTensor\n"
+        "from dynamo_tpu_torch.llm.entrypoint import build_torch_engine\n"
+        "from dynamo_tpu_torch.runtime.context import Context\n"
+        f"q_eng, _ = build_torch_engine({ckpts['tiny']!r}, quantize='int4', "
+        "num_pages=16, device='cpu')\n"
+        "assert isinstance(q_eng.model.layers[0].w_up, QTensor)\n"
+        "assert q_eng.model.layers[0].w_up.bits == 4\n"
+        "async def serve():\n"
+        "    toks = []\n"
+        "    try:\n"
+        "        async for o in q_eng.generate({'token_ids': [5, 6, 7], "
+        "'sampling': {'temperature': 0.0}, 'stop': {'max_tokens': 3}}, "
+        "Context()):\n"
+        "            toks += o.get('token_ids', [])\n"
+        "    finally:\n"
+        "        await q_eng.close()\n"
+        "    return toks\n"
+        "print('INT4', len(asyncio.run(serve())))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'dynamo_tpu' or "
         "m.startswith('dynamo_tpu.'))\n"
@@ -124,6 +144,7 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
     assert "LOADED []" in proc.stdout, proc.stdout
     assert "CALLS ['decode_multi_step', 'prefill_batch']" in proc.stdout, \
         proc.stdout
+    assert "INT4 3" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("env,impl", [(None, "phase"), ("auto", "phase"),
