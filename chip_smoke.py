@@ -17,11 +17,15 @@ on):
  5. K1 ragged_paged_attention vs plain at Llama-3-8B geometry, bf16 and
     fp32, on a ragged mix (decode rows to 4096 tokens of context, chunk
     rows straddling pages, padding rows that must be exact zeros) and on
-    decode rows alone (the split-KV path); in bf16 also with q = 0, where
-    the output is each row's exact mean of the V rows it can see
+    decode rows alone (split across CTAs); in bf16 also with q = 0, where
+    the output is each row's exact mean of the V rows it can see; one bf16
+    call captured in a CUDA graph and replayed with token_qpos changed in
+    place on the device, equal to an eager call
  6. K4 paged_attention_decode vs plain at Llama-3-8B geometry, bf16 and
     fp32: length-0 lanes (exact zeros), lengths at page edges (1, 15, 16,
-    17, 32), contexts to 4096 (the split-KV path); in bf16 also q = 0
+    17, 32), contexts to 4096 (split across CTAs); in bf16 also q = 0; one
+    bf16 call captured in a CUDA graph and replayed with lengths changed in
+    place, equal to an eager call
  7. K5 w8a8_matmul and K6 int4_matmul vs plain at the four Llama-3-8B
     projection shapes (4096x4096 wq/wo, 4096x1024 wk/wv, 4096x14336
     gate/up, 14336x4096 down), M in {1, 8, 40, 512}, bf16 and fp32
@@ -111,8 +115,8 @@ K1_FP32_TOL = {"atol": 2e-5, "rtol": 2e-5}   # the reference's parity check
 # |v| / context, above that for every context these checks use
 K1_UNIFORM_TOL = {"atol": 1e-5, "rtol": 4e-3}
 # K4 against its plain version: fp32 at the reference's kernel-parity
-# tolerance; bf16 as K1 (K4 computes in fp32 from the bf16 inputs and
-# rounds its output once, so it sits well inside K1's limits); q = 0 as K1
+# tolerance; bf16 as K1 (K4's bf16 path is K1's core at one row per lane,
+# so it too rounds P to bf16 before PV); q = 0 as K1
 K4_FP32_TOL = K1_FP32_TOL
 K4_BF16_TOL = K1_BF16_TOL
 K4_UNIFORM_TOL = K1_UNIFORM_TOL
@@ -317,6 +321,30 @@ def uniform_check(ragged, plain_k1, torch, kp, vp, qpos, lanes, tables,
         f"max_abs_err {err:.3e} ({K1_UNIFORM_TOL})")
 
 
+def graph_replay_check(torch, call, index, values, label):
+    """`call()` (a bf16 K1 or K4 launch) captured once in a CUDA graph,
+    then replayed after each of `values` is copied in place into the
+    device tensor `index` (token_qpos or lengths): each replay must equal
+    an eager call on the same inputs, so the kernel read nothing of
+    `index` on the host when it was captured."""
+    call()                              # the scratch exists before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for new in values:
+        index.copy_(new)
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"{label}: the graph replay differs from an "
+                                 f"eager call")
+    del graph
+    log(f"[graph] {label}: captured once, replayed with {len(values)} "
+        f"in-place changes, equal to eager calls")
+
+
 def blocked_plain_attention(ragged, torch):
     """The plain K1 over row blocks of PLAIN_ROW_BLOCK (its per-row
     context gather would not fit the card for a whole round)."""
@@ -384,6 +412,9 @@ def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
 
 def kernel_class(name: str) -> str:
     low = name.lower()
+    if "paged_attention_core" in low:     # the bf16 core: <D, kDecode>
+        return ("K4 paged_attention_decode" if "true>" in low
+                else "K1 ragged_paged_attention")
     if "paged_decode" in low or "decode_combine" in low:
         return "K4 paged_attention_decode"
     if any(w in low for w in ("ragged_tile", "ragged_fp32", "combine")):
@@ -706,8 +737,9 @@ def main() -> int:
                                             MAX_PAGES, *mix)
         qpos_d, lanes_d, tables_d = (x.to(dev)
                                      for x in (qpos, lanes, tables))
-        splits = ragged.num_splits(qpos.numel(), KVH, MAX_PAGES,
-                                   ragged.sm_count(dev))
+        grid = (ragged.grid_ctas(dev) if dtype == torch.bfloat16 else
+                ragged.num_splits(qpos.numel(), KVH, MAX_PAGES,
+                                  ragged.sm_count(dev)))
         q = torch.randn(qpos.numel(), H, D, generator=gen).to(dev, dtype)
         kp = torch.randn(KVH, N_PAGES, P, D, generator=gen).to(dev, dtype)
         vp = torch.randn(KVH, N_PAGES, P, D, generator=gen).to(dev, dtype)
@@ -724,12 +756,21 @@ def main() -> int:
         at = want.flatten()[diff.argmax()].float().abs().item()
         k1_err[dtype] = max(k1_err.get(dtype, 0.0), err)
         log(f"[k1] ragged_paged_attention {label} {str(dtype)[6:]} rows="
-            f"{qpos.numel()} splits={splits} ctx<=4096: max_abs_err "
+            f"{qpos.numel()} {'grid' if dtype == torch.bfloat16 else 'splits'}"
+            f"={grid} ctx<=4096: max_abs_err "
             f"{err:.3e} at |want| {at:.3f} ({tol})")
         del q, got, want
         if dtype == torch.bfloat16:
             uniform_check(ragged, plain_k1, torch, kp, vp, qpos_d, lanes_d,
                           tables_d, H, f"{label} ctx<=4096")
+            qg = torch.randn(qpos.numel(), H, D, generator=gen).to(dev, dtype)
+            deeper = torch.where(qpos_d >= 0, qpos_d + 1, qpos_d)
+            graph_replay_check(
+                torch, lambda: ragged.ragged_paged_attention(
+                    qg, kp, vp, qpos_d, lanes_d, tables_d), qpos_d,
+                [deeper, torch.full_like(qpos_d, -1), qpos_d.clone()],
+                f"K1 {label} round")
+            del qg
         del kp, vp
 
     # 6. K4 vs plain ---------------------------------------------------------
@@ -743,8 +784,9 @@ def main() -> int:
                                  (torch.float32, K4_FP32_TOL))):
         args = decode_case(torch, gen, dev, dtype, lens, N_PAGES, MAX_PAGES,
                            H, KVH, P, D)
-        splits = ragged.num_splits(len(lens), KVH, MAX_PAGES,
-                                   ragged.sm_count(dev))
+        grid = (ragged.grid_ctas(dev) if dtype == torch.bfloat16 else
+                ragged.num_splits(len(lens), KVH, MAX_PAGES,
+                                  ragged.sm_count(dev)))
         got = attention.paged_attention_decode(*args)
         want = attention.paged_attention_decode_ref(*args)
         torch.cuda.synchronize()
@@ -755,7 +797,8 @@ def main() -> int:
         err = (got.float() - want.float()).abs().max().item()
         k4_err[dtype] = max(k4_err.get(dtype, 0.0), err)
         log(f"[k4] paged_attention_decode {label} {str(dtype)[6:]} "
-            f"lanes={len(lens)} splits={splits} lengths={lens}: max_abs_err "
+            f"lanes={len(lens)} {'grid' if dtype == torch.bfloat16 else 'splits'}"
+            f"={grid} lengths={lens}: max_abs_err "
             f"{err:.3e} ({tol})")
         if dtype == torch.bfloat16:
             zq = (torch.zeros_like(args[0]),) + args[1:]
@@ -767,6 +810,11 @@ def main() -> int:
             log(f"[k4] {label} uniform attention (q = 0) bf16 vs fp32 plain: "
                 f"max_abs_err {(got.float() - want).abs().max().item():.3e} "
                 f"({K4_UNIFORM_TOL})")
+            lens_d = args[3]
+            graph_replay_check(
+                torch, lambda: attention.paged_attention_decode(*args),
+                lens_d, [lens_d.flip(0), torch.zeros_like(lens_d),
+                         lens_d.clone()], f"K4 {label} lanes")
         del args, got, want
 
     # 7. K5 / K6 vs plain ---------------------------------------------------

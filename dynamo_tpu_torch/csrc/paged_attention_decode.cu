@@ -13,38 +13,39 @@
 // kernel do. A lane with lengths[b] <= 0 (a padding lane) writes exact
 // zeros and reads no page (`_xla_decode` gives a uniform-softmax row there).
 //
-// Design:
-// - one CTA per (lane b, KV head g, split), 128 threads; all G query heads
-//   of the group in shared memory as fp32, pre-scaled by 1/sqrt(D), so each
-//   staged K/V page serves G heads;
-// - the CTA walks only the ceil(len/P) pages the lane can see (the TPU grid
-//   visits every pages_per_compute_block block of the table; `block_choice`
-//   is TPU tiling and is not carried over), a few pages per step: K and V
-//   rows converted to fp32 into shared rows padded to D+1 floats
-//   (conflict-free columns), one thread per (head, key) score, one warp per
-//   head for the online softmax, one thread per (head, d) accumulator;
-// - split-KV: an 8-lane burst at Llama-3-8B geometry is 64 (lane, KV head)
-//   pairs for 132 SMs, so each lane's visible pages are divided evenly
-//   among S splits, each split writes its (m, l, acc) to fp32 scratch and a
-//   second pass merges them (the model is K1's fp32 path,
-//   csrc/ragged_paged_attention.cu). With S = 1 the first pass writes the
-//   output itself.
-// bf16 K/V are read as 16-byte vectors and widened to fp32 on the way into
-// shared memory; the arithmetic is fp32 for both dtypes.
+// Two paths in one source:
+// - bf16 (the serving path): the shared core csrc/paged_attention.cuh at one
+//   row per lane (qpos = lengths[b] - 1, so a length-0 lane is a zero row):
+//   the G query heads of a KV head are the MMA rows of one tile, pages
+//   arrive by cp.async into an 8-stage mbarrier ring fed by a producer warp,
+//   the CTAs split the visible (lane, KV head, page) work evenly on the
+//   device and the last CTA of a split (lane, KV head) merges the pieces in
+//   the same launch. P is rounded to bf16 before P·V, as in K1.
+// - fp32 (the tests' exact path; no tensor-core type keeps fp32): one CTA
+//   per (lane b, KV head g, split), 128 threads; the G query heads in
+//   shared memory as fp32 pre-scaled by 1/sqrt(D); the CTA walks only the
+//   ceil(len/P) pages the lane can see (the TPU grid visits every
+//   pages_per_compute_block block of the table), a few pages per step as
+//   fp32 rows padded to D+1 floats, one thread per (head, key) score, one
+//   warp per head for the online softmax, one thread per (head, d)
+//   accumulator; each lane's pages divided evenly among S splits whose
+//   (m, l, acc) a second launch merges (S = 1: the first writes the output).
 //
 // Bound: bytes. Every visible K/V element is read once per (lane, KV head)
 // and used for 4 flops per query head, far below the card's flop/byte
-// ratio. Left for later: keeping bf16 in shared memory, more keys per step,
-// a persistent schedule.
+// ratio.
 //
-// Geometry the launcher takes: D·sizeof(T) a multiple of 16, dynamic shared
-// memory (2·G·D + 2·KEYS·(D+1) + G·KEYS + 3·G floats, KEYS = P·max(1, 32/P))
-// up to the card's 227 KB. The wrapper checks both.
+// Geometry the launcher takes: bf16 as the core (G <= 8, D in {16, 32, 64,
+// 96, 128}, P a power of two <= 64); fp32: D a multiple of 8 and dynamic
+// shared memory (2·G·D + 2·KEYS·(D+1) + G·KEYS + 3·G floats, KEYS =
+// P·max(1, 32/P)) up to the card's 227 KB. The wrapper checks both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "paged_attention.cuh"
 
 namespace {
 
@@ -53,9 +54,6 @@ constexpr int kCombineThreads = 128;
 constexpr int kStepKeys = 32;        // keys staged per step (at least a page)
 
 __device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
 
 // one 16-byte vector of T as fp32 values times `scale`
 __device__ __forceinline__ void widen(uint4 e, float* d, float scale,
@@ -64,19 +62,6 @@ __device__ __forceinline__ void widen(uint4 e, float* d, float scale,
   d[1] = __uint_as_float(e.y) * scale;
   d[2] = __uint_as_float(e.z) * scale;
   d[3] = __uint_as_float(e.w) * scale;
-}
-
-// bf16 -> fp32 is exact: the bf16 bits are the fp32 value's top half (the
-// lower element of each 32-bit word comes first in memory). Bit operations
-// on the words keep the vector in registers.
-__device__ __forceinline__ void widen(uint4 e, float* d, float scale,
-                                      const __nv_bfloat16*) {
-  const unsigned w[4] = {e.x, e.y, e.z, e.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    d[2 * i] = __uint_as_float(w[i] << 16) * scale;
-    d[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u) * scale;
-  }
 }
 
 // rows x cols contiguous T (a row a multiple of 16 bytes, 16-byte aligned)
@@ -299,11 +284,11 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
       sizeof(float) * (2 * (size_t)G * head_dim + 2 * keys * (head_dim + 1) +
                        (size_t)G * keys + 3 * (size_t)G);
   auto kernel = paged_decode_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  // the card's whole 227 KB, once per kernel instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<dim3(batch, n_kv_heads, n_splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, tables, static_cast<T*>(out),
@@ -325,28 +310,42 @@ extern "C" const char* error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k/v pages and out share it).
-// n_splits > 1 needs part_acc (batch*n_splits*n_heads*head_dim floats) and
-// part_ml (batch*n_splits*n_heads*2 floats) of scratch from the caller.
+// fp32: n_blocks is the split count S; S > 1 needs part (batch*S*n_heads*
+// head_dim floats) and part_ml (batch*S*n_heads*2 floats) of scratch.
+// bf16: n_blocks is the grid's CTA count n; part holds 2n partial slots of
+// 64*(head_dim+2) floats and counters batch*n_kv_heads ints, all 0 (the
+// kernel leaves them 0); part_ml is unused.
 extern "C" int paged_attention_decode_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const int* lengths, const int* page_tables, void* out, float* part_acc,
-    float* part_ml, int batch, int n_heads, int n_kv_heads, int n_pages,
-    int page_size, int head_dim, int max_pages, int n_splits, float scale,
-    int dtype, cudaStream_t stream) {
+    const int* lengths, const int* page_tables, void* out, float* part,
+    float* part_ml, int* counters, int batch, int n_heads, int n_kv_heads,
+    int n_pages, int page_size, int head_dim, int max_pages, int n_blocks,
+    float scale, int dtype, cudaStream_t stream) {
   if (batch == 0) return 0;
-  if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_splits < 1 ||
-      n_splits > 65535 || n_kv_heads > 65535 || page_size <= 0 ||
-      head_dim % 8 != 0)
+  if (dtype == 1) {
+    pa::Args a{};
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k_pages);
+    a.v = static_cast<const __nv_bfloat16*>(v_pages);
+    a.lengths = lengths;
+    a.tables = page_tables;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.part = part;
+    a.counters = counters;
+    a.rows = batch;
+    a.n_heads = n_heads;
+    a.n_kv_heads = n_kv_heads;
+    a.n_pages = n_pages;
+    a.page_size = page_size;
+    a.max_pages = max_pages;
+    return pa::launch<true>(a, head_dim, scale, n_blocks, stream);
+  }
+  if (dtype != 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
+      n_blocks < 1 || n_blocks > 65535 || n_kv_heads > 65535 ||
+      page_size <= 0 || head_dim % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, lengths, page_tables, out,
-                         part_acc, part_ml, batch, n_heads, n_kv_heads,
-                         n_pages, page_size, head_dim, max_pages, n_splits,
-                         scale, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, lengths, page_tables,
-                                 out, part_acc, part_ml, batch, n_heads,
-                                 n_kv_heads, n_pages, page_size, head_dim,
-                                 max_pages, n_splits, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(q, k_pages, v_pages, lengths, page_tables, out, part,
+                       part_ml, batch, n_heads, n_kv_heads, n_pages,
+                       page_size, head_dim, max_pages, n_blocks, scale,
+                       stream);
 }

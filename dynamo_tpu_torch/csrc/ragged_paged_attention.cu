@@ -11,71 +11,53 @@
 // Both paths walk only the pages a row can see, where the TPU grid visits
 // every max_pages/ppcb block (masked blocks contribute exactly zero there,
 // so the result is the same). The TPU's sequential grid carries the
-// softmax state across blocks; here a loop inside the CTA does. Both use
-// split-KV when the grid cannot fill the card (a decode round of 8 rows is
-// 64 (row, KV head) pairs for 132 SMs): each row's visible pages are
-// divided evenly among S splits, each split writes its (m, l, acc) to
-// scratch, and a second pass merges them. With S = 1 the first pass
-// writes the output itself.
+// softmax state across blocks; here a loop inside the CTA does.
 //
-// bf16 (the serving path): tensor cores, FlashAttention-2 style.
-// - one CTA per (tile, KV head g, split): a tile is up to 16 consecutive
-//   rows of one lane, inside one 16-row aligned block (a prefill chunk's
-//   rows share their lane's pages, so each page is loaded once per tile
-//   and not once per row; a decode row is a tile of its own). The grid
-//   has one x per row; a CTA whose row does not start a tile exits.
-// - one warp per query head of the group (G = H/KVH <= 8 warps). The warp
-//   holds its 16 query rows as mma A fragments in registers, computes
-//   S = QK^T and O += PV with mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate), keeps the online softmax (m, l) of its two rows per
-//   thread in fp32 registers, and rounds P to bf16 for PV.
-// - K and V are staged in 64-key steps (64/P pages) into shared memory
-//   rows padded by 16 bytes (conflict-free fragment loads), by cp.async,
-//   double-buffered: the next step's pages load while this one computes.
-//   Keys past the split's last page are zero-filled and masked.
+// bf16 (the serving path): the shared core csrc/paged_attention.cuh. A
+// tile is a run of up to 64/G consecutive rows of one lane (a prefill
+// chunk's rows share their lane's pages) and its rows x G query heads are
+// the MMA rows, so a decode row is G live rows and a 16-row chunk tile at
+// G = 4 fills four m16 tiles; pages arrive by cp.async into an 8-stage
+// mbarrier ring fed by a producer warp and stay bf16 in shared memory; the
+// CTAs
+// split the visible (tile, KV head, page) work evenly on the device, in
+// decode and mixed rounds alike, and the last CTA of a split item merges
+// its pieces in the same launch. One launch per call, no host read of
+// token_qpos or token_lanes.
 // fp32 (the tests' exact path; no tensor-core type keeps fp32 precision):
 // - one CTA per (row t, KV head g, split), 128 threads; the G query heads
 //   in shared memory as fp32 pre-scaled by 1/sqrt(D); kPagesPerStep pages
 //   per step staged as fp32 rows padded to D+1 floats, one thread per
 //   (head, key) score, one warp per head for the softmax, one thread per
-//   (head, d) accumulator.
-// Epilogues write acc / l when l > 0, else 0: padding rows (qpos < 0)
-// write exact zeros and read no page.
+//   (head, d) accumulator; split-KV when the grid cannot fill the card
+//   (each split writes (m, l, acc) to scratch and a second launch merges
+//   them; with S = 1 the first launch writes the output).
+// Padding rows (qpos < 0) write exact zeros and read no page.
 //
 // Bound: bytes at decode (each visible K/V element is read once per (row,
 // KV head) and used for 4 flops per query head); at prefill the tile
 // shares each page across its rows, and the bf16 path moves the flops to
-// tensor cores. Left for later: wgmma/TMA, a persistent schedule, tiles
-// that span more rows.
+// tensor cores.
 //
-// Geometry the launcher takes: bf16 — G <= 8, D in {16, 32, 64, 128}, P a
-// power of two dividing 64; fp32 — D a multiple of 4 and dynamic shared
-// memory (2·G·D + 2·KEYS·(D+1) + G·KEYS + 3·G floats, KEYS =
-// kPagesPerStep·P) up to the card's 227 KB.
+// Geometry the launcher takes: bf16 as the core (G <= 8, D in {16, 32,
+// 64, 96, 128}, P a power of two <= 64); fp32: D a multiple of 4 and
+// dynamic shared memory (2·G·D + 2·KEYS·(D+1) + G·KEYS + 3·G floats, KEYS
+// = kPagesPerStep·P) up to the card's 227 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "paged_attention.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kPagesPerStep = 2;
 constexpr int kCombineThreads = 128;
-// bf16 tensor-core path
-constexpr int kTileRows = 16;        // mma M
-constexpr int kStepKeys = 64;        // keys staged per step
-constexpr int kMaxGroup = 8;         // query heads per KV head (warps)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void store_f32(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
 
 // rows x cols contiguous floats (cols a multiple of 4, 16-byte aligned)
 // from global memory into shared rows of `stride` floats, times `scale`.
@@ -284,346 +266,6 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 tensor-core path
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);   // 2 bf16, 4-byte aligned
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// c += a · b for one m16n8k16 tile: a row-major 16x16, b column-major
-// 16x8 (so b's pairs run along k), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes global -> shared without registers; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Fragment ownership (PTX m16n8k16): thread `lane` of a warp is quad row
-// gid = lane/4 and column pair tig = lane%4; it holds accumulator rows gid
-// and gid+8, columns 2·tig and 2·tig+1 of each 8-wide n tile.
-template <int D>
-__global__ void __launch_bounds__(32 * kMaxGroup)
-    ragged_tile_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k_pages,
-                            const __nv_bfloat16* __restrict__ v_pages,
-                            const int* __restrict__ token_qpos,
-                            const int* __restrict__ token_lanes,
-                            const int* __restrict__ lane_tables,
-                            __nv_bfloat16* __restrict__ out,
-                            float* __restrict__ part_acc,
-                            float* __restrict__ part_ml, int rows,
-                            int n_heads, int n_kv_heads, int n_pages,
-                            int page_size, int max_pages, float scale_log2) {
-  constexpr int KS = D + 8;             // padded smem row, in bf16
-  constexpr int kChunks = D / 8;        // 16-byte chunks per row
-  constexpr int kKT = D / 16;           // mma k tiles over D
-  constexpr int kNT = kStepKeys / 8;    // score n tiles per step
-  constexpr int kDT = D / 8;            // output n tiles over D
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  // Does row t start a tile? Rows of one lane, within one aligned block.
-  const int t = blockIdx.x;
-  const int lane_id = token_lanes[t];
-  if (t % kTileRows != 0 && token_lanes[t - 1] == lane_id) return;
-  int n_rows = 1;
-  while (n_rows < kTileRows && t + n_rows < rows &&
-         (t + n_rows) % kTileRows != 0 && token_lanes[t + n_rows] == lane_id)
-    ++n_rows;
-  int max_qpos = -1;
-  for (int i = 0; i < n_rows; ++i)
-    max_qpos = max(max_qpos, token_qpos[t + i]);
-
-  const int g = blockIdx.y;
-  const int split = blockIdx.z;
-  const int n_splits = gridDim.z;
-  const int P = page_size;
-  const int G = n_heads / n_kv_heads;
-  const int warp = threadIdx.x >> 5;
-  const int gid = (threadIdx.x & 31) >> 2;
-  const int tig = threadIdx.x & 3;
-  const int h = g * G + warp;
-  const int r0 = gid, r1 = gid + 8;     // this thread's two tile rows
-  const bool in0 = r0 < n_rows, in1 = r1 < n_rows;
-  const int qp0 = in0 ? token_qpos[t + r0] : -1;
-  const int qp1 = in1 ? token_qpos[t + r1] : -1;
-
-  const int visible = max_qpos < 0 ? 0 : min(max_qpos / P + 1, max_pages);
-  const int per_split = (visible + n_splits - 1) / n_splits;
-  const int page_begin = min(visible, split * per_split);
-  const int page_end = min(visible, page_begin + per_split);
-  const int pages_per_step = kStepKeys / P;
-  const int n_steps = (page_end - page_begin + pages_per_step - 1) /
-                      pages_per_step;
-  const int* table = lane_tables + (size_t)lane_id * max_pages;
-
-  // stage step s's K and V rows into buffer s & 1 (zero past page_end)
-  auto load_step = [&](int s) {
-    const int j0 = page_begin + s * pages_per_step;
-    const int n_live = min(pages_per_step, page_end - j0);
-    __nv_bfloat16* ks = kv_s + (size_t)(s & 1) * 2 * kStepKeys * KS;
-    __nv_bfloat16* vs = ks + kStepKeys * KS;
-    for (int i = threadIdx.x; i < kStepKeys * kChunks; i += blockDim.x) {
-      const int key = i / kChunks;
-      const int c = i - key * kChunks;
-      const int pi = key / P;
-      size_t src = 0;
-      if (pi < n_live)
-        src = (((size_t)g * n_pages + table[j0 + pi]) * P + (key - pi * P)) *
-                  D + c * 8;
-      const int bytes = pi < n_live ? 16 : 0;
-      cp_async16(ks + key * KS + c * 8, k_pages + src, bytes);
-      cp_async16(vs + key * KS + c * 8, v_pages + src, bytes);
-    }
-    cp_async_commit();
-  };
-  if (n_steps > 0) load_step(0);
-
-  // this warp's query rows as A fragments (rows past the tile are zero)
-  uint32_t qf[kKT][4];
-  const __nv_bfloat16* q0 =
-      q + ((size_t)(t + (in0 ? r0 : 0)) * n_heads + h) * D;
-  const __nv_bfloat16* q1 =
-      q + ((size_t)(t + (in1 ? r1 : 0)) * n_heads + h) * D;
-#pragma unroll
-  for (int kt = 0; kt < kKT; ++kt) {
-    const int c = kt * 16 + tig * 2;
-    qf[kt][0] = in0 ? ld_pair(q0 + c) : 0u;
-    qf[kt][1] = in1 ? ld_pair(q1 + c) : 0u;
-    qf[kt][2] = in0 ? ld_pair(q0 + c + 8) : 0u;
-    qf[kt][3] = in1 ? ld_pair(q1 + c + 8) : 0u;
-  }
-
-  float o[kDT][4];
-#pragma unroll
-  for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 units
-  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sum
-
-  for (int s = 0; s < n_steps; ++s) {
-    if (s + 1 < n_steps) {
-      load_step(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* ks = kv_s + (size_t)(s & 1) * 2 * kStepKeys * KS;
-    const __nv_bfloat16* vs = ks + kStepKeys * KS;
-    const int j0 = page_begin + s * pages_per_step;
-    const int key0 = j0 * P;                       // kv position of key 0
-    const int n_keys = min(pages_per_step, page_end - j0) * P;
-
-    // S = Q K^T over this step's keys
-    float sc[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (nt * 8 + gid) * KS + tig * 2;
-#pragma unroll
-      for (int kt = 0; kt < kKT; ++kt)
-        mma_bf16(sc[nt], qf[kt], ld_pair(kr + kt * 16),
-                 ld_pair(kr + kt * 16 + 8));
-    }
-    // scale to log2 units, mask kvpos <= qpos and keys past the split
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = nt * 8 + tig * 2 + e;
-        const bool live = key < n_keys;
-        const int kv = key0 + key;
-        sc[nt][e] = live && kv <= qp0 ? sc[nt][e] * scale_log2 : -INFINITY;
-        sc[nt][2 + e] =
-            live && kv <= qp1 ? sc[nt][2 + e] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, sc[nt][e]);
-        mx1 = fmaxf(mx1, sc[nt][2 + e]);
-      }
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float base0 = mn0 == -INFINITY ? 0.f : mn0;   // no key seen yet
-    const float base1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float alpha0 = exp2f(m0 - base0);             // m = -inf -> 0
-    const float alpha1 = exp2f(m1 - base1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      sc[nt][0] = exp2f(sc[nt][0] - base0);
-      sc[nt][1] = exp2f(sc[nt][1] - base0);
-      sc[nt][2] = exp2f(sc[nt][2] - base1);
-      sc[nt][3] = exp2f(sc[nt][3] - base1);
-      rs0 += sc[nt][0] + sc[nt][1];
-      rs1 += sc[nt][2] + sc[nt][3];
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int n = 0; n < kDT; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
-    }
-    // O += P V: two score n tiles form one A fragment over 16 keys
-#pragma unroll
-    for (int kk = 0; kk < kStepKeys / 16; ++kk) {
-      const uint32_t pa[4] = {pack_f32(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_f32(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_f32(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_f32(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const __nv_bfloat16* vk = vs + (kk * 16 + tig * 2) * KS + gid;
-#pragma unroll
-      for (int n = 0; n < kDT; ++n) {
-        const __nv_bfloat16* vc = vk + n * 8;
-        mma_bf16(o[n], pa, pack_bf16(vc[0], vc[KS]),
-                 pack_bf16(vc[8 * KS], vc[9 * KS]));
-      }
-    }
-    __syncthreads();   // buffer s & 1 is refilled by step s + 2's load
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  if (n_splits == 1) {
-    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-    const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-    __nv_bfloat16* out0 = out + ((size_t)(t + r0) * n_heads + h) * D;
-    __nv_bfloat16* out1 = out + ((size_t)(t + r1) * n_heads + h) * D;
-#pragma unroll
-    for (int n = 0; n < kDT; ++n) {
-      const int c = n * 8 + tig * 2;
-      if (in0)
-        *reinterpret_cast<__nv_bfloat162*>(out0 + c) =
-            __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-      if (in1)
-        *reinterpret_cast<__nv_bfloat162*>(out1 + c) =
-            __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
-    }
-    return;
-  }
-  // partials (natural-log units for the combine pass): acc (T, S, H, D),
-  // (m, l) (T, S, H, 2)
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (!(half ? in1 : in0)) continue;
-    const size_t p0 = ((size_t)(t + r) * n_splits + split) * n_heads + h;
-    float* acc = part_acc + p0 * D;
-#pragma unroll
-    for (int n = 0; n < kDT; ++n) {
-      const int c = n * 8 + tig * 2;
-      *reinterpret_cast<float2*>(acc + c) =
-          make_float2(o[n][2 * half], o[n][2 * half + 1]);
-    }
-    if (tig == 0) {
-      const float m = half ? m1 : m0;
-      part_ml[p0 * 2] = m == -INFINITY ? -INFINITY : m * kLn2;
-      part_ml[p0 * 2 + 1] = half ? l1 : l0;
-    }
-  }
-}
-
-template <int D>
-int launch_tile_bf16(const void* q, const void* k, const void* v,
-                     const int* qpos, const int* lanes, const int* tables,
-                     void* out, float* part_acc, float* part_ml, int rows,
-                     int n_heads, int n_kv_heads, int n_pages, int page_size,
-                     int max_pages, int n_splits, float scale,
-                     cudaStream_t stream) {
-  const int G = n_heads / n_kv_heads;
-  const size_t smem = sizeof(__nv_bfloat16) * 2 * 2 * kStepKeys * (D + 8);
-  auto kernel = ragged_tile_bf16_kernel<D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<dim3(rows, n_kv_heads, n_splits), 32 * G, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), qpos, lanes, tables,
-      static_cast<__nv_bfloat16*>(out), part_acc, part_ml, rows, n_heads,
-      n_kv_heads, n_pages, page_size, max_pages, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_bf16(const void* q, const void* k, const void* v, const int* qpos,
-                const int* lanes, const int* tables, void* out,
-                float* part_acc, float* part_ml, int rows, int n_heads,
-                int n_kv_heads, int n_pages, int page_size, int head_dim,
-                int max_pages, int n_splits, float scale,
-                cudaStream_t stream) {
-  const int G = n_heads / n_kv_heads;
-  if (G > kMaxGroup || page_size <= 0 || page_size > kStepKeys ||
-      kStepKeys % page_size != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto run = [&](auto d) {
-    return launch_tile_bf16<decltype(d)::value>(
-        q, k, v, qpos, lanes, tables, out, part_acc, part_ml, rows, n_heads,
-        n_kv_heads, n_pages, page_size, max_pages, n_splits, scale, stream);
-  };
-  int err;
-  switch (head_dim) {
-    case 16: err = run(std::integral_constant<int, 16>{}); break;
-    case 32: err = run(std::integral_constant<int, 32>{}); break;
-    case 64: err = run(std::integral_constant<int, 64>{}); break;
-    case 128: err = run(std::integral_constant<int, 128>{}); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != 0 || n_splits == 1) return err;
-  combine_splits_kernel<__nv_bfloat16>
-      <<<dim3(rows, n_heads), kCombineThreads, sizeof(float) * n_splits,
-         stream>>>(part_acc, part_ml, qpos, static_cast<__nv_bfloat16*>(out),
-                   n_heads, head_dim, n_splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int launch_fp32(const void* q, const void* k, const void* v, const int* qpos,
                 const int* lanes, const int* tables, void* out,
                 float* part_acc, float* part_ml, int rows, int n_heads,
@@ -636,11 +278,11 @@ int launch_fp32(const void* q, const void* k, const void* v, const int* qpos,
       sizeof(float) * (2 * (size_t)G * head_dim + 2 * keys * (head_dim + 1) +
                        (size_t)G * keys + 3 * (size_t)G);
   auto kernel = ragged_fp32_kernel;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  // the card's whole 227 KB, once per kernel instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(rows, n_kv_heads, n_splits);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -664,27 +306,43 @@ extern "C" const char* error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k/v pages and out share it).
-// n_splits > 1 needs part_acc (rows*n_splits*n_heads*head_dim floats) and
-// part_ml (rows*n_splits*n_heads*2 floats) of scratch from the caller.
+// fp32: n_blocks is the split count S; S > 1 needs part (rows*S*n_heads*
+// head_dim floats) and part_ml (rows*S*n_heads*2 floats) of scratch.
+// bf16: n_blocks is the grid's CTA count n; part holds 2n partial slots of
+// 64*(head_dim+2) floats and counters rows*n_kv_heads ints, all 0 (the
+// kernel leaves them 0); part_ml is unused.
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const int* token_qpos, const int* token_lanes, const int* lane_tables,
-    void* out, float* part_acc, float* part_ml, int rows, int n_heads,
-    int n_kv_heads, int n_pages, int page_size, int head_dim, int max_pages,
-    int n_splits, float scale, int dtype, cudaStream_t stream) {
+    void* out, float* part, float* part_ml, int* counters, int rows,
+    int n_heads, int n_kv_heads, int n_pages, int page_size, int head_dim,
+    int max_pages, int n_blocks, float scale, int dtype,
+    cudaStream_t stream) {
   if (rows == 0) return 0;
-  if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_splits < 1 ||
-      n_splits > 65535)
+  if (dtype == 1) {
+    pa::Args a{};
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k_pages);
+    a.v = static_cast<const __nv_bfloat16*>(v_pages);
+    a.qpos = token_qpos;
+    a.lanes = token_lanes;
+    a.tables = lane_tables;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.part = part;
+    a.counters = counters;
+    a.rows = rows;
+    a.n_heads = n_heads;
+    a.n_kv_heads = n_kv_heads;
+    a.n_pages = n_pages;
+    a.page_size = page_size;
+    a.max_pages = max_pages;
+    return pa::launch<false>(a, head_dim, scale, n_blocks, stream);
+  }
+  if (dtype != 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
+      n_blocks < 1 || n_blocks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch_fp32(q, k_pages, v_pages, token_qpos, token_lanes,
-                       lane_tables, out, part_acc, part_ml, rows, n_heads,
-                       n_kv_heads, n_pages, page_size, head_dim, max_pages,
-                       n_splits, scale, stream);
-  if (dtype == 1)
-    return launch_bf16(q, k_pages, v_pages, token_qpos, token_lanes,
-                       lane_tables, out, part_acc, part_ml, rows, n_heads,
-                       n_kv_heads, n_pages, page_size, head_dim, max_pages,
-                       n_splits, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fp32(q, k_pages, v_pages, token_qpos, token_lanes,
+                     lane_tables, out, part, part_ml, rows, n_heads,
+                     n_kv_heads, n_pages, page_size, head_dim, max_pages,
+                     n_blocks, scale, stream);
 }

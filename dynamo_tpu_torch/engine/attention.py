@@ -5,7 +5,9 @@ Port of `dynamo_tpu/engine/attention.py`: its `_NEG_INF` mask convention
 XLA in the reference, plain PyTorch here — and the two kernel entries:
 - K4 `paged_attention_decode` (`:178`): one query token per lane, the
   decode burst's hot loop. CUDA tensors launch the hand-written kernel
-  `csrc/paged_attention_decode.cu`; CPU tensors run
+  `csrc/paged_attention_decode.cu` (bf16: the paged-attention core shared
+  with K1, `csrc/paged_attention.cuh`, at one row per lane; fp32: a CTA
+  per (lane, KV head, split) and a merge launch); CPU tensors run
   `paged_attention_decode_ref`, the port of the reference's plain version
   `_xla_decode` (`:197`).
 - K1 `ragged_attention` (`:236`), the ragged step's entry
@@ -36,6 +38,13 @@ from typing import Optional
 import torch
 
 from dynamo_tpu_torch.engine.cuda_build import CudaKernel
+from dynamo_tpu_torch.engine.paged_core import (
+    core_scratch,
+    core_supported,
+    grid_ctas,
+    num_splits,
+    sm_count,
+)
 
 # finite "minus infinity" for masked scores: exp(_NEG_INF - m) is exactly
 # 0 in fp32, and a fully masked row never produces inf - inf
@@ -45,13 +54,13 @@ _c = ctypes
 _DECODE_KERNEL = CudaKernel("paged_attention_decode", [
     _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q k_pages v_pages
     _c.c_void_p, _c.c_void_p,                            # lengths tables
-    _c.c_void_p, _c.c_void_p, _c.c_void_p,               # out part_acc/ml
+    _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # out part ml ctrs
     _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B H KVH N P
-    _c.c_int, _c.c_int, _c.c_int,                        # D max_pages S
+    _c.c_int, _c.c_int, _c.c_int,                        # D max_pages n
     _c.c_float, _c.c_int, _c.c_void_p])                  # scale dtype stream
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 227 * 1024
-DECODE_STEP_KEYS = 32       # kStepKeys in the source: keys staged per step
+DECODE_STEP_KEYS = 32       # kStepKeys in the source (fp32 path)
 
 
 def visible_pages(lengths: torch.Tensor, page_size: int,
@@ -158,12 +167,16 @@ def paged_attention_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
 def decode_supported(n_heads: int, n_kv_heads: int, page_size: int,
                      head_dim: int, dtype: torch.dtype) -> bool:
     """Geometry the K4 kernel takes (it replaces the TPU gate `head_dim %
-    128 == 0`, `attention.py:190`): whole GQA groups; fp32 or bf16;
-    head_dim a multiple of 8 (16-byte vectors of either dtype); shared
-    memory for the group's queries and one step of K/V that fits a CTA."""
+    128 == 0`, `attention.py:190`): whole GQA groups; bf16 — the core's
+    gate (`paged_core.core_supported`: at most 8 query heads per KV head,
+    a built head_dim, a power-of-two page of at most 64 keys); fp32 —
+    head_dim a multiple of 8 (16-byte vectors) and shared memory for the
+    group's queries and one step of K/V that fits a CTA."""
     if dtype not in _DTYPE_CODES or n_kv_heads <= 0 or page_size <= 0 \
             or n_heads % n_kv_heads or head_dim % 8:
         return False
+    if dtype == torch.bfloat16:
+        return core_supported(n_heads, n_kv_heads, page_size, head_dim)
     g = n_heads // n_kv_heads
     keys = max(1, DECODE_STEP_KEYS // page_size) * page_size
     smem = 4 * (2 * g * head_dim + 2 * keys * (head_dim + 1) + g * keys
@@ -183,8 +196,6 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_attention_decode: unsupported device {q.device}")
-    from dynamo_tpu_torch.engine.ragged import num_splits, sm_count
-
     kvh, n_pages, p, d = k_pages.shape
     b, h, qd = q.shape
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
@@ -206,19 +217,28 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(
             f"paged_attention_decode: unsupported geometry H={h} KVH={kvh} "
             f"P={p} D={d} dtype={q.dtype}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention_decode: k_pages and v_pages must "
+                         "be 16-byte aligned")
     out = torch.empty_like(q)
     max_pages = page_tables.shape[1]
-    splits = num_splits(b, kvh, max_pages, sm_count(q.device))
-    # split-KV scratch: per split (m, l) and un-normalised acc, fp32
-    part_acc = torch.empty((b * splits * h * d) if splits > 1 else 0,
-                           dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b * splits * h * 2) if splits > 1 else 0,
-                          dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        # the core: a fixed grid, persistent partial slots and counters
+        blocks = grid_ctas(q.device)
+        part, counters = core_scratch(q.device, blocks, d, b * kvh)
+        ptrs = (part.data_ptr(), 0, counters.data_ptr())
+    else:
+        blocks = num_splits(b, kvh, max_pages, sm_count(q.device))
+        # split-KV scratch: per split (m, l) and un-normalised acc, fp32
+        part_acc = torch.empty((b * blocks * h * d) if blocks > 1 else 0,
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b * blocks * h * 2) if blocks > 1 else 0,
+                              dtype=torch.float32, device=q.device)
+        ptrs = (part_acc.data_ptr(), part_ml.data_ptr(), 0)
     _DECODE_KERNEL(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                    lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
-                   part_acc.data_ptr(), part_ml.data_ptr(), b, h, kvh,
-                   n_pages, p, d, max_pages, splits, 1.0 / math.sqrt(d),
-                   _DTYPE_CODES[q.dtype],
+                   *ptrs, b, h, kvh, n_pages, p, d, max_pages, blocks,
+                   1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
                    torch.cuda.current_stream(q.device).cuda_stream)
     return out
 

@@ -11,10 +11,13 @@ Mask convention: a row with `qpos` attends KV positions `s <= qpos`
 Padding rows carry `qpos = -1` and output exactly zero.
 
 On CUDA tensors `ragged_paged_attention` launches the hand-written kernel
-`csrc/ragged_paged_attention.cu` (bf16: tensor cores over tiles of up to
-16 rows of one lane; fp32: one CTA per (row, KV head); both with an fp32
-online softmax over only the pages a row can see, and split-KV when the
-grid is too small for the card; see the source); on CPU
+`csrc/ragged_paged_attention.cu` (bf16: the paged-attention core shared
+with K4, `csrc/paged_attention.cuh` — tiles of up to 64/G rows of one lane
+on tensor cores, pages by cp.async through an mbarrier ring, the visible
+work split evenly over a fixed grid on the device and merged in the same
+launch; fp32: one CTA per (row, KV head, split) and a merge launch; both
+with an fp32 online softmax over only the pages a row can see; see the
+sources); on CPU
 tensors it runs `ragged_attention_ref`, the plain version — a port of
 `dynamo_tpu/engine/ragged.py:53` `ragged_attention_xla`, i.e. the decode
 reference `_xla_decode` (`dynamo_tpu/engine/attention.py:197`) applied per
@@ -25,47 +28,32 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from dynamo_tpu_torch.engine.attention import _NEG_INF
 from dynamo_tpu_torch.engine.cuda_build import CudaKernel
+from dynamo_tpu_torch.engine.paged_core import (
+    core_scratch,
+    core_supported,
+    grid_ctas,
+    num_splits,
+    sm_count,
+)
 
 _c = ctypes
 _KERNEL = CudaKernel("ragged_paged_attention", [
     _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q k_pages v_pages
     _c.c_void_p, _c.c_void_p, _c.c_void_p,               # qpos lanes tables
-    _c.c_void_p, _c.c_void_p, _c.c_void_p,               # out part_acc/ml
+    _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # out part ml ctrs
     _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # T H KVH N P
-    _c.c_int, _c.c_int, _c.c_int,                        # D max_pages S
+    _c.c_int, _c.c_int, _c.c_int,                        # D max_pages n
     _c.c_float, _c.c_int, _c.c_void_p])                  # scale dtype stream
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 227 * 1024
 PAGES_PER_STEP = 2          # kPagesPerStep in the source (fp32 path)
-BF16_HEAD_DIMS = (16, 32, 64, 128)   # tile widths built (bf16 path)
-BF16_MAX_GROUP = 8          # kMaxGroup: one warp per query head
-BF16_STEP_KEYS = 64         # kStepKeys: keys staged per step
-# split-KV: aim for this many CTAs per SM when (rows x KV heads) is small,
-# with at least MIN_PAGES_PER_SPLIT pages of the table per split
-CTAS_PER_SM = 4
-MIN_PAGES_PER_SPLIT = 2
-MAX_SPLITS = 32
-
-
-def num_splits(rows: int, n_kv_heads: int, max_pages: int,
-               n_sms: int) -> int:
-    """Splits per (row, KV head): 1 when the grid already fills the card,
-    else enough to give it CTAS_PER_SM CTAs per SM. Rows divide their own
-    visible pages among the splits, so short rows leave splits empty."""
-    base = max(rows * n_kv_heads, 1)
-    want = CTAS_PER_SM * n_sms
-    if base >= want:
-        return 1
-    return max(1, min(-(-want // base), max_pages // MIN_PAGES_PER_SPLIT,
-                      MAX_SPLITS))
 
 
 def ragged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -107,9 +95,9 @@ def ragged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
 def ragged_supported(n_heads: int, n_kv_heads: int, page_size: int,
                      head_dim: int, dtype: torch.dtype) -> bool:
     """Geometry the CUDA kernel takes (replaces the TPU tiling gate
-    `dynamo_tpu/engine/ragged.py:47`): whole GQA groups; bf16 (tensor
-    cores) — at most 8 query heads per KV head, head_dim one of the
-    built tile widths, a power-of-two page size dividing the 64-key step;
+    `dynamo_tpu/engine/ragged.py:47`): whole GQA groups; bf16 — the
+    core's gate (`paged_core.core_supported`: at most 8 query heads per
+    KV head, a built head_dim, a power-of-two page of at most 64 keys);
     fp32 — a head_dim that is a multiple of the 16-byte vector width and
     shared memory that fits one CTA."""
     if dtype not in _DTYPE_CODES or n_kv_heads <= 0 \
@@ -117,9 +105,7 @@ def ragged_supported(n_heads: int, n_kv_heads: int, page_size: int,
         return False
     g = n_heads // n_kv_heads
     if dtype == torch.bfloat16:
-        return (g <= BF16_MAX_GROUP and head_dim in BF16_HEAD_DIMS
-                and 0 < page_size <= BF16_STEP_KEYS
-                and BF16_STEP_KEYS % page_size == 0)
+        return core_supported(n_heads, n_kv_heads, page_size, head_dim)
     keys = PAGES_PER_STEP * page_size
     smem = 4 * (2 * g * head_dim + 2 * keys * (head_dim + 1)
                 + g * keys + 3 * g)
@@ -164,24 +150,29 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(
             f"ragged_paged_attention: unsupported geometry H={h} KVH={kvh} "
             f"P={p} D={d} dtype={q.dtype}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("ragged_paged_attention: k_pages and v_pages must "
+                         "be 16-byte aligned")
     out = torch.empty_like(q)
     max_pages = lane_tables.shape[1]
-    splits = num_splits(t, kvh, max_pages, sm_count(q.device))
-    # split-KV scratch: per split (m, l) and un-normalised acc, fp32
-    part_acc = torch.empty((t * splits * h * d) if splits > 1 else 0,
-                           dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((t * splits * h * 2) if splits > 1 else 0,
-                          dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        # the core: a fixed grid, persistent partial slots and counters
+        blocks = grid_ctas(q.device)
+        part, counters = core_scratch(q.device, blocks, d, t * kvh)
+        ptrs = (part.data_ptr(), 0, counters.data_ptr())
+    else:
+        blocks = num_splits(t, kvh, max_pages, sm_count(q.device))
+        # split-KV scratch: per split (m, l) and un-normalised acc, fp32
+        part_acc = torch.empty((t * blocks * h * d) if blocks > 1 else 0,
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((t * blocks * h * 2) if blocks > 1 else 0,
+                              dtype=torch.float32, device=q.device)
+        ptrs = (part_acc.data_ptr(), part_ml.data_ptr(), 0)
     _KERNEL(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             token_qpos.data_ptr(), token_lanes.data_ptr(),
-            lane_tables.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), t, h, kvh, n_pages, p, d, max_pages, splits,
-            1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
+            lane_tables.data_ptr(), out.data_ptr(), *ptrs, t, h, kvh,
+            n_pages, p, d, max_pages, blocks, 1.0 / math.sqrt(d),
+            _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     return out
-
-
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 

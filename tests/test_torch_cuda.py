@@ -16,9 +16,9 @@ both sides round the output to bf16 once, with atol 4e-3 (2^-8) for rows
 whose output is small beside its V values. With q = 0 every score is 0
 and P = 1 is exact in bf16, so the bf16 kernel's output is each row's
 fp32 mean of the V rows it can see, rounded once: held to the fp32 plain
-version at rtol 4e-3 (half a bf16 ulp), atol 1e-5. K4 in bf16 is held to
-K1's bf16 tolerances (it computes in fp32 and rounds once, so it sits well
-inside them), and with q = 0 to the same half ulp. K5 and K6 (the A8
+version at rtol 4e-3 (half a bf16 ulp), atol 1e-5. K4 in bf16 runs K1's
+core at one row per lane (it rounds P the same way) and is held to the
+same tolerances. K5 and K6 (the A8
 GEMMs) compute an exact int32 product between two roundings that both
 sides make alike: bit-identical with their plain versions.
 """
@@ -325,6 +325,225 @@ def test_k4_kernel_rejects_unsupported_geometry(cuda_device):
     tables = torch.zeros(2, 2, device=cuda_device, dtype=torch.int32)
     with pytest.raises(ValueError):
         attention.paged_attention_decode(q, kp, kp, lengths, tables)
+
+
+# --- the bf16 paged-attention core (csrc/paged_attention.cuh), K1 and K4 ---
+# Cases its device-side work split makes risky, each against the plain
+# version (BF16_TOL), with q = 0 against the fp32 plain version
+# (UNIFORM_TOL: a dropped or doubled page, split piece or masked key shows)
+# and exact zeros on padding rows and length-0 lanes.
+
+def _pages(gen, kvh, n_pages, p, d, dev):
+    return [torch.randn(kvh, n_pages, p, d, generator=gen)
+            .to(dev, torch.bfloat16) for _ in range(2)]
+
+
+def _blocked_ref(q, k, v, qpos, lanes, tables):
+    """The plain K1 in fp32 over blocks of 64 rows (it gathers whole
+    contexts per row)."""
+    return torch.cat([ragged.ragged_attention_ref(
+        q[i:i + 64].float(), k.float(), v.float(), qpos[i:i + 64],
+        lanes[i:i + 64], tables) for i in range(0, q.shape[0], 64)])
+
+
+def _check_core_k1(gen, dev, h, kvh, d, p, qpos, lanes, tables):
+    """K1 bf16 on these rows: random q against the plain version, q = 0
+    against the fp32 plain version, padding rows exactly 0."""
+    n_pages = int(tables.max()) + 1
+    k, v = _pages(gen, kvh, n_pages, p, d, dev)
+    rest = [torch.tensor(qpos, dtype=torch.int32).to(dev),
+            torch.tensor(lanes, dtype=torch.int32).to(dev), tables.to(dev)]
+    pad = rest[0] < 0
+    for zero_q in (False, True):
+        q = torch.zeros(len(qpos), h, d) if zero_q else \
+            torch.randn(len(qpos), h, d, generator=gen)
+        q = q.to(dev, torch.bfloat16)
+        got = ragged.ragged_paged_attention(q, k, v, *rest)
+        want = _blocked_ref(q, k, v, *rest)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want,
+                                   **(UNIFORM_TOL if zero_q else BF16_TOL))
+        assert torch.all(got[pad] == 0)
+
+
+def _check_core_k4(gen, dev, h, kvh, d, p, lengths, max_pages):
+    """K4 bf16 on these lanes, as `_check_core_k1`."""
+    for zero_q in (False, True):
+        args = _decode_args(gen, dev, torch.bfloat16, len(lengths), h, kvh,
+                            p, d, lengths, max_pages, zero_q=zero_q)
+        got = attention.paged_attention_decode(*args)
+        want = attention.paged_attention_decode_ref(
+            *[a.float() if a.is_floating_point() else a for a in args])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want,
+                                   **(UNIFORM_TOL if zero_q else BF16_TOL))
+        assert torch.all(got[args[3] <= 0] == 0)
+
+
+def _decode_rows(lengths, max_pages, gen):
+    """K1 rows of decode lanes: row b is lane b at position lengths[b]-1."""
+    tables = (1 + torch.randperm(len(lengths) * max_pages, generator=gen)) \
+        .reshape(len(lengths), max_pages).to(torch.int32)
+    return [n - 1 for n in lengths], list(range(len(lengths))), tables
+
+
+@pytest.mark.parametrize("lengths", [
+    [4096] + [1] * 7,                         # one long lane, 1-token lanes
+    [0] * 8,                                  # all lanes empty
+    [1, 15, 16, 17, 31, 32, 33, 48, 49, 0],   # lengths at page edges
+    [1],                                      # more CTAs than work
+    [44, 73, 133, 233, 383, 653, 853, 1033],  # the burst's decode shape
+])
+def test_core_decode_rows(cuda_device, lengths):
+    gen = torch.Generator().manual_seed(sum(lengths) + len(lengths))
+    max_pages = 4096 // 16
+    _check_core_k4(gen, cuda_device, 32, 8, 128, 16, lengths, max_pages)
+    _check_core_k1(gen, cuda_device, 32, 8, 128, 16,
+                   *_decode_rows(lengths, max_pages, gen))
+
+
+def test_core_identical_lanes_are_bit_identical(cuda_device):
+    """Lanes with the same query, pages and length, at different places in
+    the batch, give bit-identical outputs (the work is cut from each item's
+    own start): identical greedy requests in one burst stay identical."""
+    gen = torch.Generator().manual_seed(12)
+    dev = cuda_device
+    lengths = [1033, 44, 1033, 73, 653, 1033, 7, 1033]
+    max_pages = 80
+    q, k, v, lens, tables = _decode_args(gen, dev, torch.bfloat16, 8, 32, 8,
+                                         16, 128, lengths, max_pages)
+    same = [i for i, n in enumerate(lengths) if n == 1033]
+    q[same] = q[same[0]].clone()
+    tables[same] = tables[same[0]].clone()
+    out4 = attention.paged_attention_decode(q, k, v, lens, tables)
+    lanes = torch.arange(8, dtype=torch.int32, device=dev)
+    out1 = ragged.ragged_paged_attention(q, k, v, lens - 1, lanes, tables)
+    torch.cuda.synchronize()
+    for out in (out4, out1):
+        assert all(torch.equal(out[i], out[same[0]]) for i in same)
+    # two identical 100-row prefill chunks whose rows fall differently on
+    # the aligned tile blocks (rows 0..99 and 100..199), beside a decode row
+    qpos = torch.tensor(list(range(300, 400)) * 2 + [500], dtype=torch.int32,
+                        device=dev)
+    lanes = torch.tensor([0] * 100 + [1] * 100 + [2], dtype=torch.int32,
+                         device=dev)
+    tables[1] = tables[0].clone()
+    qc = torch.randn(201, 32, 128, generator=gen).to(dev, torch.bfloat16)
+    qc[100:200] = qc[:100].clone()
+    out = ragged.ragged_paged_attention(qc, k, v, qpos, lanes, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:100], out[100:200])
+
+
+def test_core_more_ctas_than_work(cuda_device):
+    """One KV head, one page of work in all: nearly every CTA finds an
+    empty range."""
+    gen = torch.Generator().manual_seed(3)
+    _check_core_k4(gen, cuda_device, 4, 1, 64, 16, [3, 0], 4)
+    _check_core_k1(gen, cuda_device, 4, 1, 64, 16,
+                   *_decode_rows([1, 0, 2], 4, gen))
+
+
+@pytest.mark.parametrize("n_pad", [0, 3, 600])
+def test_core_chunk_tiles_straddle_blocks(cuda_device, n_pad):
+    """Chunks starting off the aligned 16-row blocks and crossing them,
+    decode rows between them, lane 0's padding rows right after lane 0's
+    chunk (a tile of valid and padding rows), rows out of position order."""
+    gen = torch.Generator().manual_seed(90 + n_pad)
+    qpos = [7, 900] + list(range(5, 42)) + [-1] * 3 + list(range(300, 401)) \
+        + [15, 16] + list(range(611, 631))
+    lanes = [1, 2] + [0] * 37 + [0] * 3 + [3] * 101 + [4, 5] + [6] * 20
+    qpos[50], qpos[51] = qpos[51], qpos[50]
+    qpos += [-1] * n_pad
+    lanes += [0] * n_pad
+    max_pages = 60
+    tables = (1 + torch.randperm(7 * max_pages, generator=gen)) \
+        .reshape(7, max_pages).to(torch.int32)
+    _check_core_k1(gen, cuda_device, 32, 8, 128, 16, qpos, lanes, tables)
+
+
+@pytest.mark.parametrize("label", ["decode", "mixed"])
+def test_core_ragged_rounds(cuda_device, label):
+    """The ragged path's rounds at Llama-3-8B geometry: 8 decode rows, and
+    a 512-row chunk at positions 512..1023 beside them in the 768 bucket."""
+    gen = torch.Generator().manual_seed(17)
+    ctx = [41, 70, 130, 230, 380, 650, 850, 1030]
+    chunk = label == "mixed"
+    qpos = (list(range(512, 1024)) if chunk else []) + [c - 1 for c in ctx]
+    lanes = ([8] * 512 if chunk else []) + list(range(8))
+    qpos += [-1] * (248 if chunk else 0)
+    lanes += [0] * (248 if chunk else 0)
+    max_pages = 64
+    tables = (1 + torch.randperm(9 * max_pages, generator=gen)) \
+        .reshape(9, max_pages).to(torch.int32)
+    _check_core_k1(gen, cuda_device, 32, 8, 128, 16, qpos, lanes, tables)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("p", [1, 2, 4, 8, 16, 32, 64])
+def test_core_every_gate_geometry(cuda_device, d, p):
+    """Every (G, D, P) the bf16 gates accept: G 1..8 query heads per KV
+    head, each built head_dim, each power-of-two page to 64 keys; K4 lanes
+    at page edges, K1 a chunk crossing a tile block and decode rows."""
+    from dynamo_tpu_torch.engine import paged_core
+
+    for g in range(1, 9):
+        gen = torch.Generator().manual_seed(g * 1000 + d * 10 + p)
+        kvh = 2
+        h = g * kvh
+        assert attention.decode_supported(h, kvh, p, d, torch.bfloat16)
+        assert ragged.ragged_supported(h, kvh, p, d, torch.bfloat16)
+        lengths = [1, p, p + 1, 0, 3 * p + 2, 150]
+        _check_core_k4(gen, cuda_device, h, kvh, d, p, lengths,
+                       150 // p + 2)
+        rows = paged_core.tile_rows(h, kvh)
+        qpos = list(range(3, 3 + rows + 5)) + [0, p - 1, p, 149, -1, -1]
+        lanes = [0] * (rows + 5) + [1, 2, 3, 0, 0, 0]
+        max_pages = 150 // p + 2
+        tables = (1 + torch.randperm(4 * max_pages, generator=gen)) \
+            .reshape(4, max_pages).to(torch.int32)
+        _check_core_k1(gen, cuda_device, h, kvh, d, p, qpos, lanes, tables)
+
+
+def test_core_counters_stay_zero_and_graph_replays(cuda_device):
+    """Every launch leaves the ticket counters 0, and a CUDA graph of one
+    K1 and one K4 call replays with lengths / positions changed in place
+    on the device equal to eager calls (no host read of either)."""
+    from dynamo_tpu_torch.engine import paged_core
+
+    gen = torch.Generator().manual_seed(5)
+    dev = cuda_device
+    h, kvh, d, p, max_pages = 32, 8, 128, 16, 256
+    k, v = _pages(gen, kvh, 8 * max_pages + 1, p, d, dev)
+    tables = (1 + torch.randperm(8 * max_pages, generator=gen)) \
+        .reshape(8, max_pages).to(torch.int32).to(dev)
+    q = torch.randn(8, h, d, generator=gen).to(dev, torch.bfloat16)
+    lengths = torch.tensor([4096, 1, 2, 3, 0, 17, 1000, 5],
+                           dtype=torch.int32, device=dev)
+    qpos = (lengths - 1).clone()
+    lanes = torch.arange(8, dtype=torch.int32, device=dev)
+    attention.paged_attention_decode(q, k, v, lengths, tables)   # warm-up
+    ragged.ragged_paged_attention(q, k, v, qpos, lanes, tables)
+    torch.cuda.synchronize()
+    _, counters = paged_core._SCRATCH[q.device]
+    assert int(counters.abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out4 = attention.paged_attention_decode(q, k, v, lengths, tables)
+        out1 = ragged.ragged_paged_attention(q, k, v, qpos, lanes, tables)
+    for new in ([1, 4096, 0, 33, 2048, 16, 15, 700],
+                [0, 0, 0, 0, 0, 0, 0, 1]):
+        lengths.copy_(torch.tensor(new, dtype=torch.int32))
+        qpos.copy_(lengths - 1)
+        graph.replay()
+        want4 = attention.paged_attention_decode(q, k, v, lengths, tables)
+        want1 = ragged.ragged_paged_attention(q, k, v, qpos, lanes, tables)
+        torch.cuda.synchronize()
+        assert torch.equal(out4, want4) and torch.equal(out1, want1)
+        torch.testing.assert_close(
+            out4.float(), attention.paged_attention_decode_ref(
+                q, k, v, lengths, tables).float(), **BF16_TOL)
+    assert int(counters.abs().sum()) == 0
 
 
 A8_MS = (1, 5, 8, 16, 17, 33, 64, 65, 127, 600)
