@@ -28,9 +28,15 @@ on):
     place, equal to an eager call
  7. K5 w8a8_matmul and K6 int4_matmul vs plain at the four Llama-3-8B
     projection shapes (4096x4096 wq/wo, 4096x1024 wk/wv, 4096x14336
-    gate/up, 14336x4096 down), M in {1, 8, 40, 512}, bf16 and fp32
-    activations, with an all-zero row (sx at its 1e-12 floor): outputs
-    bit-identical
+    gate/up, 14336x4096 down), M in A8_MS (both sides of every design
+    edge: the stream GEMM's 8- and 16-row activation tiles, the wide GEMM
+    above, with K6's 256- and 128-column tiles), bf16 and fp32
+    activations, with an all-zero row (sx
+    at its 1e-12 floor) and an outlier: outputs bit-identical; the
+    grouped calls q/k/v and gate/up (one quantize, one GEMM) bit-identical
+    with the plain version of each weight; one K5, one K6 and one grouped
+    call captured in a CUDA graph, x changed in place, replayed: equal to
+    an eager call
  8. main paths: Llama-3-8B at full width and depth (random weights from a
     seed) served through `dynamo_tpu_torch.run`'s pipeline, a batch of 10
     chat requests of 16..1500 bytes, prefill_chunk_budget 512; first the
@@ -45,7 +51,7 @@ on):
     not K6, int4 K6 and not K5, both K2, K3, K4 and not K1; greedy
     determinism; every projection held as int8 / packed int4 only
     (resident weight bytes printed per mode); one bare decode_step
-    launches its GEMM exactly 7 x 32 times
+    launches its GEMM exactly 4 x 32 times (q/k/v and gate/up grouped)
 10. kernel path vs plain path at 8B: one mixed ragged round and one
     mixed_prefill_decode step in bf16, and one mixed_prefill_decode step
     per quantized mode (logits within a stated tolerance)
@@ -64,8 +70,9 @@ on):
     plain version once more, then kernel / plain / library times (CUDA
     events around device work only: the card sleeps while the host queues
     the launches; median of 20, L2 flushed between launches), bounds from
-    bytes and operations; K5/K6 at M = 8 (burst) and 512 (chunk) beside
-    bf16 torch.matmul; each path's and mode's output tok/s and TTFT p50
+    bytes and operations; K5/K6 at the four projection shapes at M = 8
+    (burst) and 512 (chunk) beside torch._int_mm + epilogue and bf16
+    torch.matmul; each path's and mode's output tok/s and TTFT p50
 
 The last three lines of stdout are the kernels JSON, the nvidia-smi line
 and `{"ok": true, "device": {...}}`.
@@ -149,6 +156,9 @@ SLEEP_CYCLES = 2_000_000
 PROJECTIONS = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
                "gate/up": (4096, 14336), "down": (14336, 4096)}
 QUANT_MODES = ("w8a8", "int4")
+# K5/K6 activation rows held against the plain versions: both sides of
+# every design edge (int4_mm.design)
+A8_MS = (1, 8, 9, 16, 17, 40, 64, 65, 512, 600)
 GEMM_OF = {"w8a8": "w8a8_matmul", "int4": "int4_matmul"}
 
 
@@ -545,21 +555,27 @@ def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
 def plain_path(ragged, kernels, attention, int4_mm, torch):
     """Swap every kernel's wrapper for its plain version (this script's
     comparison only; the package has no such switch)."""
-    saved = (ragged.ragged_paged_attention, kernels.paged_kv_write,
-             kernels.paged_kv_write_pages, attention.paged_attention_decode,
-             int4_mm.w8a8_matmul, int4_mm.int4_matmul)
+    names = ((ragged, "ragged_paged_attention"), (kernels, "paged_kv_write"),
+             (kernels, "paged_kv_write_pages"),
+             (attention, "paged_attention_decode"),
+             (int4_mm, "w8a8_matmul"), (int4_mm, "int4_matmul"),
+             (int4_mm, "w8a8_matmul_group"), (int4_mm, "int4_matmul_group"))
+    saved = [getattr(mod, name) for mod, name in names]
     ragged.ragged_paged_attention = blocked_plain_attention(ragged, torch)
     kernels.paged_kv_write = kernels.paged_kv_write_ref
     kernels.paged_kv_write_pages = kernels.paged_kv_write_pages_ref
     attention.paged_attention_decode = attention.paged_attention_decode_ref
     int4_mm.w8a8_matmul = int4_mm.w8a8_matmul_ref
     int4_mm.int4_matmul = int4_mm.int4_matmul_ref
+    int4_mm.w8a8_matmul_group = lambda x, ws: [
+        int4_mm.w8a8_matmul_ref(x, q, s) for q, s in ws]
+    int4_mm.int4_matmul_group = lambda x, ws: [
+        int4_mm.int4_matmul_ref(x, p, s) for p, s in ws]
     try:
         yield
     finally:
-        (ragged.ragged_paged_attention, kernels.paged_kv_write,
-         kernels.paged_kv_write_pages, attention.paged_attention_decode,
-         int4_mm.w8a8_matmul, int4_mm.int4_matmul) = saved
+        for (mod, name), fn in zip(names, saved):
+            setattr(mod, name, fn)
 
 
 def stream_partings(a, b, tol: float) -> list:
@@ -587,6 +603,12 @@ def stream_partings(a, b, tol: float) -> list:
                                  f"{x} vs {y}, logprob gap {g}")
         partings.append((r, step, g))
     return partings
+
+
+def a8_fns(int4_mm, mode: str):
+    """(kernel wrapper, plain version) of a quantized mode."""
+    return ((int4_mm.w8a8_matmul, int4_mm.w8a8_matmul_ref) if mode == "w8a8"
+            else (int4_mm.int4_matmul, int4_mm.int4_matmul_ref))
 
 
 def a8_case(torch, gen, dev, m, k, dtype):
@@ -819,16 +841,16 @@ def main() -> int:
 
     # 7. K5 / K6 vs plain ---------------------------------------------------
     a8_err = {"w8a8": 0.0, "int4": 0.0}
+    a8_w = {}
     for label, (k, n) in PROJECTIONS.items():
         w = torch.randn(k, n, generator=gen).to(dev, torch.bfloat16)
         for mode in QUANT_MODES:
             qt = quant.quantize(w, quant._bits_of(mode),
                                 quant._act_bits_of(mode))
-            fn, ref = ((int4_mm.w8a8_matmul, int4_mm.w8a8_matmul_ref)
-                       if mode == "w8a8" else
-                       (int4_mm.int4_matmul, int4_mm.int4_matmul_ref))
+            a8_w[(mode, label)] = qt
+            fn, ref = a8_fns(int4_mm, mode)
             for m, dtype in itertools.product(
-                    (1, 8, 40, 512), (torch.bfloat16, torch.float32)):
+                    A8_MS, (torch.bfloat16, torch.float32)):
                 x = a8_case(torch, gen, dev, m, k, dtype)
                 got, want = fn(x, qt.q, qt.s), ref(x, qt.q, qt.s)
                 torch.cuda.synchronize()
@@ -838,10 +860,59 @@ def main() -> int:
                     raise AssertionError(
                         f"{GEMM_OF[mode]} {label} M={m} {dtype} differs from "
                         f"its plain version: {err}")
-        del w, qt
+        del w
         log(f"[a8] K5 w8a8_matmul and K6 int4_matmul {label} K={k} N={n}, "
-            f"M in (1, 8, 40, 512), bf16 and fp32, an all-zero row: "
-            f"bit-identical with the plain versions")
+            f"M in {A8_MS}, bf16 and fp32, an all-zero row: bit-identical "
+            f"with the plain versions")
+    # grouped calls: q/k/v (wq, wk, wv) and gate/up of the same x
+    groups = {"q/k/v": ("wq/wo", "wk/wv", "wk/wv"),
+              "gate/up": ("gate/up", "gate/up")}
+    for mode in QUANT_MODES:
+        group_fn = (int4_mm.w8a8_matmul_group if mode == "w8a8"
+                    else int4_mm.int4_matmul_group)
+        _, ref = a8_fns(int4_mm, mode)
+        for gname, members in groups.items():
+            pairs = [(a8_w[(mode, lbl)].q, a8_w[(mode, lbl)].s)
+                     for lbl in members]
+            for m in (1, 8, 40, 65, 512):
+                x = a8_case(torch, gen, dev, m, 4096, torch.bfloat16)
+                outs = group_fn(x, pairs)
+                torch.cuda.synchronize()
+                for out, (q, sc) in zip(outs, pairs):
+                    if not torch.equal(out, ref(x, q, sc)):
+                        raise AssertionError(f"grouped {GEMM_OF[mode]} "
+                                             f"{gname} M={m} differs")
+        log(f"[a8] grouped {GEMM_OF[mode]} q/k/v and gate/up, M in (1, 8, "
+            f"40, 65, 512): bit-identical with the plain version per weight")
+    for mode, gname in (("w8a8", None), ("int4", None), ("w8a8", "q/k/v"),
+                        ("int4", "gate/up")):
+        x = a8_case(torch, gen, dev, 8, 4096, torch.bfloat16)
+        if gname is None:
+            fn, _ = a8_fns(int4_mm, mode)
+            qt = a8_w[(mode, "gate/up")]
+            call = (lambda fn=fn, qt=qt, x=x: [fn(x, qt.q, qt.s)])
+        else:
+            group_fn = (int4_mm.w8a8_matmul_group if mode == "w8a8"
+                        else int4_mm.int4_matmul_group)
+            pairs = [(a8_w[(mode, lbl)].q, a8_w[(mode, lbl)].s)
+                     for lbl in groups[gname]]
+            call = (lambda g=group_fn, p=pairs, x=x: g(x, p))
+        call()                                # scratch exists before capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = call()
+        x.mul_(-2.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, e) for o, e in zip(outs, call())):
+            raise AssertionError(f"{GEMM_OF[mode]} {gname or ''} graph "
+                                 f"replay differs from an eager call")
+        log(f"[a8] {GEMM_OF[mode]} {gname or 'gate/up'} M=8 captured in a "
+            f"CUDA graph, x changed in place, replayed: equal to an eager "
+            f"call")
+        del graph, outs
+    del a8_w
 
     # 8. main paths --------------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1008,13 +1079,14 @@ def main() -> int:
         del q_engine
         torch.cuda.empty_cache()
         counts = bare_decode_launches(q_model)
-        want = 7 * cfg.num_layers
+        want = 4 * cfg.num_layers            # q/k/v, o, gate/up, down
         if counts[gemm] != want or counts[other] != 0:
             raise AssertionError(f"a bare {mode} decode_step launched {gemm} "
                                  f"{counts[gemm]} times (want {want}) and "
                                  f"{other} {counts[other]} times")
         log(f"[quant] one bare {mode} decode_step (8 lanes): {gemm} launched "
-            f"{counts[gemm]} = 7 x {cfg.num_layers} times; launches {counts}")
+            f"{counts[gemm]} = 4 x {cfg.num_layers} times (q/k/v and gate/up "
+            f"grouped); launches {counts}")
         q_models[mode] = q_model
     torch.cuda.empty_cache()
 
@@ -1380,51 +1452,53 @@ def main() -> int:
     del kp, vp
     torch.cuda.empty_cache()
 
-    # K5 / K6 at the gate/up projection: M = 8 (a burst's decode step) and
-    # M = 512 (a prefill chunk), bf16 activations
-    k8, n8 = PROJECTIONS["gate/up"]
-    w_bf = torch.randn(k8, n8, generator=gen).to(dev, torch.bfloat16)
+    # K5 / K6 at the four projection shapes: M = 8 (a burst's decode step)
+    # and M = 512 (a prefill chunk), bf16 activations; gate/up M = 8 / 512
+    # are the "burst" / "chunk" rows of the kernels line
     matmul_ms = {}
-    for mode in QUANT_MODES:
-        bits = quant._bits_of(mode)
-        qt = quant.quantize(w_bf, bits, quant._act_bits_of(mode))
-        fn, ref = ((int4_mm.w8a8_matmul, int4_mm.w8a8_matmul_ref)
-                   if mode == "w8a8" else
-                   (int4_mm.int4_matmul, int4_mm.int4_matmul_ref))
-        # the library's int8 GEMM takes plain int8 weights: K6's unpacked
-        q8 = qt.q if bits == 8 else quant._unpack4(qt.q.T).T.contiguous()
-        for m, label in ((8, "burst"), (512, "chunk")):
-            x = a8_case(torch, gen, dev, m, k8, torch.bfloat16)
-            got, want = fn(x, qt.q, qt.s), ref(x, qt.q, qt.s)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"{GEMM_OF[mode]} M={m} differs from its "
-                                     f"plain version at the timed shape")
-            xq, sx = int4_mm.a8_prologue_ref(x)
-            # torch._int_mm takes more than 16 rows: pad to 32 with zeros
-            xq_lib = xq if m > 16 else torch.cat([xq, xq.new_zeros(
-                32 - m, k8)])
+    for shape, (k8, n8) in PROJECTIONS.items():
+        w_bf = torch.randn(k8, n8, generator=gen).to(dev, torch.bfloat16)
+        for mode in QUANT_MODES:
+            bits = quant._bits_of(mode)
+            qt = quant.quantize(w_bf, bits, quant._act_bits_of(mode))
+            fn, ref = a8_fns(int4_mm, mode)
+            # the library's int8 GEMM takes plain int8 weights: K6's unpacked
+            q8 = qt.q if bits == 8 else quant._unpack4(qt.q.T).T.contiguous()
+            for m, label in ((8, "burst"), (512, "chunk")):
+                x = a8_case(torch, gen, dev, m, k8, torch.bfloat16)
+                got, want = fn(x, qt.q, qt.s), ref(x, qt.q, qt.s)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{GEMM_OF[mode]} {shape} M={m} "
+                                         f"differs from its plain version at "
+                                         f"the timed shape")
+                xq, sx = int4_mm.a8_prologue_ref(x)
+                # torch._int_mm takes more than 16 rows: pad to 32 with zeros
+                xq_lib = xq if m > 16 else torch.cat([xq, xq.new_zeros(
+                    32 - m, k8)])
 
-            def library():
-                y = torch._int_mm(xq_lib, q8.T)
-                return ((y[:m].float() * sx) * qt.s).to(x.dtype)
+                def library():
+                    y = torch._int_mm(xq_lib, q8.T)
+                    return ((y[:m].float() * sx) * qt.s).to(x.dtype)
 
-            lib_same = torch.equal(library(), got)
-            ms = time_ms(torch, lambda: fn(x, qt.q, qt.s), flush=flush)
-            plain_ms = time_ms(torch, lambda: ref(x, qt.q, qt.s), reps=5,
-                               flush=flush)
-            lib_ms = time_ms(torch, library, flush=flush)
-            matmul_ms[(mode, label)] = time_ms(torch, lambda: x @ w_bf,
-                                               flush=flush)
-            bnd, by = a8_bound_ms(m, k8, n8, bits, 2, peaks)
-            rows[(mode, label)] = (m, ms, plain_ms, bnd, by, lib_ms)
-            log(f"[check] {GEMM_OF[mode]} M={m} K={k8} N={n8} bf16: "
-                f"bit-identical with its plain version; the library yardstick "
-                f"(torch._int_mm{' on unpacked weights' if bits == 4 else ''}"
-                f" + epilogue{', rows padded to 32' if m <= 16 else ''}) "
-                f"{'agrees bit for bit' if lib_same else 'differs'}")
-        del qt, q8
-    del w_bf
+                lib_same = torch.equal(library(), got)
+                ms = time_ms(torch, lambda: fn(x, qt.q, qt.s), flush=flush)
+                plain_ms = time_ms(torch, lambda: ref(x, qt.q, qt.s), reps=5,
+                                   flush=flush)
+                lib_ms = time_ms(torch, library, flush=flush)
+                key = (mode, label if shape == "gate/up" else
+                       f"{shape} {label}")
+                matmul_ms[key] = time_ms(torch, lambda: x @ w_bf, flush=flush)
+                bnd, by = a8_bound_ms(m, k8, n8, bits, 2, peaks)
+                rows[key] = (m, ms, plain_ms, bnd, by, lib_ms)
+                log(f"[check] {GEMM_OF[mode]} {shape} M={m} K={k8} N={n8} "
+                    f"bf16: bit-identical with its plain version; the library "
+                    f"yardstick (torch._int_mm"
+                    f"{' on unpacked weights' if bits == 4 else ''} + epilogue"
+                    f"{', rows padded to 32' if m <= 16 else ''}) "
+                    f"{'agrees bit for bit' if lib_same else 'differs'}")
+            del qt, q8
+        del w_bf
 
     for (key, label), (n, ms, plain_ms, bnd, by, lib) in rows.items():
         kname = GEMM_OF.get(key, key)

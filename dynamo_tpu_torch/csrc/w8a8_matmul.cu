@@ -7,17 +7,39 @@
 //
 // Weights: q (N, K) int8, K-major (the transpose of the reference's q);
 // s (N,) fp32. x (M, K) fp32 or bf16; out (M, N) of x's type. The caller
-// provides scratch `ws` (a8_gemm.cuh `run`).
+// provides scratch `ws` for xq and sx, and the persistent partial slots
+// and tickets of the stream GEMM (a8_gemm.cuh `matmul`).
 
 #include "a8_gemm.cuh"
 
 namespace {
 
-template <class C>
-__global__ void __launch_bounds__(C::kThreads)
-    w8a8_gemm_kernel(a8::GemmArgs g) {
-  a8::gemm_tile<false, C>(g);
+template <int NB>
+__global__ void __launch_bounds__(a8::Stream<false, NB>::kThreads,
+                             a8::kStreamCtasPerSm)
+    w8a8_gemm_stream(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw0,
+                     const __grid_constant__ CUtensorMap tw1,
+                     const __grid_constant__ CUtensorMap tw2,
+                     a8::StreamArgs g) {
+  a8::stream_body<false, NB>(&tx, &tw0, &tw1, &tw2, g);
 }
+
+__global__ void __launch_bounds__(a8::Wide<false, false>::kThreads, 1)
+    w8a8_gemm_wide(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tw0,
+                   const __grid_constant__ CUtensorMap tw1,
+                   const __grid_constant__ CUtensorMap tw2, a8::WideArgs g) {
+  a8::wide_body<false, false>(&tx, &tw0, &tw1, &tw2, g);
+}
+
+struct Kernels {
+  static constexpr bool kInt4 = false;
+  template <int NB>
+  static auto stream() { return &w8a8_gemm_stream<NB>; }
+  template <bool kWideW>  // one wide tile for K5
+  static auto wide() { return &w8a8_gemm_wide; }
+};
 
 }  // namespace
 
@@ -25,12 +47,22 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x and out share it).
-extern "C" int w8a8_matmul_launch(const void* x, const void* w,
-                                  const float* s, void* out, void* ws,
-                                  long long ws_bytes, int M, int K, int N,
-                                  int dtype, cudaStream_t stream) {
-  auto pick = [](auto cfg) { return &w8a8_gemm_kernel<decltype(cfg)>; };
-  return a8::matmul<false>(x, w, s, out, ws, ws_bytes, M, K, N, dtype,
-                           stream, pick);
+// x (M, K) times n_seg (1..3) weights that share it: weights w[i], scales
+// s[i] (N[i],), output out[i] (M, N[i]); N[i] is the LOGICAL column count
+// (multiple of 128). One row quantize, one GEMM. dtype: 0 = float32,
+// 1 = bfloat16 (x and the outputs share it).
+extern "C" int w8a8_matmul_launch(const void* x, void* ws, long long ws_bytes,
+                                  int* part, long long part_ints,
+                                  int* counters, long long n_counters, int M,
+                                  int K, int dtype, int n_seg,
+                                  const void* const* w, const float* const* s,
+                                  void* const* out, const int* N,
+                                  cudaStream_t stream) {
+  if (n_seg < 1 || n_seg > a8::kMaxSegs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a8::HostSeg segs[a8::kMaxSegs];
+  for (int i = 0; i < n_seg; ++i) segs[i] = a8::HostSeg{w[i], s[i], out[i], N[i]};
+  const a8::Scratch sc{part, part_ints, counters, n_counters};
+  return a8::matmul<Kernels>(x, segs, n_seg, ws, ws_bytes, sc, M, K, dtype,
+                             stream);
 }

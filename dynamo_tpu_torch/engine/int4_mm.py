@@ -17,14 +17,19 @@ The reference pads M to 32 and picks Mosaic blocks; both are TPU tiling
 and are not carried over.
 
 On CUDA tensors each wrapper makes ONE call into its C launcher, which
-launches the shared row-quantize kernel (xq, sx) and then the int8
-tensor-core GEMM with the epilogue fused, K split across CTAs where the
-output tiles alone would leave SMs idle (`csrc/a8_gemm.cuh`,
-`csrc/w8a8_matmul.cu`, `csrc/int4_matmul.cu`); that call is one counted
-launch. On CPU tensors they run the plain versions `w8a8_matmul_ref` /
-`int4_matmul_ref`, whose integer product is taken in float64 — exact
-below 2^53, where fp32 is not (|y| reaches 127·127·14336 > 2^24). Any
-other device, or a shape the kernels do not take, raises.
+launches the shared row-quantize kernel (xq, sx) and then, behind it by
+programmatic dependent launch, the GEMM chosen by M (`csrc/a8_gemm.cuh`,
+`csrc/w8a8_matmul.cu`, `csrc/int4_matmul.cu`): at M <= 16 a
+weight-streaming swap-AB kernel on a fixed grid that cuts the (32-row x
+512-byte) units of the weights evenly over the SMs (`stream_split` below
+mirrors that split), above it a wgmma + TMA kernel over 128-row output
+tiles (`wide_cols` mirrors their width); that call is one counted launch.
+`w8a8_matmul_group` / `int4_matmul_group` multiply one x by up to three
+weights in one such call (q/k/v, gate/up: one quantize, one GEMM). On CPU
+tensors they run the plain versions `w8a8_matmul_ref` / `int4_matmul_ref`,
+whose integer product is taken in float64 — exact below 2^53, where fp32
+is not (|y| reaches 127·127·14336 > 2^24). Any other device, or a shape
+the kernels do not take, raises.
 
 Weights are K-major (engine/quant.py): q (N, K) int8, p (N/2, K) packed,
 s (1, N) fp32; x (M, K) fp32 or bf16, contiguous; the output has x's
@@ -42,13 +47,100 @@ import torch
 from dynamo_tpu_torch.engine.cuda_build import CudaKernel
 
 _c = ctypes
-_ARGS = [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # x w s out
+_ARGS = [_c.c_void_p,                                        # x
          _c.c_void_p, _c.c_longlong,                          # ws ws_bytes
-         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # M K N dtype
+         _c.c_void_p, _c.c_longlong,                          # part, ints
+         _c.c_void_p, _c.c_longlong,                          # tickets, n
+         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # M K dtype n
+         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # w s out N
          _c.c_void_p]                                         # stream
+MAX_GROUP = 3           # weights one call multiplies the same x by
 _W8A8_KERNEL = CudaKernel("w8a8_matmul", list(_ARGS))
 _INT4_KERNEL = CudaKernel("int4_matmul", list(_ARGS))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the GEMM designs by M (csrc/a8_gemm.cuh `matmul`): the stream GEMM up to
+# STREAM_MAX_M activation rows, in 8·NB-row activation tiles; above, the
+# wide GEMM's 128 x 128 output tiles
+STREAM_MAX_M = 16
+STREAM_ROWS = 32        # weight rows per stream tile
+STREAM_CHUNK = 512      # bytes of K per stream unit
+STREAM_WARPS = 2        # consumer warps, one ticket each per tile
+STREAM_CTAS_PER_SM = 2  # the stream GEMM's fixed grid
+# partial-slot ints per CTA: 2 slots x 2 consumer warps x 32 lanes x the
+# widest accumulator (NB 2, two nibble halves: 16 ints)
+PART_INTS_PER_CTA = 2 * 2 * 32 * 16
+
+
+def design(m: int) -> tuple[str, int]:
+    """The GEMM that runs M activation rows: ("stream", NB) or ("wide",
+    0)."""
+    if m > STREAM_MAX_M:
+        return "wide", 0
+    return "stream", 1 if m <= 8 else 2
+
+
+def wide_cols(int4: bool, m: int, cols: int, n_sms: int) -> int:
+    """Logical columns per tile of the wide GEMM for M activation rows and
+    `cols` logical columns in all (a grouped call's weights together): K5
+    128; K6 256 where those tiles alone fill the card's SMs, else 128
+    (twice the tiles)."""
+    if int4 and -(-m // 128) * (cols // 256) >= n_sms:
+        return 256
+    return 128
+
+
+def cta_of(unit: int, total: int, n_ctas: int) -> int:
+    """The CTA whose window [c·U/G, (c+1)·U/G) holds `unit` (G <= U)."""
+    return ((unit + 1) * n_ctas + total - 1) // total - 1
+
+
+def stream_split(rows: int, k: int, n_ctas: int
+                 ) -> list[list[tuple[int, int, int, int]]]:
+    """Plain mirror of the stream GEMM's work split: units (tile of
+    STREAM_ROWS weight rows, STREAM_CHUNK bytes of K) in tile-major order,
+    G = min(n_ctas, U) CTAs, CTA c owning units [c·U/G, (c+1)·U/G). Per
+    CTA, its pieces in order: (tile, first chunk, end chunk, partial slot
+    or -1 when the piece is the whole tile). A piece of a cut tile parks
+    its sums in slot 2c (the CTA's first tile) or 2c + 1 (its last)."""
+    kc = -(-k // STREAM_CHUNK)
+    total = rows // STREAM_ROWS * kc
+    g = min(n_ctas, total)
+    out = []
+    for c in range(g):
+        u0, u1 = total * c // g, total * (c + 1) // g
+        first, pieces, u = u0 // kc, [], u0
+        while u < u1:
+            tile = u // kc
+            end = min(u1, (tile + 1) * kc)
+            whole = u == tile * kc and end == (tile + 1) * kc
+            pieces.append((tile, u - tile * kc, end - tile * kc,
+                           -1 if whole else 2 * c + (tile != first)))
+            u = end
+        out.append(pieces)
+    return out
+
+
+_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def stream_scratch(device: torch.device, rows: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(partial slots, tickets) kept per device across calls: 2 slots per
+    CTA and one ticket per consumer warp of each stream tile. Tickets start at 0 and every launch
+    leaves them 0, so a call allocates nothing unless a shape outgrows the
+    buffers (make the first call before capturing a CUDA graph)."""
+    from dynamo_tpu_torch.engine.paged_core import sm_count
+
+    part, tickets = _SCRATCH.get(device, (None, None))
+    need = PART_INTS_PER_CTA * STREAM_CTAS_PER_SM * sm_count(device)
+    if part is None or part.numel() < need:
+        part = torch.empty(need, dtype=torch.int32, device=device)
+    need_t = STREAM_WARPS * rows // STREAM_ROWS
+    if tickets is None or tickets.numel() < need_t:
+        tickets = torch.zeros(need_t, dtype=torch.int32, device=device)
+    _SCRATCH[device] = (part, tickets)
+    return part, tickets
 
 
 def recip32(n: int) -> float:
@@ -92,52 +184,76 @@ def int4_matmul_ref(x: torch.Tensor, p: torch.Tensor,
     return _epilogue(xq.double() @ _unpack4(p.T).double(), sx, s, x.dtype)
 
 
-def _launch(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
-            s: torch.Tensor, n: int) -> torch.Tensor:
+def _launch(kernel: CudaKernel, x: torch.Tensor,
+            weights: list[tuple[torch.Tensor, torch.Tensor]],
+            int4: bool) -> list[torch.Tensor]:
     name = kernel.name
-    if x.dim() != 2 or w.dim() != 2:
-        raise ValueError(f"{name}: x and w must be 2-D, got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if not 1 <= len(weights) <= MAX_GROUP:
+        raise ValueError(f"{name}: takes 1..{MAX_GROUP} weights, got "
+                         f"{len(weights)}")
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be 2-D, got {tuple(x.shape)}")
     m, k = x.shape
-    for arg, t in (("x", x), ("w", w), ("s", s)):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous tensor on "
-                             f"{x.device}")
-    if x.dtype not in _DTYPES or w.dtype != torch.int8 \
-            or s.dtype != torch.float32:
-        raise ValueError(f"{name}: needs x fp32/bf16, w int8, s fp32; got "
-                         f"{x.dtype}, {w.dtype}, {s.dtype}")
-    if w.shape[1] != k or tuple(s.shape) != (1, n):
-        raise ValueError(f"{name}: shape mismatch x {tuple(x.shape)} w "
-                         f"{tuple(w.shape)} s {tuple(s.shape)}")
-    if k % 128 or w.shape[0] % 128:
-        raise ValueError(f"{name}: K={k} and the weight's {w.shape[0]} rows "
-                         f"must be multiples of 128 (the kernel's gate)")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"{name}: needs x fp32/bf16 and contiguous; got "
+                         f"{x.dtype}")
+    if k % 128:
+        raise ValueError(f"{name}: K={k} must be a multiple of 128 (the "
+                         f"kernel's gate)")
+    outs, rows = [], 0
+    for w, s in weights:
+        n = 2 * w.shape[0] if int4 else w.shape[0]
+        if w.dim() != 2:
+            raise ValueError(f"{name}: w must be 2-D, got {tuple(w.shape)}")
+        for arg, t in (("w", w), ("s", s)):
+            if t.device != x.device or not t.is_contiguous():
+                raise ValueError(f"{name}: {arg} must be a contiguous "
+                                 f"tensor on {x.device}")
+        if w.dtype != torch.int8 or s.dtype != torch.float32:
+            raise ValueError(f"{name}: needs w int8, s fp32; got {w.dtype}, "
+                             f"{s.dtype}")
+        if w.shape[1] != k or tuple(s.shape) != (1, n):
+            raise ValueError(f"{name}: shape mismatch x {tuple(x.shape)} w "
+                             f"{tuple(w.shape)} s {tuple(s.shape)}")
+        if w.shape[0] % 128:
+            raise ValueError(f"{name}: the weight's {w.shape[0]} rows must "
+                             f"be a multiple of 128 (the kernel's gate)")
+        outs.append(torch.empty((m, n), dtype=x.dtype, device=x.device))
+        rows += w.shape[0]
     if m == 0:
-        return out
-    # scratch: xq (M, K) int8, sx (M,) fp32 and, for up to 64 rows (where
-    # the launcher may split K), the split sums (M, N) int32 and one counter
-    # per output tile (at most one per 16 x 64)
+        return outs
+    # scratch: xq (M, K) int8 and sx (M,) fp32 for this call; the stream
+    # GEMM's partial slots and tickets persist per device
     nbytes = m * k + 4 * m
-    if m <= 64:
-        nbytes += 4 * (m * n + (m + 15) // 16 * (n // 64))
     ws = torch.empty(nbytes, dtype=torch.int8, device=x.device)
-    kernel(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-           ws.data_ptr(), nbytes, m, k, n, _DTYPES[x.dtype],
+    part, tickets = stream_scratch(x.device, rows)
+    g = len(weights)
+    kernel(x.data_ptr(), ws.data_ptr(), nbytes, part.data_ptr(),
+           part.numel(), tickets.data_ptr(), tickets.numel(), m, k,
+           _DTYPES[x.dtype], g,
+           (_c.c_void_p * g)(*(w.data_ptr() for w, _ in weights)),
+           (_c.c_void_p * g)(*(s.data_ptr() for _, s in weights)),
+           (_c.c_void_p * g)(*(o.data_ptr() for o in outs)),
+           (_c.c_int * g)(*(o.shape[1] for o in outs)),
            torch.cuda.current_stream(x.device).cuda_stream)
-    return out
+    return outs
+
+
+def _device_ok(name: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return True
 
 
 def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
                 s: torch.Tensor) -> torch.Tensor:
     """K5. x (M, K) fp32/bf16, q (N, K) int8 K-major, s (1, N) fp32 →
     (M, N) in x's dtype. CUDA: the kernel; CPU: the plain version."""
-    if x.device.type == "cpu":
-        return w8a8_matmul_ref(x, q, s)
-    if x.device.type != "cuda":
-        raise ValueError(f"w8a8_matmul: unsupported device {x.device}")
-    return _launch(_W8A8_KERNEL, x, q, s, q.shape[0])
+    return w8a8_matmul_group(x, [(q, s)])[0]
 
 
 def int4_matmul(x: torch.Tensor, p: torch.Tensor,
@@ -145,8 +261,27 @@ def int4_matmul(x: torch.Tensor, p: torch.Tensor,
     """K6. x (M, K) fp32/bf16, p (N/2, K) nibble-packed K-major, s (1, N)
     fp32 → (M, N) in x's dtype. CUDA: the kernel; CPU: the plain
     version."""
-    if x.device.type == "cpu":
-        return int4_matmul_ref(x, p, s)
-    if x.device.type != "cuda":
-        raise ValueError(f"int4_matmul: unsupported device {x.device}")
-    return _launch(_INT4_KERNEL, x, p, s, 2 * p.shape[0])
+    return int4_matmul_group(x, [(p, s)])[0]
+
+
+def w8a8_matmul_group(x: torch.Tensor,
+                      weights: list[tuple[torch.Tensor, torch.Tensor]]
+                      ) -> list[torch.Tensor]:
+    """K5 of x by 1..MAX_GROUP weights (q, s) at once — the projections
+    that read the same activations (q/k/v, gate/up): one row quantize and
+    one GEMM over all their tiles, one counted launch. Equal, bit for bit,
+    to one `w8a8_matmul` per weight (the same xq and sx, exact int32
+    sums)."""
+    if not _device_ok("w8a8_matmul", x):
+        return [w8a8_matmul_ref(x, q, s) for q, s in weights]
+    return _launch(_W8A8_KERNEL, x, weights, int4=False)
+
+
+def int4_matmul_group(x: torch.Tensor,
+                      weights: list[tuple[torch.Tensor, torch.Tensor]]
+                      ) -> list[torch.Tensor]:
+    """K6 of x by 1..MAX_GROUP packed weights (p, s) at once, as
+    `w8a8_matmul_group`."""
+    if not _device_ok("int4_matmul", x):
+        return [int4_matmul_ref(x, p, s) for p, s in weights]
+    return _launch(_INT4_KERNEL, x, weights, int4=True)

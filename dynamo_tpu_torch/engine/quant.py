@@ -162,6 +162,33 @@ def _qm4(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return _w16(x, _unpack4(w.q.T), w.s)
 
 
+def _a8_kind(w: Any) -> str | None:
+    """"w8a8" / "int4" for a weight K5 / K6 would take, else None."""
+    if not isinstance(w, QTensor):
+        return None
+    if w.bits == 4:
+        return "int4"
+    return "w8a8" if w.act_bits == 8 else None
+
+
+def qm_group(x: torch.Tensor, ws: list) -> list[torch.Tensor]:
+    """`[qm(x, w) for w in ws]` for projections that read the same
+    activations (q/k/v, gate/up). Where every weight is an A8 QTensor of
+    one kind inside the kernel gate, one K5 / K6 call multiplies them all
+    (one row quantize, one GEMM, one counted launch), bit-identical to the
+    separate calls; anything else takes `qm` per weight."""
+    kind = _a8_kind(ws[0])
+    if len(ws) > 1 and len(ws) <= int4_mm.MAX_GROUP and kind is not None \
+            and all(_a8_kind(w) == kind and _kernel_gate(x, w) for w in ws):
+        fn = (int4_mm.int4_matmul_group if kind == "int4"
+              else int4_mm.w8a8_matmul_group)
+        lead = x.shape[:-1]
+        ys = fn(x.reshape(-1, x.shape[-1]).contiguous(),
+                [(w.q, w.s) for w in ws])
+        return [y.reshape(*lead, y.shape[-1]) for y in ys]
+    return [qm(x, w) for w in ws]
+
+
 # The reference keeps a vocab this wide in bf16 (its int8 lm_head sent the
 # TPU compile into a tailspin); the port keeps the rule so both packages
 # serve the same function.

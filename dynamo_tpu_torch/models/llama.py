@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dynamo_tpu_torch.engine import attention, kernels, sampling
-from dynamo_tpu_torch.engine.quant import qm
+from dynamo_tpu_torch.engine.quant import qm, qm_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,16 +238,17 @@ def _write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
 
 
 def _swiglu(h: torch.Tensor, layer: LlamaLayer) -> torch.Tensor:
-    gate = F.silu(qm(h, layer.w_gate))
-    return qm(gate * qm(h, layer.w_up), layer.w_down)
+    """gate and up read the same h: one A8 call for both under w8a8 and
+    int4 (`qm_group`), the same function as two."""
+    gate, up = qm_group(h, [layer.w_gate, layer.w_up])
+    return qm(F.silu(gate) * up, layer.w_down)
 
 
 def qkv_proj(hn: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q/k/v projections with the optional Qwen2-family additive bias."""
-    q = qm(hn, layer.wq)
-    k = qm(hn, layer.wk)
-    v = qm(hn, layer.wv)
+    """q/k/v projections with the optional Qwen2-family additive bias (one
+    A8 call for all three under w8a8 and int4, `qm_group`)."""
+    q, k, v = qm_group(hn, [layer.wq, layer.wk, layer.wv])
     if cfg.attention_bias:
         q = q + layer.bq
         k = k + layer.bk

@@ -584,6 +584,172 @@ def test_a8_kernels_bit_identical_with_plain(cuda_device, dtype, k, n, bits):
         assert torch.all(got[0] == 0)
 
 
+A8_DESIGN_MS = (1, 8, 9, 16, 17, 32, 33, 40, 64, 65, 128, 129, 300)
+
+
+def _a8_pair(bits):
+    return ((int4_mm.w8a8_matmul, int4_mm.w8a8_matmul_ref) if bits == 8
+            else (int4_mm.int4_matmul, int4_mm.int4_matmul_ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(384, 512), (640, 768), (1152, 256)])
+@pytest.mark.parametrize("bits", [8, 4], ids=["k5-w8a8", "k6-int4"])
+def test_a8_every_design_and_chunk_edge(cuda_device, dtype, k, n, bits):
+    """Every GEMM design (stream NB 1, 2, 4, 8 and wide, at the M edges of
+    each) on K that ends in a short 512-byte chunk, bit-identical with the
+    plain versions."""
+    gen = torch.Generator().manual_seed(k + n + bits)
+    w = torch.randn(k, n, generator=gen).to(cuda_device)
+    qt = quant.quantize(w, bits, 8 if bits == 8 else 16)
+    fn, ref = _a8_pair(bits)
+    for m in A8_DESIGN_MS:
+        x = _a8_inputs(gen, m, k, dtype, cuda_device)
+        got, want = fn(x, qt.q, qt.s), ref(x, qt.q, qt.s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (m, int4_mm.design(m))
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["k5-w8a8", "k6-int4"])
+def test_a8_zero_rows_return_empty(cuda_device, bits):
+    fn, _ = _a8_pair(bits)
+    qt = quant.quantize(torch.randn(256, 512, device=cuda_device), bits,
+                        8 if bits == 8 else 16)
+    out = fn(torch.empty(0, 256, device=cuda_device), qt.q, qt.s)
+    assert out.shape == (0, 512)
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["k5-w8a8", "k6-int4"])
+def test_a8_tickets_left_clean_and_calls_agree(cuda_device, bits):
+    """Cut tiles fold through tickets the kernel resets: after each call
+    every ticket is 0 again, and back-to-back calls give the same bits."""
+    gen = torch.Generator().manual_seed(11 + bits)
+    k, n = 4096, 1024                       # wk/wv: tiles cut across CTAs
+    w = torch.randn(k, n, generator=gen).to(cuda_device)
+    qt = quant.quantize(w, bits, 8 if bits == 8 else 16)
+    fn, ref = _a8_pair(bits)
+    for m in (1, 8, 16, 40, 64):
+        x = _a8_inputs(gen, m, k, torch.bfloat16, cuda_device)
+        first, second = fn(x, qt.q, qt.s), fn(x, qt.q, qt.s)
+        torch.cuda.synchronize()
+        _, tickets = int4_mm.stream_scratch(cuda_device, qt.q.shape[0])
+        assert int(tickets.abs().sum()) == 0
+        assert torch.equal(first, second)
+        assert torch.equal(first, ref(x, qt.q, qt.s))
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["k5-w8a8", "k6-int4"])
+def test_a8_interleaved_shapes_on_one_stream(cuda_device, bits):
+    """Two projections of different shape, and both designs, queued
+    alternately on one stream without a sync: each equals its plain
+    version."""
+    gen = torch.Generator().manual_seed(21 + bits)
+    fn, ref = _a8_pair(bits)
+    cases = []
+    for k, n in ((4096, 1024), (1024, 4096)):
+        w = torch.randn(k, n, generator=gen).to(cuda_device)
+        qt = quant.quantize(w, bits, 8 if bits == 8 else 16)
+        for m in (8, 100):
+            cases.append((qt, _a8_inputs(gen, m, k, torch.bfloat16,
+                                         cuda_device)))
+    outs = [fn(x, qt.q, qt.s) for _ in range(3) for qt, x in cases]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        qt, x = cases[i % len(cases)]
+        assert torch.equal(out, ref(x, qt.q, qt.s)), i
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["k5-w8a8", "k6-int4"])
+@pytest.mark.parametrize("m", [8, 40, 200])
+def test_a8_graph_replay(cuda_device, bits, m):
+    """One call captured in a CUDA graph (the quantize launch, then the
+    GEMM behind it by programmatic dependent launch), x changed in place,
+    replayed: equal to an eager call on the new x."""
+    gen = torch.Generator().manual_seed(31 + bits + m)
+    k, n = 4096, 1024
+    w = torch.randn(k, n, generator=gen).to(cuda_device)
+    qt = quant.quantize(w, bits, 8 if bits == 8 else 16)
+    fn, _ = _a8_pair(bits)
+    x = _a8_inputs(gen, m, k, torch.bfloat16, cuda_device)
+    fn(x, qt.q, qt.s)                       # scratch exists before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, qt.q, qt.s)
+    for scale_by in (2.0, -0.5):
+        x.mul_(scale_by)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fn(x, qt.q, qt.s))
+
+
+@pytest.mark.parametrize("n,m", [(14336, 600), (1024, 600), (512, 65)])
+def test_a8_k6_both_wide_tiles(cuda_device, n, m):
+    """K6's two wide tiles (256 columns where they fill the card, else 128),
+    chosen as `int4_mm.wide_cols` mirrors, bit-identical with the plain
+    version; (14336, 600) takes the 256-column tile, the others 128."""
+    gen = torch.Generator().manual_seed(n + m)
+    k = 256
+    qt = quant.quantize(torch.randn(k, n, generator=gen).to(cuda_device), 4)
+    cols = int4_mm.wide_cols(True, m, n, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    assert cols == (256 if n == 14336 else 128)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _a8_inputs(gen, m, k, dtype, cuda_device)
+        assert torch.equal(int4_mm.int4_matmul(x, qt.q, qt.s),
+                           int4_mm.int4_matmul_ref(x, qt.q, qt.s))
+
+
+def _a8_group(bits):
+    return (int4_mm.w8a8_matmul_group if bits == 8
+            else int4_mm.int4_matmul_group)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4], ids=["k5-w8a8", "k6-int4"])
+def test_a8_group_bit_identical_with_separate_calls(cuda_device, dtype, bits):
+    """One grouped call over q/k/v-like and gate/up-like weights (one
+    quantize, one GEMM over all their tiles, one counted launch) equals
+    the plain version of each weight, in both designs."""
+    gen = torch.Generator().manual_seed(41 + bits)
+    k = 512
+    qts = [quant.quantize(torch.randn(k, n, generator=gen).to(cuda_device),
+                          bits, 8 if bits == 8 else 16)
+           for n in (1024, 256, 256)]
+    _, ref = _a8_pair(bits)
+    kern = int4_mm._W8A8_KERNEL if bits == 8 else int4_mm._INT4_KERNEL
+    for group in (qts, qts[:2]):
+        for m in (1, 8, 16, 40, 64, 65, 300):
+            x = _a8_inputs(gen, m, k, dtype, cuda_device)
+            before = kern.launches
+            outs = _a8_group(bits)(x, [(qt.q, qt.s) for qt in group])
+            torch.cuda.synchronize()
+            assert kern.launches == before + 1
+            for out, qt in zip(outs, group):
+                assert torch.equal(out, ref(x, qt.q, qt.s)), (m, len(group))
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["k5-w8a8", "k6-int4"])
+def test_a8_group_graph_replay(cuda_device, bits):
+    gen = torch.Generator().manual_seed(51 + bits)
+    k = 1024
+    qts = [quant.quantize(torch.randn(k, n, generator=gen).to(cuda_device),
+                          bits, 8 if bits == 8 else 16) for n in (512, 256)]
+    fn = _a8_group(bits)
+    x = _a8_inputs(gen, 8, k, torch.bfloat16, cuda_device)
+    pairs = [(qt.q, qt.s) for qt in qts]
+    fn(x, pairs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn(x, pairs)
+    x.mul_(-3.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, want in zip(outs, fn(x, pairs)):
+        assert torch.equal(out, want)
+
+
 def test_quantize_on_card_is_bit_exact_with_cpu(cuda_device):
     gen = torch.Generator().manual_seed(5)
     w = (torch.randn(512, 768, generator=gen)
