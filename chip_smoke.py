@@ -10,10 +10,12 @@ on):
  2. build: compile every kernel from csrc/ (one nvcc per source, in
     parallel) into _build/dynamo_tpu_torch/<hash>/
  3. K2 paged_kv_write vs plain at Llama-3-8B geometry: bit-exact outside
-    scratch page 0
+    scratch page 0, on contiguous rows and on strided views (a slice of a
+    wider projection output, a head-major tensor transposed)
  4. K3 paged_kv_write_pages vs plain at Llama-3-8B geometry (KVH 8, P 16,
     D 128, bf16): bit-exact outside page 0, several padding slots aimed at
-    page 0
+    page 0, on contiguous blocks and on the chunk's token-major K/V viewed
+    per page (what the chunk writer passes)
  5. K1 ragged_paged_attention vs plain at Llama-3-8B geometry, bf16 and
     fp32, on a ragged mix (decode rows to 4096 tokens of context, chunk
     rows straddling pages, padding rows that must be exact zeros) and on
@@ -44,7 +46,9 @@ on):
     path (DYN_ATTENTION_IMPL=ragged) on the same weights; each with the
     launch counts zeroed just before and read just after (phase: K2, K3,
     K4 > 0 and K1 = K5 = K6 = 0; ragged: K1, K2 > 0 and K3 = K4 = K5 = K6
-    = 0); greedy determinism
+    = 0); greedy determinism; the same greedy request (100-token prompt,
+    12 tokens, top-8 logprobs) on both paths, equal up to a parting at a
+    bf16 near-tie (BF16_TIE_TOL), printed with its step, tokens and gap
  9. quantized main path: the same batch on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
     same random weights, quantized by the engine): w8a8 launches K5 and
@@ -69,10 +73,13 @@ on):
 13. numbers: at the main paths' shapes, each kernel held against its
     plain version once more, then kernel / plain / library times (CUDA
     events around device work only: the card sleeps while the host queues
-    the launches; median of 20, L2 flushed between launches), bounds from
-    bytes and operations; K5/K6 at the four projection shapes at M = 8
-    (burst) and 512 (chunk) beside torch._int_mm + epilogue and bf16
-    torch.matmul; each path's and mode's output tok/s and TTFT p50
+    the launches; median of 20, L2 flushed before each by reading 64 MB,
+    the kernels also after a 64 MB write as in older records), the
+    empty-kernel floor under the same flush, K2 and K3 also per launch in
+    a run of 32 (one per layer, 32 cache pairs), bounds from bytes and
+    operations; K5/K6 at the four projection shapes at M = 8 (burst) and
+    512 (chunk) beside torch._int_mm + epilogue and bf16 torch.matmul;
+    each path's and mode's output tok/s and TTFT p50
 
 The last three lines of stdout are the kernels JSON, the nvidia-smi line
 and `{"ok": true, "device": {...}}`.
@@ -131,6 +138,15 @@ K4_UNIFORM_TOL = K1_UNIFORM_TOL
 # outputs differ by bf16 roundings that 32 layers carry to the logits
 # (measured 0.094 at max |logit| 4.8 on an H100 80GB HBM3, 700 W)
 LOGITS_BF16_TOL = 0.15
+# Greedy bf16 8B streams of one request, phase path vs ragged path: the two
+# attend through different bf16 kernels (plain prefill attention + K4 vs
+# K1), which move each logprob by up to what phase 10 measures between
+# kernel and plain paths (0.1245 for the mixed step's decode top-8
+# logprobs on an H100 80GB HBM3, 700 W; bounded there by LOGITS_BF16_TOL).
+# Where the streams part, both runs' logprobs of the two tokens moved by at
+# most that and their order flipped, so each run's margin is at most twice
+# it
+BF16_TIE_TOL = 2 * LOGITS_BF16_TOL
 # The same step under w8a8 / int4. The A8 GEMMs are bit-identical with
 # their plain versions, but each bf16 rounding difference in attention that
 # crosses an int8 step of an activation row becomes a whole step (~1/127
@@ -152,6 +168,9 @@ A8_TIE_TOL = 0.15
 # host has queued the launch before the start event fires and the events
 # read device time only
 SLEEP_CYCLES = 2_000_000
+# ~10 ms: a run of 32 layers' launches (up to 4 host ops each) is queued
+# before the start event fires
+RUN_SLEEP_CYCLES = 20_000_000
 # Llama-3-8B's projections (K, N): wq/wo, wk/wv, gate/up, down
 PROJECTIONS = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
                "gate/up": (4096, 14336), "down": (14336, 4096)}
@@ -160,6 +179,9 @@ QUANT_MODES = ("w8a8", "int4")
 # every design edge (int4_mm.design)
 A8_MS = (1, 8, 9, 16, 17, 40, 64, 65, 512, 600)
 GEMM_OF = {"w8a8": "w8a8_matmul", "int4": "int4_matmul"}
+K2_LAYOUTS = ("contiguous", "fused", "heads")
+K3_LAYOUTS = ("chunk", "contiguous")
+N_LAYER_RUN = 32          # Llama-3-8B's layers: one KV store each per step
 
 
 def log(msg: str) -> None:
@@ -173,10 +195,11 @@ def peaks_for(name: str) -> tuple[str, tuple[float, float, float]]:
     return "H100 SXM", PEAKS["H100 SXM"]
 
 
-def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
+def time_ms(torch, fn, reps: int = 20, flush=None,
+            sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Median of `reps` single launches timed with CUDA events; `flush`
     (outside the timed window) evicts L2 first, and the card then sleeps
-    SLEEP_CYCLES so that the events time the device work and not the
+    `sleep_cycles` so that the events time the device work and not the
     host's enqueue of it."""
     for _ in range(3):
         fn()
@@ -185,7 +208,7 @@ def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -194,6 +217,52 @@ def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_run_ms(torch, fns, reps: int = 20, flush=None) -> float:
+    """A run of launches as a step issues them (one per layer, say): the
+    median over `reps` of the run's device time after one flush, over the
+    number of launches. The card sleeps RUN_SLEEP_CYCLES first, long
+    enough for the host to queue the whole run."""
+    return time_ms(torch, lambda: [fn() for fn in fns], reps, flush,
+                   RUN_SLEEP_CYCLES) / len(fns)
+
+
+def l2_flushes(torch, dev) -> dict:
+    """{"read": ..., "write": ...}: two ways to evict the 50 MB L2 before
+    a timed launch. The write flush (zeroing 64 MB) leaves dirty lines
+    that the timed work then pays to write back; the read flush (an amax
+    over the same 64 MB into one scalar) leaves only clean lines."""
+    buf = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    words = buf.view(torch.int32)
+    return {"read": words.amax, "write": buf.zero_}
+
+
+def k2_rows(torch, gen, dev, b, kvh, d, layout, dtype=None):
+    """(B, KVH, D) K2 rows laid out as a caller may hand them: "contiguous"
+    (a projection's output viewed as heads, what every step passes),
+    "fused" (a slice of a wider (B, 3·KVH·D) projection output), "heads"
+    (a head-major tensor transposed)."""
+    dtype = dtype or torch.bfloat16
+    if layout == "fused":
+        wide = torch.randn(b, 3 * kvh * d, generator=gen).to(dev, dtype)
+        return wide[:, kvh * d:2 * kvh * d].view(b, kvh, d)
+    if layout == "heads":
+        return torch.randn(kvh, b, d, generator=gen).to(dev, dtype) \
+            .transpose(0, 1)
+    return torch.randn(b, kvh * d, generator=gen).to(dev, dtype) \
+        .view(b, kvh, d)
+
+
+def k3_blocks(torch, gen, dev, m, kvh, p, d, layout, dtype=None):
+    """(M, KVH, P, D) K3 blocks: "chunk" (a token-major (M·P, KVH, D)
+    chunk K/V viewed per page and permuted, what `_chunk_kv_writer`
+    passes) or "contiguous"."""
+    dtype = dtype or torch.bfloat16
+    if layout == "chunk":
+        return torch.randn(m * p, kvh, d, generator=gen).to(dev, dtype) \
+            .view(m, p, kvh, d).permute(0, 2, 1, 3)
+    return torch.randn(m, kvh, p, d, generator=gen).to(dev, dtype)
 
 
 def attention_mix(torch, gen, n_pages: int, page_size: int, max_pages: int,
@@ -698,50 +767,62 @@ def main() -> int:
     B = 64
     kc = torch.randn(KVH, N_PAGES, P, D, generator=gen).to(dev, torch.bfloat16)
     vc = torch.randn(KVH, N_PAGES, P, D, generator=gen).to(dev, torch.bfloat16)
-    k_rows = torch.randn(B, KVH, D, generator=gen).to(dev, torch.bfloat16)
-    v_rows = torch.randn(B, KVH, D, generator=gen).to(dev, torch.bfloat16)
     slots = torch.randperm((N_PAGES - 1) * P, generator=gen)[:B]
     kv_pages = (1 + slots // P).to(torch.int32)
     kv_offs = (slots % P).to(torch.int32)
     kv_pages[-6:] = 0                      # padding rows → scratch page 0
     kv_offs[-6:] = 0
     kv_pages, kv_offs = kv_pages.to(dev), kv_offs.to(dev)
-    want_k, want_v = kc.clone(), vc.clone()
-    kernels.paged_kv_write_ref(want_k, want_v, k_rows, v_rows, kv_pages,
+    k2_err = 0.0
+    for layout in K2_LAYOUTS:
+        k_rows, v_rows = (k2_rows(torch, gen, dev, B, KVH, D, layout)
+                          for _ in range(2))
+        want_k, want_v = kc.clone(), vc.clone()
+        kernels.paged_kv_write_ref(want_k, want_v, k_rows, v_rows, kv_pages,
+                                   kv_offs)
+        got_k, got_v = kc.clone(), vc.clone()
+        kernels.paged_kv_write(got_k, got_v, k_rows, v_rows, kv_pages,
                                kv_offs)
-    got_k, got_v = kc.clone(), vc.clone()
-    kernels.paged_kv_write(got_k, got_v, k_rows, v_rows, kv_pages, kv_offs)
-    torch.cuda.synchronize()
-    k2_err = max((got_k[:, 1:].float() - want_k[:, 1:].float()).abs().max()
-                 .item(), (got_v[:, 1:].float() - want_v[:, 1:].float())
-                 .abs().max().item())
-    if k2_err != 0.0 or not torch.equal(got_k[:, 1:], want_k[:, 1:]):
-        raise AssertionError(f"K2 differs from its plain version: {k2_err}")
-    log(f"[k2] paged_kv_write B={B} KVH={KVH} D={D} P={P} N={N_PAGES}: "
-        f"bit-exact outside page 0")
+        torch.cuda.synchronize()
+        err = max((got_k[:, 1:].float() - want_k[:, 1:].float()).abs().max()
+                  .item(), (got_v[:, 1:].float() - want_v[:, 1:].float())
+                  .abs().max().item())
+        if err != 0.0 or not (torch.equal(got_k[:, 1:], want_k[:, 1:])
+                              and torch.equal(got_v[:, 1:], want_v[:, 1:])):
+            raise AssertionError(f"K2 differs from its plain version on "
+                                 f"{layout} sources: {err}")
+        k2_err = max(k2_err, err)
+    log(f"[k2] paged_kv_write B={B} KVH={KVH} D={D} P={P} N={N_PAGES}, "
+        f"sources {K2_LAYOUTS}: bit-exact outside page 0")
 
     # 4. K3 vs plain ---------------------------------------------------------
     M = 40
-    k_blocks = torch.randn(M, KVH, P, D, generator=gen).to(dev, torch.bfloat16)
-    v_blocks = torch.randn(M, KVH, P, D, generator=gen).to(dev, torch.bfloat16)
     slot_ids = (1 + torch.randperm(N_PAGES - 1, generator=gen)[:M]) \
         .to(torch.int32)
     slot_ids[[5, 17, 30, 31, 39]] = 0      # padding slots → scratch page 0
     slot_ids = slot_ids.to(dev)
-    want_k, want_v = kc.clone(), vc.clone()
-    kernels.paged_kv_write_pages_ref(want_k, want_v, k_blocks, v_blocks,
+    k3_err = 0.0
+    for layout in K3_LAYOUTS:
+        k_blocks, v_blocks = (k3_blocks(torch, gen, dev, M, KVH, P, D, layout)
+                              for _ in range(2))
+        want_k, want_v = kc.clone(), vc.clone()
+        kernels.paged_kv_write_pages_ref(want_k, want_v, k_blocks, v_blocks,
+                                         slot_ids)
+        got_k, got_v = kc.clone(), vc.clone()
+        kernels.paged_kv_write_pages(got_k, got_v, k_blocks, v_blocks,
                                      slot_ids)
-    got_k, got_v = kc.clone(), vc.clone()
-    kernels.paged_kv_write_pages(got_k, got_v, k_blocks, v_blocks, slot_ids)
-    torch.cuda.synchronize()
-    k3_err = max((got_k[:, 1:].float() - want_k[:, 1:].float()).abs().max()
-                 .item(), (got_v[:, 1:].float() - want_v[:, 1:].float())
-                 .abs().max().item())
-    if k3_err != 0.0 or not (torch.equal(got_k[:, 1:], want_k[:, 1:])
-                             and torch.equal(got_v[:, 1:], want_v[:, 1:])):
-        raise AssertionError(f"K3 differs from its plain version: {k3_err}")
+        torch.cuda.synchronize()
+        err = max((got_k[:, 1:].float() - want_k[:, 1:].float()).abs().max()
+                  .item(), (got_v[:, 1:].float() - want_v[:, 1:].float())
+                  .abs().max().item())
+        if err != 0.0 or not (torch.equal(got_k[:, 1:], want_k[:, 1:])
+                              and torch.equal(got_v[:, 1:], want_v[:, 1:])):
+            raise AssertionError(f"K3 differs from its plain version on "
+                                 f"{layout} blocks: {err}")
+        k3_err = max(k3_err, err)
     log(f"[k3] paged_kv_write_pages M={M} (5 padding slots on page 0) "
-        f"KVH={KVH} P={P} D={D} N={N_PAGES}: bit-exact outside page 0")
+        f"KVH={KVH} P={P} D={D} N={N_PAGES}, blocks {K3_LAYOUTS}: bit-exact "
+        f"outside page 0")
     del kc, vc, got_k, got_v, want_k, want_v
 
     # 5. K1 vs plain ---------------------------------------------------------
@@ -969,8 +1050,9 @@ def main() -> int:
                 out_tokens, n_rounds = eng.tokens_emitted, eng.rounds
                 ttft = list(eng.ttft_s)
                 prompt = list(range(40, 140))
-                same = await asyncio.gather(greedy_on(eng, prompt, 12),
-                                            greedy_on(eng, prompt, 12))
+                same = await asyncio.gather(
+                    greedy_on(eng, prompt, 12, top=8),
+                    greedy_on(eng, prompt, 12, top=8))
                 return (results, wall, launches, out_tokens, n_rounds,
                         ttft, same)
             finally:
@@ -994,10 +1076,10 @@ def main() -> int:
             if launches[kname] != 0:
                 raise AssertionError(f"kernel {kname} launched on the "
                                      f"{label} main path")
-        if a != b or len(a) != 12:
-            raise AssertionError(f"greedy streams differ: {a} vs {b}")
+        if a[0] != b[0] or len(a[0]) != 12 or len(a[1]) != 12:
+            raise AssertionError(f"greedy streams differ: {a[0]} vs {b[0]}")
         log(f"[main] {label} greedy determinism: two identical requests -> "
-            f"{a[:6]}...")
+            f"{a[0][:6]}...")
         return {"wall": wall, "launches": launches, "tokens": out_tokens,
                 "rounds": n_rounds, "ttft": ttft, "stream": a}
 
@@ -1019,9 +1101,21 @@ def main() -> int:
                               "int4_matmul"))
     del ragged_eng
     torch.cuda.empty_cache()
-    log(f"[main] greedy stream of the same 100-token prompt, phase vs "
-        f"ragged path (bf16, may differ by near-ties): "
-        f"{'identical' if phase['stream'] == ragged_run['stream'] else 'differ'}")
+    # the same greedy request on both paths: equal up to a parting at a
+    # bf16 near-tie, where each run ranks the other's token within
+    # BF16_TIE_TOL nats of its own
+    partings = stream_partings([phase["stream"]], [ragged_run["stream"]],
+                               BF16_TIE_TOL)
+    if partings:
+        (_, step, gap), = partings
+        toks = (phase["stream"][0][step], ragged_run["stream"][0][step])
+        log(f"[main] greedy stream of the same 100-token prompt, phase vs "
+            f"ragged path (bf16): part at step {step} of 12, tokens {toks[0]}"
+            f" vs {toks[1]}, logprob gap {gap:.4f} nats (tie tolerance "
+            f"{BF16_TIE_TOL}); identical before it")
+    else:
+        log(f"[main] greedy stream of the same 100-token prompt, phase vs "
+            f"ragged path (bf16): identical over 12 steps")
 
     # 9. quantized main path -------------------------------------------------
 
@@ -1324,10 +1418,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 13. numbers ------------------------------------------------------------
-    flush_buf = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    # every kernel timed after a read flush (the yardstick) and, for
+    # continuity with older records, after a write flush; the empty-kernel
+    # floor under the same flush beside them
+    flushes = l2_flushes(torch, dev)
+    flush, wflush = flushes["read"], flushes["write"]
+    tiny = torch.zeros(1, device=dev)
+    floor = {"ms": time_ms(torch, tiny.zero_, flush=flush),
+             "write": time_ms(torch, tiny.zero_, flush=wflush),
+             "run": time_run_ms(torch, [tiny.zero_] * N_LAYER_RUN,
+                                flush=flush)}
+    log(f"[time] empty-kernel floor (1-element zero_): {floor['ms']:.4f} ms "
+        f"after a read flush, {floor['write']:.4f} after a write flush, "
+        f"{floor['run']:.4f} per launch in a run of {N_LAYER_RUN} on {smi}")
 
-    def flush():
-        flush_buf.zero_()
+    def timed(fn) -> tuple[float, float]:
+        """One launch of `fn`: (ms after a read flush, after a write)."""
+        return (time_ms(torch, fn, flush=flush),
+                time_ms(torch, fn, flush=wflush))
 
     # the ragged path's biggest round: a 512-token prompt chunk (the second
     # of a 1517-token prompt) + the fixed block of 8 decode rows, padded
@@ -1344,19 +1452,25 @@ def main() -> int:
                                                            torch.bfloat16)
     vp = torch.randn(KVH, N_PAGES, P, D, generator=gen).to(dev,
                                                            torch.bfloat16)
+    # one (K, V) cache pair per layer for the runs of N_LAYER_RUN launches
+    layer_caches = [(torch.empty_like(kp), torch.empty_like(vp))
+                    for _ in range(N_LAYER_RUN)]
+    # rows[key] = (rows, ms, plain_ms, bound, bound_by, library_ms,
+    #              ms after a write flush, ms per launch in a run or None)
     rows = {}
     for label, (qp, ln, tb) in shapes.items():
         qp_d, ln_d, tb_d = qp.to(dev), ln.to(dev), tb.to(dev)
         q = torch.randn(qp.numel(), H, D, generator=gen).to(dev,
                                                              torch.bfloat16)
-        ms = time_ms(torch, lambda: ragged.ragged_paged_attention(
-            q, kp, vp, qp_d, ln_d, tb_d), flush=flush)
+        ms, ms_w = timed(lambda: ragged.ragged_paged_attention(
+            q, kp, vp, qp_d, ln_d, tb_d))
         plain_ms = time_ms(torch, lambda: plain_k1(q, kp, vp, qp_d, ln_d,
                                                    tb_d), reps=5,
                            flush=flush)
         k1_bound, by = k1_bound_ms(torch, qp, ln, tb, H, KVH, D, P, 2,
                                    peaks)
-        rows[("k1", label)] = (qp.numel(), ms, plain_ms, k1_bound, by, None)
+        rows[("k1", label)] = (qp.numel(), ms, plain_ms, k1_bound, by, None,
+                               ms_w, None)
         got = ragged.ragged_paged_attention(q, kp, vp, qp_d, ln_d, tb_d)
         want = plain_k1(q, kp, vp, qp_d, ln_d, tb_d)
         torch.testing.assert_close(got.float(), want.float(), **K1_BF16_TOL)
@@ -1366,10 +1480,13 @@ def main() -> int:
         k1_err[torch.bfloat16] = max(k1_err[torch.bfloat16], err)
         uniform_check(ragged, plain_k1, torch, kp, vp, qp_d, ln_d, tb_d, H,
                       f"{label} round at the main path's shapes")
-        # K2 on the same round's rows
+        # K2 on the same round's rows, as the step hands them: projection
+        # outputs viewed as heads, targets redirected once
         b = qp.numel()
-        kr = torch.randn(b, KVH, D, generator=gen).to(dev, torch.bfloat16)
-        vr = torch.randn(b, KVH, D, generator=gen).to(dev, torch.bfloat16)
+        srcs = [(k2_rows(torch, gen, dev, b, KVH, D, "contiguous"),
+                 k2_rows(torch, gen, dev, b, KVH, D, "contiguous"))
+                for _ in range(N_LAYER_RUN)]
+        kr, vr = srcs[0]
         pg = torch.where(qp_d >= 0, tb_d[ln_d.long(), (qp_d.clamp(min=0)
                                                      // P).long()], 0)
         of = torch.where(qp_d >= 0, qp_d % P, 0).to(torch.int32)
@@ -1386,8 +1503,11 @@ def main() -> int:
         log(f"[check] {label} round at the main path's shapes: K1 max_abs_err "
             f"{err:.3e} ({K1_BF16_TOL}), K2 bit-exact outside "
             f"page 0")
-        ms2 = time_ms(torch, lambda: kernels.paged_kv_write(
-            kcw, vcw, kr, vr, pg, of), flush=flush)
+        ms2, ms2_w = timed(lambda: kernels.paged_kv_write(
+            kcw, vcw, kr, vr, pg, of))
+        run2 = time_run_ms(torch, [
+            (lambda c=c, s=s: kernels.paged_kv_write(*c, *s, pg, of))
+            for c, s in zip(layer_caches, srcs)], flush=flush)
         plain2 = time_ms(torch, lambda: kernels.paged_kv_write_ref(
             kcw, vcw, kr, vr, pg, of), flush=flush)
 
@@ -1397,16 +1517,20 @@ def main() -> int:
 
         lib2 = time_ms(torch, index_put, flush=flush)
         bound2, by2 = k2_bound_ms(pg, KVH, D, 2, peaks)
-        rows[("k2", label)] = (b, ms2, plain2, bound2, by2, lib2)
-        del kcw, vcw
+        rows[("k2", label)] = (b, ms2, plain2, bound2, by2, lib2, ms2_w, run2)
+        del kcw, vcw, srcs, kr, vr
 
     # K3 at the phase path's chunk shape: a 480-token page-aligned chunk in
-    # the 512 bucket = 32 slots, the last 2 padding (→ page 0)
+    # the 512 bucket = 32 slots, the last 2 padding (→ page 0); its blocks
+    # the chunk's token-major K/V viewed per page, as `_chunk_kv_writer`
+    # hands them
     ids3 = torch.zeros(32, dtype=torch.int32)
     ids3[:30] = 1 + torch.randperm(N_PAGES - 1, generator=gen)[:30]
     ids3_d = ids3.to(dev)
-    kb3 = torch.randn(32, KVH, P, D, generator=gen).to(dev, torch.bfloat16)
-    vb3 = torch.randn(32, KVH, P, D, generator=gen).to(dev, torch.bfloat16)
+    srcs = [(k3_blocks(torch, gen, dev, 32, KVH, P, D, "chunk"),
+             k3_blocks(torch, gen, dev, 32, KVH, P, D, "chunk"))
+            for _ in range(N_LAYER_RUN)]
+    kb3, vb3 = srcs[0]
     kcw, vcw = kp.clone(), vp.clone()
     kernels.paged_kv_write_pages(kcw, vcw, kb3, vb3, ids3_d)
     want_k, want_v = kp.clone(), vp.clone()
@@ -1416,8 +1540,16 @@ def main() -> int:
         raise AssertionError("K3 differs from its plain version at the main "
                              "path's shape")
     del want_k, want_v
-    ms3 = time_ms(torch, lambda: kernels.paged_kv_write_pages(
-        kcw, vcw, kb3, vb3, ids3_d), flush=flush)
+    ms3, ms3_w = timed(lambda: kernels.paged_kv_write_pages(
+        kcw, vcw, kb3, vb3, ids3_d))
+    run3 = time_run_ms(torch, [
+        (lambda c=c, s=s: kernels.paged_kv_write_pages(*c, *s, ids3_d))
+        for c, s in zip(layer_caches, srcs)], flush=flush)
+    kb3c, vb3c = kb3.contiguous(), vb3.contiguous()
+    ms3_c = time_ms(torch, lambda: kernels.paged_kv_write_pages(
+        kcw, vcw, kb3c, vb3c, ids3_d), flush=flush)
+    log(f"[time] paged_kv_write_pages chunk on contiguous blocks: "
+        f"{ms3_c:.4f} ms after a read flush on {smi}")
     plain3 = time_ms(torch, lambda: kernels.paged_kv_write_pages_ref(
         kcw, vcw, kb3, vb3, ids3_d), flush=flush)
     ids3_l = ids3_d.long()
@@ -1428,15 +1560,15 @@ def main() -> int:
 
     lib3 = time_ms(torch, index_copy, flush=flush)
     bound3, by3 = k3_bound_ms(ids3, KVH, P, D, 2, peaks)
-    rows[("k3", "chunk")] = (32, ms3, plain3, bound3, by3, lib3)
-    del kcw, vcw
+    rows[("k3", "chunk")] = (32, ms3, plain3, bound3, by3, lib3, ms3_w, run3)
+    del kcw, vcw, srcs, kb3, vb3, kb3c, vb3c, layer_caches
 
     # K4 at the phase path's burst shape: 8 decode lanes, contexts 44..1033
     lens4 = [44, 73, 133, 233, 383, 653, 853, 1033]
     q4, _, _, l4, t4 = decode_case(torch, gen, dev, torch.bfloat16, lens4,
                                    N_PAGES, MAX_PAGES, H, KVH, P, D)
-    ms4 = time_ms(torch, lambda: attention.paged_attention_decode(
-        q4, kp, vp, l4, t4), flush=flush)
+    ms4, ms4_w = timed(lambda: attention.paged_attention_decode(
+        q4, kp, vp, l4, t4))
     plain4 = time_ms(torch, lambda: attention.paged_attention_decode_ref(
         q4, kp, vp, l4, t4), flush=flush)
     got = attention.paged_attention_decode(q4, kp, vp, l4, t4)
@@ -1447,7 +1579,7 @@ def main() -> int:
     log(f"[check] burst shape: K4 max_abs_err {err4:.3e} ({K4_BF16_TOL}), "
         f"K3 bit-exact outside page 0")
     bound4, by4 = k4_bound_ms(l4.cpu(), t4.cpu(), H, KVH, D, P, 2, peaks)
-    rows[("k4", "burst")] = (8, ms4, plain4, bound4, by4, None)
+    rows[("k4", "burst")] = (8, ms4, plain4, bound4, by4, None, ms4_w, None)
 
     del kp, vp
     torch.cuda.empty_cache()
@@ -1482,7 +1614,7 @@ def main() -> int:
                     return ((y[:m].float() * sx) * qt.s).to(x.dtype)
 
                 lib_same = torch.equal(library(), got)
-                ms = time_ms(torch, lambda: fn(x, qt.q, qt.s), flush=flush)
+                ms, ms_w = timed(lambda: fn(x, qt.q, qt.s))
                 plain_ms = time_ms(torch, lambda: ref(x, qt.q, qt.s), reps=5,
                                    flush=flush)
                 lib_ms = time_ms(torch, library, flush=flush)
@@ -1490,7 +1622,7 @@ def main() -> int:
                        f"{shape} {label}")
                 matmul_ms[key] = time_ms(torch, lambda: x @ w_bf, flush=flush)
                 bnd, by = a8_bound_ms(m, k8, n8, bits, 2, peaks)
-                rows[key] = (m, ms, plain_ms, bnd, by, lib_ms)
+                rows[key] = (m, ms, plain_ms, bnd, by, lib_ms, ms_w, None)
                 log(f"[check] {GEMM_OF[mode]} {shape} M={m} K={k8} N={n8} "
                     f"bf16: bit-identical with its plain version; the library "
                     f"yardstick (torch._int_mm"
@@ -1500,12 +1632,16 @@ def main() -> int:
             del qt, q8
         del w_bf
 
-    for (key, label), (n, ms, plain_ms, bnd, by, lib) in rows.items():
+    for (key, label), (n, ms, plain_ms, bnd, by, lib, ms_w, run) in \
+            rows.items():
         kname = GEMM_OF.get(key, key)
         extra = (f", bf16 torch.matmul {matmul_ms[(key, label)]:.4f} ms"
                  if (key, label) in matmul_ms else "")
-        log(f"[time] {kname} {label} rows={n}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library "
+        in_run = (f", {run:.4f} ms per launch in a run of {N_LAYER_RUN} "
+                  f"(floor {floor['run']:.4f})" if run is not None else "")
+        log(f"[time] {kname} {label} rows={n}: kernel {ms:.4f} ms after a "
+            f"read flush (write flush {ms_w:.4f}; floor {floor['ms']:.4f})"
+            f"{in_run}, plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}{extra}, bound "
             f"{bnd:.6f} ms ({by}) on {smi}")
     for label, run in (("phase", phase), ("ragged", ragged_run),
@@ -1520,11 +1656,12 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
     def entry(kname, source, replaces, key, err, run):
-        n, ms, plain_ms, bnd, by, lib = rows[key]
+        n, ms, plain_ms, bnd, by, lib, ms_w, _ = rows[key]
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": run["launches"][kname],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+                "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+                "ms_write_flush": ms_w}
 
     print(json.dumps({"kernels": [
         entry("ragged_paged_attention",

@@ -4,19 +4,24 @@
 K2 is the port of `dynamo_tpu/engine/kernels.py:32` `paged_kv_write` (a
 Pallas TPU kernel): one K/V row per token into its page slot. On CUDA
 tensors the wrapper launches the hand-written kernel `csrc/paged_kv_write.cu`
-(one CTA per row, 16-byte vector stores, in place — see the source for its
-design and bound); on CPU tensors it runs `paged_kv_write_ref`, the plain
-version, which is the scatter branch of `dynamo_tpu/models/llama.py:195-203`
-`_write_kv`.
+(a flat list of 16-byte chunks in one wave, in place — see the source for
+its design and bound); on CPU tensors it runs `paged_kv_write_ref`, the
+plain version, which is the scatter branch of
+`dynamo_tpu/models/llama.py:195-203` `_write_kv`.
 
 K3 is the port of `dynamo_tpu/engine/kernels.py:78` `paged_kv_write_pages`
 (a Pallas TPU kernel): whole pages of rows, for page-aligned prefill
 chunks, stored without reading the destination back. CUDA tensors launch
-`csrc/paged_kv_write_pages.cu`; CPU tensors run `paged_kv_write_pages_ref`.
+`csrc/paged_kv_write_pages.cu` (a TMA box in, a bulk copy out, per slot
+and head); CPU tensors run `paged_kv_write_pages_ref`.
 
-Any other device, or a geometry a kernel does not take, raises. Both
-write in place into the caller's cache tensors. Padding rows and slots
-target scratch page 0, which `engine/pages.py` never hands out.
+Both kernels read K and V as the caller hands them: any strides on the
+leading dimensions (a step passes its projections' output, and K3 a
+permuted view of the chunk's token-major K/V), stride 1 on D, every row
+start 16-byte aligned. The caches are contiguous. Any other device, or a
+geometry or layout a kernel does not take, raises. Both write in place
+into the caller's cache tensors. Padding rows and slots target scratch
+page 0, which `engine/pages.py` never hands out.
 """
 
 from __future__ import annotations
@@ -31,13 +36,20 @@ _c = ctypes
 _KERNEL = CudaKernel("paged_kv_write", [
     _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,   # kc vc k v
     _c.c_void_p, _c.c_void_p,                             # page_ids offsets
+    *[_c.c_longlong] * 4,                                 # k, v byte strides
     _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,     # B KVH N P bytes
     _c.c_void_p])                                         # stream
 _PAGES_KERNEL = CudaKernel("paged_kv_write_pages", [
     _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,   # kc vc kb vb
     _c.c_void_p,                                          # page_ids
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int,               # M KVH N bytes
+    *[_c.c_longlong] * 6,                                 # kb, vb strides
+    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,     # M KVH N P bytes
     _c.c_void_p])                                         # stream
+
+
+# K3 stages a slot's K and V pages in one CTA's shared memory
+# (csrc/paged_kv_write_pages.cu kMaxSmem)
+K3_MAX_SMEM = 227 * 1024 - 1024
 
 
 def _check_cuda_args(name: str, ref: torch.Tensor, **tensors) -> None:
@@ -45,6 +57,27 @@ def _check_cuda_args(name: str, ref: torch.Tensor, **tensors) -> None:
         if t.device != ref.device or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be a contiguous tensor on "
                              f"{ref.device}")
+
+
+def _row_strides(name: str, arg: str, t: torch.Tensor, ref: torch.Tensor
+                 ) -> list[int]:
+    """Byte strides of `t`'s leading dimensions for a kernel that reads
+    16-byte chunks of its rows: `t` lies on `ref`'s device, its last
+    dimension has stride 1, and its data pointer and every leading stride
+    (of a dimension longer than 1) are multiples of 16 bytes."""
+    if t.device != ref.device:
+        raise ValueError(f"{name}: {arg} must lie on {ref.device}")
+    es = t.element_size()
+    strides = [s * es if n > 1 else 0
+               for s, n in zip(t.stride()[:-1], t.shape[:-1])]
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: {arg}'s last dimension must have stride "
+                         f"1, not {t.stride(-1)}")
+    if t.data_ptr() % 16 or any(s % 16 for s in strides):
+        raise ValueError(f"{name}: {arg}'s rows must start on 16-byte "
+                         f"boundaries (data_ptr {t.data_ptr()}, strides "
+                         f"{t.stride()} x {es} B)")
+    return strides
 
 
 def paged_kv_write_ref(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
@@ -62,10 +95,10 @@ def paged_kv_write_ref(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
 def paged_kv_write(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, page_ids: torch.Tensor,
                    offsets: torch.Tensor) -> None:
-    """kc/vc: (KVH, N, P, D); k/v: (B, KVH, D); page_ids/offsets: (B,)
-    int32, invalid rows already redirected to page 0 offset 0 by the
-    caller. In place. CUDA: the kernel, on the current stream; CPU: the
-    plain version."""
+    """kc/vc: (KVH, N, P, D); k/v: (B, KVH, D), any strides on B and KVH;
+    page_ids/offsets: (B,) int32, invalid rows already redirected to page
+    0 offset 0 by the caller (`models/llama.py` `_kv_targets`). In place.
+    CUDA: the kernel, on the current stream; CPU: the plain version."""
     if kc.device.type == "cpu":
         paged_kv_write_ref(kc, vc, k, v, page_ids, offsets)
         return
@@ -73,8 +106,8 @@ def paged_kv_write(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"paged_kv_write: unsupported device {kc.device}")
     kvh, n_pages, p, d = kc.shape
     b = k.shape[0]
-    _check_cuda_args("paged_kv_write", kc, kc=kc, vc=vc, k=k, v=v,
-                     page_ids=page_ids, offsets=offsets)
+    _check_cuda_args("paged_kv_write", kc, kc=kc, vc=vc, page_ids=page_ids,
+                     offsets=offsets)
     if not (vc.shape == kc.shape and k.shape == (b, kvh, d)
             and v.shape == k.shape and page_ids.shape == (b,)
             and offsets.shape == (b,)):
@@ -91,9 +124,14 @@ def paged_kv_write(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"paged_kv_write: head_dim {d} x "
                          f"{kc.element_size()} B is not a multiple of the "
                          f"16-byte vector width")
+    strides = [*_row_strides("paged_kv_write", "k", k, kc),
+               *_row_strides("paged_kv_write", "v", v, kc)]
+    if b == 0:
+        return
     _KERNEL(kc.data_ptr(), vc.data_ptr(), k.data_ptr(), v.data_ptr(),
-            page_ids.data_ptr(), offsets.data_ptr(), b, kvh, n_pages, p,
-            row_bytes, torch.cuda.current_stream(kc.device).cuda_stream)
+            page_ids.data_ptr(), offsets.data_ptr(), *strides, b, kvh,
+            n_pages, p, row_bytes,
+            torch.cuda.current_stream(kc.device).cuda_stream)
 
 
 def paged_kv_write_pages_ref(kc: torch.Tensor, vc: torch.Tensor,
@@ -112,10 +150,11 @@ def paged_kv_write_pages_ref(kc: torch.Tensor, vc: torch.Tensor,
 def paged_kv_write_pages(kc: torch.Tensor, vc: torch.Tensor,
                          k_blocks: torch.Tensor, v_blocks: torch.Tensor,
                          page_ids: torch.Tensor) -> None:
-    """kc/vc: (KVH, N, P, D); k_blocks/v_blocks: (M, KVH, P, D); page_ids:
-    (M,) int32, padding slots already aimed at page 0 by the caller. In
-    place. CUDA: the kernel, on the current stream; CPU: the plain
-    version."""
+    """kc/vc: (KVH, N, P, D); k_blocks/v_blocks: (M, KVH, P, D), any
+    strides on M, KVH and P (the caller's token-major chunk K/V, permuted);
+    page_ids: (M,) int32, padding slots already aimed at page 0 by the
+    caller. In place. CUDA: the kernel, on the current stream; CPU: the
+    plain version."""
     if kc.device.type == "cpu":
         paged_kv_write_pages_ref(kc, vc, k_blocks, v_blocks, page_ids)
         return
@@ -125,7 +164,7 @@ def paged_kv_write_pages(kc: torch.Tensor, vc: torch.Tensor,
     kvh, n_pages, p, d = kc.shape
     m = k_blocks.shape[0]
     _check_cuda_args("paged_kv_write_pages", kc, kc=kc, vc=vc,
-                     k_blocks=k_blocks, v_blocks=v_blocks, page_ids=page_ids)
+                     page_ids=page_ids)
     if not (vc.shape == kc.shape and k_blocks.shape == (m, kvh, p, d)
             and v_blocks.shape == k_blocks.shape
             and page_ids.shape == (m,)):
@@ -138,11 +177,21 @@ def paged_kv_write_pages(kc: torch.Tensor, vc: torch.Tensor,
                          "share a dtype")
     if page_ids.dtype != torch.int32:
         raise ValueError("paged_kv_write_pages: page_ids must be int32")
-    page_bytes = p * d * kc.element_size()
-    if page_bytes % 16:
-        raise ValueError(f"paged_kv_write_pages: a page of {p} x {d} x "
-                         f"{kc.element_size()} B is not a multiple of the "
-                         f"16-byte vector width")
+    row_bytes = d * kc.element_size()
+    if row_bytes % 16 or row_bytes > 512 or p > 256 \
+            or 2 * p * row_bytes > K3_MAX_SMEM:
+        raise ValueError(f"paged_kv_write_pages: a page of {p} rows of "
+                         f"{d} x {kc.element_size()} B is not a TMA box the "
+                         f"kernel takes (rows a multiple of 16 B and at most "
+                         f"512, at most 256 rows, K and V pages within "
+                         f"{K3_MAX_SMEM} B)")
+    strides = [*_row_strides("paged_kv_write_pages", "k_blocks", k_blocks,
+                             kc),
+               *_row_strides("paged_kv_write_pages", "v_blocks", v_blocks,
+                             kc)]
+    if m == 0:
+        return
     _PAGES_KERNEL(kc.data_ptr(), vc.data_ptr(), k_blocks.data_ptr(),
-                  v_blocks.data_ptr(), page_ids.data_ptr(), m, kvh, n_pages,
-                  page_bytes, torch.cuda.current_stream(kc.device).cuda_stream)
+                  v_blocks.data_ptr(), page_ids.data_ptr(), *strides, m, kvh,
+                  n_pages, p, row_bytes,
+                  torch.cuda.current_stream(kc.device).cuda_stream)

@@ -220,21 +220,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def _kv_targets(page_ids: torch.Tensor, offsets: torch.Tensor,
+                valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's targets for a step's rows, computed once and handed to every
+    layer: (page_ids, offsets) (T,) int32 with invalid (padding) rows
+    redirected to scratch page 0, offset 0, which no sequence owns, so
+    their racing writes touch nothing that is read unmasked. One multiply
+    each (a `where` with a scalar costs a second launch on the card)."""
+    return ((page_ids * valid).to(torch.int32),
+            (offsets * valid).to(torch.int32))
+
+
 def _write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, page_ids: torch.Tensor, offsets: torch.Tensor,
               valid: torch.Tensor) -> None:
-    """Scatter new K/V rows into one layer's paged caches, in place.
-
-    caches: (KVH, N, P, D); k/v: (T, KVH, D); page_ids/offsets/valid:
-    (T,). Invalid (padding) rows are redirected to scratch page 0, offset
-    0, which no sequence owns, so their racing writes touch nothing that
-    is read unmasked. CUDA: the paged_kv_write kernel; CPU: its plain
-    version (engine/kernels.py)."""
-    zero = torch.zeros_like(page_ids)
-    safe_pages = torch.where(valid, page_ids, zero)
-    safe_offs = torch.where(valid, offsets, zero)
-    kernels.paged_kv_write(k_cache, v_cache, k.contiguous(), v.contiguous(),
-                           safe_pages, safe_offs)
+    """Scatter new K/V rows into one layer's paged caches, in place: the
+    reference's `_write_kv`, as `_kv_targets` (once per step) then K2 (in
+    every layer). caches: (KVH, N, P, D); k/v: (T, KVH, D), any strides
+    on T and KVH; page_ids/offsets/valid: (T,). CUDA: the paged_kv_write
+    kernel; CPU: its plain version (engine/kernels.py)."""
+    kernels.paged_kv_write(k_cache, v_cache, k, v,
+                           *_kv_targets(page_ids, offsets, valid))
 
 
 def _swiglu(h: torch.Tensor, layer: LlamaLayer) -> torch.Tensor:
@@ -274,40 +280,41 @@ def _page_ids(page_tables: torch.Tensor, positions: torch.Tensor,
 def _chunk_kv_writer(cfg: LlamaConfig, page_tables: torch.Tensor,
                      positions: torch.Tensor, seq_lens: torch.Tensor,
                      aligned: bool):
-    """write(kc, vc, k, v) for one layer's (Bp, T, KVH, D) chunk K/V.
+    """write(kc, vc, k, v) for one layer's (Bp, T, KVH, D) chunk K/V, its
+    targets computed here, once per step; each layer's write is one
+    launch on views of k and v, no copy.
 
     aligned and T % P == 0 (the caller guarantees every cached_len is a
     multiple of P): whole pages through K3 — one slot per (sequence, page
-    of the chunk); a slot whose first row lies past seq_len goes to
-    scratch page 0, and a partly filled last page also takes the padding
-    rows in its tail (masked by length, overwritten by decode later).
-    Otherwise one row per token through K2 `_write_kv`, padding rows to
-    page 0."""
+    of the chunk), its block the (P, KVH, D) rows of the page viewed as
+    (KVH, P, D); a slot whose first row lies past seq_len goes to scratch
+    page 0, and a partly filled last page also takes the padding rows in
+    its tail (masked by length, overwritten by decode later). Otherwise
+    one row per token through K2, padding rows to page 0."""
     Bp, T = positions.shape
     P, KVH, D = cfg.page_size, cfg.num_kv_heads, cfg.head_dim
     valid = positions < seq_lens[:, None]
     page_ids = _page_ids(page_tables, positions, P)
     if aligned and T % P == 0:
-        slot_pages = torch.where(valid[:, ::P], page_ids[:, ::P],
-                                 torch.zeros_like(page_ids[:, ::P]))
-        slot_pages = slot_pages.reshape(-1).to(torch.int32).contiguous()
+        M = Bp * (T // P)
+        slot_pages = (page_ids[:, ::P] * valid[:, ::P]).reshape(M) \
+            .to(torch.int32)
 
-        def blocks(a: torch.Tensor) -> torch.Tensor:   # → (Bp·T/P, KVH, P, D)
-            a = a.reshape(Bp, T // P, P, KVH, D).transpose(2, 3)
-            return a.reshape(Bp * (T // P), KVH, P, D).contiguous()
+        def blocks(a: torch.Tensor) -> torch.Tensor:   # → (M, KVH, P, D)
+            return a.view(M, P, KVH, D).permute(0, 2, 1, 3)
 
         def write(kc, vc, k, v) -> None:
             kernels.paged_kv_write_pages(kc, vc, blocks(k), blocks(v),
                                          slot_pages)
         return write
 
-    f_pages = page_ids.reshape(-1).to(torch.int32)
-    f_offs = (positions % P).reshape(-1).to(torch.int32)
-    f_valid = valid.reshape(-1)
+    f_pages, f_offs = _kv_targets(page_ids.reshape(-1),
+                                  (positions % P).reshape(-1),
+                                  valid.reshape(-1))
 
     def write(kc, vc, k, v) -> None:
-        _write_kv(kc, vc, k.reshape(Bp * T, KVH, D),
-                  v.reshape(Bp * T, KVH, D), f_pages, f_offs, f_valid)
+        kernels.paged_kv_write(kc, vc, k.view(Bp * T, KVH, D),
+                               v.view(Bp * T, KVH, D), f_pages, f_offs)
     return write
 
 
@@ -337,7 +344,7 @@ def paged_forward(model: LlamaModel, k_cache: list, v_cache: list,
         q, k, v = qkv_proj(hn, layer, cfg)
         q = apply_rope(q.reshape(Bp, T, H, D), cos, sin)
         k = apply_rope(k.reshape(Bp, T, KVH, D), cos, sin)
-        write(k_cache[l], v_cache[l], k, v.reshape(Bp, T, KVH, D))
+        write(k_cache[l], v_cache[l], k, v.view(Bp, T, KVH, D))
         attn = attention.prefill_attention(q, k_cache[l], v_cache[l],
                                            page_tables, positions, seq_lens,
                                            kv_pages)
@@ -395,9 +402,9 @@ def _decode_once(model: LlamaModel, k_cache: list, v_cache: list,
     B = tokens.shape[0]
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = model.embed[tokens.long()]                         # (B, E)
-    page_ids = _page_ids(page_tables, positions[:, None],
-                         cfg.page_size)[:, 0].contiguous()
-    offsets = positions % cfg.page_size
+    pages, offsets = _kv_targets(
+        _page_ids(page_tables, positions[:, None], cfg.page_size)[:, 0],
+        positions % cfg.page_size, valid)
     lengths = torch.where(valid, positions + 1,
                           torch.zeros_like(positions)).to(torch.int32)
     cos, sin = rope_tables(positions, D, cfg.rope_theta)   # (B, 1, D/2)
@@ -406,8 +413,8 @@ def _decode_once(model: LlamaModel, k_cache: list, v_cache: list,
         q, k, v = qkv_proj(hn, layer, cfg)
         q = apply_rope(q.reshape(B, H, D), cos, sin)
         k = apply_rope(k.reshape(B, KVH, D), cos, sin)
-        _write_kv(k_cache[l], v_cache[l], k, v.reshape(B, KVH, D), page_ids,
-                  offsets, valid)
+        kernels.paged_kv_write(k_cache[l], v_cache[l], k,
+                               v.view(B, KVH, D), pages, offsets)
         attn = attention.paged_attention_decode(
             q.contiguous(), k_cache[l], v_cache[l], lengths, page_tables)
         x = x + qm(attn.reshape(B, H * D), layer.wo)
@@ -495,9 +502,9 @@ def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
                                        ch_tables.shape[1])
     c_cos, c_sin = rope_tables(c_positions, D, cfg.rope_theta)
     xd = model.embed[d_tokens.long()]                      # (B, E)
-    d_page_ids = _page_ids(d_tables, d_positions[:, None],
-                           cfg.page_size)[:, 0].contiguous()
-    d_offsets = d_positions % cfg.page_size
+    d_pages, d_offsets = _kv_targets(
+        _page_ids(d_tables, d_positions[:, None], cfg.page_size)[:, 0],
+        d_positions % cfg.page_size, d_valid)
     d_lengths = torch.where(d_valid, d_positions + 1,
                             torch.zeros_like(d_positions)).to(torch.int32)
     d_cos, d_sin = rope_tables(d_positions, D, cfg.rope_theta)
@@ -511,9 +518,9 @@ def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
         qd, kd, vd = qkv_proj(hnd, layer, cfg)
         qd = apply_rope(qd.reshape(B, H, D), d_cos, d_sin)
         kd = apply_rope(kd.reshape(B, KVH, D), d_cos, d_sin)
-        write(kc, vc, k, v.reshape(Bp, T, KVH, D))
-        _write_kv(kc, vc, kd, vd.reshape(B, KVH, D), d_page_ids, d_offsets,
-                  d_valid)
+        write(kc, vc, k, v.view(Bp, T, KVH, D))
+        kernels.paged_kv_write(kc, vc, kd, vd.view(B, KVH, D), d_pages,
+                               d_offsets)
         attn_d, attn_c = attention.mixed_attention(
             qd.contiguous(), q, kc, vc, d_lengths, d_tables, ch_tables,
             c_positions, ch_seq_lens, kv_pages)
@@ -589,14 +596,15 @@ def ragged_prefill_decode(model: LlamaModel, k_cache: list, v_cache: list,
     x = model.embed[tokens.long()]                         # (Tb, E)
     qpos = torch.where(valid, positions,
                        torch.full_like(positions, -1)).to(torch.int32)
+    pages, offs = _kv_targets(page_ids, offsets, valid)
     cos, sin = rope_tables(positions, D, cfg.rope_theta)
     for l, layer in enumerate(model.layers):
         hn = rms_norm(x, layer.attn_norm, cfg.rms_eps)
         q, k, v = qkv_proj(hn, layer, cfg)
         q = apply_rope(q.reshape(Tb, H, D), cos, sin)
         k = apply_rope(k.reshape(Tb, KVH, D), cos, sin)
-        v = v.reshape(Tb, KVH, D)
-        _write_kv(k_cache[l], v_cache[l], k, v, page_ids, offsets, valid)
+        kernels.paged_kv_write(k_cache[l], v_cache[l], k,
+                               v.view(Tb, KVH, D), pages, offs)
         attn = attention.ragged_attention(
             q.contiguous(), k_cache[l], v_cache[l], qpos, token_lanes,
             lane_tables, page_size=cfg.page_size)          # (Tb, H, D)

@@ -8,7 +8,8 @@ machine that has only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: K2 and K3 are copies, bit-exact outside scratch page 0. K1
+Tolerances: K2 and K3 are copies, bit-exact outside scratch page 0, on
+contiguous and on strided sources (the views a step hands them). K1
 and K4 in fp32 at atol/rtol 2e-5 (the
 reference's kernel-parity tolerance); in bf16 at rtol 1.6e-2, two bf16
 ulps (2^-7 relative), since the kernel rounds P to bf16 before PV and
@@ -249,6 +250,179 @@ def test_k3_kernel_bit_exact_with_plain(cuda_device, dtype, kvh, p, d):
     assert torch.equal(vc[:, 1:], want_v[:, 1:])
     pads = kb[[2, 7, 8, 12]].transpose(0, 1)       # (KVH, 4, P, D)
     assert (pads == kc[:, 0][:, None]).any(1).all()
+
+
+def _kv_views(gen, dev, dtype, b, kvh, d, layout):
+    """(k, v) rows (B, KVH, D) laid out as a caller may hand them to K2:
+    "projection" (a (B, KVH·D) output viewed as heads), "fused" (a slice
+    of a wider (B, 3·KVH·D) output), "heads" (a head-major tensor
+    transposed), "chunk" (a (Bp, T, KVH, D) chunk flattened by a view)."""
+    def one():
+        if layout == "fused":
+            wide = torch.randn(b, 3 * kvh * d, generator=gen).to(dev, dtype)
+            return wide[:, kvh * d:2 * kvh * d].view(b, kvh, d)
+        if layout == "heads":
+            return torch.randn(kvh, b, d, generator=gen).to(
+                dev, dtype).transpose(0, 1)
+        if layout == "chunk":
+            return torch.randn(2, b // 2, kvh, d, generator=gen).to(
+                dev, dtype).view(b, kvh, d)
+        return torch.randn(b, kvh * d, generator=gen).to(dev, dtype).view(
+            b, kvh, d)
+    return one(), one()
+
+
+def _kv_targets_case(gen, dev, b, n, p, n_pad):
+    slots = torch.randperm((n - 1) * p, generator=gen)[:b]
+    pages = (1 + slots // p).to(torch.int32)
+    offs = (slots % p).to(torch.int32)
+    pages[b - n_pad:] = 0                  # padding rows → page 0 offset 0
+    offs[b - n_pad:] = 0
+    return pages.to(dev), offs.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["projection", "fused", "heads", "chunk"])
+@pytest.mark.parametrize("b", [8, 768])
+def test_kv_write_kernel_strided_sources(cuda_device, dtype, layout, b):
+    """K2 on the views a step hands it, at the decode and mixed-round row
+    counts: bit-exact with the plain version outside page 0."""
+    g = torch.Generator().manual_seed(b + len(layout))
+    kvh, n, p, d = 8, 128, 16, 128
+    k, v = _kv_views(g, cuda_device, dtype, b, kvh, d, layout)
+    pages, offs = _kv_targets_case(g, cuda_device, b, n, p, b // 4)
+    kc = torch.randn(kvh, n, p, d, generator=g).to(cuda_device, dtype)
+    vc = torch.randn(kvh, n, p, d, generator=g).to(cuda_device, dtype)
+    want_k, want_v = kc.clone(), vc.clone()
+    kernels.paged_kv_write_ref(want_k, want_v, k, v, pages, offs)
+    kernels.paged_kv_write(kc, vc, k, v, pages, offs)
+    torch.cuda.synchronize()
+    assert torch.equal(kc[:, 1:], want_k[:, 1:])
+    assert torch.equal(vc[:, 1:], want_v[:, 1:])
+
+
+def _k3_blocks(gen, dev, dtype, m, kvh, p, d, layout):
+    """(kb, vb) blocks (M, KVH, P, D) as K3's caller hands them: "chunk"
+    (the token-major (M·P, KVH, D) chunk K/V viewed per page and permuted,
+    as `_chunk_kv_writer`), "sliced" (every other slot of a wider chunk),
+    "contiguous"."""
+    def one():
+        if layout == "contiguous":
+            return torch.randn(m, kvh, p, d, generator=gen).to(dev, dtype)
+        rows = torch.randn(2 * m if layout == "sliced" else m, p, kvh, d,
+                           generator=gen).to(dev, dtype)
+        if layout == "sliced":
+            rows = rows[::2]
+        return rows.permute(0, 2, 1, 3)
+    return one(), one()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["chunk", "sliced", "contiguous"])
+@pytest.mark.parametrize("kvh,p,d", [(8, 16, 128), (2, 4, 16), (4, 8, 32)])
+def test_k3_kernel_strided_sources(cuda_device, dtype, layout, kvh, p, d):
+    g = torch.Generator().manual_seed(kvh + p + d + len(layout))
+    n, m = 64, 32
+    kb, vb = _k3_blocks(g, cuda_device, dtype, m, kvh, p, d, layout)
+    ids = (1 + torch.randperm(n - 1, generator=g)[:m]).to(torch.int32)
+    ids[[3, 30, 31]] = 0
+    ids = ids.to(cuda_device)
+    kc = torch.randn(kvh, n, p, d, generator=g).to(cuda_device, dtype)
+    vc = torch.randn(kvh, n, p, d, generator=g).to(cuda_device, dtype)
+    want_k, want_v = kc.clone(), vc.clone()
+    kernels.paged_kv_write_pages_ref(want_k, want_v, kb, vb, ids)
+    kernels.paged_kv_write_pages(kc, vc, kb, vb, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(kc[:, 1:], want_k[:, 1:])
+    assert torch.equal(vc[:, 1:], want_v[:, 1:])
+
+
+def test_kv_stores_refuse_layouts_they_cannot_read(cuda_device):
+    """A source whose rows do not start on 16-byte boundaries, or whose
+    last dimension is strided, raises; nothing is launched."""
+    dev, bf = cuda_device, torch.bfloat16
+    kvh, n, p, d, b = 2, 8, 4, 64, 4
+    kc = torch.zeros(kvh, n, p, d, device=dev, dtype=bf)
+    ids = torch.zeros(b, device=dev, dtype=torch.int32)
+    wide = torch.zeros(b, kvh * d + 4, device=dev, dtype=bf)
+    odd_rows = wide[:, :kvh * d].view(b, kvh, d)       # row stride 8 B off
+    odd_start = wide[:, 4:].view(b, kvh, d)            # data_ptr 8 B off
+    strided_d = torch.zeros(b, kvh, 2 * d, device=dev, dtype=bf)[..., ::2]
+    ok = torch.zeros(b, kvh, d, device=dev, dtype=bf)
+    before = (kernels._KERNEL.launches, kernels._PAGES_KERNEL.launches)
+    for bad in (odd_rows, odd_start, strided_d):
+        with pytest.raises(ValueError):
+            kernels.paged_kv_write(kc, kc.clone(), bad, ok, ids, ids)
+        with pytest.raises(ValueError):
+            kernels.paged_kv_write(kc, kc.clone(), ok, bad, ids, ids)
+    blocks = torch.zeros(b, p, kvh, d + 4, device=dev, dtype=bf)
+    for bad in (blocks[..., :d].permute(0, 2, 1, 3),
+                torch.zeros(b, kvh, p, 2 * d, device=dev, dtype=bf)[..., ::2]):
+        with pytest.raises(ValueError):
+            kernels.paged_kv_write_pages(kc, kc.clone(), bad, bad, ids)
+    assert (kernels._KERNEL.launches,
+            kernels._PAGES_KERNEL.launches) == before
+
+
+def test_kv_stores_return_on_empty_batches(cuda_device):
+    dev = cuda_device
+    kc = torch.randn(2, 8, 4, 16, device=dev)
+    vc = kc.clone()
+    before = (kc.clone(), kernels._KERNEL.launches,
+              kernels._PAGES_KERNEL.launches)
+    none = torch.zeros(0, device=dev, dtype=torch.int32)
+    kernels.paged_kv_write(kc, vc, torch.zeros(0, 2, 16, device=dev),
+                           torch.zeros(0, 2, 16, device=dev), none, none)
+    kernels.paged_kv_write_pages(kc, vc, torch.zeros(0, 2, 4, 16, device=dev),
+                                 torch.zeros(0, 2, 4, 16, device=dev), none)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, before[0]) and torch.equal(vc, before[0])
+    assert (kernels._KERNEL.launches,
+            kernels._PAGES_KERNEL.launches) == before[1:]
+
+
+@pytest.mark.parametrize("which", ["k2", "k3"])
+def test_kv_stores_graph_replay_and_repeat(cuda_device, which):
+    """One call on strided sources captured in a CUDA graph, the sources
+    and targets changed in place, replayed: equal to an eager call on the
+    same inputs; and two eager calls back to back agree."""
+    g = torch.Generator().manual_seed(21)
+    dev, bf = cuda_device, torch.bfloat16
+    kvh, n, p, d = 8, 64, 16, 128
+    if which == "k2":
+        k, v = _kv_views(g, dev, bf, 64, kvh, d, "fused")
+        a, c = _kv_targets_case(g, dev, 64, n, p, 5)
+        ids = (a, c)
+        call = lambda kc, vc: kernels.paged_kv_write(kc, vc, k, v, *ids)
+    else:
+        k, v = _k3_blocks(g, dev, bf, 16, kvh, p, d, "chunk")
+        ids = ((1 + torch.randperm(n - 1, generator=g)[:16])
+               .to(torch.int32).to(dev),)
+        call = lambda kc, vc: kernels.paged_kv_write_pages(kc, vc, k, v,
+                                                           *ids)
+    kc = torch.randn(kvh, n, p, d, generator=g).to(dev, bf)
+    vc = torch.randn(kvh, n, p, d, generator=g).to(dev, bf)
+    call(kc, vc)                         # built before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call(kc, vc)
+    k.mul_(-2.0)
+    v.add_(1.0)
+    for t in ids:                        # the same targets, other rows
+        t.copy_(t.flip(0))
+    graph.replay()
+    want_k, want_v = kc.clone(), vc.clone()
+    call(want_k, want_v)
+    torch.cuda.synchronize()
+    assert torch.equal(kc[:, 1:], want_k[:, 1:])
+    assert torch.equal(vc[:, 1:], want_v[:, 1:])
+    again_k, again_v = kc.clone(), vc.clone()
+    call(again_k, again_v)
+    call(again_k, again_v)
+    torch.cuda.synchronize()
+    assert torch.equal(again_k[:, 1:], want_k[:, 1:])
+    assert torch.equal(again_v[:, 1:], want_v[:, 1:])
 
 
 def _decode_args(gen, dev, dtype, b, h, kvh, p, d, lengths, max_pages,

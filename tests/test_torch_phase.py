@@ -106,6 +106,84 @@ def test_k3_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
         kernels.paged_kv_write_pages(*meta)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_plain_on_chunk_views_bit_exact_with_pallas_interpret(dtype):
+    """K3 as `_chunk_kv_writer` runs it: the chunk's token-major (Bp, T,
+    KVH, D) K and V, each page's rows viewed as (KVH, P, D) blocks with
+    no copy, against the JAX Pallas kernel (interpret mode) fed the same
+    blocks made contiguous with numpy."""
+    rng = np.random.default_rng(14)
+    bp, t, kvh, p, d = 2, 16, 2, 4, 16
+    cfg = tl.LlamaConfig.tiny(num_kv_heads=kvh, page_size=p, head_dim=d,
+                              num_heads=2 * kvh)
+    kc = rng.standard_normal((kvh, N_PAGES, p, d)).astype(NP_DTYPES[dtype])
+    vc = rng.standard_normal((kvh, N_PAGES, p, d)).astype(NP_DTYPES[dtype])
+    k = rng.standard_normal((bp, t, kvh, d)).astype(NP_DTYPES[dtype])
+    v = rng.standard_normal((bp, t, kvh, d)).astype(NP_DTYPES[dtype])
+    tables = _tables(rng, cfg, bp, 8)
+    cached = np.array([8, 0], np.int32)
+    seq_lens = np.array([8 + 13, 0], np.int32)    # lane 1 is padding
+    positions = cached[:, None] + np.arange(t, dtype=np.int32)[None]
+    write = tl._chunk_kv_writer(cfg, torch.from_numpy(tables),
+                                torch.from_numpy(positions),
+                                torch.from_numpy(seq_lens), aligned=True)
+    tk, tv = tensor_from_numpy(kc), tensor_from_numpy(vc)
+    write(tk, tv, tensor_from_numpy(k), tensor_from_numpy(v))
+    # the reference's slots: one per (lane, page of the chunk)
+    m = bp * t // p
+    ids = np.where(positions[:, ::p] < seq_lens[:, None],
+                   tables[np.arange(bp)[:, None], positions[:, ::p] // p],
+                   0).reshape(m).astype(np.int32)
+    blocks = [np.ascontiguousarray(
+        a.reshape(m, p, kvh, d).transpose(0, 2, 1, 3)) for a in (k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        jk, jv = jkernels.paged_kv_write_pages(
+            *(jnp.asarray(a) for a in (kc, vc, *blocks, ids)))
+    for got, want in ((tk, jk), (tv, jv)):
+        want = tensor_from_numpy(np.asarray(want))
+        assert np.array_equal(_bits(got[:, 1:]), _bits(want[:, 1:]))
+    # lane 0's 4 pages landed where its table says; 13 valid rows fill
+    # pages 0-2 and the first row of page 3 (its tail takes padding rows)
+    for j in range(4):
+        page = tables[0, 2 + j]
+        assert np.array_equal(_bits(tk[:, page]), _bits(tensor_from_numpy(
+            np.ascontiguousarray(k[0, 4 * j:4 * j + 4].transpose(1, 0, 2)))))
+
+
+def test_chunk_writer_hands_k3_views_not_copies():
+    """The aligned chunk writer passes K3 views of the caller's K/V (their
+    storage, permuted strides), and the unaligned one passes K2 views."""
+    cfg = tl.LlamaConfig.tiny()
+    bp, t = 2, 8
+    kvh, p, d = cfg.num_kv_heads, cfg.page_size, cfg.head_dim
+    seen = []
+
+    def spy(kc, vc, k, v, *ids):
+        seen.append((k, v))
+    tables = torch.arange(1, 1 + 2 * cfg.max_pages_per_seq,
+                          dtype=torch.int32).reshape(2, -1)
+    pos = torch.arange(t, dtype=torch.int32)[None].repeat(bp, 1)
+    k = torch.randn(bp, t, kvh, d)
+    v = torch.randn(bp, t, kvh, d)
+    for aligned, name in ((True, "paged_kv_write_pages"),
+                          (False, "paged_kv_write")):
+        saved = getattr(kernels, name)
+        setattr(kernels, name, spy)
+        try:
+            tl._chunk_kv_writer(cfg, tables, pos,
+                                torch.tensor([t, 3], dtype=torch.int32),
+                                aligned)(None, None, k, v)
+        finally:
+            setattr(kernels, name, saved)
+        bk, bv = seen.pop()
+        assert bk.data_ptr() == k.data_ptr() and bv.data_ptr() == v.data_ptr()
+        if aligned:
+            assert bk.shape == (bp * t // p, kvh, p, d)
+            assert bk.stride() == (p * kvh * d, d, kvh * d, 1)
+        else:
+            assert bk.shape == (bp * t, kvh, d) and bk.is_contiguous()
+
+
 # -- K4 ----------------------------------------------------------------------
 
 
