@@ -44,28 +44,41 @@ on):
     chat requests of 16..1500 bytes, prefill_chunk_budget 512; first the
     phase path (the default: k = 8 bursts, pipelined), then the ragged
     path (DYN_ATTENTION_IMPL=ragged) on the same weights; each with the
-    launch counts zeroed just before and read just after (phase: K2, K3,
-    K4 > 0 and K1 = K5 = K6 = 0; ragged: K1, K2 > 0 and K3 = K4 = K5 = K6
-    = 0); greedy determinism; the same greedy request (100-token prompt,
-    12 tokens, top-8 logprobs) on both paths, equal up to a parting at a
-    bf16 near-tie (BF16_TIE_TOL), printed with its step, tokens and gap
+    launch counts zeroed just before and read just after, replayed CUDA
+    graphs' launches included (phase: K2, K3, K4 > 0 and K1 = K5 = K6 =
+    0; ragged: K1, K2 > 0 and K3 = K4 = K5 = K6 = 0); the path's graphed
+    entry captured and replayed in the batch (phase "decode_burst", ragged
+    "ragged_step"; captures, their seconds from the compile tracker — they
+    land in the first requests' TTFT — replays and the graphs' pool bytes
+    printed); greedy determinism; the same greedy request (100-token
+    prompt, 12 tokens, top-8 logprobs) on both paths, equal up to a
+    parting at a bf16 near-tie (BF16_TIE_TOL), printed with its step,
+    tokens and gap
  9. quantized main path: the same batch on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
     same random weights, quantized by the engine): w8a8 launches K5 and
-    not K6, int4 K6 and not K5, both K2, K3, K4 and not K1; greedy
-    determinism; every projection held as int8 / packed int4 only
-    (resident weight bytes printed per mode); one bare decode_step
+    not K6, int4 K6 and not K5, both K2, K3, K4 and not K1;
+    "decode_burst" captured and replayed; greedy determinism; every
+    projection held as int8 / packed int4 only (resident weight bytes
+    printed per mode); one bare decode_step
     launches its GEMM exactly 4 x 32 times (q/k/v and gate/up grouped)
 10. kernel path vs plain path at 8B: one mixed ragged round and one
     mixed_prefill_decode step in bf16, and one mixed_prefill_decode step
     per quantized mode (logits within a stated tolerance)
+11a. graph replays at 8B: each bare step of phase 11 (the ragged decode
+    and mixed rounds in bf16, the 8-step burst in bf16, w8a8, int4 and
+    int8) captured in a CUDA graph through `engine/graphs.py` and replayed
+    on a copy of the caches: bit-identical with the eager step on the same
+    inputs (packed output, chunk logits, both caches outside page 0)
 11. profiles at 8B: host wall time (with the one sync) and device busy time
     (torch.profiler's CUDA kernels and copies) of a bare ragged decode
     round, a bare ragged mixed round and a bare 8-step decode burst (bf16,
     w8a8, int4, and int8 = W8A16), device time by kernel class and device
-    ops per step; each
+    ops per step; beside each, the same step replayed from its graph
+    (host wall, device busy, the replay timed with CUDA events too, device
+    ops) and the graph pool's bytes; each
     bf16 path's engine batch once more with kernel tracing only (host wall
-    vs device busy)
+    vs device busy, graph captures and replays)
 12. kernel path vs plain path at 2 layers, full width, fp32: greedy
     streams over 16 steps x 3 requests across phase-kernel, phase-plain,
     ragged-kernel and ragged-plain — identical unquantized, and under
@@ -489,6 +502,28 @@ def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
     return wall, busy or None, engine.rounds, inside[0]
 
 
+def graph_stats(eng) -> dict:
+    """An engine's CUDA graphs so far (`engine/graphs.py`): the entries and
+    shapes captured, the captures' seconds from the compile tracker (each
+    the first dispatch of its key: warm-up, capture, first replay), the
+    replays and the shared pool's bytes."""
+    keys = sorted(eng.graphs.graphs)
+    entries = sorted({k[0] for k in keys})
+    secs = sum(v for lab, v in eng.compile_tracker.compile_seconds.items()
+               if lab["entry"] in entries)
+    return {"entries": entries, "shapes": [k[1] for k in keys],
+            "captures": eng.graphs.captures, "replays": eng.graphs.replays,
+            "capture_s": secs, "pool": eng.graphs.pool_bytes()}
+
+
+def graph_summary(eng) -> str:
+    g = graph_stats(eng)
+    return (f"graphs: {g['captures']} captures of {g['entries']} at "
+            f"{g['shapes']} in {g['capture_s']:.3f} s (first dispatches, "
+            f"compile tracker), {g['replays']} replays, pool {g['pool']} "
+            f"bytes")
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "paged_attention_core" in low:     # the bf16 core: <D, kDecode>
@@ -517,15 +552,19 @@ def kernel_class(name: str) -> str:
     return "other (elementwise, norms, softmax, sampling)"
 
 
-def profile_rounds(torch, llama, model, dev, n_pad_mixed: int,
-                   labels=("decode", "mixed", "burst")):
+def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
+                   labels=("decode", "mixed", "burst"), mode: str = "bf16"):
     """Bare device steps of `model` outside the engine, as the engine runs
     them: host arrays copied to the card, the step, the packed result
     copied back (its one sync) — a ragged decode round and a ragged mixed
     round, and the phase path's 8-step decode burst over the same 8 lanes
-    (those of `labels`). Returns {label: (wall_ms, busy_ms, device ops per
-    step, {class: ms}, [(ms, kernel), ...] top 5)}; busy_ms is None where
-    the profiler saw no device activity."""
+    (those of `labels`). Each step is also captured in a CUDA graph
+    (`graphs.StepGraphs`, as the engine does) on a copy of the caches,
+    held bit-identical with the eager step on another copy (phase 11a),
+    and measured as a replay. Returns {label: (eager, graphed, replay ms
+    by CUDA events, pool bytes)}, eager and graphed each (wall_ms, busy_ms,
+    device ops per step, {class: ms}, [(ms, kernel), ...] top 5); busy_ms
+    is None where the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = model.cfg
@@ -558,14 +597,16 @@ def profile_rounds(torch, llama, model, dev, n_pad_mixed: int,
                 torch.arange(chunk, chunk + bmax, dtype=torch.int32), z, z,
                 torch.zeros(bmax), torch.ones(bmax), z]
 
-    def one(args):
-        packed, _ = llama.ragged_prefill_decode(
-            model, kc, vc, *(a.to(dev) for a in args))
-        return packed.cpu()
+    def one(k_cache, v_cache):
+        return lambda *a: llama.ragged_prefill_decode(model, k_cache,
+                                                      v_cache, *a)
 
-    def burst(args):
-        return llama.decode_multi_step(
-            model, kc, vc, *(a.to(dev) for a in args), num_steps=8).cpu()
+    def burst(k_cache, v_cache):
+        return lambda *a: llama.decode_multi_step(model, k_cache, v_cache,
+                                                  *a, num_steps=8)
+
+    def packed_of(out):
+        return out[0] if isinstance(out, tuple) else out
 
     # the phase path's burst: the same 8 decode lanes, 8 fused steps
     tables = torch.zeros(bmax, cfg.max_pages_per_seq, dtype=torch.int32)
@@ -585,8 +626,55 @@ def profile_rounds(torch, llama, model, dev, n_pad_mixed: int,
         for label in labels:
             fn, make = steps[label]
             args = make()
-            out[label] = measure(torch, lambda: fn(args), ProfilerActivity,
-                                 profile)
+            host = [a.numpy() for a in args]
+            eager = measure(torch, lambda: packed_of(fn(kc, vc)(
+                *(a.to(dev) for a in args))).cpu(), ProfilerActivity,
+                profile)
+            # 11a: the graph on one copy of the caches, eager on another
+            g_caches = ([c.clone() for c in kc], [c.clone() for c in vc])
+            e_caches = ([c.clone() for c in kc], [c.clone() for c in vc])
+            step_graphs = graphs.StepGraphs(dev)
+            t0 = time.perf_counter()
+            got = step_graphs.run((label,), fn(*g_caches), host)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            want = fn(*e_caches)(*(a.to(dev) for a in args))
+            torch.cuda.synchronize()
+            got_t = got if isinstance(got, tuple) else (got,)
+            want_t = want if isinstance(want, tuple) else (want,)
+            if not all(torch.equal(g, w) for g, w in zip(got_t, want_t)):
+                raise AssertionError(f"{mode} {label}: the graph replay "
+                                     f"differs from the eager step")
+            for g, w in zip(g_caches[0] + g_caches[1],
+                            e_caches[0] + e_caches[1]):
+                if not torch.equal(g[:, 1:], w[:, 1:]):
+                    raise AssertionError(f"{mode} {label}: the graph left "
+                                         f"other caches than the eager step")
+            del e_caches, want, want_t, got_t
+            log(f"[graph] {mode} {label} (8B, bare): captured in "
+                f"{capture_s:.3f} s (warm-up + capture + first replay), "
+                f"replay bit-identical with the eager step (packed output"
+                f"{', chunk logits' if label != 'burst' else ''}, both "
+                f"caches outside page 0)")
+
+            def replay():
+                return packed_of(step_graphs.run(
+                    (label,), None, host)).cpu()
+
+            graphed = measure(torch, replay, ProfilerActivity, profile)
+            ev = []
+            for _ in range(10):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                replay()
+                end.record()
+                end.synchronize()
+                ev.append(start.elapsed_time(end))
+            out[label] = (eager, graphed, statistics.median(ev),
+                          step_graphs.pool_bytes())
+            del step_graphs, g_caches, got
+            torch.cuda.empty_cache()
     del kc, vc
     return out
 
@@ -621,15 +709,22 @@ def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
 
 
 @contextlib.contextmanager
-def plain_path(ragged, kernels, attention, int4_mm, torch):
-    """Swap every kernel's wrapper for its plain version (this script's
-    comparison only; the package has no such switch)."""
+def plain_path(ragged, kernels, attention, int4_mm, torch, graphs=None):
+    """Swap every kernel's wrapper for its plain version, and with
+    `graphs` (engine/graphs.py) run the engine's graphed steps eagerly:
+    the plain versions read lengths on the host, which a capture cannot
+    (this script's comparison only; the package has no such switch)."""
     names = ((ragged, "ragged_paged_attention"), (kernels, "paged_kv_write"),
              (kernels, "paged_kv_write_pages"),
              (attention, "paged_attention_decode"),
              (int4_mm, "w8a8_matmul"), (int4_mm, "int4_matmul"),
              (int4_mm, "w8a8_matmul_group"), (int4_mm, "int4_matmul_group"))
+    if graphs is not None:
+        names += ((graphs.StepGraphs, "run"),)
     saved = [getattr(mod, name) for mod, name in names]
+    if graphs is not None:
+        graphs.StepGraphs.run = lambda self, key, fn, inputs: fn(*(
+            graphs._tensor(a).to(self.device) for a in inputs))
     ragged.ragged_paged_attention = blocked_plain_attention(ragged, torch)
     kernels.paged_kv_write = kernels.paged_kv_write_ref
     kernels.paged_kv_write_pages = kernels.paged_kv_write_pages_ref
@@ -723,6 +818,7 @@ def main() -> int:
     from dynamo_tpu_torch.engine import (
         attention,
         cuda_build,
+        graphs,
         int4_mm,
         kernels,
         quant,
@@ -1031,10 +1127,11 @@ def main() -> int:
             tops.extend(o.get("top_logprobs") or ())
         return (toks, tops) if top else toks
 
-    def serve_batch(eng, label, must_launch, must_not_launch):
+    def serve_batch(eng, label, must_launch, must_not_launch, graph_entry):
         """The batch through the pipeline with launch counts zeroed just
-        before and read just after, then greedy determinism; one event
-        loop for the engine, which is closed at the end."""
+        before and read just after (graph replays included), the path's
+        graphed entry captured and replayed, then greedy determinism; one
+        event loop for the engine, which is closed at the end."""
         pipeline = build_pipeline_for(card, eng, args)
 
         async def go():
@@ -1045,25 +1142,32 @@ def main() -> int:
                                           os.path.join(work, "out.jsonl"))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                launches = {k: v.launches
-                            for k, v in cuda_build.KERNELS.items()}
+                launches = cuda_build.launch_counts()
                 out_tokens, n_rounds = eng.tokens_emitted, eng.rounds
                 ttft = list(eng.ttft_s)
+                stats = graph_stats(eng)
+                summary = graph_summary(eng)
                 prompt = list(range(40, 140))
                 same = await asyncio.gather(
                     greedy_on(eng, prompt, 12, top=8),
                     greedy_on(eng, prompt, 12, top=8))
                 return (results, wall, launches, out_tokens, n_rounds,
-                        ttft, same)
+                        ttft, stats, summary, same)
             finally:
                 await eng.close()
 
-        results, wall, launches, out_tokens, n_rounds, ttft, (a, b) = \
-            asyncio.run(go())
+        (results, wall, launches, out_tokens, n_rounds, ttft, stats, summary,
+         (a, b)) = asyncio.run(go())
         log(f"[main] {label} path: {len(results)} requests, {out_tokens} "
             f"output tokens in {wall:.2f}s; {n_rounds} device dispatches "
             f"({eng.pipelined_bursts} pipelined bursts); launches "
             f"{launches}")
+        log(f"[graph] {label} path batch: {summary}; the captures ran "
+            f"inside the first requests' TTFT")
+        if stats["entries"] != [graph_entry] or \
+                not stats["replays"] > stats["captures"] > 0:
+            raise AssertionError(f"the {label} batch did not replay its "
+                                 f"{graph_entry} graphs: {stats}")
         for r in results:
             if r["finish_reason"] not in ("length", "eos") \
                     or r["completion_tokens"] < 1:
@@ -1081,13 +1185,14 @@ def main() -> int:
         log(f"[main] {label} greedy determinism: two identical requests -> "
             f"{a[0][:6]}...")
         return {"wall": wall, "launches": launches, "tokens": out_tokens,
-                "rounds": n_rounds, "ttft": ttft, "stream": a}
+                "rounds": n_rounds, "ttft": ttft, "stream": a,
+                "graphs": stats}
 
     phase = serve_batch(engine, "phase",
                         ("paged_kv_write", "paged_kv_write_pages",
                          "paged_attention_decode"),
                         ("ragged_paged_attention", "w8a8_matmul",
-                         "int4_matmul"))
+                         "int4_matmul"), "decode_burst")
     del engine
     torch.cuda.empty_cache()
     ragged_eng = TorchEngine(TorchEngineConfig(
@@ -1098,7 +1203,7 @@ def main() -> int:
                              ("ragged_paged_attention", "paged_kv_write"),
                              ("paged_kv_write_pages",
                               "paged_attention_decode", "w8a8_matmul",
-                              "int4_matmul"))
+                              "int4_matmul"), "ragged_step")
     del ragged_eng
     torch.cuda.empty_cache()
     # the same greedy request on both paths: equal up to a parting at a
@@ -1133,7 +1238,7 @@ def main() -> int:
             logits = llama.decode_step(mdl, kc, vc,
                                        *(a.to(dev) for a in step))
             torch.cuda.synchronize()
-            counts = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+            counts = cuda_build.launch_counts()
         if not torch.isfinite(logits).all() or logits.shape != (
                 8, cfg.vocab_size):
             raise AssertionError("bare decode_step logits are not finite")
@@ -1168,7 +1273,8 @@ def main() -> int:
         quantized[mode] = serve_batch(
             q_engine, f"phase {mode}",
             (gemm, "paged_kv_write", "paged_kv_write_pages",
-             "paged_attention_decode"), (other, "ragged_paged_attention"))
+             "paged_attention_decode"), (other, "ragged_paged_attention"),
+            "decode_burst")
         quantized[mode]["bytes"] = q_bytes
         del q_engine
         torch.cuda.empty_cache()
@@ -1253,9 +1359,9 @@ def main() -> int:
         caches = [llama.init_cache(cfg, 64, dev) for _ in range(2)]
         k_logits, k_lp = mixed_round(*caches[0])
         with plain_path(ragged, kernels, attention, int4_mm, torch):
-            before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+            before = cuda_build.launch_counts()
             p_logits, p_lp = mixed_round(*caches[1])
-            after = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+            after = cuda_build.launch_counts()
         torch.cuda.synchronize()
         if before != after:
             raise AssertionError("the plain path launched a kernel")
@@ -1271,12 +1377,12 @@ def main() -> int:
         for mode, mdl in (("bf16", model), *q_models.items()):
             caches = [llama.init_cache(cfg, 1 + 57 + 64 * 8, dev)
                       for _ in range(2)]
-            before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+            before = cuda_build.launch_counts()
             k_ch, k_top = mixed_step(mdl, *caches[0])
-            mid = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+            mid = cuda_build.launch_counts()
             with plain_path(ragged, kernels, attention, int4_mm, torch):
                 p_ch, p_top = mixed_step(mdl, *caches[1])
-                after = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+                after = cuda_build.launch_counts()
             torch.cuda.synchronize()
             for kname in ("paged_kv_write", "paged_kv_write_pages",
                           "paged_attention_decode",
@@ -1301,36 +1407,44 @@ def main() -> int:
             del caches
     torch.cuda.empty_cache()
 
-    # 11. profiles ---------------------------------------------------------
+    # 11a + 11. graph replays and profiles ---------------------------------
     profiles = {("bf16", k): v for k, v in profile_rounds(
-        torch, llama, model, dev, n_pad_mixed=768 - 520).items()}
+        torch, llama, graphs, model, dev, n_pad_mixed=768 - 520).items()}
     # "int8" (W8A16: cuBLAS over weights converted to bf16 on every call)
     # is not a main-path cell; its burst is profiled for its step time
     # only, on a model that shares every other tensor with the bf16 one
     for mode, mdl in (*q_models.items(),
                       ("int8", quant.quantize_params(model, mode="int8"))):
         profiles[(mode, "burst")] = profile_rounds(
-            torch, llama, mdl, dev, n_pad_mixed=0, labels=("burst",))["burst"]
+            torch, llama, graphs, mdl, dev, n_pad_mixed=0,
+            labels=("burst",), mode=mode)["burst"]
         del mdl
-    for (mode, label), (wall_ms, busy, n_k, by_class, top) in \
-            profiles.items():
+    for (mode, label), (eager, graphed, event_ms, pool) in profiles.items():
         what = {"decode": "ragged decode round", "mixed":
                 "ragged mixed round", "burst": "phase decode burst (8 "
                 "steps)"}[label] + f", {mode}"
-        per_step = f" ({n_k / 8:.0f} per step)" if label == "burst" else ""
-        if busy is None:
-            log(f"[profile] {what}: wall {wall_ms:.2f} ms; device busy not "
-                f"measured (the profiler saw no device activity)")
-            continue
-        log(f"[profile] {what} (8B, bare): wall {wall_ms:.2f} ms (median "
-            f"of 10), device busy {busy:.2f} ms, idle "
-            f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%, {n_k:.0f} device "
-            f"ops{per_step}, on {smi}")
-        for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-            log(f"[profile]   {cls}: {ms:.3f} ms ({100 * ms / busy:.1f}% "
-                f"of busy)")
-        for ms, kname in top:
-            log(f"[profile]   top kernel {ms:.3f} ms: {kname[:90]}")
+        for how, (wall_ms, busy, n_k, by_class, top) in (
+                ("eager", eager), ("graphed", graphed)):
+            per_step = f" ({n_k / 8:.0f} per step)" if label == "burst" \
+                else ""
+            extra = (f"; the replay by CUDA events {event_ms:.2f} ms; graph "
+                     f"pool {pool} bytes" if how == "graphed" else "")
+            if busy is None:
+                log(f"[profile] {what}, {how}: wall {wall_ms:.2f} ms; device "
+                    f"busy not measured (the profiler saw no device "
+                    f"activity){extra}, on {smi}")
+                continue
+            log(f"[profile] {what}, {how} (8B, bare): wall {wall_ms:.2f} ms "
+                f"(median of 10), device busy {busy:.2f} ms, idle "
+                f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%, {n_k:.0f} "
+                f"device ops{per_step}{extra}, on {smi}")
+            if how == "graphed":
+                continue
+            for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+                log(f"[profile]   {cls}: {ms:.3f} ms ({100 * ms / busy:.1f}% "
+                    f"of busy)")
+            for ms, kname in top:
+                log(f"[profile]   top kernel {ms:.3f} ms: {kname[:90]}")
     for label, run, impl in (("phase", phase, "phase"),
                              ("ragged", ragged_run, "ragged")):
         log(f"[profile] engine (phase 7, {label}): "
@@ -1351,7 +1465,8 @@ def main() -> int:
             f"traced): wall {b_wall:.3f} s, {b_rounds} dispatches, "
             f"{b_inside:.3f} s inside the engine's own device calls "
             f"({'rounds + ' if impl == 'ragged' else ''}first-token "
-            f"sampling), device busy {busy_txt}, on {smi}")
+            f"sampling), device busy {busy_txt}; {graph_summary(eng2)}, on "
+            f"{smi}")
         del eng2
     shutil.rmtree(work)
     del model, q_models
@@ -1389,7 +1504,8 @@ def main() -> int:
             if mode is not None and GEMM_OF[mode] not in used:
                 raise AssertionError(f"the 2-layer {mode} {impl} run never "
                                      f"launched {GEMM_OF[mode]}")
-            with plain_path(ragged, kernels, attention, int4_mm, torch):
+            with plain_path(ragged, kernels, attention, int4_mm, torch,
+                            graphs):
                 streams[f"{impl}-plain"] = fp32_streams(impl, mode)
             log(f"[path] 2-layer fp32 {mode or 'unquantized'} {impl} path, "
                 f"kernels launched: {used}")
@@ -1646,13 +1762,14 @@ def main() -> int:
             f"{bnd:.6f} ms ({by}) on {smi}")
     for label, run in (("phase", phase), ("ragged", ragged_run),
                        *((f"phase {m}", quantized[m]) for m in QUANT_MODES)):
-        ttft = run["ttft"]
+        ttft, g = run["ttft"], run["graphs"]
         log(f"[batch] {label} path: output {run['tokens'] / run['wall']:.1f} "
             f"tok/s, TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms (min "
             f"{min(ttft) * 1e3:.1f}, max {max(ttft) * 1e3:.1f}) over "
             f"{len(ttft)} requests, {run['rounds']} dispatches, Llama-3-8B "
             f"random weights ({label.split()[-1] if ' ' in label else 'bf16'}"
-            f"), max_tokens 32, on {smi}")
+            f"), max_tokens 32; {g['captures']} graph captures in "
+            f"{g['capture_s']:.3f} s, {g['replays']} replays; on {smi}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
     def entry(kname, source, replaces, key, err, run):

@@ -11,7 +11,11 @@ neither ninja nor Python headers where the kernels are built.
 
 Every kernel is a `CudaKernel`: it counts the launches it made (a plain
 integer, reset by `reset_launch_counts`) so a run can show that its main
-path went through the kernels. A failed build raises with nvcc's stderr;
+path went through the kernels. A CUDA graph replays its kernels without
+calling their wrappers, so `engine/graphs.py` keeps the counts honest
+with `launch_counts` / `launch_delta` / `add_launches`: at capture it
+records each kernel's launch delta and takes it back (a capture runs
+nothing), and each replay adds it. A failed build raises with nvcc's stderr;
 a refused launch raises with the CUDA error string. Nothing here is
 imported lazily into a fallback: callers launch or raise.
 """
@@ -94,6 +98,26 @@ def build_all() -> dict[str, str]:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches so far}."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def launch_delta(before: dict[str, int], after: dict[str, int]
+                 ) -> dict[str, int]:
+    """The launches each kernel made between two `launch_counts()`
+    snapshots; kernels that made none are left out."""
+    return {name: n - before.get(name, 0) for name, n in after.items()
+            if n != before.get(name, 0)}
+
+
+def add_launches(delta: dict[str, int], times: int = 1) -> None:
+    """Add `times` × `delta` to the counts: a graph replay adds the
+    launches its capture recorded (`times=-1` takes a capture's back)."""
+    for name, n in delta.items():
+        KERNELS[name].launches += times * n
 
 
 class CudaKernel:

@@ -29,10 +29,21 @@ into a new one that shares its other tensors (`owned_params`, `:377`).
 
 Device work runs in `asyncio.to_thread` under one device lock, with
 `torch.inference_mode()` entered inside the thread (it is thread-local).
+Every step entry is bucketed as in the reference and tracked per (entry,
+bucket) in `compile_tracker` (the reference's `metrics.compile`, `:1406`,
+`:2094`, `:2513`, `:2648`); on the card the two fixed-shape entries,
+"decode_burst" and "ragged_step", replay one CUDA graph per bucket
+(`engine/graphs.py`), the port's counterpart of the reference's jitted
+entries. "prefill", "mixed_step" and "sample_first" stay eager: the
+phase path's plain prefill attention reads its visible page count on the
+host (`attention.visible_pages`). A `BucketLadder` (`bucket_ladder`,
+None by default) refines the prefill token buckets as in the reference
+(`:1050`, `:2388`).
+
 Not in this slice, and rejected per request where a request asks for
 them: guided decoding, min_p, sampling penalties, disaggregated KV
-import. Spec, pipeline/sequence parallelism, KVBM, profilers and metrics
-are later slices (ROADMAP.md).
+import. Spec, pipeline/sequence parallelism, KVBM, profilers and the rest
+of the engine's metrics are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,6 +58,9 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine.bucketing import BucketLadder
+from dynamo_tpu_torch.engine.compile_tracker import CompileTracker
+from dynamo_tpu_torch.engine.graphs import StepGraphs
 from dynamo_tpu_torch.engine.pages import PagePool
 from dynamo_tpu_torch.engine.quant import (
     QUANTIZE_MODES,
@@ -292,6 +306,14 @@ class TorchEngine:
         self.tokens_emitted = 0
         self.rounds = 0
         self.pipelined_bursts = 0     # bursts dispatched behind one in flight
+        # first dispatch per (entry, bucket); the reference's
+        # EngineMetrics holds its tracker as `metrics.compile`
+        self.compile_tracker = CompileTracker()
+        # one CUDA graph per fixed-shape (entry, bucket) on the card
+        self.graphs = StepGraphs(self.device)
+        # extra prefill token-bucket rungs, swapped in at a safe point
+        # of the scheduler loop; None keeps the static buckets
+        self.bucket_ladder: Optional[BucketLadder] = None
 
     @property
     def ragged(self) -> bool:
@@ -404,6 +426,10 @@ class TorchEngine:
                 await self._wake.wait()
                 continue
             try:
+                if self.bucket_ladder is not None:
+                    # safe point: between dispatches, before this
+                    # iteration picks its batch shapes
+                    self.bucket_ladder.maybe_apply()
                 self._admit()
                 if self.config.prefill_chunk_budget > 0:
                     progressed = await self._prefill_budgeted()
@@ -519,11 +545,16 @@ class TorchEngine:
     def _token_bucket(self, n: int) -> int:
         """Prefill token bucket T for an n-token chunk: the
         {lo·2^k, lo·3·2^(k-1)} ladder between min_prefill_bucket and
-        prefill_chunk, page-aligned. PyTorch compiles nothing per shape;
-        the buckets are kept so both engines run the same rows."""
-        cfg = self.config
-        return _next_bucket(n, cfg.min_prefill_bucket, cfg.prefill_chunk,
-                            align=self.model_cfg.page_size)
+        prefill_chunk, page-aligned, refined by any rungs `bucket_ladder`
+        has applied. Unarmed (the default) this is exactly
+        `_next_bucket`."""
+        cfg, page = self.config, self.model_cfg.page_size
+        base = _next_bucket(n, cfg.min_prefill_bucket, cfg.prefill_chunk,
+                            align=page)
+        if self.bucket_ladder is not None:
+            return self.bucket_ladder.bucket_for(
+                n, base, lo=cfg.min_prefill_bucket, align=page)
+        return base
 
     def _chunk_round_once(self, ready: list[_Seq], offsets,
                           caps=None) -> dict[int, Any]:
@@ -553,9 +584,11 @@ class TorchEngine:
             active = active[:bp]
             chunk_lens = self._chunk_lens(active, offsets, caps)
             chunk = self._chunk_arrays(active, offsets, chunk_lens, bp)
-            logits = prefill_batch(
-                self.model, self.k_cache, self.v_cache,
-                *map(self._dev, chunk), aligned=bool(aligned_s))
+            with self.compile_tracker.track(
+                    "prefill", (bp, chunk[0].shape[1], int(bool(aligned_s)))):
+                logits = prefill_batch(
+                    self.model, self.k_cache, self.v_cache,
+                    *map(self._dev, chunk), aligned=bool(aligned_s))
             self.rounds += 1
         done: dict[int, Any] = {}
         for i, s in enumerate(active):
@@ -609,15 +642,16 @@ class TorchEngine:
             return torch.tensor(vals, dtype=dtype, device=self.device)
 
         tk = self.TOPK_WIDTH if any(s.wants_topk for s in pending) else 0
-        packed = sample_tokens_lp(
-            torch.stack(stack),
-            arr(lambda s: s.seed & 0xFFFFFFFF, torch.int64),
-            arr(lambda s: s.generated, torch.int64),
-            arr(lambda s: s.req.sampling.temperature, torch.float32),
-            arr(lambda s: s.req.sampling.top_p, torch.float32),
-            arr(lambda s: s.req.sampling.top_k, torch.int64),
-            topk_lp=tk)
-        return packed.cpu().numpy(), tk
+        with self.compile_tracker.track("sample_first", (width, tk)):
+            packed = sample_tokens_lp(
+                torch.stack(stack),
+                arr(lambda s: s.seed & 0xFFFFFFFF, torch.int64),
+                arr(lambda s: s.generated, torch.int64),
+                arr(lambda s: s.req.sampling.temperature, torch.float32),
+                arr(lambda s: s.req.sampling.top_p, torch.float32),
+                arr(lambda s: s.req.sampling.top_k, torch.int64),
+                topk_lp=tk)
+            return packed.cpu().numpy(), tk
 
     def _emit_first_tokens(self, pending: list[_Seq], packed: np.ndarray,
                            tk: int) -> None:
@@ -720,12 +754,14 @@ class TorchEngine:
                                              batch, tk)
         else:
             k = self.config.decode_steps_per_sync
-            ch = self._chunk_arrays(picks, offsets, chunk_lens,
-                                    self._prefill_width(len(picks)))
+            bp = self._prefill_width(len(picks))
+            ch = self._chunk_arrays(picks, offsets, chunk_lens, bp)
             d = self._burst_arrays(batch)
+            shape = (bp, ch[0].shape[1], k, int(aligned), tk)
 
             def dispatch():
-                with torch.inference_mode():
+                with torch.inference_mode(), \
+                        self.compile_tracker.track("mixed_step", shape):
                     packed, ch_logits = mixed_prefill_decode(
                         self.model, self.k_cache, self.v_cache,
                         *map(self._dev, ch), *map(self._dev, d),
@@ -844,9 +880,7 @@ class TorchEngine:
 
         def dispatch():
             with torch.inference_mode():
-                packed = decode_multi_step(
-                    self.model, self.k_cache, self.v_cache,
-                    *map(self._dev, arrays), num_steps=k, topk_lp=tk)
+                packed = self._burst(k, tk, arrays)
                 self.rounds += 1
                 if pipelined:
                     return packed, _start_copy(packed)    # no sync here
@@ -908,12 +942,12 @@ class TorchEngine:
                           steps + k, temps, top_ps, top_ks)
 
                 def dispatch2():
+                    # on the card, the same graph as the in-flight burst:
+                    # its tokens are read, and its host copy was queued,
+                    # before this replay overwrites its packed output
                     with torch.inference_mode():
                         tokens = inf["packed"][0, k - 1].to(torch.int32)
-                        packed = decode_multi_step(
-                            self.model, self.k_cache, self.v_cache, tokens,
-                            *map(self._dev, arrays[1:]), num_steps=k,
-                            topk_lp=tk)
+                        packed = self._burst(k, tk, (tokens, *arrays[1:]))
                         self.rounds += 1
                         return packed, _start_copy(packed)
 
@@ -936,11 +970,31 @@ class TorchEngine:
         self._inflight = nxt
         return True
 
+    def _burst(self, k: int, tk: int, inputs) -> torch.Tensor:
+        """One fused k-step burst over the fixed max_batch_size width
+        ("decode_burst"; `_burst_arrays`' order, the tokens a host array
+        or a device tensor): its packed output, the graph's static one on
+        the card (consume it before the next burst)."""
+        def step(*a):
+            return decode_multi_step(self.model, self.k_cache, self.v_cache,
+                                     *a, num_steps=k, topk_lp=tk)
+        return self._graphed("decode_burst",
+                             (self.config.max_batch_size, k, tk), step,
+                             inputs)
+
+    def _graphed(self, entry: str, shape: tuple, fn, inputs):
+        """One dispatch of a fixed-shape entry: tracked under (entry,
+        shape) and, on the card, replayed from that bucket's CUDA graph
+        (captured at first use, `engine/graphs.py`)."""
+        with self.compile_tracker.track(entry, shape):
+            return self.graphs.run((entry, shape), fn, inputs)
+
     def _ragged_bucket(self, n: int) -> int:
         """Total-token bucket of a round: pow2 below min_prefill_bucket,
-        then the {lo·2^k, lo·3·2^(k-1)} ladder. Eager PyTorch compiles
-        nothing per shape; the bucket is kept so both engines run the
-        same rows (padding rows are masked and write only page 0)."""
+        then the {lo·2^k, lo·3·2^(k-1)} ladder, not page-aligned and not
+        capped at prefill_chunk (the round may also carry the decode
+        block). The ladder does not refine it, as in the reference.
+        Padding rows are masked and write only page 0."""
         lo = self.config.min_prefill_bucket
         if n < lo:
             return _next_pow2(n, 1, lo)
@@ -953,7 +1007,9 @@ class TorchEngine:
         present, occupy a FIXED block of max_batch_size rows (invalid rows
         mark empty lanes); padding rows fill to the total-token bucket.
         Returns (packed np (2+2tk, 1, bmax), ch_logits (device, row i =
-        pick i's last chunk token))."""
+        pick i's last chunk token)). On the card the round replays the
+        graph of its (tb, tk) bucket; `ch_logits` outlives it (its picks
+        are sampled after later rounds), so it is cloned."""
         cfg, mcfg = self.config, self.model_cfg
         P = mcfg.page_size
         bmax = cfg.max_batch_size
@@ -1008,14 +1064,17 @@ class TorchEngine:
             top_ps[j] = s.req.sampling.top_p
             top_ks[j] = s.req.sampling.top_k
 
-        dev = self._dev
-        packed, ch_logits = ragged_prefill_decode(
-            self.model, self.k_cache, self.v_cache,
-            dev(toks), dev(poss), dev(pages), dev(offs), dev(valid),
-            dev(lanes), dev(lane_tables), dev(ch_rows), dev(d_rows),
-            dev(seeds), dev(steps), dev(temps), dev(top_ps), dev(top_ks),
-            topk_lp=tk)
+        def step(*a):
+            return ragged_prefill_decode(self.model, self.k_cache,
+                                         self.v_cache, *a, topk_lp=tk)
+
+        packed, ch_logits = self._graphed(
+            "ragged_step", (tb, tk), step,
+            (toks, poss, pages, offs, valid, lanes, lane_tables, ch_rows,
+             d_rows, seeds, steps, temps, top_ps, top_ks))
         self.rounds += 1
+        if picks:
+            ch_logits = ch_logits.clone()
         return packed.cpu().numpy(), ch_logits      # ONE host sync
 
     # -- emission -----------------------------------------------------------

@@ -129,16 +129,19 @@ def stream_scratch(device: torch.device, rows: int
     """(partial slots, tickets) kept per device across calls: 2 slots per
     CTA and one ticket per consumer warp of each stream tile. Tickets start at 0 and every launch
     leaves them 0, so a call allocates nothing unless a shape outgrows the
-    buffers (make the first call before capturing a CUDA graph)."""
-    from dynamo_tpu_torch.engine.paged_core import sm_count
+    buffers (make the first call before capturing a CUDA graph;
+    `paged_core.grow_scratch`)."""
+    from dynamo_tpu_torch.engine.paged_core import grow_scratch, sm_count
 
     part, tickets = _SCRATCH.get(device, (None, None))
     need = PART_INTS_PER_CTA * STREAM_CTAS_PER_SM * sm_count(device)
     if part is None or part.numel() < need:
-        part = torch.empty(need, dtype=torch.int32, device=device)
+        part = grow_scratch(device, part, lambda: torch.empty(
+            need, dtype=torch.int32, device=device), "int4_mm")
     need_t = STREAM_WARPS * rows // STREAM_ROWS
     if tickets is None or tickets.numel() < need_t:
-        tickets = torch.zeros(need_t, dtype=torch.int32, device=device)
+        tickets = grow_scratch(device, tickets, lambda: torch.zeros(
+            need_t, dtype=torch.int32, device=device), "int4_mm")
     _SCRATCH[device] = (part, tickets)
     return part, tickets
 

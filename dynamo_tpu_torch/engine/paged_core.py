@@ -71,6 +71,24 @@ def grid_ctas(device: torch.device) -> int:
 
 
 _SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+# scratch buffers a larger shape superseded: a CUDA graph captured before
+# the growth still points at them, so none is ever freed
+_RETIRED: list[torch.Tensor] = []
+
+
+def grow_scratch(device: torch.device, old: torch.Tensor | None, make,
+                 what: str) -> torch.Tensor:
+    """`make()`, a larger scratch buffer to use in place of `old`, which
+    is kept alive. Raises while the current stream is capturing a CUDA
+    graph: the new buffer would belong to the graph's pool, so make one
+    eager call at the shape before capturing it."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what}: scratch asked to grow while a CUDA "
+                           f"graph is being captured; make one eager call "
+                           f"at this shape first")
+    if old is not None:
+        _RETIRED.append(old)
+    return make()
 
 
 def core_scratch(device: torch.device, n_ctas: int, head_dim: int,
@@ -79,14 +97,16 @@ def core_scratch(device: torch.device, n_ctas: int, head_dim: int,
     slots of TILE_MMA_ROWS·(D+2) floats per CTA and one ticket counter per
     (tile, KV head). Counters start at 0 and every launch leaves them 0, so
     a call allocates nothing unless a shape outgrows the buffers (make the
-    first call before capturing a CUDA graph)."""
+    first call before capturing a CUDA graph; `grow_scratch`)."""
     need = 2 * n_ctas * TILE_MMA_ROWS * (head_dim + 2)
     part, counters = _SCRATCH.get(device, (None, None))
     if part is None or part.numel() < need:
-        part = torch.empty(need, dtype=torch.float32, device=device)
+        part = grow_scratch(device, part, lambda: torch.empty(
+            need, dtype=torch.float32, device=device), "paged_core")
     if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(max(n_counters, 1), dtype=torch.int32,
-                               device=device)
+        counters = grow_scratch(device, counters, lambda: torch.zeros(
+            max(n_counters, 1), dtype=torch.int32, device=device),
+            "paged_core")
     _SCRATCH[device] = (part, counters)
     return part, counters
 

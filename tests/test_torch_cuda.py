@@ -21,12 +21,15 @@ version at rtol 4e-3 (half a bf16 ulp), atol 1e-5. K4 in bf16 runs K1's
 core at one row per lane (it rounds P the same way) and is held to the
 same tolerances. K5 and K6 (the A8
 GEMMs) compute an exact int32 product between two roundings that both
-sides make alike: bit-identical with their plain versions.
+sides make alike: bit-identical with their plain versions. The engine's
+CUDA graphs (engine/graphs.py) replay the same kernels on the same
+inputs: bit-identical with eager calls, outputs and caches.
 """
 
 import asyncio
 import copy
 
+import numpy as np
 import pytest
 import torch
 
@@ -1056,3 +1059,273 @@ def _serve_tiny_on_card_and_cpu(cuda_device, impl: str, geometry=None,
     k1_launches = ragged._KERNEL.launches - kernels_before
     assert on_card == asyncio.run(serve(torch.device("cpu")))
     return k1_launches
+
+
+# --- CUDA graphs of the engine's fixed-shape steps (engine/graphs.py) -------
+
+GRAPH_MODES = ("bf16", "w8a8", "int4")
+
+
+def _graph_model(dev, mode):
+    """A tiny bf16 Llama inside every kernel's gate (A8_MODEL), quantized
+    for `mode`."""
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16, **A8_MODEL)
+    model = init_params(cfg, 0, dev)
+    if mode != "bf16":
+        model = quant.quantize_params(model, mode=mode)
+    return cfg, model
+
+
+def _random_caches(cfg, dev, seed):
+    """Two identical KV caches of random bf16 values (attention then reads
+    real keys), eight lanes' pages each."""
+    from dynamo_tpu_torch.models.llama import init_cache
+
+    kc, vc = init_cache(cfg, 1 + 8 * cfg.max_pages_per_seq, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for c in kc + vc:
+        c.copy_(torch.randn(c.shape, generator=g, device=dev))
+    return (kc, vc), ([c.clone() for c in kc], [c.clone() for c in vc])
+
+
+def _lane_tables(cfg, lanes):
+    mp = cfg.max_pages_per_seq
+    return (1 + np.arange(lanes * mp, dtype=np.int32)).reshape(lanes, mp)
+
+
+def _burst_inputs(cfg, shift=0):
+    """A 4-lane burst's host arrays in `decode_multi_step`'s order: greedy
+    and sampled lanes (top-p, top-k), one empty lane."""
+    return [np.array([5, 77, 130, 9], np.int32) + shift,
+            np.array([3, 17, 40, 0], np.int32) + shift,
+            _lane_tables(cfg, 4), np.array([True, True, True, False]),
+            np.array([11, 22, 33, 44], np.int64),
+            np.array([0, 5, 2, 0], np.int64) + shift,
+            np.array([0.0, 0.8, 1.2, 0.0], np.float32),
+            np.array([1.0, 0.9, 1.0, 1.0], np.float32),
+            np.array([0, 0, 20, 0], np.int64)]
+
+
+def _ragged_inputs(cfg, chunk, tb, shift=0):
+    """A ragged round's host arrays in `ragged_prefill_decode`'s order:
+    `chunk` prompt rows of pick 0, the fixed block of 4 decode rows (one
+    empty lane), padding rows to the `tb` bucket."""
+    bmax, P = 4, cfg.page_size
+    tables = _lane_tables(cfg, 2 * bmax)
+    pos = list(range(shift, shift + chunk)) + [12 + shift, 30, 50, 7]
+    lanes = [0] * chunk + list(range(bmax, 2 * bmax))
+    n = len(pos)
+    valid = np.zeros(tb, bool)
+    valid[:n - 1] = True
+    poss = np.zeros(tb, np.int32)
+    poss[:n] = pos
+    lane = np.zeros(tb, np.int32)
+    lane[:n] = lanes
+    pages = np.where(valid, tables[lane, poss // P], 0).astype(np.int32)
+    offs = np.where(valid, poss % P, 0).astype(np.int32)
+    toks = ((np.arange(tb) * 7 + shift) % 256).astype(np.int32)
+    z = np.zeros(bmax, np.int64)
+    return [toks, poss, pages, offs, valid, lane, tables,
+            np.full(bmax, max(chunk - 1, 0), np.int32),
+            (chunk + np.arange(bmax)).astype(np.int32), z + 3,
+            np.arange(bmax, dtype=np.int64),
+            np.array([0.0, 0.7, 0.0, 0.0], np.float32),
+            np.ones(bmax, np.float32), z]
+
+
+def _device(inputs, dev):
+    return [torch.from_numpy(a).to(dev) for a in inputs]
+
+
+def _assert_same_outputs(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _assert_same_caches(a, b):
+    """Equal outside scratch page 0 (where padding rows race)."""
+    for x, y in zip(a[0] + a[1], b[0] + b[1]):
+        assert torch.equal(x[:, 1:], y[:, 1:])
+
+
+def _burst_step(model, tk, k=4):
+    from dynamo_tpu_torch.models.llama import decode_multi_step
+
+    return lambda kc, vc, *a: decode_multi_step(model, kc, vc, *a,
+                                                num_steps=k, topk_lp=tk)
+
+
+def _ragged_step(model, tk):
+    from dynamo_tpu_torch.models.llama import ragged_prefill_decode
+
+    return lambda kc, vc, *a: ragged_prefill_decode(model, kc, vc, *a,
+                                                    topk_lp=tk)
+
+
+def _graph_vs_eager(dev, cfg, step, inputs_seq):
+    """Each inputs of `inputs_seq` through one graph (captured at the
+    first) and through eager calls, on two identical random caches:
+    outputs, caches and kernel launches equal call by call."""
+    from dynamo_tpu_torch.engine import cuda_build
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+    eager, graphed = _random_caches(cfg, dev, 7)
+    graphs = StepGraphs(dev)
+    for i, inputs in enumerate(inputs_seq):
+        before = cuda_build.launch_counts()
+        want = step(*eager, *_device(inputs, dev))
+        torch.cuda.synchronize()
+        eager_launches = cuda_build.launch_delta(
+            before, cuda_build.launch_counts())
+        before = cuda_build.launch_counts()
+        got = graphs.run(("step",), lambda *a: step(*graphed, *a), inputs)
+        torch.cuda.synchronize()
+        launches = cuda_build.launch_delta(before, cuda_build.launch_counts())
+        # the first call also ran the warm-up eagerly
+        assert launches == {k: n * (2 if i == 0 else 1)
+                            for k, n in eager_launches.items()}
+        assert eager_launches
+        _assert_same_outputs(got, want)
+        _assert_same_caches(eager, graphed)
+    assert graphs.captures == 1 and graphs.replays == len(inputs_seq)
+    assert graphs.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("tk", [0, 8])
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_burst_graph_replays_bit_identical_to_eager(cuda_device, mode, tk):
+    """A decode burst (4 steps, sampled and greedy lanes) replayed from its
+    graph equals the eager burst on the same inputs: packed output and
+    both caches, bit for bit; the launch counts include the replays."""
+    cfg, model = _graph_model(cuda_device, mode)
+    with torch.inference_mode():
+        _graph_vs_eager(cuda_device, cfg, _burst_step(model, tk),
+                        [_burst_inputs(cfg), _burst_inputs(cfg, shift=9)])
+
+
+@pytest.mark.parametrize("chunk,tb", [(0, 8), (20, 32)],
+                         ids=["decode", "mixed"])
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_ragged_graph_replays_bit_identical_to_eager(cuda_device, mode,
+                                                     chunk, tb):
+    """A ragged round at a decode bucket and at a mixed bucket (chunk rows
+    + decode block + padding) replayed from its graph equals the eager
+    round: packed output, chunk logits and both caches."""
+    cfg, model = _graph_model(cuda_device, mode)
+    with torch.inference_mode():
+        _graph_vs_eager(cuda_device, cfg, _ragged_step(model, 8),
+                        [_ragged_inputs(cfg, chunk, tb),
+                         _ragged_inputs(cfg, chunk, tb, shift=3)])
+
+
+def test_two_pipelined_bursts_through_one_graph(cuda_device):
+    """Burst 2 fed on the device from burst 1's output (the engine's
+    pipelined dispatch) through the same graph equals two eager bursts;
+    burst 1's output is copied out before the graph replays again."""
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+    cfg, model = _graph_model(cuda_device, "bf16")
+    step, k = _burst_step(model, 0, k=4), 4
+    first = _burst_inputs(cfg)
+    second = [None, first[1] + k, *first[2:5], first[5] + k, *first[6:]]
+    eager, graphed = _random_caches(cfg, cuda_device, 3)
+    graphs = StepGraphs(cuda_device)
+    with torch.inference_mode():
+        want1 = step(*eager, *_device(first, cuda_device))
+        want2 = step(*eager, want1[0, k - 1].to(torch.int32),
+                     *_device(second[1:], cuda_device))
+        run = lambda *a: step(*graphed, *a)
+        got1 = graphs.run(("burst",), run, first)
+        held = got1.clone()
+        got2 = graphs.run(("burst",), run,
+                          [got1[0, k - 1].to(torch.int32), *second[1:]])
+        torch.cuda.synchronize()
+    assert got2 is got1                       # the graph's static output
+    assert torch.equal(held, want1) and torch.equal(got2, want2)
+    assert not torch.equal(want1, want2)
+    _assert_same_caches(eager, graphed)
+    assert graphs.captures == 1 and graphs.replays == 2
+
+
+def test_ragged_round_chunk_logits_outlive_the_next_replay(cuda_device):
+    """The engine's ragged round hands back chunk logits that a later
+    round of the same bucket (the same graph, replayed) leaves as they
+    were: they are sampled only after later rounds."""
+    import types
+
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+
+    cfg, model = _graph_model(cuda_device, "bf16")
+    eng = TorchEngine(TorchEngineConfig(
+        model=cfg, num_pages=64, max_batch_size=4, attention_impl="ragged",
+        device="cuda"), model=model)
+    picks = [types.SimpleNamespace(pages=list(range(1 + 4 * i, 5 + 4 * i)),
+                                   prompt=[(7 * j + 50 * i) % 256
+                                           for j in range(20)])
+             for i in range(2)]
+    with torch.inference_mode():
+        _, ch1 = eng._ragged_core(picks[:1], {id(picks[0]): 0}, [20], [], 0)
+        held = ch1.clone()
+        _, ch2 = eng._ragged_core(picks[1:], {id(picks[1]): 0}, [20], [], 0)
+        torch.cuda.synchronize()
+    assert eng.graphs.captures == 1 and eng.graphs.replays == 2
+    assert eng.compile_tracker.total == 1
+    assert torch.equal(ch1, held)
+    assert not torch.equal(ch1[0], ch2[0])
+
+
+def test_small_graph_replays_right_after_scratch_grows(cuda_device,
+                                                       monkeypatch):
+    """A round captured at a small bucket, then an eager round large
+    enough to grow the kernels' scratch, then the small graph replayed
+    (memory reused in between): still equal to eager. The scratch the
+    graph was captured with stays alive."""
+    from dynamo_tpu_torch.engine import paged_core
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+    monkeypatch.setattr(paged_core, "_SCRATCH", {})
+    monkeypatch.setattr(int4_mm, "_SCRATCH", {})
+    cfg, model = _graph_model(cuda_device, "w8a8")
+    step = _ragged_step(model, 0)
+    eager, graphed = _random_caches(cfg, cuda_device, 5)
+    graphs = StepGraphs(cuda_device)
+    with torch.inference_mode():
+        graphs.run(("small",), lambda *a: step(*graphed, *a),
+                   _ragged_inputs(cfg, 0, 8))
+        step(*eager, *_device(_ragged_inputs(cfg, 0, 8), cuda_device))
+        (dev_key, (_, small)), = paged_core._SCRATCH.items()
+        big = _ragged_inputs(cfg, 100, 512)
+        step(*graphed, *_device(big, cuda_device))
+        step(*eager, *_device(big, cuda_device))
+        assert paged_core._SCRATCH[dev_key][1].numel() > small.numel()
+        assert any(t is small for t in paged_core._RETIRED)
+        junk = [torch.full((1 << 20,), 7, dtype=torch.int32,
+                           device=cuda_device) for _ in range(8)]
+        new = _ragged_inputs(cfg, 0, 8, shift=5)
+        want = step(*eager, *_device(new, cuda_device))
+        got = graphs.run(("small",), lambda *a: step(*graphed, *a), new)
+        torch.cuda.synchronize()
+    del junk
+    _assert_same_outputs(got, want)
+    _assert_same_caches(eager, graphed)
+    assert int(small.abs().sum()) == 0
+
+
+def test_scratch_growth_during_capture_raises(cuda_device):
+    """Asking either kernel family's persistent scratch to grow while a
+    graph is being captured raises (its memory would be the graph's)."""
+    from dynamo_tpu_torch.engine import paged_core
+
+    for grow in (lambda: paged_core.core_scratch(
+                     cuda_device, paged_core.grid_ctas(cuda_device), 128,
+                     1 << 24),
+                 lambda: int4_mm.stream_scratch(cuda_device, 1 << 24)):
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="eager call at this shape"):
+            with torch.cuda.graph(graph):
+                grow()
+        del graph

@@ -91,8 +91,10 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
     --device cpu` in a fresh interpreter, on the default (phase) path: it
     answers, every engine dispatch was a phase-path one (prefill rounds
     and decode bursts); then an int4 engine built from the same checkpoint
-    serves a request; and at the end no jax and no dynamo_tpu module was
-    ever imported."""
+    serves a request, its compile tracker holding its entries; and at the
+    end, with the compiled-step modules (graphs, compile tracker, bucket
+    ladder, metrics) loaded too, no jax and no dynamo_tpu module was ever
+    imported."""
     probe = (
         "import runpy, sys\n"
         "from dynamo_tpu_torch.models import llama\n"
@@ -130,6 +132,12 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
         "        await q_eng.close()\n"
         "    return toks\n"
         "print('INT4', len(asyncio.run(serve())))\n"
+        "print('TRACKED', sorted({k[0] for k in "
+        "q_eng.compile_tracker._seen}))\n"
+        "import dynamo_tpu_torch.engine.bucketing\n"
+        "import dynamo_tpu_torch.engine.compile_tracker\n"
+        "import dynamo_tpu_torch.engine.graphs\n"
+        "import dynamo_tpu_torch.runtime.metrics\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'dynamo_tpu' or "
         "m.startswith('dynamo_tpu.'))\n"
@@ -145,6 +153,8 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
     assert "CALLS ['decode_multi_step', 'prefill_batch']" in proc.stdout, \
         proc.stdout
     assert "INT4 3" in proc.stdout, proc.stdout
+    assert "TRACKED ['decode_burst', 'prefill', 'sample_first']" in \
+        proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("env,impl", [(None, "phase"), ("auto", "phase"),
