@@ -54,6 +54,25 @@ on):
     prompt, 12 tokens, top-8 logprobs) on both paths, equal up to a
     parting at a bf16 near-tie (BF16_TIE_TOL), printed with its step,
     tokens and gap
+ 8b. constrained sampling: the Llama-3-8B model (bf16, seed 0, byte
+    tokenizer) on the phase engine and on the ragged engine, one batch of
+    8 requests, max_tokens 32, all in flight — a choice, a regex and a
+    JSON-mode lane, a presence-penalised [a-z]+ lane, a repetition
+    penalty, min_p 0.1 at temperature 0.8 with a seed, two free lanes —
+    with the launch counts zeroed just before and read just after (K2, K4
+    and the path's prefill kernel, K3 or K1, > 0); the grammars compiled
+    through the engine's host pool first (their seconds printed, JSON
+    mode's among them); every guided output inside its grammar (a full
+    match where it stopped), the presence lane with no letter twice;
+    exactly one "decode_guided" capture per engine, at the packed tables'
+    row bucket (capture seconds, replays and the resident table bytes
+    printed); the same seeded request twice, identical. Then the bare
+    8-lane "decode_guided" burst at 8B captured and replayed twice:
+    bit-identical with the eager burst, its static inputs unchanged; its
+    host wall, device busy and idle share, graphed, beside the plain
+    "decode_burst" on the same lanes; the ops after the last layer
+    (penalties, grammar mask, sampling) in device ms per step from an
+    eager profile
  9. quantized main path: the same batch on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
     same random weights, quantized by the engine): w8a8 launches K5 and
@@ -82,7 +101,10 @@ on):
 12. kernel path vs plain path at 2 layers, full width, fp32: greedy
     streams over 16 steps x 3 requests across phase-kernel, phase-plain,
     ragged-kernel and ragged-plain — identical unquantized, and under
-    w8a8 and int4 identical up to partings at near-ties (A8_TIE_TOL)
+    w8a8 and int4 identical up to partings at near-ties (A8_TIE_TOL); per
+    mode also phase 8b's constrained batch (top-8 logprobs) on the phase
+    path, kernels vs plain: every lane inside its grammar, the streams
+    equal up to partings at near-ties (BF16_TIE_TOL)
 13. numbers: at the main paths' shapes, each kernel held against its
     plain version once more, then kernel / plain / library times (CUDA
     events around device work only: the card sleeps while the host queues
@@ -104,6 +126,7 @@ import asyncio
 import contextlib
 import itertools
 import json
+import math
 import os
 import random
 import shutil
@@ -807,6 +830,425 @@ def check_quantized(torch, quant, model, mode: str) -> None:
                                      f"of {tuple(t.shape)}")
 
 
+# The constrained batch (phase 8b): one lane of each kind, the byte
+# tokenizer's EOS (256) as each request's stop id, as the preprocessor adds
+# it. The presence penalty sits far above the random weights' logit
+# spread, so that lane may not repeat a letter.
+BYTE_EOS = 256
+CONSTRAINED_LANES = (
+    ("choice", {"guided": {"choice": ["yes", "no", "maybe"]}}),
+    ("regex", {"guided": {"regex": r"[a-z]+( [a-z]+){0,7}\."}}),
+    ("json", {"guided": {"json": True}}),
+    ("presence", {"guided": {"regex": "[a-z]+"}, "presence_penalty": 50.0}),
+    ("repetition", {"repetition_penalty": 1.3}),
+    ("min_p", {"min_p": 0.1, "temperature": 0.8, "seed": 1234}),
+    ("free", {}),
+    ("free", {}),
+)
+CONSTRAINED_MAX_TOKENS = 32
+
+
+def constrained_requests(top: int = 0) -> list:
+    """The constrained batch as engine requests, byte prompts of 20..89
+    tokens from a seed; `top` asks every lane for its top logprobs."""
+    rng = random.Random(8)
+    reqs = []
+    for _, sampling in CONSTRAINED_LANES:
+        prompt = [rng.randrange(32, 127)
+                  for _ in range(rng.randrange(20, 90))]
+        reqs.append({"token_ids": prompt,
+                     "sampling": {"temperature": 0.0, "top_logprobs": top,
+                                  **sampling},
+                     "stop": {"max_tokens": CONSTRAINED_MAX_TOKENS,
+                              "stop_token_ids": [BYTE_EOS]}})
+    return reqs
+
+
+async def serve_requests(eng, Context, reqs) -> list:
+    """Every request in flight at once: per request (tokens, finish
+    reason, top logprobs per token, chosen logprobs)."""
+    async def one(r):
+        toks, tops, lps, finish = [], [], [], None
+        async for o in eng.generate(r, Context()):
+            if o.get("finish_reason") == "error":
+                raise AssertionError(f"request failed: {o}")
+            toks.extend(o.get("token_ids", ()))
+            tops.extend(o.get("top_logprobs") or ())
+            lps.extend(o.get("log_probs") or ())
+            finish = o.get("finish_reason") or finish
+        return toks, finish, tops, lps
+    return list(await asyncio.gather(*(one(r) for r in reqs)))
+
+
+def lane_dfas(guided) -> dict:
+    """Each guided lane's byte DFA, compiled here from its spec (the
+    check does not read the engine's token tables)."""
+    out = {}
+    for label, sampling in CONSTRAINED_LANES:
+        spec = sampling.get("guided")
+        if spec is not None:
+            out[label] = guided.compile_regex(
+                guided.choice_regex(spec["choice"]) if "choice" in spec
+                else spec.get("regex") or guided.json_regex())
+    return out
+
+
+def check_constrained(guided, dfas, outs, label_of_run: str) -> str:
+    """Every guided lane inside its grammar (a full match where it
+    stopped), the presence lane with no letter twice, the other lanes at
+    full length or stopped; returns a one-line summary."""
+    summary = []
+    for (label, _), (toks, finish, _, _) in zip(CONSTRAINED_LANES, outs):
+        body = toks[:-1] if finish == "stop" and toks[-1:] == [BYTE_EOS] \
+            else toks
+        if label not in dfas:
+            if not (finish == "stop" or
+                    (finish == "length"
+                     and len(toks) == CONSTRAINED_MAX_TOKENS)):
+                raise AssertionError(f"{label_of_run} {label} lane: "
+                                     f"{len(toks)} tokens, {finish}")
+            summary.append(f"{label} {finish} {len(toks)} tokens")
+            continue
+        if any(not 0 <= t < 256 for t in body):
+            raise AssertionError(f"{label_of_run} {label} lane emitted a "
+                                 f"token outside its grammar: {toks}")
+        data, s = bytes(body), 0
+        for byte in data:
+            s = int(dfas[label].next[s, byte])
+            if s < 0:
+                raise AssertionError(f"{label_of_run} {label} lane left its "
+                                     f"grammar: {data!r}")
+        if finish == "stop" and not guided.match_bytes(dfas[label], data):
+            raise AssertionError(f"{label_of_run} {label} lane stopped "
+                                 f"short of a match: {data!r}")
+        if finish not in ("stop", "length"):
+            raise AssertionError(f"{label_of_run} {label} lane: {finish}")
+        if label == "presence" and len(set(data)) != len(data):
+            raise AssertionError(f"{label_of_run} presence lane repeated a "
+                                 f"letter: {data!r}")
+        summary.append(f"{label} {finish} {data[:48]!r}")
+    return "; ".join(summary)
+
+
+def seed_grammars(eng, compiled: dict, vocab) -> None:
+    """A fresh engine's grammar cache filled with tables the first engine
+    compiled for the same vocabulary (a JSON-mode compile at vocab 128256
+    takes seconds; this script's comparison only)."""
+    eng._guided_vocab = vocab
+    for i, (key, tables) in enumerate(compiled.items()):
+        eng._guided_tables[key] = tables
+        eng._guided_slots[key] = i + 1
+
+
+def constrained_partings(a, b, tol: float) -> list:
+    """[(lane, step, gap)] where two runs of the constrained batch part
+    (each run a `serve_requests` result). A greedy lane may part only at a
+    near-tie: each run ranks the other's token within `tol` nats of its
+    own. The sampled lane may part only where both runs sample from the
+    same distribution: the same chosen logprobs within `tol` at every
+    step before the parting, the same logprobs within `tol` on the top-8
+    tokens both runs list at the parting, and each run's token one that
+    min_p keeps there (a different Gumbel winner at a near-tie of the
+    perturbed scores; its token is rarely in the other run's top 8, since
+    min_p keeps many tokens of a random model's flat distribution)."""
+    partings = []
+    for (label, sampling), ra, rb in zip(CONSTRAINED_LANES, a, b):
+        ta, tb = ra[0], rb[0]
+        step = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                    None)
+        if step is None:
+            if len(ta) != len(tb):
+                raise AssertionError(f"{label} lane: {len(ta)} vs {len(tb)} "
+                                     f"tokens with no parting")
+            continue
+        x, y = ta[step], tb[step]
+        lp_a = dict((int(i), v) for i, v in ra[2][step])
+        lp_b = dict((int(i), v) for i, v in rb[2][step])
+        t = sampling.get("temperature", 0.0)
+        if t > 0:
+            shared = set(lp_a) & set(lp_b)
+            floor = t * math.log(sampling["min_p"])
+            gap = max([abs(ra[3][i] - rb[3][i]) for i in range(step)]
+                      + [abs(lp_a[k] - lp_b[k]) for k in shared]
+                      + [max(lp.values()) + floor - chosen
+                         for lp, chosen in ((lp_a, ra[3][step]),
+                                            (lp_b, rb[3][step]))]
+                      if shared else [float("inf")])
+        else:
+            lp_a.setdefault(x, ra[3][step])
+            lp_b.setdefault(y, rb[3][step])
+            gap = max(lp_a[x] - lp_a.get(y, -math.inf),
+                      lp_b[y] - lp_b.get(x, -math.inf))
+        if not gap <= tol:
+            raise AssertionError(f"{label} lane parts at step {step}: tokens "
+                                 f"{x} vs {y}, gap {gap}")
+        partings.append((label, step, gap))
+    return partings
+
+
+def constrained_phase(torch, model, dev, smi, n_pages: int) -> dict:
+    """Phase 8b: the constrained batch at Llama-3-8B's full width on the
+    phase engine and on the ragged engine; the bare "decode_guided" step
+    replayed against eager; its profile beside the plain burst's; the
+    constrained head's device time per step. Returns the compiled grammars
+    and their vocabulary for phase 12."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from dynamo_tpu_torch.engine import cuda_build, graphs, sampling
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.llm import guided
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.runtime.context import Context
+
+    cfg = model.cfg
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    dfas = lane_dfas(guided)
+    log(f"[constrained] the lanes' byte DFAs for the output checks in "
+        f"{time.perf_counter() - t0:.2f} s")
+    specs = [s["guided"] for _, s in CONSTRAINED_LANES if "guided" in s]
+    out = {"dfas": dfas}
+
+    def engine(impl):
+        return TorchEngine(TorchEngineConfig(
+            model=cfg, num_pages=n_pages, max_batch_size=8,
+            prefill_chunk_budget=512, attention_impl=impl, device="cuda"),
+            model=model, token_bytes=lambda: guided.token_bytes_of(
+                ByteTokenizer(), V), eos_token_id=BYTE_EOS)
+
+    for impl in ("phase", "ragged"):
+        eng = engine(impl)
+        prefill_kernel = ("paged_kv_write_pages" if impl == "phase"
+                          else "ragged_paged_attention")
+
+        async def go():
+            try:
+                compile_s = {}
+                if impl == "phase":
+                    for spec in specs:
+                        t0 = time.perf_counter()
+                        await eng._compile_guided(spec)
+                        compile_s[json.dumps(spec)] = \
+                            time.perf_counter() - t0
+                else:
+                    seed_grammars(eng, out["compiled"], out["vocab"])
+                cuda_build.reset_launch_counts()
+                t0 = time.perf_counter()
+                outs = await serve_requests(eng, Context,
+                                            constrained_requests())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = cuda_build.launch_counts()
+                keys = sorted(k for k in eng.graphs.graphs
+                              if k[0] == "decode_guided")
+                replays = eng.graphs.replays
+                again = await serve_requests(
+                    eng, Context, [constrained_requests()[5]] * 2)
+                return compile_s, outs, wall, launches, keys, replays, again
+            finally:
+                await eng.close()
+
+        compile_s, outs, wall, launches, keys, replays, again = \
+            asyncio.run(go())
+        summary = check_constrained(guided, dfas, outs, impl)
+        for kname in ("paged_kv_write", "paged_attention_decode",
+                      prefill_kernel):
+            if launches[kname] == 0:
+                raise AssertionError(f"kernel {kname} never launched on the "
+                                     f"{impl} constrained path")
+        rows = eng._guided_layout()[0]
+        if keys != [("decode_guided", (8, 8, 0, rows))]:
+            raise AssertionError(f"{impl}: decode_guided captures {keys}, "
+                                 f"want one at row bucket {rows}")
+        if again[0][0] != again[1][0] or \
+                len(again[0][0]) != CONSTRAINED_MAX_TOKENS:
+            raise AssertionError(f"{impl}: the same seeded request twice: "
+                                 f"{again[0][0]} vs {again[1][0]}")
+        cap_s = sum(v for lab, v in
+                    eng.compile_tracker.compile_seconds.items()
+                    if lab["entry"] == "decode_guided")
+        table_bytes = sum(t.nbytes for b in eng._guided_buffers.values()
+                          for t in b[:3])
+        log(f"[constrained] {impl} path, Llama-3-8B bf16 random weights, 8 "
+            f"lanes x {CONSTRAINED_MAX_TOKENS} tokens in {wall:.2f} s: "
+            f"{summary}")
+        log(f"[constrained] {impl} path: launches {launches}; "
+            f"{len(keys)} decode_guided capture(s) {keys} in {cap_s:.3f} s "
+            f"(first dispatch, compile tracker), {replays} replays in the "
+            f"batch; resident guided tables {table_bytes} bytes "
+            f"({rows} rows x (2V + V/8 + 1)); the same seeded min_p "
+            f"request twice: identical ({again[0][0][:6]}...); on {smi}")
+        if impl == "phase":
+            json_s = compile_s[json.dumps({"json": True})]
+            n_json = eng._guided_tables[
+                eng._guided_key({"json": True})].num_states
+            log(f"[constrained] grammar compiles through the engine's host "
+                f"pool at vocab {V}: " + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in compile_s.items())
+                + f"; JSON mode {json_s:.3f} s, {n_json} states, on the "
+                f"host of the {smi} ({os.cpu_count()} cores)")
+            out.update(compiled=dict(eng._guided_tables),
+                       vocab=eng._guided_vocab, json_s=json_s,
+                       table_bytes=table_bytes)
+            layout = eng._guided_layout()
+            stack = eng._guided_device_stack(layout)
+            row_of = {key: row for key, row, _ in layout[1]}
+            key_of = eng._guided_key
+        del eng
+        torch.cuda.empty_cache()
+
+    # the bare "decode_guided" step: 8 lanes at contexts 44..1033 — JSON,
+    # choice, regex and [a-z]+ lanes at their grammars' first rows, then
+    # the repetition, min_p and two free lanes
+    bmax = 8
+    ctx = [44, 73, 133, 233, 383, 653, 853, 1033]
+    kc, vc = llama.init_cache(cfg, 1 + 72 * bmax, dev)
+    for cache in kc + vc:
+        cache.normal_()
+    tables = np.zeros((bmax, cfg.max_pages_per_seq), np.int32)
+    for i in range(bmax):
+        tables[i, :72] = np.arange(1 + 72 * i, 73 + 72 * i)
+    rng = np.random.default_rng(8)
+    lane_rows = [row_of[key_of(s)] for s in
+                 ({"json": True}, specs[0], specs[1], specs[3])] + [0] * 4
+    pc = np.zeros((bmax, V), np.int32)
+    pc[:, 32:127] = rng.integers(0, 3, (bmax, 95))
+    stop = np.full((bmax, 8), -1, np.int32)
+    stop[:, 0] = BYTE_EOS
+    z = np.zeros(bmax, np.int64)
+    plain_in = [rng.integers(0, 256, bmax).astype(np.int32),
+                np.asarray(ctx, np.int32) - 1, tables,
+                np.ones(bmax, bool), np.arange(bmax, dtype=np.int64) * 7, z,
+                np.array([0, 0, 0, 0, 0, 0.8, 0, 0], np.float32),
+                np.ones(bmax, np.float32), z]
+    guided_in = plain_in + [
+        np.array([0, 0, 0, 0, 0, 0.1, 0, 0], np.float32),
+        np.array([1, 1, 1, 1, 1.3, 1, 1, 1], np.float32),
+        np.zeros(bmax, np.float32),
+        np.array([0, 0, 0, 50, 0, 0, 0, 0], np.float32), pc,
+        np.zeros((bmax, V), np.int32), np.zeros(bmax, np.int32),
+        np.asarray(lane_rows, np.int32), stop]
+
+    def guided_step(k_cache, v_cache):
+        return lambda *a: llama.decode_multi_step_guided(
+            model, k_cache, v_cache, *a[:15], *stack, *a[15:], num_steps=8)
+
+    def plain_step(k_cache, v_cache):
+        return lambda *a: llama.decode_multi_step(model, k_cache, v_cache,
+                                                  *a, num_steps=8)
+
+    with torch.inference_mode():
+        g_caches = ([c.clone() for c in kc], [c.clone() for c in vc])
+        e_caches = ([c.clone() for c in kc], [c.clone() for c in vc])
+        sg = graphs.StepGraphs(dev)
+        second = list(guided_in)
+        second[0] = (second[0] + 17) % 256
+        second[-2] = np.asarray([r + 1 if r else 0 for r in lane_rows],
+                                np.int32)
+        for i, inputs in enumerate((guided_in, second)):
+            t0 = time.perf_counter()
+            got = sg.run(("decode_guided",), guided_step(*g_caches), inputs)
+            torch.cuda.synchronize()
+            if i == 0:
+                capture_s = time.perf_counter() - t0
+            want = guided_step(*e_caches)(
+                *(torch.from_numpy(a).to(dev) for a in inputs))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError("the decode_guided replay differs from "
+                                     "the eager burst")
+            for buf, a in zip(sg.graphs[("decode_guided",)].inputs, inputs):
+                if not torch.equal(buf.cpu(), torch.from_numpy(a)):
+                    raise AssertionError("the decode_guided replay wrote "
+                                         "one of its static inputs")
+            for g, w in zip(g_caches[0] + g_caches[1],
+                            e_caches[0] + e_caches[1]):
+                if not torch.equal(g[:, 1:], w[:, 1:]):
+                    raise AssertionError("the decode_guided graph left other "
+                                         "caches than the eager burst")
+        toks = got[0].cpu().numpy().astype(int)
+        log(f"[graph] decode_guided (8B, bare, 8 lanes x 8 steps): captured "
+            f"in {capture_s:.3f} s (warm-up + capture + first replay); two "
+            f"replays bit-identical with the eager burst (packed output, "
+            f"both caches outside page 0), static inputs unchanged after "
+            f"each; JSON lane {bytes(t for t in toks[:, 0] if t < 256)!r}")
+        del e_caches, want
+        sp = graphs.StepGraphs(dev)
+        sp.run(("decode_burst",), plain_step(*g_caches), plain_in)
+        rows = {}
+        for label, sgr, key, inputs in (
+                ("decode_burst", sp, ("decode_burst",), plain_in),
+                ("decode_guided", sg, ("decode_guided",), guided_in)):
+            rows[label] = measure(
+                torch, lambda: sgr.run(key, None, inputs).cpu(),
+                ProfilerActivity, profile)
+        # the constrained head: every op after the last layer's lm_head
+        # (penalties, grammar mask, sampling), profiled in an eager burst
+        names = ("constrained_logits", "sample_tokens_lp")
+        saved = {n: getattr(sampling, n) for n in names}
+
+        def annotated(n):
+            def run(*a, **kw):
+                with record_function(f"head::{n}"):
+                    return saved[n](*a, **kw)
+            return run
+
+        head, eager_ops = {}, {}
+        try:
+            for n in names:
+                setattr(sampling, n, annotated(n))
+            for label, step, inputs in (
+                    ("decode_burst", plain_step(*g_caches), plain_in),
+                    ("decode_guided", guided_step(*g_caches), guided_in)):
+                dev_in = [torch.from_numpy(a).to(dev) for a in inputs]
+                step(*dev_in)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    step(*dev_in)
+                    torch.cuda.synchronize()
+                events = prof.key_averages()
+                head[label] = sum(
+                    e.device_time_total for e in events
+                    if e.key.startswith("head::")
+                    and e.device_type == torch.autograd.DeviceType.CPU) \
+                    / 1e3 / 8
+                eager_ops[label] = sum(
+                    e.count for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 8
+        finally:
+            for n in names:
+                setattr(sampling, n, saved[n])
+    for label, (wall_ms, busy, n_k, by_class, top) in rows.items():
+        busy_txt = "not measured" if busy is None else \
+            f"{busy:.2f} ms, idle {100 * max(0.0, 1 - busy / wall_ms):.1f}%"
+        log(f"[constrained] {label} (8B bf16, bare, 8 lanes x 8 steps, "
+            f"graphed): wall {wall_ms:.2f} ms (median of 10), device busy "
+            f"{busy_txt}, {n_k:.0f} device ops ({n_k / 8:.0f} per step), "
+            f"on {smi}")
+    g_busy = rows["decode_guided"][1]
+    for label, ms in head.items():
+        what = ("penalties + grammar mask + sampling"
+                if label == "decode_guided" else "sampling")
+        if not ms:
+            log(f"[constrained] {label}: the ops after the last layer "
+                f"({what}): device time not measured (the profiler saw "
+                f"none); on {smi}")
+            continue
+        share = (f", {100 * 8 * ms / g_busy:.2f}% of the graphed guided "
+                 f"burst's busy" if g_busy and label == "decode_guided"
+                 else "")
+        log(f"[constrained] {label}: the ops after the last layer ({what}) "
+            f"{ms:.4f} ms of device time per step (eager profile){share}; "
+            f"{eager_ops[label]:.0f} device ops per step eager; on {smi}")
+    out.update(rows=rows, head=head)
+    del g_caches, kc, vc, sg, sp, stack
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -825,6 +1267,7 @@ def main() -> int:
         ragged,
     )
     from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.llm import guided as guided_mod
     from dynamo_tpu_torch.llm.entrypoint import build_torch_engine
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.run.main import build_pipeline_for, run_batch
@@ -1222,6 +1665,11 @@ def main() -> int:
         log(f"[main] greedy stream of the same 100-token prompt, phase vs "
             f"ragged path (bf16): identical over 12 steps")
 
+    # 8b. constrained sampling ---------------------------------------------
+    t0 = time.perf_counter()
+    constrained = constrained_phase(torch, model, dev, smi, N_PAGES)
+    log(f"[constrained] phase 8b in {time.perf_counter() - t0:.1f} s")
+
     # 9. quantized main path -------------------------------------------------
 
     def bare_decode_launches(mdl):
@@ -1494,7 +1942,53 @@ def main() -> int:
                 await eng.close()
         return asyncio.run(go())
 
+    def constrained_vs_plain(mode):
+        """The constrained batch (top-8 logprobs) on the phase path through
+        the kernels and through the plain versions, the grammars compiled
+        once in phase 8b."""
+        runs = {}
+        for how in ("kernels", "plain"):
+            eng = TorchEngine(TorchEngineConfig(
+                model=cfg2, num_pages=128, max_batch_size=8,
+                prefill_chunk_budget=64, quantize=mode, device="cuda"),
+                model=model2)
+            seed_grammars(eng, constrained["compiled"], constrained["vocab"])
+
+            async def go(eng=eng):
+                try:
+                    return await serve_requests(eng, Context,
+                                                constrained_requests(top=8))
+                finally:
+                    await eng.close()
+
+            ctx_swap = (plain_path(ragged, kernels, attention, int4_mm,
+                                   torch, graphs) if how == "plain"
+                        else contextlib.nullcontext())
+            cuda_build.reset_launch_counts()
+            with ctx_swap:
+                runs[how] = asyncio.run(go())
+            used = sorted(k for k, v in cuda_build.KERNELS.items()
+                          if v.launches)
+            want = {"paged_kv_write", "paged_attention_decode",
+                    *((GEMM_OF[mode],) if mode else ())}
+            if how == "kernels" and not want <= set(used):
+                raise AssertionError(f"the 2-layer constrained {mode} run "
+                                     f"launched only {used}")
+            if how == "plain" and used:
+                raise AssertionError(f"the plain path launched {used}")
+            check_constrained(guided_mod, constrained["dfas"], runs[how],
+                              f"2-layer {mode or 'fp32'} {how}")
+        parts = constrained_partings(runs["kernels"], runs["plain"],
+                                     BF16_TIE_TOL)
+        log(f"[path] 2-layer full-width fp32 {mode or 'unquantized'} "
+            f"constrained batch (8 lanes x {CONSTRAINED_MAX_TOKENS} tokens, "
+            f"phase path), kernels vs plain: "
+            + ("identical" if not parts else "parts at near-ties " + ", ".join(
+                f"({lane}, step {i}, gap {g:.2e})" for lane, i, g in parts))
+            + f" (tie tolerance {BF16_TIE_TOL})")
+
     for mode in (None, *QUANT_MODES):
+        constrained_vs_plain(mode)
         streams = {}
         for impl in ("phase", "ragged"):
             cuda_build.reset_launch_counts()

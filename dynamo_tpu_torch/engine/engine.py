@@ -27,28 +27,45 @@ with quantized weights, as the reference's quantize step (`:546-594`):
 the engine quantizes the model it created in place, and a caller's model
 into a new one that shares its other tensors (`owned_params`, `:377`).
 
+Constrained sampling, as the reference serves it on both paths: guided
+decoding (regex, choice, JSON mode and JSON schema through
+`llm/guided.py`'s DFA tables, compiled on the bounded host pool
+`runtime/compute.py`, cached per spec, `:2699-2911`), min_p and the
+repetition / frequency / presence penalties. A batch with any such lane
+runs the constrained burst `decode_multi_step_guided` ("decode_guided",
+`:2003`) on either path — never pipelined, never mixed with a chunk round
+— and the first token sees the same mask and penalties
+(`_first_token_packed`). The host holds each lane's authoritative DFA
+state and output counts and advances them per emitted token (`:3120`).
+Unlike the reference's (G, S) padded stack, the port packs every
+grammar's rows along one state axis (`_guided_layout`), so the resident
+tables grow with the states in use, not with pow2(G) x pow2(S_max).
+
 Device work runs in `asyncio.to_thread` under one device lock, with
 `torch.inference_mode()` entered inside the thread (it is thread-local).
 Every step entry is bucketed as in the reference and tracked per (entry,
 bucket) in `compile_tracker` (the reference's `metrics.compile`, `:1406`,
-`:2094`, `:2513`, `:2648`); on the card the two fixed-shape entries,
-"decode_burst" and "ragged_step", replay one CUDA graph per bucket
-(`engine/graphs.py`), the port's counterpart of the reference's jitted
-entries. "prefill", "mixed_step" and "sample_first" stay eager: the
-phase path's plain prefill attention reads its visible page count on the
-host (`attention.visible_pages`). A `BucketLadder` (`bucket_ladder`,
-None by default) refines the prefill token buckets as in the reference
-(`:1050`, `:2388`).
+`:2094`, `:2513`, `:2648`); on the card the three fixed-shape entries,
+"decode_burst", "decode_guided" and "ragged_step", replay one CUDA graph
+per bucket (`engine/graphs.py`), the port's counterpart of the
+reference's jitted entries. The guided tables are not graph inputs: each
+row bucket has resident device buffers that its graphs read and that a
+new grammar is written into in place. "prefill", "mixed_step" and
+"sample_first" stay eager: the phase path's plain prefill attention reads
+its visible page count on the host (`attention.visible_pages`). A
+`BucketLadder` (`bucket_ladder`, None by default) refines the prefill
+token buckets as in the reference (`:1050`, `:2388`).
 
 Not in this slice, and rejected per request where a request asks for
-them: guided decoding, min_p, sampling penalties, disaggregated KV
-import. Spec, pipeline/sequence parallelism, KVBM, profilers and the rest
-of the engine's metrics are later slices (ROADMAP.md).
+them: disaggregated KV transfer and embeddings. Spec, pipeline/sequence
+parallelism, KVBM, profilers and the rest of the engine's metrics are
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import time
 from dataclasses import dataclass, field
@@ -68,11 +85,13 @@ from dynamo_tpu_torch.engine.quant import (
     quantize_params,
     remark_act_bits,
 )
-from dynamo_tpu_torch.engine.sampling import sample_tokens_lp
+from dynamo_tpu_torch.engine.sampling import apply_penalties, sample_tokens_lp
+from dynamo_tpu_torch.llm.guided import compile_guided
 from dynamo_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaModel,
     decode_multi_step,
+    decode_multi_step_guided,
     init_cache,
     init_params,
     mixed_prefill_decode,
@@ -87,6 +106,7 @@ from dynamo_tpu_torch.protocols import (
     EngineOutput,
     PreprocessedRequest,
 )
+from dynamo_tpu_torch.runtime.compute import run_cpu
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
@@ -213,10 +233,41 @@ class _Seq:
     seed: int = 0
     arrival: int = 0
     t_enqueue: float = 0.0
+    guided: Optional[Any] = None          # GuidedTables when constrained
+    guided_state: int = 0                 # authoritative DFA state (host)
+    out_counter: dict = field(default_factory=dict)  # token -> emit count
+    _hist: Optional[tuple] = None         # (len(prompt), (V,) histogram)
 
     @property
     def wants_topk(self) -> bool:
         return self.req.sampling.top_logprobs > 0
+
+    @property
+    def needs_constrained(self) -> bool:
+        """True when this lane needs the constrained burst: a grammar,
+        min_p or any sampling penalty."""
+        return (self.guided is not None
+                or self.req.sampling.min_p > 0.0 or self.has_penalties)
+
+    @property
+    def has_penalties(self) -> bool:
+        sp = self.req.sampling
+        return (sp.repetition_penalty != 1.0
+                or sp.frequency_penalty != 0.0
+                or sp.presence_penalty != 0.0)
+
+    def prompt_hist(self, vocab: int) -> np.ndarray:
+        """Cached (V,) prompt-token histogram for the penalties; the
+        prompt changes only on preemption, when it grows, so its length
+        keys the cache."""
+        if self._hist is None or self._hist[0] != len(self.prompt):
+            ids, cnts = np.unique(
+                np.asarray(self.prompt, dtype=np.int64) % vocab,
+                return_counts=True)
+            arr = np.zeros(vocab, dtype=np.int32)
+            arr[ids] = cnts
+            self._hist = (len(self.prompt), arr)
+        return self._hist[1]
 
     @property
     def pos(self) -> int:
@@ -229,14 +280,6 @@ class _Seq:
 
 def _unsupported(req: PreprocessedRequest) -> Optional[str]:
     """Why this engine cannot serve `req` faithfully, or None."""
-    s = req.sampling
-    if s.guided:
-        return "guided decoding"
-    if s.min_p > 0.0:
-        return "min_p"
-    if (s.repetition_penalty != 1.0 or s.frequency_penalty != 0.0
-            or s.presence_penalty != 0.0):
-        return "sampling penalties"
     if (req.kv_transfer_params or {}).get("kv_data") is not None \
             or (req.kv_transfer_params or {}).get("do_remote_decode"):
         return "disaggregated KV transfer"
@@ -250,9 +293,23 @@ class TorchEngine:
 
     # widest top-k alternatives per emitted token (protocol cap)
     TOPK_WIDTH = 8
+    MAX_GUIDED_GRAMMARS = 32
+    GUIDED_STOP_WIDTH = 8
+    # ceiling on the resident guided tables: a few big JSON-schema
+    # grammars on a 128k vocab fail the request, not the card
+    GUIDED_TABLE_MAX_BYTES = 1 << 30
+    # the tables' transitions are int16 row indices
+    GUIDED_MAX_ROWS = 1 << 15
 
     def __init__(self, config: Optional[TorchEngineConfig] = None,
-                 model: Optional[LlamaModel] = None) -> None:
+                 model: Optional[LlamaModel] = None,
+                 token_bytes: Any = None, eos_token_id: int = 0) -> None:
+        """`token_bytes`: the serving tokenizer's per-token output bytes
+        (`llm/guided.py` `token_bytes_of`), or a callable that builds them
+        at the first guided request; None leaves guided decoding
+        unavailable (such requests fail with an error output).
+        `eos_token_id` stands in for a guided lane's stop tokens when its
+        request names none."""
         self.config = config or TorchEngineConfig()
         cfg = self.config
         if cfg.attention_impl not in ATTENTION_IMPLS:
@@ -314,6 +371,20 @@ class TorchEngine:
         # extra prefill token-bucket rungs, swapped in at a safe point
         # of the scheduler loop; None keeps the static buckets
         self.bucket_ladder: Optional[BucketLadder] = None
+        # guided decoding: the tokenizer's token-bytes map (or its lazy
+        # provider) and the per-spec DFA tables; slot 0 is the trivial
+        # grammar. Pending refs pin a grammar between its compile and its
+        # request's admission, so a concurrent eviction cannot drop it.
+        self._guided_vocab = token_bytes
+        self._guided_eos = eos_token_id
+        self._guided_vocab_lock: Optional[asyncio.Lock] = None
+        self._guided_tables: dict[str, Any] = {}
+        self._guided_slots: dict[str, int] = {}
+        self._guided_pending: dict[str, int] = {}
+        # resident tables per row bucket: rows -> (bits, next, eos_ok,
+        # {key: first row written there}); none is ever freed, since a
+        # graph captured on a bucket reads its buffers at every replay
+        self._guided_buffers: dict[int, tuple] = {}
 
     @property
     def ragged(self) -> bool:
@@ -348,41 +419,67 @@ class TorchEngine:
         if not req.token_ids:
             yield error("empty prompt")
             return
-        why = _unsupported(req)
-        if why is not None:
-            yield error(f"{why} is not supported by dynamo_tpu_torch yet")
-            return
-        lookahead = self._burst_lookahead
-        max_len = mcfg.page_size * mcfg.max_pages_per_seq - lookahead
-        need_pages = (len(req.token_ids) + req.stop.max_tokens + lookahead
-                      + mcfg.page_size - 1) // mcfg.page_size
-        if len(req.token_ids) + req.stop.max_tokens > max_len \
-                or need_pages > self.pool.capacity:
-            yield error(f"prompt+max_tokens exceeds capacity (context "
-                        f"{max_len}, pages {self.pool.capacity})")
-            return
-        seq = _Seq(
-            req=req, ctx=context, queue=asyncio.Queue(),
-            token_seq=TokenBlockSequence(mcfg.page_size),
-            prompt=list(req.token_ids),
-            prompt_hashes=TokenBlockSequence(
-                mcfg.page_size, req.token_ids).seq_hashes(),
-            seed=(req.sampling.seed if req.sampling.seed is not None
-                  else int(self._rng.randint(0, 2**31 - 1))),
-            arrival=self._arrivals,
-            t_enqueue=time.perf_counter(),
-        )
-        self._arrivals += 1
-        self._ensure_loop()
-        self._waiting.append(seq)
-        self._wake.set()
-        while True:
-            out = await seq.queue.get()
-            if out is None:
+        guided_tables = None
+        guided_key = None
+        if req.sampling.guided:
+            if len(req.stop.stop_token_ids or []) > self.GUIDED_STOP_WIDTH:
+                yield error(f"guided decoding supports at most "
+                            f"{self.GUIDED_STOP_WIDTH} stop token ids")
                 return
-            yield out
-            if out.get("finish_reason"):
+            guided_key = self._guided_key(req.sampling.guided)
+            # a pending ref across the compile's await: released in the
+            # finally below, on every exit (CancelledError included)
+            self._guided_pending[guided_key] = \
+                self._guided_pending.get(guided_key, 0) + 1
+        try:
+            if guided_key is not None:
+                try:
+                    guided_tables = await self._compile_guided(
+                        req.sampling.guided)
+                except Exception as e:
+                    yield error(f"guided decoding: {e}")
+                    return
+            why = _unsupported(req)
+            if why is not None:
+                yield error(f"{why} is not supported by dynamo_tpu_torch "
+                            f"yet")
                 return
+            lookahead = self._burst_lookahead
+            max_len = mcfg.page_size * mcfg.max_pages_per_seq - lookahead
+            need_pages = (len(req.token_ids) + req.stop.max_tokens
+                          + lookahead + mcfg.page_size - 1) // mcfg.page_size
+            if len(req.token_ids) + req.stop.max_tokens > max_len \
+                    or need_pages > self.pool.capacity:
+                yield error(f"prompt+max_tokens exceeds capacity (context "
+                            f"{max_len}, pages {self.pool.capacity})")
+                return
+            seq = _Seq(
+                req=req, ctx=context, queue=asyncio.Queue(),
+                token_seq=TokenBlockSequence(mcfg.page_size),
+                prompt=list(req.token_ids),
+                prompt_hashes=TokenBlockSequence(
+                    mcfg.page_size, req.token_ids).seq_hashes(),
+                guided=guided_tables,
+                seed=(req.sampling.seed if req.sampling.seed is not None
+                      else int(self._rng.randint(0, 2**31 - 1))),
+                arrival=self._arrivals,
+                t_enqueue=time.perf_counter(),
+            )
+            self._arrivals += 1
+            self._ensure_loop()
+            self._waiting.append(seq)
+            self._wake.set()
+            while True:
+                out = await seq.queue.get()
+                if out is None:
+                    return
+                yield out
+                if out.get("finish_reason"):
+                    return
+        finally:
+            # once the seq is queued the active-set scan covers it too
+            if guided_key is not None:
+                self._guided_unpend(guided_key)
 
     def clear_kv_blocks(self) -> int:
         """Drop the reusable prefix cache. Returns pages freed."""
@@ -628,28 +725,47 @@ class TorchEngine:
 
     def _first_token_packed(self, pending: list[_Seq], last_logits):
         """Sample every just-prefilled sequence's FIRST token in one call:
-        logits padded to the fixed max_batch_size width, step 0 of each
-        request's seed. Returns (packed np (2 + 2*tk, width), tk).
-        Device-blocking."""
+        logits padded to the fixed max_batch_size width, the penalties and
+        the grammar masks applied (the first token obeys them as every
+        burst token does), step 0 of each request's seed. Returns (packed
+        np (2 + 2*tk, width), tk). Device-blocking."""
         width = self.config.max_batch_size
         stack = [last_logits[id(s)] for s in pending]
         while len(stack) < width:
             stack.append(stack[0])
+        guided_mask = None
+        if any(s.guided is not None for s in pending):
+            V = self.model_cfg.vocab_size
+            guided_mask = np.zeros((width, V), dtype=np.float32)
+            for i, s in enumerate(pending):
+                if s.guided is not None:
+                    ok = self._guided_allowed_row(s.guided, s, V)
+                    guided_mask[i, ~ok] = -1e30
+        penalty_args = None
+        if any(s.has_penalties for s in pending):
+            penalty_args = self._penalty_arrays(pending, width)
 
         def arr(fn, dtype):
             vals = [fn(s) for s in pending]
             vals += [vals[0]] * (width - len(pending))
             return torch.tensor(vals, dtype=dtype, device=self.device)
 
+        logits = torch.stack(stack)
+        if penalty_args is not None:
+            rep_a, freq_a, pres_a, pc, oc = map(self._dev, penalty_args)
+            logits = apply_penalties(logits, pc, oc, rep_a, freq_a, pres_a)
+        if guided_mask is not None:
+            logits = logits + self._dev(guided_mask)
         tk = self.TOPK_WIDTH if any(s.wants_topk for s in pending) else 0
         with self.compile_tracker.track("sample_first", (width, tk)):
             packed = sample_tokens_lp(
-                torch.stack(stack),
+                logits,
                 arr(lambda s: s.seed & 0xFFFFFFFF, torch.int64),
                 arr(lambda s: s.generated, torch.int64),
                 arr(lambda s: s.req.sampling.temperature, torch.float32),
                 arr(lambda s: s.req.sampling.top_p, torch.float32),
                 arr(lambda s: s.req.sampling.top_k, torch.int64),
+                arr(lambda s: s.req.sampling.min_p, torch.float32),
                 topk_lp=tk)
             return packed.cpu().numpy(), tk
 
@@ -723,6 +839,10 @@ class TorchEngine:
         if runnable and self._inflight is None:
             self._prep_decode_lanes(runnable, cfg.decode_steps_per_sync)
             batch = runnable[:cfg.max_batch_size]
+            # constrained lanes need their own burst: the round runs
+            # alone and _decode_iter interleaves
+            if any(s.needs_constrained for s in batch):
+                batch = []
         if batch:
             return await self._mixed_step(picks, offsets, caps, batch,
                                           aligned)
@@ -864,7 +984,23 @@ class TorchEngine:
         if not runnable:
             return False
         batch = runnable[:self.config.max_batch_size]
+        # register every guided lane's grammar before any lane arrays are
+        # built (a re-registration may renumber the slots); a lane whose
+        # grammar no longer fits fails alone
+        for s in [x for x in batch if x.guided is not None]:
+            try:
+                self._guided_slot_of(s)
+            except ValueError as e:
+                s.queue.put_nowait(EngineOutput(
+                    token_ids=[], finish_reason=FINISH_ERROR,
+                    extra={"error": f"guided decoding: {e}"}).to_dict())
+                self._finish(s, FINISH_ERROR, emit=False)
+                batch.remove(s)
+        if not batch:
+            return True
         tk = self.TOPK_WIDTH if any(s.wants_topk for s in batch) else 0
+        if any(s.needs_constrained for s in batch):
+            return await self._constrained_burst(batch, k, tk)
         if self.ragged:
             def dispatch():
                 with torch.inference_mode():
@@ -914,7 +1050,7 @@ class TorchEngine:
                      or (not self._waiting
                          and len(self._running) == len(batch)))
                     and all(s in self._running and not s.ctx.is_cancelled()
-                            for s in batch)
+                            and not s.needs_constrained for s in batch)
                     and any(s.max_tokens - s.generated > k for s in batch))
         if can_spec:
             ok = True
@@ -982,12 +1118,58 @@ class TorchEngine:
                              (self.config.max_batch_size, k, tk), step,
                              inputs)
 
-    def _graphed(self, entry: str, shape: tuple, fn, inputs):
+    async def _constrained_burst(self, batch: list[_Seq], k: int,
+                                 tk: int) -> bool:
+        """ONE constrained k-step burst ("decode_guided",
+        `decode_multi_step_guided`) over the fixed max_batch_size width, on
+        either path: the grammar masks, min_p and the penalties applied on
+        the device. Not pipelined: the next burst starts from the DFA
+        states and output counts the host advances at emission. The host
+        arrays are built here, on the loop's thread; the tables are
+        written and the burst runs under the device lock."""
+        b = self.config.max_batch_size
+        arrays = self._burst_arrays(batch)
+        g_ids, g_states, stop_ids = self._guided_lane_arrays(batch, b)
+        rep_p, freq_p, pres_p, p_cnt, o_cnt = self._penalty_arrays(batch, b)
+        min_ps = np.zeros(b, dtype=np.float32)
+        for i, s in enumerate(batch):
+            min_ps[i] = s.req.sampling.min_p
+        layout = self._guided_layout()
+        bucket, _, first_row = layout
+        # one state axis for every grammar: a lane's row is its grammar's
+        # first row plus its state, read through grammar index 0
+        rows = (first_row[g_ids] + g_states).astype(np.int32)
+        inputs = (*arrays, min_ps, rep_p, freq_p, pres_p, p_cnt, o_cnt,
+                  np.zeros(b, dtype=np.int32), rows, stop_ids)
+
+        def dispatch():
+            with torch.inference_mode():
+                g_bits, g_next, g_eos_ok = self._guided_device_stack(layout)
+
+                def step(*a):
+                    return decode_multi_step_guided(
+                        self.model, self.k_cache, self.v_cache, *a[:15],
+                        g_bits, g_next, g_eos_ok, *a[15:], num_steps=k,
+                        topk_lp=tk)
+                packed = self._graphed("decode_guided", (b, k, tk), step,
+                                       inputs, bucket=(bucket,))
+                self.rounds += 1
+                return packed.cpu().numpy()               # ONE host sync
+
+        async with self._device_lock:
+            packed = await asyncio.to_thread(dispatch)
+        self._emit_burst(batch, packed, tk)
+        return True
+
+    def _graphed(self, entry: str, shape: tuple, fn, inputs,
+                 bucket: tuple = ()):
         """One dispatch of a fixed-shape entry: tracked under (entry,
-        shape) and, on the card, replayed from that bucket's CUDA graph
-        (captured at first use, `engine/graphs.py`)."""
+        shape) and, on the card, replayed from the CUDA graph of (entry,
+        shape + bucket) (captured at first use, `engine/graphs.py`);
+        `bucket` keys what the step closes over, not an input (the
+        guided tables' row bucket)."""
         with self.compile_tracker.track(entry, shape):
-            return self.graphs.run((entry, shape), fn, inputs)
+            return self.graphs.run((entry, shape + bucket), fn, inputs)
 
     def _ragged_bucket(self, n: int) -> int:
         """Total-token bucket of a round: pow2 below min_prefill_bucket,
@@ -1077,6 +1259,222 @@ class TorchEngine:
             ch_logits = ch_logits.clone()
         return packed.cpu().numpy(), ch_logits      # ONE host sync
 
+    # -- guided decoding ----------------------------------------------------
+
+    async def _compile_guided(self, spec: dict) -> Any:
+        """The DFA tables of a guided spec, compiled on the bounded host
+        pool (`runtime/compute.py`) and cached by the spec's canonical
+        JSON (the tables hold no stop tokens, so the spec alone keys
+        them). The token-bytes map is built at the first guided request,
+        once."""
+        if callable(self._guided_vocab):
+            if self._guided_vocab_lock is None:
+                self._guided_vocab_lock = asyncio.Lock()
+            async with self._guided_vocab_lock:
+                if callable(self._guided_vocab):
+                    self._guided_vocab = await run_cpu(self._guided_vocab)
+        if self._guided_vocab is None:
+            raise ValueError(
+                "engine has no tokenizer vocabulary (token_bytes) — "
+                "guided decoding unavailable")
+        key = self._guided_key(spec)
+        tables = self._guided_tables.get(key)
+        if tables is not None:
+            return tables
+        tables = await run_cpu(compile_guided, spec, self._guided_vocab)
+        # a concurrent compile of the same spec may have registered it
+        # while this one ran
+        if key not in self._guided_tables:
+            if (len(self._guided_tables) >= self.MAX_GUIDED_GRAMMARS
+                    or self._guided_overflow(tables)):
+                self._evict_guided_unused()
+            if len(self._guided_tables) >= self.MAX_GUIDED_GRAMMARS:
+                raise ValueError(
+                    "too many distinct guided grammars in flight")
+            why = self._guided_overflow(tables)
+            if why:
+                raise ValueError(why)
+            self._guided_tables[key] = tables
+            self._guided_slots[key] = len(self._guided_slots) + 1
+        return self._guided_tables[key]
+
+    def _guided_stack_bytes(self, extra=None) -> tuple[int, int]:
+        """(rows, device bytes) of the resident tables if `extra` joins
+        the cache: row 0 (the trivial grammar) and every grammar's
+        states, padded to a power of two."""
+        V = self.model_cfg.vocab_size
+        rows = 1 + sum(t.num_states for t in self._guided_tables.values()) \
+            + (extra.num_states if extra is not None else 0)
+        return rows, _next_pow2(rows, 1, 1 << 30) * (2 * V + (V + 7) // 8
+                                                     + 1)
+
+    def _guided_overflow(self, extra=None) -> Optional[str]:
+        """Why the resident tables could not take `extra`, or None."""
+        rows, nbytes = self._guided_stack_bytes(extra)
+        if nbytes > self.GUIDED_TABLE_MAX_BYTES \
+                or rows > self.GUIDED_MAX_ROWS:
+            return (f"guided grammar tables would exceed "
+                    f"{self.GUIDED_TABLE_MAX_BYTES >> 20} MiB or "
+                    f"{self.GUIDED_MAX_ROWS} states on device")
+        return None
+
+    @staticmethod
+    def _guided_key(spec: dict) -> str:
+        """Canonical cache key of a guided spec; the pending refs, the
+        eviction and the slots all key on it."""
+        return json.dumps(spec, sort_keys=True)
+
+    def _penalty_arrays(self, lanes: list, width: int):
+        """(rep, freq, pres (width,) f32, prompt_counts, out_counts
+        (width, V) i32) of a batch's lanes — the one packing the first
+        token and the constrained burst both use. Lanes without penalties
+        get exact no-op values (rep 1, freq/pres 0, zero counts)."""
+        V = self.model_cfg.vocab_size
+        rep = np.ones(width, dtype=np.float32)
+        freq = np.zeros(width, dtype=np.float32)
+        pres = np.zeros(width, dtype=np.float32)
+        pc = np.zeros((width, V), dtype=np.int32)
+        oc = np.zeros((width, V), dtype=np.int32)
+        for i, s in enumerate(lanes):
+            sp = s.req.sampling
+            rep[i] = sp.repetition_penalty
+            freq[i] = sp.frequency_penalty
+            pres[i] = sp.presence_penalty
+            if s.has_penalties:
+                pc[i] = s.prompt_hist(V)
+                for t, c in s.out_counter.items():
+                    if 0 <= t < V:
+                        oc[i, t] = c
+        return rep, freq, pres, pc, oc
+
+    def _guided_lane_arrays(self, batch: list, b: int):
+        """(g_ids, g_states, stop_ids) of a burst's lanes: each lane's
+        grammar slot (0: none), its DFA state and its stop ids (-1
+        padded). The slots must already be settled for the batch."""
+        g_ids = np.zeros(b, dtype=np.int32)
+        g_states = np.zeros(b, dtype=np.int32)
+        stop_ids = np.full((b, self.GUIDED_STOP_WIDTH), -1, dtype=np.int32)
+        for i, s in enumerate(batch):
+            g_ids[i] = self._guided_slot_of(s)
+            g_states[i] = s.guided_state
+            for j, t in enumerate(self._guided_stop_ids(s)):
+                stop_ids[i, j] = t
+        return g_ids, g_states, stop_ids
+
+    def _guided_unpend(self, key: str) -> None:
+        """Release one pending ref taken in generate()."""
+        n = self._guided_pending.get(key, 0) - 1
+        if n <= 0:
+            self._guided_pending.pop(key, None)
+        else:
+            self._guided_pending[key] = n
+
+    def _evict_guided_unused(self) -> None:
+        """Drop the cached grammars no live or pending request uses and
+        renumber the slots compactly (their rows move at the next
+        constrained burst)."""
+        active = {self._guided_key(s.req.sampling.guided)
+                  for s in self._running + self._waiting
+                  if s.guided is not None}
+        active |= set(self._guided_pending)
+        self._guided_tables = {k: v for k, v in self._guided_tables.items()
+                               if k in active}
+        self._guided_slots = {k: i + 1 for i, k in
+                              enumerate(self._guided_tables)}
+
+    def _guided_layout(self):
+        """Where the cached grammars sit in the resident tables: (row
+        bucket, [(key, first row, tables)], first row by slot). Row 0 is
+        the trivial all-allowed grammar of slot 0; the grammars follow in
+        slot order, their states contiguous; the bucket is the next power
+        of two of the rows used."""
+        order = sorted(self._guided_tables.items(),
+                       key=lambda kv: self._guided_slots[kv[0]])
+        first_row = np.zeros(len(order) + 1, dtype=np.int32)
+        placed, row = [], 1
+        for key, t in order:
+            first_row[self._guided_slots[key]] = row
+            placed.append((key, row, t))
+            row += t.num_states
+        return _next_pow2(row, 1, 1 << 30), placed, first_row
+
+    def _guided_device_stack(self, layout):
+        """The resident (bits (1, R, ceil(V/8)) u8, next (1, R, V) i16,
+        eos_ok (1, R) bool) tables of `layout`'s row bucket R, with every
+        grammar written at its rows: a grammar already there is not
+        written again, one that is new there (registered, or moved by a
+        renumbering) is written in place on the current stream. The
+        transitions hold row indices (a grammar's first row plus its
+        state), so the constrained burst reads every lane through grammar
+        index 0. A bucket's buffers are made once and kept."""
+        rows, placed, _ = layout
+        V = self.model_cfg.vocab_size
+        bv = (V + 7) // 8
+        buf = self._guided_buffers.get(rows)
+        if buf is None:
+            dev = self.device
+            bits = torch.zeros((1, rows, bv), dtype=torch.uint8, device=dev)
+            bits[0, 0] = 0xFF                # the trivial grammar: all
+            buf = self._guided_buffers[rows] = (
+                bits, torch.zeros((1, rows, V), dtype=torch.int16,
+                                  device=dev),
+                torch.zeros((1, rows), dtype=torch.bool, device=dev), {})
+        bits, nxt, eos_ok, resident = buf
+        for key, row, t in placed:
+            if resident.get(key) == row:
+                continue
+            n = t.num_states
+            bits[0, row:row + n] = torch.from_numpy(t.allowed_bits[:, :bv])
+            nxt[0, row:row + n] = torch.from_numpy(
+                (t.next_state[:, :V].astype(np.int32) + row)
+                .astype(np.int16))
+            eos_ok[0, row:row + n] = torch.from_numpy(t.eos_ok)
+            resident[key] = row
+        # rows written over since are no longer a grammar's
+        now = {key: row for key, row, _ in placed}
+        for key in [k for k, r in resident.items() if now.get(k) != r]:
+            del resident[key]
+        return bits, nxt, eos_ok
+
+    def _guided_slot_of(self, seq: _Seq) -> int:
+        if seq.guided is None:
+            return 0
+        key = self._guided_key(seq.req.sampling.guided)
+        slot = self._guided_slots.get(key)
+        if slot is None:
+            # backstop: the grammar was evicted after this seq's compile
+            # (the pending refs should prevent it); the seq still holds
+            # its tables, so register them again after evicting what no
+            # request uses, re-checking the size cap (a ValueError fails
+            # only this lane)
+            self._evict_guided_unused()
+            why = self._guided_overflow(seq.guided)
+            if why:
+                raise ValueError(f"{why} (re-registration after eviction)")
+            self._guided_tables[key] = seq.guided
+            self._guided_slots[key] = slot = len(self._guided_slots) + 1
+            logger.warning("guided grammar re-registered after eviction "
+                           "(slot %d)", slot)
+        return slot
+
+    def _guided_stop_ids(self, seq: _Seq) -> list[int]:
+        ids = list(seq.req.stop.stop_token_ids or [])[
+            :self.GUIDED_STOP_WIDTH]
+        return ids or [self._guided_eos]
+
+    def _guided_allowed_row(self, tables, seq: _Seq,
+                            vocab: int) -> np.ndarray:
+        """(V,) bool: the tokens `seq`'s grammar allows in its state, its
+        stop tokens included where the grammar may end."""
+        bits = np.unpackbits(tables.allowed_bits[seq.guided_state],
+                             bitorder="little")
+        row = bits[:vocab].astype(bool)
+        if tables.eos_ok[seq.guided_state]:
+            for t in self._guided_stop_ids(seq):
+                if 0 <= t < vocab:
+                    row[t] = True
+        return row
+
     # -- emission -----------------------------------------------------------
 
     def _emit_burst(self, batch: list[_Seq], packed: np.ndarray,
@@ -1132,12 +1530,21 @@ class TorchEngine:
             self.ttft_s.append(max(time.perf_counter() - seq.t_enqueue, 0.0))
         seq.last_emit_t = now
         emit_toks = [int(t) for t in toks[:n_emit]]
+        guided = seq.guided
+        count = seq.has_penalties
         for t in emit_toks:
             if append_inputs:
                 block = seq.token_seq.append(seq.next_token)
                 if block is not None:
                     self.pool.register_page(
                         seq.pages[block.block_index], block.seq_hash)
+            if guided is not None:
+                # the authoritative DFA state: each burst starts from it,
+                # so overshoot and preemption replays cannot desync it
+                seq.guided_state = int(
+                    guided.next_state[seq.guided_state, t])
+            if count:
+                seq.out_counter[t] = seq.out_counter.get(t, 0) + 1
             seq.next_token = t
         seq.generated += n_emit
         self.tokens_emitted += n_emit

@@ -5,8 +5,9 @@ The reference never runs a step op by op: each device entry is a jitted
 program, compiled once per shape bucket (`engine/compile_tracker.py`
 records the first call of each), so a fused k-step burst is one dispatch.
 Here the engine routes its fixed-shape entries ("decode_burst",
-"ragged_step") through `StepGraphs.run`, which captures the step into a
-CUDA graph the first time its key is seen and replays that graph after.
+"decode_guided", "ragged_step") through `StepGraphs.run`, which captures
+the step into a CUDA graph the first time its key is seen and replays that
+graph after.
 
 - **Static buffers.** Each graph owns static device input buffers and the
   outputs its capture allocated. A dispatch copies the host arrays into
@@ -14,6 +15,13 @@ CUDA graph the first time its key is seen and replays that graph after.
   replays; a device tensor (the pipelined burst's input tokens) is copied
   on the device. The outputs are the same tensors at every replay: a
   caller must copy or consume them before the graph replays again.
+- **State a step closes over.** What is large and changes rarely is not
+  an input: "decode_guided" reads the engine's resident grammar tables
+  (hundreds of MB for JSON mode at a 128k vocabulary), one set of buffers
+  per row bucket, the bucket being part of the key. A new grammar is
+  written into them in place, between replays, on the same stream; a
+  bucket that grows gets new buffers and a new graph, and the old buffers
+  stay alive for the old graph.
 - **One memory pool.** All of an engine's graphs share one pool
   (`torch.cuda.graph_pool_handle()`). Replays are serialized by the
   engine's device lock on one stream, and the engine copies every output
@@ -29,9 +37,10 @@ CUDA graph the first time its key is seen and replays that graph after.
   because every captured step is idempotent on its inputs: K2 rewrites
   the same cache rows with the same values (attention reads only rows
   below or at a row's own position, which the step itself rewrites
-  alike), and sampling is keyed by (seed, step) on the device, so the
-  warm-up and the first replay give the same outputs and leave the same
-  caches.
+  alike), sampling is keyed by (seed, step) on the device, and the
+  constrained burst advances copies of its output counts and DFA states,
+  never its inputs, so the warm-up and the first replay give the same
+  outputs and leave the same caches.
 - **Launch counts.** A replay calls no kernel wrapper, so the graph
   records each kernel's launch delta at capture (`cuda_build.launch_delta`),
   takes it back (a capture runs nothing) and adds it at every replay.

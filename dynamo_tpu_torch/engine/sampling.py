@@ -1,7 +1,10 @@
 """Batched token sampling: greedy / temperature / top-k / top-p / min_p.
 
 Port of `dynamo_tpu/engine/sampling.py` (`_candidate_mask` `:27`,
-`sample_tokens_traced` `:78`, `chosen_logprob` / `topk_logprobs` /
+`filtered_probs` `:57`, `sample_tokens_traced` `:78`, the constrained
+head — `apply_penalties` `:106`, `stop_token_mask` `:127`, `guided_allow`
+`:135`, `constrained_logits` `:154` — `chosen_logprob`,
+`stable_topk_logprobs` `:177`, `topk_logprobs` and
 `_sample_tokens_lp_traced` `:169-219`). All knobs are per-row tensors so
 one call serves a mixed batch. Randomness comes from (seed, step) pairs,
 so replays and migrations are deterministic.
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 _NEG_INF = -1e30
 MAX_CANDIDATES = 64
@@ -124,6 +128,23 @@ def _candidate_mask(logits: torch.Tensor, temperature: torch.Tensor,
     return torch.where(keep, masked, neg), cand_idx, t
 
 
+def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_p: torch.Tensor, top_k: torch.Tensor,
+                   min_p: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, V) probabilities of the distribution a row is sampled from:
+    the temperature-scaled softmax over the kept candidates (zeros
+    elsewhere); temperature == 0 rows are the one-hot argmax."""
+    b, v = logits.shape
+    masked, cand_idx, t = _candidate_mask(logits, temperature, top_p,
+                                          top_k, min_p)
+    cand_p = torch.softmax(masked / t[:, None], dim=-1)      # (B, C)
+    hard = F.one_hot(torch.argmax(masked, dim=-1),
+                     masked.shape[-1]).to(torch.float32)
+    cand_p = torch.where((temperature > 0)[:, None], cand_p, hard)
+    full = torch.zeros((b, v), dtype=torch.float32, device=logits.device)
+    return full.scatter_add_(1, cand_idx, cand_p)
+
+
 def sample_tokens(logits: torch.Tensor, seeds: torch.Tensor,
                   steps: torch.Tensor, temperature: torch.Tensor,
                   top_p: torch.Tensor, top_k: torch.Tensor,
@@ -141,11 +162,76 @@ def sample_tokens(logits: torch.Tensor, seeds: torch.Tensor,
     return torch.where(temperature > 0, sampled, greedy)
 
 
+def apply_penalties(logits: torch.Tensor, prompt_counts: torch.Tensor,
+                    out_counts: torch.Tensor, repetition: torch.Tensor,
+                    frequency: torch.Tensor,
+                    presence: torch.Tensor) -> torch.Tensor:
+    """OpenAI/HF sampling penalties on (B, V) f32 logits, with
+    prompt_counts / out_counts (B, V) token counts in the prompt and the
+    output (vLLM's semantics): the repetition penalty (HF) divides the
+    positive and multiplies the negative logits of every prompt or output
+    token; the frequency and presence penalties (OpenAI) subtract for
+    output tokens only."""
+    seen = (prompt_counts + out_counts) > 0
+    rep = repetition[:, None]
+    rep_adj = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = torch.where(seen & (rep != 1.0), rep_adj, logits)
+    logits = logits - frequency[:, None] * out_counts.to(logits.dtype)
+    return logits - presence[:, None] * (out_counts > 0).to(logits.dtype)
+
+
+def stop_token_mask(stop_ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(B, V) bool from (B, K) per-lane stop-token ids (-1 padding): which
+    vocab entries are the lane's stop tokens."""
+    ids = torch.arange(vocab, dtype=stop_ids.dtype, device=stop_ids.device)
+    return (ids[None, None, :] == stop_ids[:, :, None]).any(dim=1)
+
+
+def guided_allow(g_bits: torch.Tensor, g_eos_ok: torch.Tensor,
+                 g_ids: torch.Tensor, states: torch.Tensor,
+                 is_stop: torch.Tensor) -> torch.Tensor:
+    """(B, V) bool: the tokens each lane's grammar permits in its state —
+    the (G, S, ceil(V/8)) uint8 rows unpacked little-endian, plus the
+    lane's stop tokens where `g_eos_ok` holds."""
+    V = is_stop.shape[-1]
+    dev = is_stop.device
+    byte_idx = torch.arange(V, device=dev) // 8
+    bit_idx = (torch.arange(V, device=dev) % 8).to(torch.uint8)
+    gi, si = g_ids.long(), states.long()
+    rows = g_bits[gi, si]                                # (B, ceil(V/8))
+    allowed = (rows[:, byte_idx] >> bit_idx) & 1
+    return (allowed > 0) | (g_eos_ok[gi, si][:, None] & is_stop)
+
+
+def constrained_logits(logits: torch.Tensor, prompt_counts: torch.Tensor,
+                       counts: torch.Tensor, rep: torch.Tensor,
+                       freq: torch.Tensor, pres: torch.Tensor,
+                       g_bits: torch.Tensor, g_eos_ok: torch.Tensor,
+                       g_ids: torch.Tensor, states: torch.Tensor,
+                       is_stop: torch.Tensor) -> torch.Tensor:
+    """The constrained head before sampling: penalties, then the grammar
+    mask (masked entries set to -1e30)."""
+    logits = apply_penalties(logits, prompt_counts, counts, rep, freq, pres)
+    allow = guided_allow(g_bits, g_eos_ok, g_ids, states, is_stop)
+    return torch.where(allow, logits, torch.full_like(logits, _NEG_INF))
+
+
 def chosen_logprob(logits: torch.Tensor,
                    sampled: torch.Tensor) -> torch.Tensor:
     """(B,) log-probability of each row's sampled token."""
     logp = torch.log_softmax(logits, dim=-1)
     return torch.gather(logp, 1, sampled[:, None].long())[:, 0]
+
+
+def stable_topk_logprobs(logp: torch.Tensor,
+                         k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """((..., k) ids f32, (..., k) logprobs), selected by logp rounded to
+    bf16 with ties to the lowest index: alternatives closer than a bf16
+    ulp keep their index order however their last bits fall, while the
+    values reported are the exact f32 ones."""
+    key = logp.to(torch.bfloat16).to(torch.float32)
+    _, ids = _top_k(key, k)
+    return ids.float(), torch.gather(logp, -1, ids)
 
 
 def topk_logprobs(logits: torch.Tensor,

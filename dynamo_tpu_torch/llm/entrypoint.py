@@ -7,25 +7,32 @@ a seed), and fill the card so the pipeline builds the matching
 tokenizer. The engine runs on `device` — "cuda" by default, which raises
 when no card is present — on the phase path, or on the ragged path when
 `DYN_ATTENTION_IMPL=ragged`, as the reference reads that variable
-(`dynamo_tpu/engine/attention.py:36`).
+(`dynamo_tpu/engine/attention.py:36`). Guided decoding gets the serving
+tokenizer's token-bytes map as a lazy provider and its EOS id
+(`:508-545`).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+from dynamo_tpu_torch.llm.guided import token_bytes_of
 from dynamo_tpu_torch.llm.model_card import (
     ModelDeploymentCard,
     ModelRuntimeConfig,
 )
+from dynamo_tpu_torch.llm.tokenizer import make_tokenizer
 from dynamo_tpu_torch.models.loader import (
     config_from_hf,
     load_llama_params,
     resolve_model,
 )
+
+logger = logging.getLogger(__name__)
 
 _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
                     "tokenizer.model")
@@ -62,6 +69,22 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
     cfg = config_from_hf(path, **model_overrides)
     params = None if random_init else load_llama_params(path, cfg, dev,
                                                         quantize=quantize)
+    has_tok = any(os.path.exists(os.path.join(path, f))
+                  for f in _TOKENIZER_FILES)
+    # guided decoding needs the tokenizer's id -> bytes map; the provider
+    # is lazy, so the O(vocab) build runs only if a guided request arrives
+    token_bytes, eos_id = None, 0
+    try:
+        tok = make_tokenizer("hf" if has_tok else "byte",
+                             path if has_tok else "")
+
+        def token_bytes(tok=tok, vocab=cfg.vocab_size):
+            return token_bytes_of(tok, vocab)
+
+        eos_id = tok.eos_token_id or 0
+    except Exception as e:
+        logger.warning("guided decoding disabled (tokenizer unavailable: "
+                       "%s)", e)
     engine = TorchEngine(
         TorchEngineConfig(model=cfg, num_pages=num_pages,
                           max_batch_size=max_batch_size,
@@ -71,9 +94,7 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                           attention_impl=attention_impl_from_env(),
                           quantize=quantize, rng_seed=rng_seed,
                           device=str(dev)),
-        model=params)
-    has_tok = any(os.path.exists(os.path.join(path, f))
-                  for f in _TOKENIZER_FILES)
+        model=params, token_bytes=token_bytes, eos_token_id=eos_id)
     card = ModelDeploymentCard(
         name=served_name or os.path.basename(path.rstrip("/")),
         tokenizer_kind="hf" if has_tok else "byte",

@@ -2,9 +2,11 @@
 
 Port of the part of `dynamo_tpu/llm/protocols_openai.py` that the chat and
 completions pipeline needs (the port keeps its own copy): request parsing
-and validation, chunk builders, usage. Not in this slice, and rejected
-with a 400 when a request asks for them: guided decoding (`response_format`,
-`guided_*`), n > 1, embeddings and the Responses API.
+and validation, guided decoding's request surface (`_guided_from`:
+`response_format` json_object / json_schema and `nvext` or top-level
+guided_json / guided_regex / guided_choice), chunk builders, usage. Not in
+this slice, and rejected with a 400 when a request asks for them: n > 1,
+embeddings and the Responses API.
 """
 
 from __future__ import annotations
@@ -32,8 +34,6 @@ class OpenAIError(ValueError):
 
 # widest top-k logprob alternatives served (engine TOPK_WIDTH)
 MAX_TOP_LOGPROBS = 8
-_GUIDED_KEYS = ("guided_json", "guided_regex", "guided_choice",
-                "guided_grammar")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -53,6 +53,40 @@ def _opt_int(v, name: str):
     return None if v is None else _as_int(v, name)
 
 
+def _guided_from(d: dict, nvext: dict) -> Optional[dict]:
+    """Map OpenAI `response_format` + nvext guided_* onto the engine's
+    guided spec ({"regex"|"choice"|"json": ...}); at most one source."""
+    rf = d.get("response_format") or {}
+    rf_type = rf.get("type") if isinstance(rf, dict) else None
+    candidates = []
+    if rf_type == "json_object":
+        candidates.append({"json": True})
+    elif rf_type == "json_schema":
+        js = rf.get("json_schema")
+        _require(js is None or isinstance(js, dict),
+                 "'response_format.json_schema' must be an object")
+        schema = (js or {}).get("schema", js)
+        candidates.append({"json": schema or True})
+    for src in (d, nvext):
+        if src.get("guided_json") is not None:
+            candidates.append({"json": src["guided_json"]})
+        if src.get("guided_regex") is not None:
+            candidates.append({"regex": src["guided_regex"]})
+        if src.get("guided_choice") is not None:
+            candidates.append({"choice": list(src["guided_choice"])})
+        # serving a CFG request unconstrained would be a silent contract
+        # violation — reject until a grammar compiler exists
+        _require(src.get("guided_grammar") is None,
+                 "'guided_grammar' (context-free grammar) is not "
+                 "supported; use guided_regex, guided_json, or "
+                 "guided_choice")
+    if not candidates:
+        return None
+    _require(len(candidates) == 1,
+             "at most one guided-decoding option may be set")
+    return candidates[0]
+
+
 def _common(d: dict) -> dict:
     """Fields and checks shared by chat and completions."""
     _require(isinstance(d, dict), "request body must be a JSON object")
@@ -60,13 +94,6 @@ def _common(d: dict) -> dict:
     _require(_as_int(d.get("n", 1), "n") == 1,
              "'n' > 1 is not supported by dynamo_tpu_torch yet")
     nvext = d.get("nvext") or {}
-    rf = d.get("response_format") or {}
-    if (isinstance(rf, dict) and rf.get("type") in ("json_object",
-                                                     "json_schema")) \
-            or any(src.get(k) is not None for src in (d, nvext)
-                   for k in _GUIDED_KEYS):
-        raise OpenAIError(
-            "guided decoding is not supported by dynamo_tpu_torch yet")
     stop = d.get("stop") or []
     if isinstance(stop, str):
         stop = [stop]
@@ -80,7 +107,7 @@ def _common(d: dict) -> dict:
         seed=d.get("seed"), stop=list(stop),
         ignore_eos=bool(d.get("ignore_eos", nvext.get("ignore_eos", False))),
         min_tokens=_opt_int(d.get("min_tokens"), "min_tokens"),
-        raw=d)
+        guided=_guided_from(d, nvext), raw=d)
 
 
 @dataclass
@@ -101,6 +128,10 @@ class ChatCompletionRequest:
     min_tokens: Optional[int] = None
     logprobs: bool = False
     top_logprobs: int = 0
+    # guided decoding (the reference's GuidedDecodingOptions): from
+    # `response_format` (json_object / json_schema) or nvext guided_json /
+    # guided_regex / guided_choice
+    guided: Optional[dict] = None
     raw: dict = field(default_factory=dict)
 
     @classmethod
@@ -142,7 +173,11 @@ class ChatCompletionRequest:
             s.presence_penalty = float(self.presence_penalty)
         if self.seed is not None:
             s.seed = int(self.seed)
-        s.top_logprobs = int(self.top_logprobs or 0)
+        if self.guided is not None:
+            s.guided = self.guided
+        # completions carry no top_logprobs field (their `logprobs` is
+        # the count, set by CompletionRequest.sampling_options)
+        s.top_logprobs = int(getattr(self, "top_logprobs", 0) or 0)
         return s
 
     def stop_conditions(self) -> StopConditions:
@@ -169,6 +204,7 @@ class CompletionRequest:
     min_tokens: Optional[int] = None
     echo: bool = False
     logprobs: Optional[int] = None       # OpenAI: int top-k
+    guided: Optional[dict] = None
     raw: dict = field(default_factory=dict)
 
     @classmethod

@@ -6,7 +6,9 @@ Port of `dynamo_tpu/models/llama.py`: `LlamaConfig` (`:41`), random init
 with the Qwen2 bias (`:236`); the phase path — `prefill_step` (`:252`),
 `paged_forward` (`:270`), `prefill_batch` (`:345`), `_decode_once`
 (`:375`), `decode_step` (`:413`), the fused k-step burst
-`decode_multi_step` (`:428`), `_mixed_forward` (`:487`) and
+`decode_multi_step` (`:428`), its constrained variant
+`decode_multi_step_guided` (`:742`: grammar masks, min_p and the sampling
+penalties on the device), `_mixed_forward` (`:487`) and
 `mixed_prefill_decode` (`:586`); and the flat-token ragged step
 `ragged_prefill_decode` (`:656`).
 
@@ -475,6 +477,62 @@ def decode_multi_step(model: LlamaModel, k_cache: list, v_cache: list,
     return _burst(model, k_cache, v_cache, logits0, positions, page_tables,
                   valid, seeds, steps0, temperature, top_p, top_k,
                   num_steps, topk_lp)
+
+
+def decode_multi_step_guided(model: LlamaModel, k_cache: list,
+                             v_cache: list, tokens: torch.Tensor,
+                             positions: torch.Tensor,
+                             page_tables: torch.Tensor, valid: torch.Tensor,
+                             seeds: torch.Tensor, steps0: torch.Tensor,
+                             temperature: torch.Tensor, top_p: torch.Tensor,
+                             top_k: torch.Tensor, min_p: torch.Tensor,
+                             rep_pen: torch.Tensor, freq_pen: torch.Tensor,
+                             pres_pen: torch.Tensor,
+                             prompt_counts: torch.Tensor,
+                             out_counts: torch.Tensor, g_bits: torch.Tensor,
+                             g_next: torch.Tensor, g_eos_ok: torch.Tensor,
+                             g_ids: torch.Tensor, g_states: torch.Tensor,
+                             stop_ids: torch.Tensor, num_steps: int,
+                             topk_lp: int = 0) -> torch.Tensor:
+    """The constrained decode burst: `decode_multi_step` with the grammar
+    mask, min_p and the sampling penalties applied on the device before
+    each step samples, so constrained lanes keep one host sync per burst.
+
+    min_p / rep_pen / freq_pen / pres_pen: (B,); prompt_counts /
+    out_counts: (B, V) int32 token counts (the output counts advance as
+    the burst samples, so repeats within it are penalised too). g_bits
+    (G, S, ceil(V/8)) uint8 allowed-token rows, g_next (G, S, V) int16
+    transitions, g_eos_ok (G, S) bool (where a lane's stop tokens are
+    legal); g_ids / g_states (B,) each lane's grammar and DFA state (a
+    free lane sits in the trivial all-allowed grammar); stop_ids (B, K)
+    the lanes' stop ids, -1 padded. Each sampled token moves its lane's
+    state for the next step. The top-k rows come from the post-mask
+    logits. Returns packed (2 + 2*topk_lp, num_steps, B) f32, the layout
+    of `decode_multi_step`; the caches are updated in place and no input
+    is written (the burst advances copies of the counts and states)."""
+    B = tokens.shape[0]
+    is_stop = sampling.stop_token_mask(stop_ids, model.cfg.vocab_size)
+    states = g_states.long()
+    counts = out_counts.clone()
+    add = valid.to(counts.dtype)[:, None]
+    g_lane = g_ids.long()
+    out = torch.empty((2 + 2 * topk_lp, num_steps, B), dtype=torch.float32,
+                      device=tokens.device)
+    toks = tokens
+    for i in range(num_steps):
+        logits = _decode_once(model, k_cache, v_cache, toks, positions + i,
+                              page_tables, valid)
+        logits = sampling.constrained_logits(
+            logits, prompt_counts, counts, rep_pen, freq_pen, pres_pen,
+            g_bits, g_eos_ok, g_ids, states, is_stop)
+        out[:, i] = sampling.sample_tokens_lp(
+            logits, seeds, steps0 + i, temperature, top_p, top_k, min_p,
+            topk_lp=topk_lp)
+        sampled = out[0, i].long()              # ids are exact in f32
+        states = g_next[g_lane, states, sampled].long()
+        counts.scatter_add_(1, sampled[:, None], add)
+        toks = sampled.to(torch.int32)
+    return out
 
 
 def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,

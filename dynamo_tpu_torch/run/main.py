@@ -5,6 +5,13 @@ Port of `dynamo_tpu/run/main.py` for the torch engine:
     python -m dynamo_tpu_torch.run in=text:<prompt> out=torch:<ckpt> [flags]
     python -m dynamo_tpu_torch.run in=batch:<file.jsonl> out=torch:<ckpt>
 
+A batch line may carry chat request fields beside its text, e.g. a
+guided or penalised request:
+    {"text": "pick", "nvext": {"guided_choice": ["yes", "no"]}}
+    {"text": "json", "response_format": {"type": "json_object"}}
+    {"text": "x", "nvext": {"guided_regex": "[a-z]+"},
+     "presence_penalty": 1.5}
+
 `out=torch:<ckpt>` serves a checkpoint directory through
 `build_torch_engine` on `--device` (default cuda; it raises without a
 card), on the phase path (`DYN_ATTENTION_IMPL=ragged`: the ragged
@@ -24,6 +31,9 @@ from typing import Optional
 
 USAGE = ("python -m dynamo_tpu_torch.run in=text:<prompt>|batch:<file> "
          "out=torch:<ckpt> [flags]")
+# keys of a batch line that are not chat request fields
+_BATCH_OWN_KEYS = ("text", "prompt", "messages", "max_tokens", "model",
+                   "stream")
 
 
 def parse_io(argv: list[str]) -> tuple[str, str, list[str]]:
@@ -110,17 +120,22 @@ async def run_one(pipeline, model: str, prompt: str, max_tokens: int,
 async def run_batch(pipeline, model: str, path: str, max_tokens: int,
                     out_path: Optional[str]) -> list[dict]:
     """batch:<file.jsonl> — one {"text": ...} or {"messages": [...]} per
-    line, all in flight at once; writes one JSONL result per line (text,
-    finish reason, completion tokens, seconds) and returns the results."""
+    line, all in flight at once; any other key of a line is a chat request
+    field (temperature, seed, min_p, presence_penalty, response_format,
+    nvext guided_regex / guided_choice / guided_json, ...). Writes one
+    JSONL result per line (text, finish reason, completion tokens,
+    seconds) and returns the results."""
     from dynamo_tpu_torch.runtime.context import Context
 
     async def one(i: int, d: dict) -> dict:
         msgs = d.get("messages") or [
             {"role": "user", "content": d.get("text", d.get("prompt", ""))}]
-        req = {"_kind": "chat", "body": {
-            "model": model, "stream": True,
-            "max_tokens": int(d.get("max_tokens") or max_tokens),
-            "messages": msgs}}
+        body = {k: v for k, v in d.items()
+                if k not in _BATCH_OWN_KEYS}
+        body.update({"model": model, "stream": True,
+                     "max_tokens": int(d.get("max_tokens") or max_tokens),
+                     "messages": msgs})
+        req = {"_kind": "chat", "body": body}
         t0 = time.perf_counter()
         parts = []
         finish = None

@@ -1329,3 +1329,184 @@ def test_scratch_growth_during_capture_raises(cuda_device):
             with torch.cuda.graph(graph):
                 grow()
         del graph
+
+
+# --- the constrained burst ("decode_guided") on its graph -------------------
+
+
+def _guided_tables(specs, vocab=256):
+    from dynamo_tpu_torch.llm.guided import compile_guided
+
+    return [compile_guided(s, [bytes([i]) for i in range(256)]
+                           + [None] * (vocab - 256)) for s in specs]
+
+
+def _guided_stack(tables, rows, dev):
+    """Resident tables in the engine's packed layout (row 0 all-allowed,
+    each grammar at its first row, transitions offset there): (bits,
+    next, eos_ok) and each grammar's first row."""
+    v = tables[0].next_state.shape[1]
+    bits = torch.zeros((1, rows, (v + 7) // 8), dtype=torch.uint8,
+                       device=dev)
+    nxt = torch.zeros((1, rows, v), dtype=torch.int16, device=dev)
+    eos = torch.zeros((1, rows), dtype=torch.bool, device=dev)
+    bits[0, 0] = 0xFF
+    firsts = _write_grammars(tables, (bits, nxt, eos))
+    return (bits, nxt, eos), firsts
+
+
+def _write_grammars(tables, stack, first=1):
+    bits, nxt, eos = stack
+    firsts = []
+    for t in tables:
+        n = t.num_states
+        bits[0, first:first + n] = torch.from_numpy(t.allowed_bits)
+        nxt[0, first:first + n] = torch.from_numpy(
+            (t.next_state.astype(np.int32) + first).astype(np.int16))
+        eos[0, first:first + n] = torch.from_numpy(t.eos_ok)
+        firsts.append(first)
+        first += n
+    return firsts
+
+
+def _guided_inputs(cfg, lane_rows, shift=0):
+    """A 4-lane constrained burst's graph inputs (`decode_multi_step_guided`
+    without the tables): `_burst_inputs`, then min_p, the penalties, the
+    prompt and output counts, grammar index 0 and each lane's table row,
+    the stop ids (EOS 0)."""
+    b, v = 4, cfg.vocab_size
+    pc = np.zeros((b, v), np.int32)
+    pc[:, 97:100] = 1
+    oc = np.zeros((b, v), np.int32)
+    oc[1, 98] = 2
+    stop = np.full((b, 8), -1, np.int32)
+    stop[:, 0] = 0
+    return [*_burst_inputs(cfg, shift),
+            np.array([0.0, 0.1, 0.0, 0.0], np.float32),
+            np.array([1.0, 1.3, 1.0, 1.0], np.float32),
+            np.array([0.0, 0.4, 0.0, 0.0], np.float32),
+            np.array([0.0, 0.5, 0.0, 0.0], np.float32), pc, oc,
+            np.zeros(b, np.int32), np.asarray(lane_rows, np.int32), stop]
+
+
+def _guided_step(model, stack, tk, k=4):
+    from dynamo_tpu_torch.models.llama import decode_multi_step_guided
+
+    return lambda kc, vc, *a: decode_multi_step_guided(
+        model, kc, vc, *a[:15], *stack, *a[15:], num_steps=k, topk_lp=tk)
+
+
+@pytest.mark.parametrize("tk", [0, 8])
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_guided_graph_replays_bit_identical_to_eager(cuda_device, mode, tk):
+    """A constrained burst (grammar lanes, a penalised min_p lane, a free
+    lane, an empty lane) replayed from its graph equals the eager burst on
+    the same inputs, bit for bit, outputs and caches; the replay leaves
+    its static inputs as they were loaded (the burst advances copies of
+    the counts and states)."""
+    cfg, model = _graph_model(cuda_device, mode)
+    stack, firsts = _guided_stack(_guided_tables(
+        [{"choice": ["ab", "ba"]}, {"regex": "[a-d]+x"}]), 16, cuda_device)
+    step = _guided_step(model, stack, tk)
+    seq = [_guided_inputs(cfg, [firsts[0], 0, firsts[1], 0]),
+           _guided_inputs(cfg, [firsts[0] + 1, firsts[1], 0, 0], shift=5)]
+    with torch.inference_mode():
+        _graph_vs_eager(cuda_device, cfg, step, seq)
+        from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+        graphs = StepGraphs(cuda_device)
+        _, caches = _random_caches(cfg, cuda_device, 7)
+        for inputs in seq:
+            out = graphs.run(("g",), lambda *a: step(*caches, *a), inputs)
+            torch.cuda.synchronize()
+            for buf, a in zip(graphs.graphs[("g",)].inputs, inputs):
+                assert torch.equal(buf.cpu(), torch.from_numpy(a))
+    toks = out[0].cpu().numpy().astype(int)
+    assert bytes(toks[:, 0]).split(b"\0")[0] in (b"a", b"b", b"ab", b"ba")
+
+
+def test_guided_graph_reads_grammar_written_in_place(cuda_device):
+    """A grammar written into the resident tables after the capture is
+    what the next replay reads: the replay equals an eager call on the new
+    tables, and the lane's tokens follow the new grammar."""
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+    cfg, model = _graph_model(cuda_device, "bf16")
+    first, second = _guided_tables([{"regex": "a{8}"}, {"regex": "z{8}"}])
+    stack, (row,) = _guided_stack([first], 16, cuda_device)
+    step = _guided_step(model, stack, 0)
+    _, graphed = _random_caches(cfg, cuda_device, 11)
+    inputs = _guided_inputs(cfg, [row, row, 0, 0])
+    graphs = StepGraphs(cuda_device)
+    with torch.inference_mode():
+        got = graphs.run(("g",), lambda *a: step(*graphed, *a), inputs)
+        assert set(got[0, :, :2].flatten().tolist()) == {ord("a")}
+        _write_grammars([second], stack, first=row)
+        # the replay rewrites every cache row it reads before reading it,
+        # so fresh caches of the same seed give the eager answer
+        _, eager = _random_caches(cfg, cuda_device, 11)
+        want = step(*eager, *_device(inputs, cuda_device))
+        got = graphs.run(("g",), None, inputs)
+        torch.cuda.synchronize()
+    assert graphs.captures == 1 and graphs.replays == 2
+    assert set(got[0, :, :2].flatten().tolist()) == {ord("z")}
+    assert torch.equal(got, want)
+
+
+def test_guided_engine_buckets_on_card_match_cpu(cuda_device):
+    """The engine on the card against the same engine on the CPU (fp32,
+    greedy and seeded lanes): a small grammar captures "decode_guided" at
+    one row bucket, a large one grows the tables into a new bucket (new
+    buffers, a second capture), and after both are evicted a small
+    grammar returns to the first bucket, whose graph replays on its kept
+    buffers with the new rows written in place. Streams identical."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+    from dynamo_tpu_torch.runtime.context import Context
+
+    mcfg = LlamaConfig.tiny(dtype=torch.float32, head_dim=32, page_size=8)
+    cpu_model = init_params(mcfg, 0, torch.device("cpu"))
+    phases = [[{"regex": "[ab]{5}", "t": 0.0}],
+              [{"regex": "[a-z]{40}", "t": 0.9},
+               {"regex": "(xy)+", "t": 0.0}],
+              [{"regex": "[cd]{5}", "t": 0.7}]]
+
+    async def serve(device):
+        model = cpu_model if device.type == "cpu" else \
+            copy.deepcopy(cpu_model).to(device)
+        eng = TorchEngine(TorchEngineConfig(
+            model=mcfg, num_pages=64, max_batch_size=4, prefill_chunk=32,
+            min_prefill_bucket=8, decode_steps_per_sync=4,
+            device=str(device)), model=model,
+            token_bytes=[bytes([i]) for i in range(256)], eos_token_id=0)
+        eng.MAX_GUIDED_GRAMMARS = 2
+
+        async def one(spec):
+            sampling = {"temperature": spec.pop("t"), "seed": 3,
+                        "guided": spec}
+            toks = []
+            async for o in eng.generate(
+                    {"token_ids": [10, 20, 30], "sampling": sampling,
+                     "stop": {"max_tokens": 12, "stop_token_ids": [0]}},
+                    Context()):
+                toks.extend(o.get("token_ids", ()))
+            return toks
+
+        out, buckets = [], []
+        try:
+            for specs in phases:
+                out.append(await asyncio.gather(
+                    *(one(dict(s)) for s in specs)))
+                buckets.append(eng._guided_layout()[0])
+        finally:
+            await eng.close()
+        return out, buckets, eng
+
+    on_card, buckets, eng = asyncio.run(serve(cuda_device))
+    on_cpu, cpu_buckets, _ = asyncio.run(serve(torch.device("cpu")))
+    assert on_card == on_cpu and buckets == cpu_buckets
+    small, big = buckets[0], buckets[1]
+    assert big > small and buckets[2] == small
+    keys = sorted(k for k in eng.graphs.graphs if k[0] == "decode_guided")
+    assert [k[1][-1] for k in keys] == sorted({small, big})
+    assert set(eng._guided_buffers) == {small, big}

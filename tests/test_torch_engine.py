@@ -154,10 +154,10 @@ async def test_prefix_reuse_cancel_and_unsupported_requests():
         ctx.cancel()
         outs = [o async for o in eng.generate(req(prompt, 4), ctx)]
         assert outs[-1]["finish_reason"] == "cancelled"
-        bad = {**req(prompt), "sampling": {"min_p": 0.1}}
+        bad = {**req(prompt), "extra": {"embed": True}}
         outs = [o async for o in eng.generate(bad, Context())]
         assert outs[-1]["finish_reason"] == "error"
-        assert "min_p" in outs[-1]["extra"]["error"]
+        assert "embeddings" in outs[-1]["extra"]["error"]
     finally:
         await eng.close()
     assert eng.pool.active_pages == 0

@@ -91,10 +91,13 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
     --device cpu` in a fresh interpreter, on the default (phase) path: it
     answers, every engine dispatch was a phase-path one (prefill rounds
     and decode bursts); then an int4 engine built from the same checkpoint
-    serves a request, its compile tracker holding its entries; and at the
-    end, with the compiled-step modules (graphs, compile tracker, bucket
-    ladder, metrics) loaded too, no jax and no dynamo_tpu module was ever
-    imported."""
+    serves a request, its compile tracker holding its entries; then a
+    guided chat request (nvext guided_choice, with a presence penalty)
+    goes through the OpenAI pipeline to a fresh engine and its text is one
+    of the choices; and at the end, with the compiled-step modules
+    (graphs, compile tracker, bucket ladder, metrics) and the guided ones
+    (grammar compiler, compute pool) loaded too, no jax and no dynamo_tpu
+    module was ever imported."""
     probe = (
         "import runpy, sys\n"
         "from dynamo_tpu_torch.models import llama\n"
@@ -134,6 +137,28 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
         "print('INT4', len(asyncio.run(serve())))\n"
         "print('TRACKED', sorted({k[0] for k in "
         "q_eng.compile_tracker._seen}))\n"
+        "from dynamo_tpu_torch.run.main import build_pipeline_for\n"
+        f"g_eng, card = build_torch_engine({ckpts['tiny']!r}, 'tiny', "
+        "num_pages=16, device='cpu')\n"
+        "args = type('A', (), {'tokenizer': 'auto', "
+        "'context_length': None, 'max_tokens': 8})()\n"
+        "async def guided():\n"
+        "    pipe = build_pipeline_for(card, g_eng, args)\n"
+        "    body = {'model': 'tiny', 'stream': True, 'max_tokens': 8, "
+        "'presence_penalty': 0.5, 'messages': [{'role': 'user', "
+        "'content': 'pick'}], 'nvext': {'guided_choice': ['yes', 'no']}}\n"
+        "    parts = []\n"
+        "    try:\n"
+        "        async for ch in pipe.generate({'_kind': 'chat', "
+        "'body': body}, Context()):\n"
+        "            for c in ch.get('choices', ()):\n"
+        "                parts.append(c.get('delta', {}).get('content') "
+        "or '')\n"
+        "    finally:\n"
+        "        await g_eng.close()\n"
+        "    return ''.join(parts)\n"
+        "print('GUIDED', repr(asyncio.run(guided())), sorted({k[0] for k "
+        "in g_eng.compile_tracker._seen}))\n"
         "import dynamo_tpu_torch.engine.bucketing\n"
         "import dynamo_tpu_torch.engine.compile_tracker\n"
         "import dynamo_tpu_torch.engine.graphs\n"
@@ -155,6 +180,9 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
     assert "INT4 3" in proc.stdout, proc.stdout
     assert "TRACKED ['decode_burst', 'prefill', 'sample_first']" in \
         proc.stdout, proc.stdout
+    assert ("GUIDED 'yes' ['decode_guided', 'prefill', 'sample_first']"
+            in proc.stdout or "GUIDED 'no' ['decode_guided', 'prefill', "
+            "'sample_first']" in proc.stdout), proc.stdout
 
 
 @pytest.mark.parametrize("env,impl", [(None, "phase"), ("auto", "phase"),
