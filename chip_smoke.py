@@ -41,7 +41,8 @@ on):
     an eager call
  8. main paths: Llama-3-8B at full width and depth (random weights from a
     seed) served through `dynamo_tpu_torch.run`'s pipeline, a batch of 10
-    chat requests of 16..1500 bytes, prefill_chunk_budget 512; first the
+    greedy chat requests of 16..1500 bytes with top-8 logprobs,
+    prefill_chunk_budget 512; first the
     phase path (the default: k = 8 bursts, pipelined), then the ragged
     path (DYN_ATTENTION_IMPL=ragged) on the same weights; each with the
     launch counts zeroed just before and read just after, replayed CUDA
@@ -73,6 +74,17 @@ on):
     "decode_burst" on the same lanes; the ops after the last layer
     (penalties, grammar mask, sampling) in device ms per step from an
     eager profile
+ 8c. the port as a deployment: `python -m dynamo_tpu_torch.coordinator`,
+    `.worker` (the phase-8 checkpoint, random init, seed 0, cuda, round-
+    robin, 2048 pages, batch 8, prefill chunk 512) and `.frontend` as
+    subprocesses; phase 8's 10 requests through HTTP, all in flight,
+    streamed: each a 200 with well-formed SSE ending in [DONE] and a
+    finish_reason, its tokens those of the in-process phase-path batch or
+    parting at a bf16 near-tie (BF16_TIE_TOL, printed with step and gap);
+    TTFT p50/p99, ITL p50 and tok/s through HTTP beside the in-process
+    batch's, the frontend's response frames per second, the worker's CUDA
+    graph captures and replays (from its `_sys.stats` scrape); every
+    subprocess stopped at the end
  9. quantized main path: the same batch on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
     same random weights, quantized by the engine): w8a8 launches K5 and
@@ -473,15 +485,319 @@ def blocked_plain_attention(ragged, torch):
     return run
 
 
+# a batch request's fields beside its text: greedy, the top-8 logprobs of
+# each token, logprobs tokens as "token_id:<id>" (random weights emit
+# tokens the byte tokenizer decodes to nothing) and one chunk per engine
+# output, so a client sees each token as it arrives
+GREEDY_FIELDS = {"temperature": 0.0, "logprobs": True, "top_logprobs": 8,
+                 "return_tokens_as_token_ids": True}
+
+
 def write_jobs(path: str, seed: int) -> str:
-    """The main path's batch: 10 chat prompts of 16..1500 bytes."""
+    """The main path's batch: 10 greedy chat prompts of 16..1500 bytes,
+    each token's top-8 logprobs returned (GREEDY_FIELDS)."""
     rng = random.Random(seed)
     with open(path, "w") as f:
         for n in (16, 40, 100, 200, 350, 600, 800, 1000, 1250, 1500):
             text = "".join(rng.choice("abcdefghij klmnop qrstuv wxyz.,")
                            for _ in range(n))
-            f.write(json.dumps({"text": text}) + "\n")
+            f.write(json.dumps({"text": text, **GREEDY_FIELDS}) + "\n")
     return path
+
+
+def token_ids_of(entries: list) -> tuple:
+    """(token ids, top-k [[id, logprob], ...] per token) from chat
+    logprobs entries rendered under return_tokens_as_token_ids."""
+    def tid(s: str) -> int:
+        if not s.startswith("token_id:"):
+            raise AssertionError(f"logprobs token {s!r} is not an id")
+        return int(s[len("token_id:"):])
+
+    return ([tid(e["token"]) for e in entries],
+            [[[tid(a["token"]), a["logprob"]] for a in e["top_logprobs"]]
+             for e in entries])
+
+
+class Service:
+    """One of the port's CLIs as a subprocess (never a fork of this
+    process, which has initialised CUDA): stdout lines read by a thread,
+    stderr to a file."""
+
+    def __init__(self, work: str, name: str, *args: str) -> None:
+        import queue
+        import threading
+
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        env.pop("DYN_ATTENTION_IMPL", None)       # the phase path
+        self.name = name
+        self.err_path = os.path.join(work, f"{name}.err")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"dynamo_tpu_torch.{name}", *args],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=self._err,
+            text=True)
+        self.lines = queue.Queue()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.put(line)
+
+    def stderr_tail(self, n: int = 3000) -> str:
+        with open(self.err_path) as f:
+            return f.read()[-n:]
+
+    def wait_line(self, prefix: str, timeout: float) -> str:
+        import queue
+
+        end = time.perf_counter() + timeout
+        while time.perf_counter() < end:
+            try:
+                line = self.lines.get(timeout=1.0)
+            except queue.Empty:
+                if self.proc.poll() is not None:
+                    break
+                continue
+            if line.startswith(prefix):
+                return line.split()[1]
+        raise AssertionError(
+            f"{self.name} gave no {prefix} line (exit code "
+            f"{self.proc.poll()}); stderr: {self.stderr_tail()}")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        self._reader.join(10)
+        self._err.close()
+
+
+def http_chat_stream(port: int, body: dict) -> dict:
+    """One streamed chat request through the frontend: its tokens, top-k
+    logprobs, finish reason, and client-side seconds to the first token
+    chunk and to `data: [DONE]`. Raises on anything but HTTP 200 with
+    well-formed SSE that ends in [DONE] after a finish_reason."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200 or r.getheader("Content-Type") != \
+                "text/event-stream":
+            raise AssertionError(f"HTTP {r.status} "
+                                 f"{r.getheader('Content-Type')}: "
+                                 f"{r.read()[:500]!r}")
+        entries, first, done, finish, usage = [], None, None, None, None
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            line = line.rstrip(b"\r\n")
+            if not line:
+                continue
+            if not line.startswith(b"data: ") or done is not None:
+                raise AssertionError(f"malformed SSE line {line[:200]!r}")
+            if line == b"data: [DONE]":
+                done = time.perf_counter() - t0
+                continue
+            chunk = json.loads(line[6:])
+            if "error" in chunk:
+                raise AssertionError(f"SSE error event: {chunk}")
+            for ch in chunk["choices"]:
+                got = (ch.get("logprobs") or {}).get("content") or []
+                if got and first is None:
+                    first = time.perf_counter() - t0
+                entries.extend(got)
+                finish = ch.get("finish_reason") or finish
+            usage = chunk.get("usage") or usage
+    finally:
+        conn.close()
+    if done is None or finish is None or usage is None:
+        raise AssertionError(f"stream ended without [DONE] / finish_reason "
+                             f"/ usage: {done}, {finish}, {usage}")
+    toks, tops = token_ids_of(entries)
+    if usage["completion_tokens"] != len(toks) or first is None:
+        raise AssertionError(f"{usage} for {len(toks)} tokens")
+    return {"tokens": toks, "tops": tops, "finish": finish,
+            "ttft_s": first, "elapsed_s": done, "t0": t0}
+
+
+def latency_summary(rows: list, wall: float) -> str:
+    """TTFT p50/p99, ITL p50 ((elapsed - ttft) / (tokens - 1) per
+    request) and output tok/s of a batch."""
+    ttft = sorted(r["ttft_s"] for r in rows)
+    itl = [(r["elapsed_s"] - r["ttft_s"]) / (r["n"] - 1) for r in rows
+           if r["n"] > 1]
+    p99 = ttft[min(len(ttft) - 1, math.ceil(0.99 * len(ttft)) - 1)]
+    return (f"TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, p99 "
+            f"{p99 * 1e3:.1f} ms; ITL p50 {statistics.median(itl) * 1e3:.2f}"
+            f" ms; {sum(r['n'] for r in rows) / wall:.1f} output tok/s "
+            f"({len(rows)} requests in {wall:.2f} s)")
+
+
+def prometheus_value(text: str, series: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.split()[-1])
+    raise AssertionError(f"no {series} in the scrape")
+
+
+async def worker_scrape(store_url: str) -> str:
+    """The worker's metrics registry (Prometheus text) through its
+    transport's `_sys.stats` scrape, found through the coordinator."""
+    from dynamo_tpu_torch.runtime.component import INSTANCE_PREFIX, Instance
+    from dynamo_tpu_torch.runtime.store import connect_store
+    from dynamo_tpu_torch.runtime.transport import (
+        TransportClient,
+        TransportServer,
+    )
+
+    store = await connect_store(store_url)
+    client = TransportClient()
+    try:
+        kvs = await store.get_prefix(INSTANCE_PREFIX)
+        inst = Instance.from_json(kvs[0].value)
+        items = [x async for x in client.request(
+            inst.address, TransportServer.STATS_SUBJECT, {})]
+    finally:
+        await client.close()
+        await store.close()
+    return items[0]["client"]["metrics"]
+
+
+def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
+                  in_proc: dict) -> None:
+    """Phase 8c: the port as a deployment on the card. The coordinator,
+    a worker serving the phase-8 checkpoint (random init, seed 0) on cuda
+    and the OpenAI frontend run as three processes; phase 8's 10 chat
+    requests go to the frontend all in flight, streamed. Every stream must
+    be a well-formed SSE 200 ending in [DONE], its tokens those of the
+    in-process phase-path batch for the same request (or parting at a
+    bf16 near-tie within BF16_TIE_TOL). Prints TTFT, ITL and tok/s through
+    HTTP beside the in-process batch's, the frames the frontend received,
+    and the worker's CUDA-graph captures and replays."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.runtime.distributed import free_port
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"[serve] before the deployment starts: {free / 2**30:.1f} GiB free "
+        f"of {total / 2**30:.1f} GiB on the card")
+    with open(jobs) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    services = []
+    try:
+        coord = Service(work, "coordinator", "--port", str(free_port()))
+        services.append(coord)
+        store = coord.wait_line("COORDINATOR_READY", 120)
+        t0 = time.perf_counter()
+        worker = Service(work, "worker", "--model", ckpt, "--random-init",
+                         "--router-mode", "round_robin", "--num-pages",
+                         "2048", "--max-batch-size", "8", "--prefill-chunk",
+                         "512", "--store", store, "--device", "cuda")
+        services.append(worker)
+        port = free_port()
+        frontend = Service(work, "frontend", "--store", store, "--host",
+                           "127.0.0.1", "--port", str(port),
+                           "--router-mode", "round_robin")
+        services.append(frontend)
+        frontend.wait_line("FRONTEND_READY", 120)
+        ready = worker.wait_line("WORKER_READY", 900)
+        built = [ln for ln in worker.stderr_tail(100000).splitlines()
+                 if "engine built in" in ln]
+        log(f"[serve] worker {ready} ready {time.perf_counter() - t0:.1f} s "
+            f"after its start; {built[-1].split(': ', 1)[-1] if built else ''}")
+        end = time.perf_counter() + 60
+        while b'"llama3-8b"' not in _http_get(port, "/v1/models"):
+            if time.perf_counter() > end:
+                raise AssertionError("the frontend never discovered the "
+                                     "worker's card")
+            time.sleep(0.2)
+        bodies = [{"model": "llama3-8b", "stream": True, "max_tokens": 32,
+                   "messages": [{"role": "user", "content": d["text"]}],
+                   **{k: v for k, v in d.items() if k != "text"}}
+                  for d in lines]
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            streams = list(pool.map(lambda b: http_chat_stream(port, b),
+                                    bodies))
+        wall = max(s["t0"] + s["elapsed_s"] for s in streams) - \
+            min(s["t0"] for s in streams)
+        for p in services:
+            if p.proc.poll() is not None:
+                raise AssertionError(f"{p.name} exited: "
+                                     f"{p.stderr_tail()}")
+        fe_metrics = _http_get(port, "/metrics").decode()
+        wk_metrics = asyncio.run(worker_scrape(store))
+    finally:
+        for p in reversed(services):
+            p.stop()
+    # tokens against the in-process phase-path batch
+    want = [token_ids_of(r["logprobs"]) for r in in_proc["results"]]
+    got = [(s["tokens"], s["tops"]) for s in streams]
+    partings = []
+    for r, ((ta, ka), (tb, kb)) in enumerate(zip(want, got)):
+        n = min(len(ta), len(tb))
+        step = next((i for i in range(n) if ta[i] != tb[i]), None)
+        if step is None:
+            if len(ta) != len(tb):
+                raise AssertionError(f"request {r}: {len(ta)} tokens in "
+                                     f"process, {len(tb)} through HTTP")
+            continue
+        for _, s, g in stream_partings([(ta[:n], ka[:n])], [(tb[:n], kb[:n])],
+                                       BF16_TIE_TOL):
+            partings.append((r, s, g))
+    for r, step, gap in partings:
+        log(f"[serve] request {r} through HTTP parts from the in-process "
+            f"phase-path stream at step {step} of "
+            f"{len(streams[r]['tokens'])}: tokens {want[r][0][step]} vs "
+            f"{got[r][0][step]}, logprob gap {gap:.4f} nats (tie tolerance "
+            f"{BF16_TIE_TOL}); identical before it")
+    log(f"[serve] {len(streams)} HTTP streams complete (200, SSE, [DONE], "
+        f"finish reasons {sorted({s['finish'] for s in streams})}); "
+        f"{len(streams) - len(partings)} token-identical with the "
+        f"in-process phase-path batch, {len(partings)} parted at near-ties")
+    rows_http = [{"ttft_s": s["ttft_s"], "elapsed_s": s["elapsed_s"],
+                  "n": len(s["tokens"])} for s in streams]
+    rows_proc = [{"ttft_s": r["ttft_s"], "elapsed_s": r["elapsed_s"],
+                  "n": r["completion_tokens"]} for r in in_proc["results"]]
+    log(f"[serve] through HTTP (coordinator + worker + frontend, 3 "
+        f"processes): {latency_summary(rows_http, wall)}; on {smi}")
+    log(f"[serve] in process (phase 8's phase-path batch, same requests, "
+        f"prefill_chunk_budget 512): "
+        f"{latency_summary(rows_proc, in_proc['wall'])}; on {smi}")
+    frames = prometheus_value(
+        fe_metrics, 'dynamo_transport_client_events{kind="frames"}')
+    log(f"[serve] the frontend received {frames:.0f} response frames in "
+        f"{wall:.2f} s: {frames / wall:.1f} frames/s "
+        f"({sum(r['n'] for r in rows_http) / frames:.2f} tokens per frame)")
+    graphs = {kind: prometheus_value(
+        wk_metrics, 'dynamo_engine_cuda_graphs{kind="%s"}' % kind)
+        for kind in ("captures", "replays", "pool_bytes")}
+    if not graphs["replays"] > graphs["captures"] > 0:
+        raise AssertionError(f"the worker replayed no CUDA graph: {graphs}")
+    log(f"[serve] worker metrics (its _sys.stats scrape): CUDA graph "
+        f"captures {graphs['captures']:.0f}, replays "
+        f"{graphs['replays']:.0f}, pool {graphs['pool_bytes'] / 2**20:.1f} "
+        f"MiB; on {smi}")
+
+
+def _http_get(port: int, path: str) -> bytes:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        return conn.getresponse().read()
+    finally:
+        conn.close()
 
 
 def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
@@ -1629,7 +1945,7 @@ def main() -> int:
             f"{a[0][:6]}...")
         return {"wall": wall, "launches": launches, "tokens": out_tokens,
                 "rounds": n_rounds, "ttft": ttft, "stream": a,
-                "graphs": stats}
+                "graphs": stats, "results": results}
 
     phase = serve_batch(engine, "phase",
                         ("paged_kv_write", "paged_kv_write_pages",
@@ -1669,6 +1985,12 @@ def main() -> int:
     t0 = time.perf_counter()
     constrained = constrained_phase(torch, model, dev, smi, N_PAGES)
     log(f"[constrained] phase 8b in {time.perf_counter() - t0:.1f} s")
+
+    # 8c. the port as a deployment ----------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving_phase(torch, smi, work, ckpt, jobs, phase)
+    log(f"[serve] phase 8c in {time.perf_counter() - t0:.1f} s")
 
     # 9. quantized main path -------------------------------------------------
 

@@ -1,7 +1,15 @@
-"""Build a serving engine + card from a checkpoint directory.
+"""Entrypoints: build a serving engine + card, serve it, front it.
 
-Port of `dynamo_tpu/llm/entrypoint.py` `build_tpu_engine` (`:418-566`) as
-`build_torch_engine`: resolve the checkpoint, read its config.json,
+Port of `dynamo_tpu/llm/entrypoint.py`:
+- `start_frontend` (`:65`): model discovery (`ModelWatcher`) + the OpenAI
+  HTTP service. The reference's gRPC frontend, breaker-event counter,
+  telemetry, SLO, serving-class and flight-control planes wait with their
+  subsystems.
+- `serve_engine` (`:263`) / `WorkerHandle` (`:245`): serve an engine on
+  its card's endpoint, join the engine's metrics (its compile tracker and
+  CUDA-graph counts) to the process's registry, publish the card. The
+  canary, KVBM, memory, mesh and tenancy surfaces wait.
+- `build_tpu_engine` (`:418-566`) as `build_torch_engine`: resolve the checkpoint, read its config.json,
 load the weights through the port's own loader (or random-init them from
 a seed), and fill the card so the pipeline builds the matching
 tokenizer. The engine runs on `device` — "cuda" by default, which raises
@@ -16,14 +24,22 @@ from __future__ import annotations
 
 import logging
 import os
+from dataclasses import dataclass
 from typing import Optional
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
 from dynamo_tpu_torch.llm.guided import token_bytes_of
+from dynamo_tpu_torch.llm.http_service import HttpService
 from dynamo_tpu_torch.llm.model_card import (
     ModelDeploymentCard,
     ModelRuntimeConfig,
+    register_llm,
+)
+from dynamo_tpu_torch.llm.model_manager import (
+    ModelManager,
+    ModelWatcher,
+    check_router_mode,
 )
 from dynamo_tpu_torch.llm.tokenizer import make_tokenizer
 from dynamo_tpu_torch.models.loader import (
@@ -31,11 +47,109 @@ from dynamo_tpu_torch.models.loader import (
     load_llama_params,
     resolve_model,
 )
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.engine import AsyncEngine
 
 logger = logging.getLogger(__name__)
 
 _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
                     "tokenizer.model")
+
+
+@dataclass
+class Frontend:
+    runtime: DistributedRuntime
+    manager: ModelManager
+    watcher: ModelWatcher
+    http: HttpService
+
+    @property
+    def url(self) -> str:
+        return f"{self.http.scheme}://{self.http.host}:{self.http.port}"
+
+    async def stop(self) -> None:
+        await self.http.stop()
+        await self.watcher.stop()
+        await self.manager.close()
+
+
+async def start_frontend(runtime: DistributedRuntime,
+                         host: str = "127.0.0.1", port: int = 0,
+                         router_mode_override: Optional[str] = None,
+                         namespace: Optional[str] = None,
+                         tls_cert: Optional[str] = None,
+                         tls_key: Optional[str] = None,
+                         request_template: Optional[dict] = None
+                         ) -> Frontend:
+    """HTTP frontend: model discovery + OpenAI server (Input::Http).
+
+    `router_mode_override` must be set before the watcher's initial MDC
+    scan builds pipelines (a "kv" override raises `KvRouterUnavailable`);
+    `namespace` (if set) restricts discovery to cards in that namespace;
+    `tls_cert`/`tls_key` serve HTTPS."""
+    if router_mode_override is not None:
+        check_router_mode(router_mode_override)
+    manager = ModelManager(runtime)
+    manager.router_mode_override = router_mode_override
+    watcher = await ModelWatcher(manager, namespace=namespace).start()
+    try:
+        http = HttpService(manager, host, port, tls_cert=tls_cert,
+                           tls_key=tls_key,
+                           request_template=request_template)
+        await http.start()
+    except BaseException:
+        await watcher.stop()
+        await manager.close()
+        raise
+    return Frontend(runtime, manager, watcher, http)
+
+
+@dataclass
+class WorkerHandle:
+    runtime: DistributedRuntime
+    card: ModelDeploymentCard
+    served: object
+
+    async def stop(self) -> None:
+        await self.served.shutdown()
+
+
+def register_engine_metrics(runtime: DistributedRuntime, engine) -> None:
+    """Join an engine's own metrics to the process's scrape: the compile
+    tracker's `dynamo_compile_total` / `dynamo_compile_seconds_total` and
+    its CUDA-graph captures, replays and pool bytes (one source of truth,
+    no second bookkeeping path). Engines without them are skipped."""
+    tracker = getattr(engine, "compile_tracker", None)
+    if tracker is not None:
+        tracker.register(runtime.metrics)
+    graphs = getattr(engine, "graphs", None)
+    if graphs is None:
+        return
+    g = runtime.metrics.gauge(
+        "engine_cuda_graphs",
+        "the engine's CUDA graphs: captures, replays and pool bytes")
+
+    def sync() -> None:
+        g.set(graphs.captures, kind="captures")
+        g.set(graphs.replays, kind="replays")
+        g.set(graphs.pool_bytes(), kind="pool_bytes")
+
+    runtime.metrics.on_scrape(sync)
+
+
+async def serve_engine(runtime: DistributedRuntime, engine: AsyncEngine,
+                       card: ModelDeploymentCard,
+                       instance_id: Optional[int] = None) -> WorkerHandle:
+    """Worker side (entrypoint/input/endpoint.rs): serve a core engine on
+    the card's endpoint and publish the card."""
+    register_engine_metrics(runtime, engine)
+    ep = (runtime.namespace(card.namespace).component(card.component)
+          .endpoint(card.endpoint))
+    served = await ep.serve(
+        engine, instance_id=instance_id,
+        metadata={"dp_size": card.runtime_config.data_parallel_size})
+    await register_llm(runtime, card)
+    return WorkerHandle(runtime, card, served)
 
 
 def attention_impl_from_env() -> str:

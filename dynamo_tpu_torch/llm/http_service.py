@@ -1,0 +1,561 @@
+"""OpenAI-compatible HTTP frontend on the standard library.
+
+Port of `dynamo_tpu/llm/http_service.py`. The reference serves through
+aiohttp; the machine the port serves on has no aiohttp, so this module is
+its own HTTP/1.1 server on asyncio streams: keep-alive connections,
+`Content-Length` request and response bodies, chunked transfer for SSE
+streams, HTTPS through the standard `ssl` module. Routes, status codes,
+error bodies and SSE framing are the reference's:
+
+  POST /v1/chat/completions, POST /v1/completions (SSE when stream=true,
+  ending in `data: [DONE]`), GET /v1/models, GET /health, GET /live,
+  GET /metrics
+
+An unknown path answers 404, a known path with another method 405. The
+reference's /v1/embeddings, /v1/responses, KVBM, fleet, tenancy, serving
+class and /debug/* routes wait with their subsystems and answer 404.
+
+Errors: a malformed request is a 400, an unknown model a 404, a model
+whose workers are all gone a 503; any other failure of the pipeline (an
+engine error, a worker lost past its migrations) is a 500 before the
+stream starts, or an SSE error event after it, and is counted in
+`dynamo_http_requests_total` under its status. A client that disconnects
+cancels the request's context, which cancels the engine's work
+(service/disconnect.rs).
+
+Reference: `lib/llm/src/http/service/` — `/v1/chat/completions`
+(openai.rs:540), `/v1/completions` (:274), `/v1/models`, health routes,
+and HTTP metrics with TTFT/ITL histograms (service/metrics.rs:109-262).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import http
+import json
+import logging
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+from urllib.parse import urlsplit
+
+from dynamo_tpu_torch.llm.model_manager import ModelManager
+from dynamo_tpu_torch.llm.preprocessor import KIND_CHAT, KIND_COMPLETION
+from dynamo_tpu_torch.llm.protocols_openai import (
+    SSE_DONE,
+    OpenAIError,
+    aggregate_chat_stream,
+    aggregate_completion_stream,
+    new_request_id,
+    sse_encode,
+)
+from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.push import NoInstancesError
+
+logger = logging.getLogger(__name__)
+
+MAX_HEADER_BYTES = 64 * 1024
+MAX_BODY_BYTES = 64 * 1024 * 1024
+JSON_TYPE = "application/json; charset=utf-8"
+
+
+@dataclass
+class Request:
+    method: str
+    path: str
+    version: str
+    headers: dict[str, str]     # lower-case names
+    body: bytes = b""
+
+    @property
+    def keep_alive(self) -> bool:
+        conn = self.headers.get("connection", "").lower()
+        if self.version == "HTTP/1.0":
+            return conn == "keep-alive"
+        return conn != "close"
+
+    def json(self):
+        return json.loads(self.body)
+
+
+class _Conn:
+    """One client connection: the stream pair plus bytes read ahead of
+    the request being served (a pipelined next request)."""
+
+    def __init__(self, reader: asyncio.StreamReader,
+                 writer: asyncio.StreamWriter) -> None:
+        self.reader = reader
+        self.writer = writer
+        self.ahead = bytearray()
+        # set by a handler while its request runs: what a disconnect
+        # cancels (the request's context)
+        self.on_disconnect: Optional[Callable[[], None]] = None
+
+    async def read_head(self) -> Optional[bytes]:
+        """Bytes up to and including the blank line; None at a clean EOF."""
+        while True:
+            end = self.ahead.find(b"\r\n\r\n")
+            if end >= 0:
+                head = bytes(self.ahead[:end + 4])
+                del self.ahead[:end + 4]
+                return head
+            if len(self.ahead) > MAX_HEADER_BYTES:
+                raise ValueError("request head too large")
+            data = await self.reader.read(65536)
+            if not data:
+                if self.ahead.strip():
+                    raise ValueError("connection closed mid-request")
+                return None
+            self.ahead += data
+
+    async def read_body(self, n: int) -> bytes:
+        while len(self.ahead) < n:
+            data = await self.reader.read(max(65536, n - len(self.ahead)))
+            if not data:
+                raise ValueError("connection closed mid-body")
+            self.ahead += data
+        body = bytes(self.ahead[:n])
+        del self.ahead[:n]
+        return body
+
+
+def _head(version: str, status: int, headers: dict) -> bytes:
+    phrase = http.HTTPStatus(status).phrase
+    lines = [f"{version} {status} {phrase}"]
+    lines += [f"{k}: {v}" for k, v in headers.items()]
+    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+
+
+class Response:
+    """A whole response: status, body and its content type."""
+
+    def __init__(self, body: bytes, status: int = 200,
+                 content_type: str = JSON_TYPE) -> None:
+        self.body = body
+        self.status = status
+        self.content_type = content_type
+
+    async def send(self, writer: asyncio.StreamWriter,
+                   keep_alive: bool) -> None:
+        writer.write(_head("HTTP/1.1", self.status, {
+            "Content-Type": self.content_type,
+            "Content-Length": str(len(self.body)),
+            "Connection": "keep-alive" if keep_alive else "close"})
+            + self.body)
+        await writer.drain()
+
+
+def json_response(obj, status: int = 200) -> Response:
+    # the reference's aiohttp json_response: json.dumps with its defaults
+    return Response(json.dumps(obj).encode(), status)
+
+
+class StreamResponse:
+    """An SSE response: chunked transfer on HTTP/1.1; on HTTP/1.0 the
+    body runs to the end of the connection."""
+
+    def __init__(self, req: Request, writer: asyncio.StreamWriter) -> None:
+        self.req = req
+        self.writer = writer
+        self.chunked = req.version != "HTTP/1.0"
+        self.prepared = False
+        # the connection ends with this response: HTTP/1.0 bodies run to
+        # the end of it, and a client gone mid-stream left it broken
+        self.close_after = not self.chunked
+
+    async def prepare(self) -> None:
+        headers = {"Content-Type": "text/event-stream",
+                   "Cache-Control": "no-cache"}
+        if self.chunked:
+            headers["Transfer-Encoding"] = "chunked"
+            headers["Connection"] = ("keep-alive" if self.req.keep_alive
+                                     else "close")
+        else:
+            headers["Connection"] = "close"
+        self.writer.write(_head("HTTP/1.1", 200, headers))
+        self.prepared = True
+
+    async def write(self, data: bytes) -> None:
+        if self.chunked:
+            data = b"%x\r\n%s\r\n" % (len(data), data)
+        self.writer.write(data)
+        await self.writer.drain()
+
+    async def write_eof(self) -> None:
+        if self.chunked:
+            self.writer.write(b"0\r\n\r\n")
+        await self.writer.drain()
+
+    async def send(self, writer, keep_alive) -> None:
+        pass            # already written while the handler ran
+
+
+class HttpService:
+    def __init__(self, manager: ModelManager, host: str = "127.0.0.1",
+                 port: int = 0, tls_cert: Optional[str] = None,
+                 tls_key: Optional[str] = None,
+                 request_template: Optional[dict] = None) -> None:
+        self.manager = manager
+        self.host = host
+        self.port = port
+        # defaults applied to requests that omit them (request_template.rs:
+        # model, temperature, max_completion_tokens)
+        self.request_template = request_template or {}
+        if bool(tls_cert) != bool(tls_key):
+            # half-configured TLS must not silently serve plaintext
+            raise ValueError("tls_cert and tls_key must be set together")
+        self.tls_cert = tls_cert
+        self.tls_key = tls_key
+        self.routes = {
+            ("POST", "/v1/chat/completions"): self._chat,
+            ("POST", "/v1/completions"): self._completions,
+            ("GET", "/v1/models"): self._models,
+            ("GET", "/health"): self._health,
+            ("GET", "/live"): self._live,
+            ("GET", "/metrics"): self._metrics,
+        }
+        self._paths = {path for _, path in self.routes}
+        self._server: Optional[asyncio.base_events.Server] = None
+        self._conns: set[asyncio.StreamWriter] = set()
+        self._tasks: set[asyncio.Task] = set()
+        m = manager.runtime.metrics.child("http")
+        self._req_counter = m.counter(
+            "requests_total", "HTTP requests by endpoint/status")
+        self._inflight = m.gauge("inflight_requests", "streams in flight")
+        self._ttft = m.histogram(
+            "time_to_first_token_seconds", "TTFT",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                     5.0, 10.0, 30.0))
+        self._itl = m.histogram(
+            "inter_token_latency_seconds", "ITL",
+            buckets=(0.0001, 0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                     0.5, 1.0))
+        self._duration = m.histogram(
+            "request_duration_seconds", "total request duration")
+        # ISL/OSL from the pipeline's final-chunk usage
+        self._isl = m.histogram(
+            "request_input_tokens", "prompt tokens per request",
+            buckets=(16, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384))
+        self._osl = m.histogram(
+            "request_output_tokens", "completion tokens per request",
+            buckets=(1, 4, 16, 64, 128, 256, 512, 1024, 2048, 4096))
+
+    def _observe_usage(self, usage: Optional[dict]) -> None:
+        if not usage:
+            return
+        if usage.get("prompt_tokens") is not None:
+            self._isl.observe(usage["prompt_tokens"])
+        if usage.get("completion_tokens") is not None:
+            self._osl.observe(usage["completion_tokens"])
+
+    @property
+    def scheme(self) -> str:
+        return "https" if self.tls_cert else "http"
+
+    def _apply_template(self, body: dict) -> None:
+        t = self.request_template
+        if not t:
+            return
+        if not body.get("model") and t.get("model"):
+            body["model"] = t["model"]
+        if body.get("temperature") is None and \
+                t.get("temperature") is not None:
+            body["temperature"] = t["temperature"]
+        if body.get("max_tokens") is None \
+                and body.get("max_completion_tokens") is None \
+                and t.get("max_completion_tokens") is not None:
+            body["max_tokens"] = t["max_completion_tokens"]
+
+    # -- lifecycle ----------------------------------------------------------
+
+    async def start(self) -> tuple[str, int]:
+        ssl_ctx = None
+        if self.tls_cert and self.tls_key:
+            import ssl
+
+            ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ssl_ctx.load_cert_chain(self.tls_cert, self.tls_key)
+        self._server = await asyncio.start_server(
+            self._handle_conn, self.host, self.port, ssl=ssl_ctx)
+        self.port = self._server.sockets[0].getsockname()[1]
+        logger.info("HTTP frontend on %s://%s:%d", self.scheme, self.host,
+                    self.port)
+        return self.host, self.port
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+        for t in list(self._tasks):
+            t.cancel()
+        for w in list(self._conns):
+            w.close()
+        if self._tasks:
+            await asyncio.wait(list(self._tasks), timeout=2.0)
+        if self._server is not None:
+            try:
+                await asyncio.wait_for(self._server.wait_closed(), 2.0)
+            except asyncio.TimeoutError:
+                pass
+
+    # -- connections --------------------------------------------------------
+
+    async def _handle_conn(self, reader: asyncio.StreamReader,
+                           writer: asyncio.StreamWriter) -> None:
+        task = asyncio.current_task()
+        self._tasks.add(task)
+        self._conns.add(writer)
+        conn = _Conn(reader, writer)
+        try:
+            while True:
+                try:
+                    req = await self._read_request(conn)
+                except ValueError as e:
+                    await json_response(
+                        OpenAIError(str(e)).body(), 400).send(writer, False)
+                    break
+                if req is None:
+                    break
+                keep = req.keep_alive
+                try:
+                    resp = await self._serve(req, conn)
+                except Exception:
+                    logger.exception("handler failed: %s %s", req.method,
+                                     req.path)
+                    resp = json_response(OpenAIError(
+                        "internal server error", status=500,
+                        err_type="internal_error").body(), 500)
+                if resp is None:        # client went away mid-request
+                    break
+                await resp.send(writer, keep)
+                if not keep or getattr(resp, "close_after", False):
+                    break
+        except ConnectionError:
+            pass                        # the client went away
+        finally:
+            self._conns.discard(writer)
+            self._tasks.discard(task)
+            writer.close()
+
+    async def _read_request(self, conn: _Conn) -> Optional[Request]:
+        head = await conn.read_head()
+        if head is None:
+            return None
+        lines = head.decode("latin-1").split("\r\n")
+        try:
+            method, target, version = lines[0].split(" ")
+        except ValueError:
+            raise ValueError(f"bad request line {lines[0]!r}") from None
+        if version not in ("HTTP/1.0", "HTTP/1.1"):
+            raise ValueError(f"unsupported HTTP version {version!r}")
+        headers = {}
+        for line in lines[1:]:
+            if not line:
+                continue
+            name, sep, value = line.partition(":")
+            if not sep:
+                raise ValueError(f"bad header line {line!r}")
+            headers[name.strip().lower()] = value.strip()
+        if "chunked" in headers.get("transfer-encoding", "").lower():
+            raise ValueError("chunked request bodies are not supported; "
+                             "send Content-Length")
+        try:
+            n = int(headers.get("content-length", "0"))
+        except ValueError:
+            raise ValueError("bad Content-Length") from None
+        if not 0 <= n <= MAX_BODY_BYTES:
+            raise ValueError(f"request body of {n} bytes refused")
+        body = await conn.read_body(n) if n else b""
+        return Request(method.upper(), urlsplit(target).path, version,
+                       headers, body)
+
+    async def _serve(self, req: Request, conn: _Conn):
+        """Run the route's handler; a client that closes its connection
+        meanwhile cancels it (and so its request context)."""
+        handler = self.routes.get((req.method, req.path))
+        if handler is None:
+            status = 405 if req.path in self._paths else 404
+            return Response(f"{status}: {http.HTTPStatus(status).phrase}"
+                            .encode(), status, "text/plain; charset=utf-8")
+        task = asyncio.ensure_future(handler(req, conn))
+        eof = asyncio.ensure_future(conn.reader.read(65536))
+        try:
+            await asyncio.wait({task, eof},
+                               return_when=asyncio.FIRST_COMPLETED)
+            if eof.done() and not eof.exception() and not eof.result():
+                # the client went away: cancel the request's context
+                # first, and let its cancel frame go out to the worker
+                # before the handler's task unwinds the stream
+                if conn.on_disconnect is not None:
+                    conn.on_disconnect()
+                    await asyncio.sleep(0)
+                task.cancel()
+                await asyncio.wait({task})
+                return None
+            return await task
+        finally:
+            conn.on_disconnect = None
+            if not task.done():
+                task.cancel()
+            eof.cancel()
+            await asyncio.wait({eof})
+            if not eof.cancelled() and not eof.exception():
+                conn.ahead += eof.result()  # a pipelined next request
+
+    # -- handlers -----------------------------------------------------------
+
+    async def _chat(self, request: Request, conn: _Conn):
+        return await self._serve_openai(request, conn, KIND_CHAT)
+
+    async def _completions(self, request: Request, conn: _Conn):
+        return await self._serve_openai(request, conn, KIND_COMPLETION)
+
+    async def _serve_openai(self, request: Request, conn: _Conn,
+                            kind: str):
+        endpoint = ("chat_completions" if kind == KIND_CHAT
+                    else "completions")
+        try:
+            body = request.json()
+        except ValueError:
+            return self._error(endpoint, OpenAIError("invalid JSON body"))
+        if isinstance(body, dict):
+            self._apply_template(body)
+        model = body.get("model") if isinstance(body, dict) else None
+        engine = self.manager.engine_for(model) if model else None
+        if engine is None:
+            return self._error(endpoint, OpenAIError(
+                f"model {model!r} not found", status=404,
+                err_type="model_not_found"))
+        stream = bool(body.get("stream"))
+        request_id = new_request_id(
+            "chatcmpl" if kind == KIND_CHAT else "cmpl")
+        ctx = Context(request_id=request_id)
+        conn.on_disconnect = ctx.cancel
+        pipeline_request = {"_kind": kind, "body": body,
+                            "request_id": request_id}
+        start = time.perf_counter()
+        self._inflight.add(1)
+        try:
+            chunks = engine.generate(pipeline_request, ctx)
+            if stream:
+                return await self._stream_sse(request, conn.writer, endpoint,
+                                              chunks, ctx, start)
+            # unary: aggregate the stream
+            try:
+                full = await (aggregate_chat_stream(chunks)
+                              if kind == KIND_CHAT
+                              else aggregate_completion_stream(chunks))
+            except asyncio.CancelledError:
+                # client disconnected mid-aggregation: stop downstream work
+                ctx.cancel()
+                self._req_counter.inc(endpoint=endpoint, status="disconnect")
+                raise
+            except Exception as e:
+                return self._error(endpoint, _as_openai_error(e))
+            self._req_counter.inc(endpoint=endpoint, status="200")
+            self._duration.observe(time.perf_counter() - start)
+            self._observe_usage(full.get("usage"))
+            return json_response(full)
+        finally:
+            self._inflight.add(-1)
+
+    async def _stream_sse(self, request: Request, writer, endpoint: str,
+                          chunks, ctx: Context, start: float
+                          ) -> StreamResponse:
+        resp = StreamResponse(request, writer)
+        error_event = b""
+        first_token_at: Optional[float] = None
+        last_token_at: Optional[float] = None
+        try:
+            async for chunk in chunks:
+                if self._has_content(chunk):
+                    now = time.perf_counter()
+                    if first_token_at is None:
+                        first_token_at = now
+                        self._ttft.observe(now - start)
+                    elif last_token_at is not None:
+                        self._itl.observe(now - last_token_at)
+                    last_token_at = now
+                self._observe_usage(chunk.get("usage"))
+                if not resp.prepared:
+                    await resp.prepare()
+                await resp.write(sse_encode(chunk))
+            if not resp.prepared:
+                await resp.prepare()
+            await resp.write(SSE_DONE)
+            self._req_counter.inc(endpoint=endpoint, status="200")
+        except asyncio.CancelledError:
+            # client went away: cancel downstream work (disconnect.rs)
+            ctx.cancel()
+            self._req_counter.inc(endpoint=endpoint, status="disconnect")
+            raise
+        except (ConnectionResetError, BrokenPipeError):
+            # same, but seen by a write on the dead transport
+            ctx.cancel()
+            self._req_counter.inc(endpoint=endpoint, status="disconnect")
+            resp.close_after = True
+            return resp
+        except Exception as e:
+            err = _as_openai_error(e)
+            if not resp.prepared:
+                return self._error(endpoint, err)
+            # mid-stream: an error event ends the stream (no [DONE])
+            self._req_counter.inc(endpoint=endpoint, status=str(err.status))
+            error_event = sse_encode(err.body())
+        finally:
+            self._duration.observe(time.perf_counter() - start)
+        try:
+            if error_event:
+                await resp.write(error_event)
+            await resp.write_eof()
+        except (ConnectionResetError, BrokenPipeError):
+            ctx.cancel()
+            resp.close_after = True
+        return resp
+
+    @staticmethod
+    def _has_content(chunk: dict) -> bool:
+        """True for any token-bearing delta."""
+        for choice in chunk.get("choices", ()):
+            delta = choice.get("delta", {})
+            if (delta.get("content") or delta.get("reasoning_content")
+                    or delta.get("tool_calls") or choice.get("text")):
+                return True
+        return False
+
+    def _error(self, endpoint: str, e: OpenAIError) -> Response:
+        self._req_counter.inc(endpoint=endpoint, status=str(e.status))
+        return json_response(e.body(), status=e.status)
+
+    async def _models(self, request: Request, conn) -> Response:
+        return json_response({
+            "object": "list",
+            "data": [{"id": name, "object": "model",
+                      "created": int(time.time()), "owned_by": "dynamo-tpu"}
+                     for name in self.manager.model_names()],
+        })
+
+    async def _health(self, request: Request, conn) -> Response:
+        ready = bool(self.manager.model_names())
+        return json_response(
+            {"status": "healthy" if ready else "no models",
+             "models": self.manager.model_names()},
+            status=200 if ready else 503)
+
+    async def _live(self, request: Request, conn) -> Response:
+        return json_response({"status": "live"})
+
+    async def _metrics(self, request: Request, conn) -> Response:
+        return Response(self.manager.runtime.metrics.render().encode(),
+                        content_type="text/plain; charset=utf-8")
+
+
+def _as_openai_error(e: BaseException) -> OpenAIError:
+    """The response a pipeline failure becomes: the request's own error,
+    a 503 when no worker serves the model, a 500 otherwise."""
+    if isinstance(e, OpenAIError):
+        return e
+    if isinstance(e, NoInstancesError):
+        return OpenAIError(str(e), status=503, err_type="service_unavailable")
+    logger.error("request failed", exc_info=e)
+    return OpenAIError(f"{type(e).__name__}: {e}", status=500,
+                       err_type="internal_error")

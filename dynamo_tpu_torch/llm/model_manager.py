@@ -1,0 +1,189 @@
+"""ModelManager + ModelWatcher: discovery-driven pipeline assembly.
+
+Port of `dynamo_tpu/llm/model_manager.py`. When a ModelDeploymentCard
+appears under ``v1/mdc/``, build preprocessor → backend → migration →
+router and expose it by model name; when the last card for a model
+vanishes, tear it down. The port routes round-robin and random
+(`runtime/push.py`); a card or a frontend that asks for the KV router is
+refused with `KvRouterUnavailable`, never routed another way, until the
+KV-router slice lands (ROADMAP queue 1). The reference's multimodal
+encode routing and tool/reasoning parsers wait with those parts.
+
+Reference: `lib/llm/src/discovery/{watcher.rs:49,model_manager.rs:38}` and
+the pipeline assembly in `entrypoint/input/common.rs:261-325`
+(`build_routed_pipeline_with_preprocessor`).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import Optional
+
+from dynamo_tpu_torch.llm.backend import Backend
+from dynamo_tpu_torch.llm.migration import Migration
+from dynamo_tpu_torch.llm.model_card import MDC_PREFIX, ModelDeploymentCard
+from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.llm.tokenizer import make_tokenizer
+from dynamo_tpu_torch.runtime.engine import AsyncEngine, build_pipeline
+from dynamo_tpu_torch.runtime.push import RANDOM, ROUND_ROBIN, PushRouter
+from dynamo_tpu_torch.runtime.store import DELETE, PUT, RESET
+
+logger = logging.getLogger(__name__)
+
+ROUTER_MODES = (ROUND_ROBIN, RANDOM)
+
+
+class KvRouterUnavailable(ValueError):
+    """A KV-aware router mode was asked for; the port has none yet."""
+
+
+def check_router_mode(mode: str) -> None:
+    """Raise unless the port can route `mode` (round_robin | random)."""
+    if mode == "kv":
+        raise KvRouterUnavailable(
+            "router mode 'kv' is not supported by dynamo_tpu_torch yet: it "
+            "waits for the KV-router slice (KV events, the radix indexer "
+            "and the KV scheduler); use --router-mode round_robin or random")
+    if mode not in ROUTER_MODES:
+        raise ValueError(f"unknown router mode {mode!r}; expected one of "
+                         f"{ROUTER_MODES}")
+
+
+class ModelEntry:
+    def __init__(self, card: ModelDeploymentCard, engine: AsyncEngine,
+                 client) -> None:
+        self.card = card
+        self.engine = engine
+        self.client = client
+        self.card_keys: set[str] = set()
+
+    async def stop_clients(self) -> None:
+        await self.client.stop()
+
+
+class ModelManager:
+    """model name → serving pipeline (discovery/model_manager.rs:38)."""
+
+    def __init__(self, runtime) -> None:
+        self.runtime = runtime
+        # CLI `--router-mode` overrides every card's router_mode
+        # (frontend/main.py:4-16 flag semantics)
+        self.router_mode_override: Optional[str] = None
+        self._models: dict[str, ModelEntry] = {}
+
+    def model_names(self) -> list[str]:
+        return sorted(self._models)
+
+    def get(self, model: str) -> Optional[ModelEntry]:
+        return self._models.get(model)
+
+    def engine_for(self, model: str) -> Optional[AsyncEngine]:
+        e = self._models.get(model)
+        return e.engine if e else None
+
+    async def add_model(self, card: ModelDeploymentCard,
+                        card_key: str) -> ModelEntry:
+        entry = self._models.get(card.name)
+        if entry is not None:
+            entry.card_keys.add(card_key)
+            return entry
+        router_mode = self.router_mode_override or card.router_mode
+        check_router_mode(router_mode)
+        rt = self.runtime
+        ep = (rt.namespace(card.namespace).component(card.component)
+              .endpoint(card.endpoint))
+        client = await ep.client()
+        await client.start()
+        tokenizer = make_tokenizer(card.tokenizer_kind, card.tokenizer_path)
+        engine = build_pipeline(
+            OpenAIPreprocessor(tokenizer, card.name, card.context_length),
+            Backend(tokenizer),
+            Migration(card.migration_limit),
+            sink=PushRouter(client, mode=router_mode),
+        )
+        entry = ModelEntry(card, engine, client)
+        entry.card_keys.add(card_key)
+        self._models[card.name] = entry
+        logger.info("model added: %s (router=%s)", card.name, router_mode)
+        return entry
+
+    async def remove_card(self, model: str, card_key: str) -> None:
+        entry = self._models.get(model)
+        if entry is None:
+            return
+        entry.card_keys.discard(card_key)
+        if entry.card_keys:
+            return  # other workers still serve this model
+        del self._models[model]
+        await entry.stop_clients()
+        logger.info("model removed: %s", model)
+
+    async def close(self) -> None:
+        for name in list(self._models):
+            entry = self._models.pop(name)
+            await entry.stop_clients()
+
+
+class ModelWatcher:
+    """Watches ``v1/mdc/`` and drives the ModelManager
+    (discovery/watcher.rs:49,60+)."""
+
+    def __init__(self, manager: ModelManager,
+                 namespace: Optional[str] = None) -> None:
+        self.manager = manager
+        # only cards in this namespace are served (None = all)
+        self.namespace = namespace
+        self._task: Optional[asyncio.Task] = None
+        self._watch = None
+        # card_key -> model name (DELETE events carry only the key)
+        self._key_model: dict[str, str] = {}
+
+    async def start(self) -> "ModelWatcher":
+        store = self.manager.runtime.store
+        self._watch = await store.watch_prefix(MDC_PREFIX)
+        for kv in await store.get_prefix(MDC_PREFIX):
+            await self._on_put(kv.key, kv.value)
+        self._task = asyncio.get_running_loop().create_task(self._run())
+        return self
+
+    async def _run(self) -> None:
+        assert self._watch is not None
+        async for ev in self._watch:
+            try:
+                if ev.kind == PUT:
+                    await self._on_put(ev.key, ev.value)
+                elif ev.kind == DELETE:
+                    model = self._key_model.pop(ev.key, None)
+                    if model is not None:
+                        await self.manager.remove_card(model, ev.key)
+                elif ev.kind == RESET:
+                    # coordinator restarted: drop every discovered card;
+                    # surviving workers re-publish (replayed as PUTs)
+                    for key, model in list(self._key_model.items()):
+                        self._key_model.pop(key, None)
+                        await self.manager.remove_card(model, key)
+            except Exception:
+                logger.exception("model watcher failed on %s", ev.key)
+
+    async def _on_put(self, key: str, value: bytes) -> None:
+        card = ModelDeploymentCard.from_json(value)
+        if self.namespace is not None and card.namespace != self.namespace:
+            return
+        try:
+            await self.manager.add_model(card, key)
+        except Exception:
+            # one broken card (bad tokenizer path, malformed config, a
+            # router mode the port cannot serve) must not take down
+            # discovery for every other model — the reference's watcher
+            # logs and skips too (watcher.rs)
+            logger.exception("failed to add model %s from %s; skipping",
+                             card.name, key)
+            return
+        self._key_model[key] = card.name
+
+    async def stop(self) -> None:
+        if self._watch is not None:
+            self._watch.cancel()
+        if self._task is not None:
+            self._task.cancel()

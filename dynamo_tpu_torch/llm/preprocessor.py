@@ -65,6 +65,11 @@ class OpenAIPreprocessor(Operator):
         """Display text of ONE token id (logprobs entries)."""
         return self.tokenizer.decode([tid])
 
+    @staticmethod
+    def _token_id_text(tid: int) -> str:
+        """A logprobs token under `return_tokens_as_token_ids`."""
+        return f"token_id:{tid}"
+
     def preprocess_chat(self, req: ChatCompletionRequest
                         ) -> PreprocessedRequest:
         ids = self.tokenizer.encode(render_chat_template(req.messages))
@@ -119,14 +124,15 @@ class OpenAIPreprocessor(Operator):
             raise OpenAIError(f"request kind {kind!r} is not supported by "
                               f"dynamo_tpu_torch yet")
 
-    def _lp_entry(self, tid: int, lp: float, top) -> dict:
-        """One OpenAI chat logprobs.content[] entry."""
-        text = self._token_text(tid)
+    def _lp_entry(self, tid: int, lp: float, top, render) -> dict:
+        """One OpenAI chat logprobs.content[] entry; `render` gives a
+        token's text."""
+        text = render(tid)
         entry = {"token": text, "logprob": lp,
                  "bytes": list(text.encode("utf-8"))}
         if top is not None:
             entry["top_logprobs"] = [
-                {"token": (t := self._token_text(int(aid))),
+                {"token": (t := render(int(aid))),
                  "logprob": alp, "bytes": list(t.encode("utf-8"))}
                 for aid, alp in top]
         return entry
@@ -142,6 +148,8 @@ class OpenAIPreprocessor(Operator):
         # logprob entries buffer while text is held back (stop jail,
         # multi-byte holdback)
         want_lps = bool(oai.logprobs)
+        as_ids = want_lps and oai.return_tokens_as_token_ids
+        render = self._token_id_text if as_ids else self._token_text
         pending: list[dict] = []
         async for out in self.inner.generate(pre.to_dict(), context):
             ids = out.get("token_ids", ())
@@ -151,12 +159,13 @@ class OpenAIPreprocessor(Operator):
             if want_lps and out.get("log_probs"):
                 tops = out.get("top_logprobs") or [None] * len(ids)
                 for tid, lp, top in zip(ids, out["log_probs"], tops):
-                    pending.append(self._lp_entry(tid, lp, top))
-            if text:
+                    pending.append(self._lp_entry(tid, lp, top, render))
+            if text or (as_ids and pending):
                 entries, pending = (pending, []) if want_lps else (None,
                                                                    [])
                 yield chat_chunk(request_id, oai.model, created,
-                                 content=text, logprob_content=entries)
+                                 content=text or None,
+                                 logprob_content=entries)
             if finish:
                 break
         yield chat_chunk(
@@ -177,6 +186,8 @@ class OpenAIPreprocessor(Operator):
         # presence, not truthiness
         want_lps = oai.logprobs is not None
         want_top = bool(oai.logprobs)
+        as_ids = want_lps and oai.return_tokens_as_token_ids
+        render = self._token_id_text if as_ids else self._token_text
         lps: list[float] = []
         toks: list[str] = []
         tops: list[dict] = []
@@ -197,16 +208,16 @@ class OpenAIPreprocessor(Operator):
                 lps.extend(out["log_probs"])
                 alts_all = out.get("top_logprobs") or []
                 for ti, tid in enumerate(ids[:len(out["log_probs"])]):
-                    toks.append(self._token_text(tid))
+                    toks.append(render(tid))
                     if want_top:
                         d: dict = {}
                         alts = alts_all[ti] if ti < len(alts_all) else None
                         for a, lp in (alts or []):
                             # distinct ids can decode to the same text:
                             # keep the higher-ranked alternative
-                            d.setdefault(self._token_text(int(a)), lp)
+                            d.setdefault(render(int(a)), lp)
                         tops.append(d)
-            if text:
+            if text or (as_ids and lps):
                 kw = drain() if want_lps else {}
                 yield completion_chunk(request_id, oai.model, created,
                                        text, **kw)

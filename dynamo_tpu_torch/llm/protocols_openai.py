@@ -4,16 +4,25 @@ Port of the part of `dynamo_tpu/llm/protocols_openai.py` that the chat and
 completions pipeline needs (the port keeps its own copy): request parsing
 and validation, guided decoding's request surface (`_guided_from`:
 `response_format` json_object / json_schema and `nvext` or top-level
-guided_json / guided_regex / guided_choice), chunk builders, usage. Not in
-this slice, and rejected with a 400 when a request asks for them: n > 1,
-embeddings and the Responses API.
+guided_json / guided_regex / guided_choice), chunk builders, usage, the
+unary response builders, the stream folds (`aggregate_*_stream`) and the
+SSE codec. Not in this slice, and rejected with a 400 when a request asks
+for them: n > 1, embeddings and the Responses API.
+
+One request field the reference does not read: `return_tokens_as_token_ids`
+(vLLM's name for it). With logprobs on, each logprobs token string is
+"token_id:<id>", so tokens whose text is empty or not valid UTF-8 can be
+told apart, and every engine output that carries tokens goes out as a
+chunk of its own, so a client sees each token as it arrives.
 """
 
 from __future__ import annotations
 
+import json
+import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, AsyncIterator, Optional
 
 from dynamo_tpu_torch.protocols import SamplingOptions, StopConditions
 
@@ -107,7 +116,9 @@ def _common(d: dict) -> dict:
         seed=d.get("seed"), stop=list(stop),
         ignore_eos=bool(d.get("ignore_eos", nvext.get("ignore_eos", False))),
         min_tokens=_opt_int(d.get("min_tokens"), "min_tokens"),
-        guided=_guided_from(d, nvext), raw=d)
+        guided=_guided_from(d, nvext),
+        return_tokens_as_token_ids=bool(d.get("return_tokens_as_token_ids")),
+        raw=d)
 
 
 @dataclass
@@ -132,6 +143,8 @@ class ChatCompletionRequest:
     # `response_format` (json_object / json_schema) or nvext guided_json /
     # guided_regex / guided_choice
     guided: Optional[dict] = None
+    # logprobs tokens as "token_id:<id>", one chunk per engine output
+    return_tokens_as_token_ids: bool = False
     raw: dict = field(default_factory=dict)
 
     @classmethod
@@ -205,6 +218,7 @@ class CompletionRequest:
     echo: bool = False
     logprobs: Optional[int] = None       # OpenAI: int top-k
     guided: Optional[dict] = None
+    return_tokens_as_token_ids: bool = False
     raw: dict = field(default_factory=dict)
 
     @classmethod
@@ -230,6 +244,10 @@ class CompletionRequest:
 
     def stop_conditions(self) -> StopConditions:
         return ChatCompletionRequest.stop_conditions(self)
+
+
+def _now() -> int:
+    return int(time.time())
 
 
 def new_request_id(prefix: str = "chatcmpl") -> str:
@@ -281,3 +299,156 @@ def completion_chunk(request_id: str, model: str, created: int, text: str,
     if usage is not None:
         out["usage"] = usage
     return out
+
+
+async def _fold_chunks(chunks: AsyncIterator[dict], on_choice) -> tuple:
+    """Shared stream-fold scaffolding: header fields + usage capture;
+    ``on_choice(index, choice)`` accumulates per-choice state."""
+    request_id, model, created, usage = "", "", _now(), None
+    async for c in chunks:
+        request_id = c.get("id", request_id)
+        model = c.get("model", model)
+        created = c.get("created", created)
+        if c.get("usage"):
+            usage = c["usage"]
+        for choice in c.get("choices", ()):
+            on_choice(int(choice.get("index", 0)), choice)
+    return request_id, model, created, usage or usage_dict(0, 0)
+
+
+def chat_completion(request_id: str, model: str, created: int, text: str,
+                    finish_reason: str, usage: dict,
+                    tool_calls: Optional[list[dict]] = None,
+                    reasoning: str = "",
+                    logprob_content: Optional[list[dict]] = None) -> dict:
+    message: dict[str, Any] = {"role": "assistant", "content": text}
+    if tool_calls:
+        # unary shape carries no streaming 'index' field
+        message["tool_calls"] = [
+            {k: v for k, v in tc.items() if k != "index"}
+            for tc in tool_calls]
+    if reasoning:
+        message["reasoning_content"] = reasoning
+    choice: dict[str, Any] = {
+        "index": 0,
+        "message": message,
+        "finish_reason": finish_reason,
+    }
+    if logprob_content is not None:
+        choice["logprobs"] = {"content": logprob_content}
+    return {
+        "id": request_id, "object": "chat.completion", "created": created,
+        "model": model,
+        "choices": [choice],
+        "usage": usage,
+    }
+
+
+def completion_response(request_id: str, model: str, created: int, text: str,
+                        finish_reason: str, usage: dict,
+                        token_logprobs: Optional[list[float]] = None,
+                        tokens: Optional[list[str]] = None,
+                        top_logprobs: Optional[list[dict]] = None
+                        ) -> dict:
+    return completion_chunk(request_id, model, created, text,
+                            finish_reason, usage,
+                            token_logprobs=token_logprobs,
+                            tokens=tokens, top_logprobs=top_logprobs)
+
+
+# ---------------------------------------------------------------------------
+# SSE codec (protocols/codec.rs)
+# ---------------------------------------------------------------------------
+
+SSE_DONE = b"data: [DONE]\n\n"
+
+
+def sse_encode(payload: dict) -> bytes:
+    return b"data: " + json.dumps(payload, separators=(",", ":")).encode() \
+        + b"\n\n"
+
+
+async def aggregate_chat_stream(chunks: AsyncIterator[dict]) -> dict:
+    """Fold chat.completion.chunk stream into one chat.completion —
+    per CHOICE INDEX (n>1 interleaves choices), including
+    `delta.tool_calls` and `delta.reasoning_content` from the jailed
+    stream (aggregator.rs folds the same three delta kinds)."""
+    per: dict[int, dict] = {}
+
+    def empty() -> dict:
+        return {"text": [], "tool_calls": [], "reasoning": [],
+                "finish": "stop", "lp_content": None}
+
+    def on_choice(i: int, choice: dict) -> None:
+        st = per.setdefault(i, empty())
+        delta = choice.get("delta", {})
+        if delta.get("content"):
+            st["text"].append(delta["content"])
+        for tc in delta.get("tool_calls") or ():
+            tc = dict(tc)
+            tc["index"] = len(st["tool_calls"])
+            st["tool_calls"].append(tc)
+        if delta.get("reasoning_content"):
+            st["reasoning"].append(delta["reasoning_content"])
+        lp = choice.get("logprobs")
+        if lp and lp.get("content"):
+            st["lp_content"] = (st["lp_content"] or []) + lp["content"]
+        if choice.get("finish_reason"):
+            st["finish"] = choice["finish_reason"]
+
+    request_id, model, created, usage = await _fold_chunks(chunks,
+                                                           on_choice)
+    choices = []
+    for i in sorted(per) if per else [0]:
+        st = per.get(i, empty())
+        one = chat_completion(
+            request_id, model, created, "".join(st["text"]), st["finish"],
+            usage, tool_calls=st["tool_calls"],
+            reasoning="".join(st["reasoning"]),
+            logprob_content=st["lp_content"])["choices"][0]
+        one["index"] = i
+        choices.append(one)
+    return {"id": request_id, "object": "chat.completion",
+            "created": created, "model": model, "choices": choices,
+            "usage": usage}
+
+
+async def aggregate_completion_stream(chunks: AsyncIterator[dict]) -> dict:
+    """Fold text_completion chunk stream into one text_completion — per
+    choice index (n>1), keeping token logprobs (a unary logprobs request
+    must not silently drop them)."""
+    per: dict[int, dict] = {}
+
+    def empty() -> dict:
+        return {"text": [], "lps": [], "toks": [], "tops": [],
+                "finish": "stop"}
+
+    def on_choice(i: int, choice: dict) -> None:
+        st = per.setdefault(i, empty())
+        if choice.get("text"):
+            st["text"].append(choice["text"])
+        lp = choice.get("logprobs")
+        if lp and lp.get("token_logprobs"):
+            st["lps"].extend(lp["token_logprobs"])
+            if lp.get("tokens"):
+                st["toks"].extend(lp["tokens"])
+            if lp.get("top_logprobs"):
+                st["tops"].extend(lp["top_logprobs"])
+        if choice.get("finish_reason"):
+            st["finish"] = choice["finish_reason"]
+
+    request_id, model, created, usage = await _fold_chunks(chunks,
+                                                           on_choice)
+    choices = []
+    for i in sorted(per) if per else [0]:
+        st = per.get(i, empty())
+        one = completion_response(
+            request_id, model, created, "".join(st["text"]), st["finish"],
+            usage, token_logprobs=st["lps"] or None,
+            tokens=st["toks"] or None,
+            top_logprobs=st["tops"] or None)["choices"][0]
+        one["index"] = i
+        choices.append(one)
+    return {"id": request_id, "object": "text_completion",
+            "created": created, "model": model, "choices": choices,
+            "usage": usage}

@@ -1,9 +1,12 @@
-"""Launcher: one engine, in process, fed from text or a batch file.
+"""Launcher: one engine fed from text, a batch file or HTTP.
 
 Port of `dynamo_tpu/run/main.py` for the torch engine:
 
     python -m dynamo_tpu_torch.run in=text:<prompt> out=torch:<ckpt> [flags]
     python -m dynamo_tpu_torch.run in=batch:<file.jsonl> out=torch:<ckpt>
+    python -m dynamo_tpu_torch.run in=http out=torch:<ckpt> [--port N]
+    python -m dynamo_tpu_torch.run in=text:<prompt>|batch:<file> \
+        out=dyn://<namespace>.<component>.<endpoint> --store tcp://host:port
 
 A batch line may carry chat request fields beside its text, e.g. a
 guided or penalised request:
@@ -15,9 +18,15 @@ guided or penalised request:
 `out=torch:<ckpt>` serves a checkpoint directory through
 `build_torch_engine` on `--device` (default cuda; it raises without a
 card), on the phase path (`DYN_ATTENTION_IMPL=ragged`: the ragged
-path). The pipeline is OpenAIPreprocessor → Backend → TorchEngine, as
-`build_pipeline_for` builds it. `in=http` and `dyn://` outputs arrive with
-the worker slice.
+path). For text and batch inputs the pipeline is OpenAIPreprocessor →
+Backend → TorchEngine, as `build_pipeline_for` builds it. `in=http` serves
+the engine on an in-process memory store (`serve_engine`) and starts the
+OpenAI frontend over it (`start_frontend`), as the reference does: the
+same discovery-driven path as a multi-process deployment, in one process;
+it prints `RUN_READY <url>` and serves until SIGINT/SIGTERM.
+`out=dyn://ns.comp.ep` routes text and batch inputs to live remote workers
+found through `--store` (`--router-mode` round_robin or random); the
+tokenizer comes from the workers' published card.
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ import sys
 import time
 from typing import Optional
 
-USAGE = ("python -m dynamo_tpu_torch.run in=text:<prompt>|batch:<file> "
-         "out=torch:<ckpt> [flags]")
+USAGE = ("python -m dynamo_tpu_torch.run in=text:<prompt>|batch:<file>|http "
+         "out=torch:<ckpt>|dyn://<ns>.<component>.<endpoint> [flags]")
+PROG = "python -m dynamo_tpu_torch.run"
 # keys of a batch line that are not chat request fields
 _BATCH_OWN_KEYS = ("text", "prompt", "messages", "max_tokens", "model",
                    "stream")
@@ -51,8 +61,16 @@ def parse_io(argv: list[str]) -> tuple[str, str, list[str]]:
 
 
 def parse_args(rest: list[str]) -> argparse.Namespace:
-    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.run",
-                                usage=USAGE)
+    from dynamo_tpu_torch.cli_util import add_runtime_args
+
+    p = argparse.ArgumentParser(prog=PROG, usage=USAGE)
+    add_runtime_args(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080,
+                   help="in=http: the frontend's port")
+    p.add_argument("--router-mode", default="round_robin",
+                   choices=["round_robin", "random"],
+                   help="in=http and dyn:// routing")
     p.add_argument("--model-name", default=None,
                    help="served model name (default: checkpoint dir name)")
     p.add_argument("--device", default="cuda",
@@ -122,9 +140,11 @@ async def run_batch(pipeline, model: str, path: str, max_tokens: int,
     """batch:<file.jsonl> — one {"text": ...} or {"messages": [...]} per
     line, all in flight at once; any other key of a line is a chat request
     field (temperature, seed, min_p, presence_penalty, response_format,
-    nvext guided_regex / guided_choice / guided_json, ...). Writes one
-    JSONL result per line (text, finish reason, completion tokens,
-    seconds) and returns the results."""
+    nvext guided_regex / guided_choice / guided_json, logprobs,
+    top_logprobs, return_tokens_as_token_ids, ...). Writes one JSONL
+    result per line (text, finish reason, completion tokens, seconds, the
+    seconds to the first chunk that carried a token, and the logprobs
+    entries when the line asked for them) and returns the results."""
     from dynamo_tpu_torch.runtime.context import Context
 
     async def one(i: int, d: dict) -> dict:
@@ -140,18 +160,28 @@ async def run_batch(pipeline, model: str, path: str, max_tokens: int,
         parts = []
         finish = None
         tokens = 0
+        first = None
+        lps: list[dict] = []
         async for chunk in pipeline.generate(req, Context()):
             if chunk.get("usage"):
                 tokens = chunk["usage"]["completion_tokens"]
             for ch in chunk.get("choices", ()):
                 t = ch.get("delta", {}).get("content")
+                entries = (ch.get("logprobs") or {}).get("content") or ()
+                if first is None and (t or entries):
+                    first = time.perf_counter() - t0
                 if t:
                     parts.append(t)
+                lps.extend(entries)
                 if ch.get("finish_reason"):
                     finish = ch["finish_reason"]
-        return {"index": i, "text": "".join(parts),
-                "finish_reason": finish, "completion_tokens": tokens,
-                "elapsed_s": round(time.perf_counter() - t0, 4)}
+        out = {"index": i, "text": "".join(parts),
+               "finish_reason": finish, "completion_tokens": tokens,
+               "elapsed_s": round(time.perf_counter() - t0, 4),
+               "ttft_s": None if first is None else round(first, 4)}
+        if body.get("logprobs"):
+            out["logprobs"] = lps
+        return out
 
     with open(path, encoding="utf-8") as f:
         jobs = [json.loads(line) for line in f if line.strip()]
@@ -167,39 +197,138 @@ async def run_batch(pipeline, model: str, path: str, max_tokens: int,
     return results
 
 
+async def connect_remote(out: str, args, runtime):
+    """out=dyn://ns.component.endpoint → a router over live instances
+    plus a pipeline card (tokenization happens HERE, so the card's
+    tokenizer must match the remote model — resolved from the remote's
+    published MDC when one exists)."""
+    from dynamo_tpu_torch.llm.model_card import (
+        MDC_PREFIX,
+        ModelDeploymentCard,
+    )
+    from dynamo_tpu_torch.runtime.push import PushRouter
+
+    spec = out[len("dyn://"):]
+    try:
+        ns, comp, ep = spec.split(".", 2)
+    except ValueError:
+        raise SystemExit(f"bad dyn:// target {out!r}: want "
+                         "dyn://namespace.component.endpoint") from None
+    card: Optional[ModelDeploymentCard] = None
+    for kv in await runtime.store.get_prefix(f"{MDC_PREFIX}{ns}/{comp}/"):
+        card = ModelDeploymentCard.from_json(kv.value)
+        break
+    if card is None:  # no published card: assume word-tokenizer echo-style
+        name = args.model_name or "run-model"
+        card = ModelDeploymentCard(name=name, namespace=ns, component=comp,
+                                   endpoint=ep, tokenizer_kind="word",
+                                   tokenizer_path=name)
+    client = await (runtime.namespace(ns).component(comp)
+                    .endpoint(ep).client())
+    await client.start()
+    await client.wait_ready()
+    return PushRouter(client, mode=args.router_mode), card
+
+
+async def serve_http(engine, card, args) -> None:
+    """in=http: serve the engine on an in-process memory store and front
+    it with the OpenAI HTTP service until SIGINT/SIGTERM."""
+    import signal
+
+    from dynamo_tpu_torch.cli_util import runtime_config_from_args
+    from dynamo_tpu_torch.llm.entrypoint import serve_engine, start_frontend
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    cfg = runtime_config_from_args(args)
+    cfg.store_url = "memory"        # fully local run
+    runtime = await DistributedRuntime.create(cfg)
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, runtime.shutdown)
+    card.namespace = args.namespace
+    card.component = "run"
+    card.router_mode = args.router_mode
+    handle = fe = None
+    try:
+        handle = await serve_engine(runtime, engine, card)
+        fe = await start_frontend(runtime, host=args.host, port=args.port)
+        print(f"RUN_READY {fe.url}", flush=True)
+        await runtime.wait_shutdown()
+    finally:
+        if fe is not None:
+            await fe.stop()
+        if handle is not None:
+            await handle.stop()
+        await runtime.close()
+
+
 async def amain(inp: str, out: str, args) -> None:
     from dynamo_tpu_torch.llm.entrypoint import build_torch_engine
 
-    if not out.startswith("torch:") or not out[len("torch:"):]:
-        raise SystemExit(f"unknown out={out!r}; expected out=torch:<ckpt>")
-    engine, card = build_torch_engine(
-        out[len("torch:"):], args.model_name, num_pages=args.num_pages,
-        max_batch_size=args.max_batch_size,
-        prefill_chunk_budget=args.prefill_chunk_budget,
-        pipeline_bursts=args.pipeline_bursts,
-        random_init=args.random_init, device=args.device)
+    remote = out.startswith("dyn://")
+    if inp == "http" and remote:
+        raise SystemExit(
+            "in=http out=dyn:// — run python -m dynamo_tpu_torch.frontend "
+            "against the shared store instead")
+    if not remote and (not out.startswith("torch:")
+                       or not out[len("torch:"):]):
+        raise SystemExit(f"unknown out={out!r}; expected out=torch:<ckpt> "
+                         f"or out=dyn://<ns>.<component>.<endpoint>")
+    if not (inp == "http" or inp.startswith(("text:", "batch:"))):
+        raise SystemExit(f"unknown in={inp!r}; expected "
+                         f"text:<prompt>|batch:<file>|http")
+    runtime = engine = None
     try:
-        pipeline = build_pipeline_for(card, engine, args)
+        if remote:
+            from dynamo_tpu_torch.cli_util import runtime_config_from_args
+            from dynamo_tpu_torch.runtime.distributed import (
+                DistributedRuntime,
+            )
+
+            runtime = await DistributedRuntime.create(
+                runtime_config_from_args(args))
+            sink, card = await connect_remote(out, args, runtime)
+        else:
+            engine, card = build_torch_engine(
+                out[len("torch:"):], args.model_name,
+                num_pages=args.num_pages,
+                max_batch_size=args.max_batch_size,
+                prefill_chunk_budget=args.prefill_chunk_budget,
+                pipeline_bursts=args.pipeline_bursts,
+                random_init=args.random_init, device=args.device)
+            sink = engine
+        if inp == "http":
+            await serve_http(engine, card, args)
+            return
+        pipeline = build_pipeline_for(card, sink, args)
         if inp.startswith("text:"):
             prompt = inp[len("text:"):]
             if not prompt:
                 raise SystemExit("in=text:<prompt> needs a prompt")
             await run_one(pipeline, card.name, prompt, args.max_tokens,
                           stream_out=sys.stdout)
-        elif inp.startswith("batch:"):
+        else:
             results = await run_batch(pipeline, card.name,
                                       inp[len("batch:"):], args.max_tokens,
                                       args.batch_output)
             print(f"BATCH_DONE {len(results)}", file=sys.stderr, flush=True)
-        else:
-            raise SystemExit(f"unknown in={inp!r}; expected "
-                             f"text:<prompt>|batch:<file>")
     finally:
-        await engine.close()
+        if engine is not None:
+            await engine.close()
+        if runtime is not None:
+            await runtime.close()
 
 
 def main(argv: Optional[list[str]] = None) -> None:
+    from dynamo_tpu_torch.cli_util import (
+        RUNTIME_REFUSED,
+        refuse_unported,
+        setup_logging,
+    )
+
     inp, out, rest = parse_io(list(argv if argv is not None
                                    else sys.argv[1:]))
     args = parse_args(rest)
+    refuse_unported(args, RUNTIME_REFUSED, PROG)
+    setup_logging(args.log_level)
     asyncio.run(amain(inp, out, args))

@@ -1,0 +1,83 @@
+"""Layered runtime configuration.
+
+Port of `dynamo_tpu/runtime/config.py`: the fields of the runtime this
+slice serves (control-plane store, transport, leases, request deadlines,
+dial retries, the circuit breaker). The status server, health canaries,
+KVBM pipeline, telemetry and SLO fields wait with their subsystems.
+
+Reference: `lib/runtime/src/config.rs` (figment: defaults < file < DYN_* env).
+Here: dataclass defaults < optional JSON file < ``DYN_*`` environment.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from dataclasses import dataclass
+from typing import Any, Optional
+
+ENV_PREFIX = "DYN_"
+
+
+@dataclass
+class RuntimeConfig:
+    """Knobs for a single process's runtime (reference `config.rs:75-167`)."""
+
+    # Control-plane store: "memory" (single-process / tests) or "tcp://host:port"
+    # pointing at a `StoreServer` coordinator.
+    store_url: str = "memory"
+    # Address this process binds its transport server to; port 0 = ephemeral.
+    listen_host: str = "127.0.0.1"
+    listen_port: int = 0
+    # Advertised host (what other nodes dial); defaults to listen_host.
+    advertise_host: Optional[str] = None
+    # Lease TTL for instance liveness, seconds (reference etcd lease).
+    lease_ttl: float = 10.0
+    # Overall per-request wall clock, seconds; 0 = unbounded. Propagated
+    # to the server so an abandoned handler is aborted too.
+    request_deadline: float = 0.0
+    # Max silence between response frames before the stream is declared
+    # dead (raises the Migration-retryable error); 0 = wait forever.
+    stream_idle_timeout: float = 0.0
+    # Extra dial attempts on connection setup (jittered exp backoff).
+    connect_retries: int = 2
+    connect_backoff_base: float = 0.05
+    connect_backoff_max: float = 2.0
+    # Seconds an exhausted dial cycle poisons its address so callers
+    # queued on the same dial lock fail fast (0 disables).
+    connect_neg_cache: float = 0.25
+    # Per-instance circuit breaker: consecutive infra failures before the
+    # instance leaves the candidate set, and the open → half-open probe
+    # cooldown, seconds.
+    breaker_fail_limit: int = 3
+    breaker_cooldown: float = 5.0
+
+    @classmethod
+    def from_env(cls, path: Optional[str] = None) -> "RuntimeConfig":
+        """defaults < json file (path or DYN_CONFIG) < DYN_<FIELD> env vars."""
+        values: dict[str, Any] = {}
+        cfg_path = path or os.environ.get(ENV_PREFIX + "CONFIG")
+        if cfg_path and os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                values.update(json.load(f))
+        for f_ in dataclasses.fields(cls):
+            env_key = ENV_PREFIX + f_.name.upper()
+            if env_key in os.environ:
+                raw = os.environ[env_key]
+                values[f_.name] = _coerce(raw, f_.type)
+        known = {f_.name for f_ in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in values.items() if k in known})
+
+
+def _coerce(raw: str, type_hint: Any) -> Any:
+    hint = str(type_hint)
+    if "int" in hint:
+        return int(raw)
+    if "float" in hint:
+        return float(raw)
+    if "bool" in hint:
+        return raw.lower() in ("1", "true", "yes", "on")
+    if "dict" in hint:
+        return json.loads(raw)
+    return raw

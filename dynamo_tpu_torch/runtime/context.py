@@ -18,11 +18,18 @@ class Context:
                  headers: Optional[dict[str, Any]] = None) -> None:
         self.request_id = request_id or uuid.uuid4().hex
         self.headers: dict[str, Any] = headers or {}
+        # Absolute expiry (event-loop clock) for the WHOLE request.
+        # Stamped by the transport on first use of a configured
+        # `request_deadline`, then inherited by router retries and
+        # Migration replays that reuse this context — one shared budget,
+        # not a fresh one per attempt.
+        self.deadline: Optional[float] = None
         self._cancelled = asyncio.Event()
         self._parent = parent
         self._children: list[Context] = []
         if parent is not None:
             parent._children.append(self)
+            self.deadline = parent.deadline
             if parent.is_cancelled():
                 self._cancelled.set()
 

@@ -1,0 +1,181 @@
+"""DistributedRuntime: the per-process cluster handle.
+
+Port of `dynamo_tpu/runtime/distributed.py`: the store, the transport
+server and client, the process-wide circuit breaker, the metrics
+registry, the in-process engine registry and the re-registration of
+lease-attached keys after a coordinator restart. The status server, the
+health-check manager, the event plane's users (breaker events, KV events:
+the KV-router slice), the adaptive idle timeout, the store-degradation
+flags and the KVBM wiring wait with their subsystems.
+
+Reference: `lib/runtime/src/distributed.rs:43-191` — holds the etcd client
+(here: store), NATS client (here: transport server/client), component
+registry, metrics registries, and the system status server. Static mode
+(`distributed.rs:48-56`): store_url="memory" runs everything in-process with
+no coordinator, the analog of the reference's MemoryStore static mode.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import socket
+from typing import Optional
+
+from dynamo_tpu_torch.runtime.breaker import CircuitBreaker
+from dynamo_tpu_torch.runtime.component import Namespace
+from dynamo_tpu_torch.runtime.config import RuntimeConfig
+from dynamo_tpu_torch.runtime.engine import AsyncEngine
+from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+from dynamo_tpu_torch.runtime.store import KeyValueStore, connect_store
+from dynamo_tpu_torch.runtime.transport import TransportClient, TransportServer
+
+logger = logging.getLogger(__name__)
+
+
+class DistributedRuntime:
+    def __init__(self, config: RuntimeConfig, store: KeyValueStore,
+                 transport_server: TransportServer, lease_id: int) -> None:
+        self.config = config
+        self.store = store
+        self.transport_server = transport_server
+        self.transport_client = TransportClient(
+            idle_timeout=config.stream_idle_timeout,
+            deadline=config.request_deadline,
+            connect_retries=config.connect_retries,
+            connect_backoff_base=config.connect_backoff_base,
+            connect_backoff_max=config.connect_backoff_max,
+            connect_neg_cache=config.connect_neg_cache)
+        # process-wide per-instance circuit breaker: every PushRouter in
+        # this process shares it, so one router's failures steer them all
+        self.breaker = CircuitBreaker(config.breaker_fail_limit,
+                                      config.breaker_cooldown)
+        self.lease_id = lease_id
+        self.metrics = MetricsRegistry("dynamo")
+        # surface retry/timeout/breaker counters on both observability
+        # planes: the `_sys.stats` scrape and the Prometheus registry
+        transport_server.extra_stats = self._robustness_stats
+        self._wire_robustness_metrics()
+        self._local_engines: dict[str, AsyncEngine] = {}
+        self._shutdown = asyncio.Event()
+        # async callables replayed after a coordinator restart: the new
+        # store is empty, so every lease-attached key must be re-put
+        # (instance registrations, model cards)
+        self._reregisters: list = []
+        if hasattr(store, "on_reconnect"):
+            store.on_reconnect.append(self._on_store_reconnect)
+
+    def _robustness_stats(self) -> dict:
+        """Process-level counters merged into the `_sys.stats` scrape:
+        the transport client's and the breaker's, and this process's
+        metrics registry as Prometheus text (a worker serves no HTTP of
+        its own until the status server is ported)."""
+        return {"transport": dict(self.transport_client.stats),
+                "breaker": self.breaker.snapshot(),
+                "metrics": self.metrics.render()}
+
+    def _wire_robustness_metrics(self) -> None:
+        events = self.metrics.gauge(
+            "transport_client_events",
+            "client-side transport events (retries, timeouts, response "
+            "frames) by kind")
+        transitions = self.metrics.gauge(
+            "breaker_transitions",
+            "circuit breaker state transitions by target state")
+        open_g = self.metrics.gauge(
+            "breaker_open_instances",
+            "instances currently filtered from routing (open/half-open)")
+
+        def sync() -> None:
+            for kind, v in self.transport_client.stats.items():
+                events.set(v, kind=kind)
+            for state, n in self.breaker.transitions.items():
+                transitions.set(n, state=state)
+            open_g.set(self.breaker.open_count())
+
+        self.metrics.on_scrape(sync)
+
+    def replay_on_reconnect(self, fn) -> None:
+        """Register an async callable that re-publishes one
+        lease-attached key after a coordinator restart. Called AFTER
+        the runtime's lease has been re-created (self.lease_id is fresh
+        when fn runs)."""
+        self._reregisters.append(fn)
+
+    def drop_replay(self, fn) -> None:
+        try:
+            self._reregisters.remove(fn)
+        except ValueError:
+            pass
+
+    async def _on_store_reconnect(self) -> None:
+        self.lease_id = await self.store.create_lease(
+            self.config.lease_ttl)
+        for fn in list(self._reregisters):
+            try:
+                await fn()
+            except Exception:
+                logger.warning(
+                    "re-registration failed after coordinator restart",
+                    exc_info=True)
+
+    # -- construction ------------------------------------------------------
+
+    @classmethod
+    async def create(cls, config: Optional[RuntimeConfig] = None
+                     ) -> "DistributedRuntime":
+        config = config or RuntimeConfig.from_env()
+        store = await connect_store(config.store_url)
+        server = TransportServer(config.listen_host, config.listen_port)
+        await server.start()
+        if config.advertise_host:
+            server.host = config.advertise_host
+        lease_id = await store.create_lease(config.lease_ttl)
+        rt = cls(config, store, server, lease_id)
+        logger.info("runtime up: transport=%s store=%s",
+                    server.address, config.store_url)
+        return rt
+
+    # -- component model ---------------------------------------------------
+
+    def namespace(self, name: str) -> Namespace:
+        return Namespace(self, name)
+
+    @property
+    def transport_address(self) -> str:
+        return self.transport_server.address
+
+    # -- local engine registry (in-proc fast path) -------------------------
+
+    def register_local(self, subject: str, engine: AsyncEngine) -> None:
+        self._local_engines[subject] = engine
+
+    def unregister_local(self, subject: str) -> None:
+        self._local_engines.pop(subject, None)
+
+    def local_engine(self, subject: str) -> Optional[AsyncEngine]:
+        return self._local_engines.get(subject)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def shutdown(self) -> None:
+        self._shutdown.set()
+
+    async def wait_shutdown(self) -> None:
+        await self._shutdown.wait()
+
+    async def close(self) -> None:
+        self.shutdown()
+        try:
+            await self.store.revoke_lease(self.lease_id)
+        except Exception:
+            pass
+        await self.transport_client.close()
+        await self.transport_server.stop()
+        await self.store.close()
+
+
+def free_port(host: str = "127.0.0.1") -> int:
+    with socket.socket() as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]

@@ -1,0 +1,89 @@
+"""The port's worker and frontend CLIs refuse what they cannot serve: each
+reference flag whose subsystem is not ported yet, set, exits with a
+message that names what it waits for (none is ignored); a `kv` router mode
+exits naming the KV-router slice; the worker on `--device cuda` without a
+card raises instead of serving on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+from dynamo_tpu_torch.cli_util import RUNTIME_REFUSED
+from dynamo_tpu_torch.frontend import __main__ as frontend_main
+from dynamo_tpu_torch.worker import main as worker_main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BASE = ["--echo", "--router-mode", "round_robin"]
+
+
+def _value(kind: str) -> list:
+    return {"store_true": [], "int>1": ["2"], "value": ["1"]}[kind]
+
+
+@pytest.mark.parametrize(
+    "flag", sorted({**RUNTIME_REFUSED, **worker_main.WORKER_REFUSED}))
+def test_worker_refuses_unported_flag(flag):
+    waits_for, kind = {**RUNTIME_REFUSED,
+                       **worker_main.WORKER_REFUSED}[flag]
+    args = worker_main.parse_args(BASE + [flag] + _value(kind))
+    with pytest.raises(SystemExit) as e:
+        worker_main.check_args(args)
+    msg = str(e.value)
+    assert flag in msg and waits_for in msg
+
+
+@pytest.mark.parametrize(
+    "flag", sorted({**RUNTIME_REFUSED, **frontend_main.FRONTEND_REFUSED}))
+def test_frontend_refuses_unported_flag(flag, monkeypatch):
+    waits_for, kind = {**RUNTIME_REFUSED,
+                       **frontend_main.FRONTEND_REFUSED}[flag]
+    started = []
+    monkeypatch.setattr(frontend_main, "run_until_signal",
+                        lambda *a, **k: started.append(a))
+    with pytest.raises(SystemExit) as e:
+        frontend_main.main([flag] + _value(kind))
+    msg = str(e.value)
+    assert flag in msg and waits_for in msg
+    assert not started
+
+
+@pytest.mark.parametrize("flag,value", [("--tensor-parallel-size", "1"),
+                                        ("--num-nodes", "1")])
+def test_worker_accepts_single_device_defaults(flag, value):
+    worker_main.check_args(worker_main.parse_args(BASE + [flag, value]))
+
+
+def test_kv_router_mode_exits_naming_the_kv_router(monkeypatch):
+    with pytest.raises(SystemExit, match="KV-router slice"):
+        worker_main.check_args(worker_main.parse_args(["--echo"]))
+    monkeypatch.setattr(frontend_main, "run_until_signal",
+                        lambda *a, **k: None)
+    with pytest.raises(SystemExit, match="KV-router slice"):
+        frontend_main.main(["--router-mode", "kv"])
+
+
+def test_worker_on_cuda_without_a_card_raises(tmp_path):
+    from dynamo_tpu.models.synth_ckpt import write_synthetic_hf_checkpoint
+
+    ckpt = write_synthetic_hf_checkpoint(str(tmp_path / "tiny"),
+                                         preset="tiny")
+    args = worker_main.parse_args(["--model", ckpt, "--router-mode",
+                                   "round_robin"])
+    assert args.device == "cuda"
+    worker_main.check_args(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker_main.build_engine_and_card(args)
+
+
+def test_worker_cli_exits_nonzero_on_refusal():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.worker", "--echo",
+         "--router-mode", "round_robin", "--draft-model", "/x"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "--draft-model" in proc.stderr
+    assert "speculative decoding" in proc.stderr

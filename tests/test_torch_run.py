@@ -227,3 +227,141 @@ async def test_batch_pipeline_on_cpu(ckpts, tmp_path):
         assert 1 <= r["completion_tokens"] <= 6
     assert len((tmp_path / "out.jsonl").read_text().splitlines()) == 5
     assert engine.pool.active_pages == 0
+
+
+_FOREIGN_PROBE = (
+    "import runpy, sys\n"
+    "sys.argv = [sys.argv[1]] + sys.argv[2:]\n"
+    "try:\n"
+    "    runpy.run_module(sys.argv[0], run_name='__main__')\n"
+    "finally:\n"
+    "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'dynamo_tpu', 'msgpack', 'aiohttp'))\n"
+    "    print('FOREIGN', bad, flush=True)\n")
+
+
+class _Proc:
+    """A port CLI in a fresh interpreter under the foreign-import probe;
+    its stdout lines are read by a thread, its stderr goes to a file."""
+
+    def __init__(self, tmp_path, name, module, *args):
+        import queue
+        import threading
+
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "DYN_ATTENTION_IMPL")}
+        env["PYTHONPATH"] = REPO
+        self.err_path = tmp_path / f"{name}.err"
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _FOREIGN_PROBE, module, *args],
+            env=env, stdout=subprocess.PIPE, stderr=self._err, text=True)
+        self.lines = queue.Queue()
+        self.out = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.out.append(line)
+            self.lines.put(line)
+
+    def wait_line(self, prefix, timeout=60.0):
+        import queue
+        import time
+
+        end = time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.0, end - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"no {prefix!r} line in {timeout}s; stderr: "
+                    f"{self.err_path.read_text()[-2000:]}") from None
+            if line.startswith(prefix):
+                return line.split()[1]
+
+    def stop(self, timeout=30.0):
+        """SIGTERM; the clean exit prints the probe's FOREIGN line."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+            raise
+        finally:
+            self._reader.join(10)
+            self._err.close()
+        return rc
+
+
+def _chat(url, model):
+    import http.client
+    from urllib.parse import urlsplit
+
+    u = urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=60)
+    try:
+        conn.request("POST", "/v1/chat/completions", body=json.dumps({
+            "model": model, "max_tokens": 4, "temperature": 0,
+            "messages": [{"role": "user", "content": "hi"}]}),
+            headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def test_deployment_clis_serve_on_cpu_without_foreign_imports(ckpts,
+                                                              tmp_path):
+    """The port's coordinator, worker (`--device cpu`) and frontend as
+    three processes, and `run in=http` as one, each answer a chat request
+    over HTTP; at exit none of them had loaded jax, any dynamo_tpu
+    module, msgpack or aiohttp."""
+    from dynamo_tpu_torch.runtime.distributed import free_port
+
+    procs = []
+    try:
+        coord = _Proc(tmp_path, "coordinator",
+                      "dynamo_tpu_torch.coordinator", "--port",
+                      str(free_port()))
+        procs.append(coord)
+        store = coord.wait_line("COORDINATOR_READY")
+        worker = _Proc(tmp_path, "worker", "dynamo_tpu_torch.worker",
+                       "--model", ckpts["tiny"], "--device", "cpu",
+                       "--store", store, "--router-mode", "round_robin",
+                       "--num-pages", "32", "--served-model-name", "tiny")
+        procs.append(worker)
+        frontend = _Proc(tmp_path, "frontend", "dynamo_tpu_torch.frontend",
+                         "--store", store, "--host", "127.0.0.1",
+                         "--port", str(free_port()))
+        procs.append(frontend)
+        run = _Proc(tmp_path, "run", "dynamo_tpu_torch.run", "in=http",
+                    f"out=torch:{ckpts['tiny']}", "--device", "cpu",
+                    "--num-pages", "32", "--model-name", "tiny-run",
+                    "--port", str(free_port()))
+        procs.append(run)
+        assert worker.wait_line("WORKER_READY").startswith(
+            "dynamo/backend/generate/")
+        url = frontend.wait_line("FRONTEND_READY")
+        run_url = run.wait_line("RUN_READY")
+        import time
+
+        deadline = time.monotonic() + 30
+        while True:                 # the frontend discovers the card
+            status, body = _chat(url, "tiny")
+            if status != 404 or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        assert status == 200, body
+        assert body["usage"]["completion_tokens"] == 4
+        status, body = _chat(run_url, "tiny-run")
+        assert status == 200, body
+        assert body["choices"][0]["finish_reason"] == "length"
+    finally:
+        rcs = [p.stop() for p in reversed(procs)]
+    for p, rc in zip(reversed(procs), rcs):
+        assert rc == 0, p.err_path.read_text()[-3000:]
+        assert "FOREIGN []\n" in p.out, (p.out, p.err_path.read_text())
