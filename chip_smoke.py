@@ -85,6 +85,25 @@ on):
     batch's, the frontend's response frames per second, the worker's CUDA
     graph captures and replays (from its `_sys.stats` scrape); every
     subprocess stopped at the end
+ 8d. the KV router on the card: the coordinator, TWO `.worker`s with
+    phase 8c's flags but `--router-mode kv` (Llama-3-8B full shape, random
+    init seed 0, cuda, 2048 pages of 16 — fewer, printed, only if the
+    card runs short —, batch 8, prefill chunk 512) and `.frontend
+    --router-mode kv`; first each wave-2 request served alone and cold by
+    an in-process phase-path engine on phase 8's weights (the reference
+    streams). Wave 1: two distinct 1024-byte prefixes, one request each,
+    max_tokens 8, sent at once: they land on different workers, and the
+    frontend's `dynamo_router_index_blocks` reaches 64 for each worker.
+    Wave 2: eight requests, four per prefix, each with its own 32-200 byte
+    suffix, max_tokens 32, one after another: each lands on its prefix's
+    worker (4 more requests on each, from the workers' `_sys.stats`
+    scrapes, and `dynamo_router_prefill_tokens_saved_total` >= 8 x 64 x
+    16), and its stream equals the cold one up to a bf16 near-tie
+    (BF16_TIE_TOL, printed with step and gap). Wave 3: the eight again,
+    all in flight (TTFT, ITL, tok/s and decisions per worker printed).
+    Both workers replayed their "decode_burst" graphs; wave 1's TTFT
+    beside wave 2's, the router's events by stream and its KV-event gaps
+    (which must be 0) printed; every subprocess stopped at the end
  9. quantized main path: the same batch on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
     same random weights, quantized by the engine): w8a8 launches K5 and
@@ -650,9 +669,10 @@ def prometheus_value(text: str, series: str) -> float:
     raise AssertionError(f"no {series} in the scrape")
 
 
-async def worker_scrape(store_url: str) -> str:
-    """The worker's metrics registry (Prometheus text) through its
-    transport's `_sys.stats` scrape, found through the coordinator."""
+async def worker_scrape(store_url: str) -> dict:
+    """Each worker's metrics registry (Prometheus text) through its
+    transport's `_sys.stats` scrape, found through the coordinator:
+    {instance id: text}."""
     from dynamo_tpu_torch.runtime.component import INSTANCE_PREFIX, Instance
     from dynamo_tpu_torch.runtime.store import connect_store
     from dynamo_tpu_torch.runtime.transport import (
@@ -662,15 +682,17 @@ async def worker_scrape(store_url: str) -> str:
 
     store = await connect_store(store_url)
     client = TransportClient()
+    out = {}
     try:
-        kvs = await store.get_prefix(INSTANCE_PREFIX)
-        inst = Instance.from_json(kvs[0].value)
-        items = [x async for x in client.request(
-            inst.address, TransportServer.STATS_SUBJECT, {})]
+        for kv in await store.get_prefix(INSTANCE_PREFIX):
+            inst = Instance.from_json(kv.value)
+            items = [x async for x in client.request(
+                inst.address, TransportServer.STATS_SUBJECT, {})]
+            out[inst.instance_id] = items[0]["client"]["metrics"]
     finally:
         await client.close()
         await store.close()
-    return items[0]["client"]["metrics"]
+    return out
 
 
 def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
@@ -735,7 +757,7 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
                 raise AssertionError(f"{p.name} exited: "
                                      f"{p.stderr_tail()}")
         fe_metrics = _http_get(port, "/metrics").decode()
-        wk_metrics = asyncio.run(worker_scrape(store))
+        (wk_metrics,) = asyncio.run(worker_scrape(store)).values()
     finally:
         for p in reversed(services):
             p.stop()
@@ -778,15 +800,269 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
     log(f"[serve] the frontend received {frames:.0f} response frames in "
         f"{wall:.2f} s: {frames / wall:.1f} frames/s "
         f"({sum(r['n'] for r in rows_http) / frames:.2f} tokens per frame)")
-    graphs = {kind: prometheus_value(
-        wk_metrics, 'dynamo_engine_cuda_graphs{kind="%s"}' % kind)
-        for kind in ("captures", "replays", "pool_bytes")}
+    graphs = worker_graphs(wk_metrics)
     if not graphs["replays"] > graphs["captures"] > 0:
         raise AssertionError(f"the worker replayed no CUDA graph: {graphs}")
     log(f"[serve] worker metrics (its _sys.stats scrape): CUDA graph "
         f"captures {graphs['captures']:.0f}, replays "
         f"{graphs['replays']:.0f}, pool {graphs['pool_bytes'] / 2**20:.1f} "
         f"MiB; on {smi}")
+
+
+def worker_graphs(text: str) -> dict:
+    """A worker scrape's CUDA-graph captures, replays and pool bytes."""
+    return {kind: prometheus_value(
+        text, 'dynamo_engine_cuda_graphs{kind="%s"}' % kind)
+        for kind in ("captures", "replays", "pool_bytes")}
+
+
+def requests_served(text: str) -> int:
+    """Requests a worker has answered: its TTFT histogram's count."""
+    return int(prometheus_value(text, "dynamo_engine_ttft_seconds_count"))
+
+
+def series_values(text: str, name: str) -> dict:
+    """{labels: value} of one Prometheus series in a scrape."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, value = line.rsplit(" ", 1)
+            out[key[len(name):]] = float(value)
+    return out
+
+
+# phase 8d: the prefixes' and suffixes' bytes (a chat prompt is
+# "user: " + text + "\nassistant:" under the byte tokenizer, so a 1024-
+# byte prefix fills the first 64 pages of 16 of every prompt that starts
+# with it)
+KV_PREFIX_BYTES = 1024
+KV_PAGE = 16
+KV_SUFFIXES = 8
+
+
+def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
+                    n_pages: int) -> None:
+    """Phase 8d: two 8B workers behind the port's KV router (see the
+    module docstring). Raises on any failed check."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.run.main import build_pipeline_for, run_batch
+    from dynamo_tpu_torch.runtime.distributed import free_port
+
+    cfg = model.cfg
+    rng = random.Random(8)
+    alphabet = "abcdefghij klmnop qrstuv wxyz.,"
+    prefixes = ["".join(rng.choice(alphabet) for _ in range(KV_PREFIX_BYTES))
+                for _ in range(2)]
+    wave2 = [(i % 2, prefixes[i % 2] + "".join(
+        rng.choice(alphabet) for _ in range(rng.randrange(32, 201))))
+        for i in range(KV_SUFFIXES)]
+    # the reference streams: each wave-2 request alone and cold (the
+    # prefix cache cleared before each) on an in-process engine with the
+    # workers' scheduling (prefill chunk 512, no chunk budget)
+    cold_eng = TorchEngine(TorchEngineConfig(
+        model=cfg, num_pages=256, max_batch_size=8, prefill_chunk=512,
+        device="cuda"), model=model)
+    pipeline = build_pipeline_for(card, cold_eng, type(
+        "Args", (), {"tokenizer": "auto", "context_length": None,
+                     "max_tokens": 32})())
+
+    async def cold_runs():
+        out = []
+        try:
+            for i, (_, text) in enumerate(wave2):
+                path = os.path.join(work, f"kv_cold_{i}.jsonl")
+                with open(path, "w") as f:
+                    f.write(json.dumps({"text": text, **GREEDY_FIELDS}) + "\n")
+                (r,) = await run_batch(pipeline, card.name, path, 32,
+                                       os.path.join(work, "kv_cold.out"))
+                while cold_eng.pool.active_pages:
+                    await asyncio.sleep(0.001)
+                cold_eng.clear_kv_blocks()
+                out.append(token_ids_of(r["logprobs"]))
+        finally:
+            await cold_eng.close()
+        return out
+
+    t0 = time.perf_counter()
+    cold = asyncio.run(cold_runs())
+    del cold_eng, pipeline
+    torch.cuda.empty_cache()
+    log(f"[kv] {len(cold)} wave-2 requests served alone and cold in "
+        f"process in {time.perf_counter() - t0:.1f} s (the reference "
+        f"streams)")
+
+    # memory: each worker holds bf16 weights, its KV pool and its graph
+    # pool and CUDA context; fewer pages only if two do not fit
+    free, total = torch.cuda.mem_get_info()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    page_bytes = (2 * cfg.num_layers * cfg.num_kv_heads * cfg.page_size
+                  * cfg.head_dim * 2)
+    overhead = 2 * 2**30
+    pages = n_pages
+    fit = int((free / 2 - weights - overhead) // page_bytes)
+    if fit < pages:
+        pages = fit
+        log(f"[kv] the card runs short for two workers of {n_pages} pages: "
+            f"each worker's pool cut to {pages} pages")
+    log(f"[kv] before the workers start: {free / 2**30:.1f} GiB free of "
+        f"{total / 2**30:.1f} GiB (this process holds phase 8's model); "
+        f"each worker: {weights / 1e9:.2f} GB bf16 weights + "
+        f"{pages * page_bytes / 1e9:.2f} GB KV pool ({pages} pages)")
+    services = []
+    try:
+        coord = Service(work, "coordinator", "--port", str(free_port()))
+        services.append(coord)
+        store = coord.wait_line("COORDINATOR_READY", 120)
+        t0 = time.perf_counter()
+        workers = []
+        for wid in (1, 2):
+            w = Service(work, "worker", "--model", ckpt, "--random-init",
+                        "--router-mode", "kv", "--num-pages", str(pages),
+                        "--max-batch-size", "8", "--prefill-chunk", "512",
+                        "--store", store, "--device", "cuda",
+                        "--instance-id", str(wid))
+            w.name = f"worker{wid}"
+            workers.append(w)
+            services.append(w)
+        port = free_port()
+        frontend = Service(work, "frontend", "--store", store, "--host",
+                           "127.0.0.1", "--port", str(port),
+                           "--router-mode", "kv")
+        services.append(frontend)
+        frontend.wait_line("FRONTEND_READY", 120)
+        for w in workers:
+            ready = w.wait_line("WORKER_READY", 900)
+            log(f"[kv] {w.name} {ready} ready "
+                f"{time.perf_counter() - t0:.1f} s after the start")
+        end = time.perf_counter() + 60
+        while b'"llama3-8b"' not in _http_get(port, "/v1/models"):
+            if time.perf_counter() > end:
+                raise AssertionError("the frontend never discovered the "
+                                     "workers' card")
+            time.sleep(0.2)
+        time.sleep(1.0)       # the router's watch sees both instances
+        free_now, _ = torch.cuda.mem_get_info()
+        log(f"[kv] with both workers up: {free_now / 2**30:.1f} GiB free on "
+            f"the card ({(free - free_now) / 2**30:.1f} GiB taken by the "
+            f"two workers and the frontend)")
+
+        def body(text, max_tokens):
+            return {"model": "llama3-8b", "stream": True,
+                    "max_tokens": max_tokens,
+                    "messages": [{"role": "user", "content": text}],
+                    **GREEDY_FIELDS}
+
+        def scrape():
+            return asyncio.run(worker_scrape(store))
+
+        def served_by() -> dict:
+            return {wid: requests_served(t) for wid, t in scrape().items()}
+
+        # wave 1: both prefixes at once
+        with ThreadPoolExecutor(2) as pool:
+            w1 = list(pool.map(lambda t: http_chat_stream(port, body(t, 8)),
+                               prefixes))
+        after1 = served_by()
+        if sorted(after1.values()) != [1, 1]:
+            raise AssertionError(f"wave 1's two prefixes did not land on "
+                                 f"different workers: {after1}")
+        end = time.perf_counter() + 60
+        while True:
+            fe = _http_get(port, "/metrics").decode()
+            blocks = series_values(fe, "dynamo_router_index_blocks")
+            if len(blocks) == 2 and min(blocks.values()) >= 64:
+                break
+            if time.perf_counter() > end:
+                raise AssertionError(f"the router's index never held 64 "
+                                     f"blocks per worker: {blocks}")
+            time.sleep(0.1)
+        log(f"[kv] wave 1: two 1024-byte prefixes at once -> one per "
+            f"worker {after1}; router index blocks {blocks}")
+        # wave 2: one after another, so the overlap decides each
+        saved0 = prometheus_value(fe, "dynamo_router_prefill_tokens_saved_total")
+        w2 = [http_chat_stream(port, body(text, 32)) for _, text in wave2]
+        after2 = served_by()
+        fe = _http_get(port, "/metrics").decode()
+        saved = prometheus_value(
+            fe, "dynamo_router_prefill_tokens_saved_total") - saved0
+        per = {wid: after2[wid] - after1[wid] for wid in after2}
+        need = KV_SUFFIXES * (KV_PREFIX_BYTES // KV_PAGE) * KV_PAGE
+        if sorted(per.values()) != [4, 4] or saved < need:
+            raise AssertionError(f"wave 2 did not follow the prefixes: "
+                                 f"requests per worker {per}, prefill "
+                                 f"tokens saved {saved} (want >= {need})")
+        log(f"[kv] wave 2: 8 requests one after another -> {per} per "
+            f"worker; prefill tokens saved {saved:.0f} (>= {need}: every "
+            f"request on its prefix's worker)")
+        # wave 3: the same eight, all in flight
+        with ThreadPoolExecutor(len(wave2)) as pool:
+            w3 = list(pool.map(lambda t: http_chat_stream(port, body(t, 32)),
+                               [text for _, text in wave2]))
+        wall3 = max(s["t0"] + s["elapsed_s"] for s in w3) - \
+            min(s["t0"] for s in w3)
+        after3 = served_by()
+        metrics = scrape()
+        fe = _http_get(port, "/metrics").decode()
+        for p in services:
+            if p.proc.poll() is not None:
+                raise AssertionError(f"{p.name} exited: {p.stderr_tail()}")
+    finally:
+        for p in reversed(services):
+            p.stop()
+    # every wave-2 stream against its cold in-process stream
+    partings = []
+    for r, ((ta, ka), s) in enumerate(zip(cold, w2)):
+        tb, kb = s["tokens"], s["tops"]
+        n = min(len(ta), len(tb))
+        if ta[:n] == tb[:n]:
+            if len(ta) != len(tb):
+                raise AssertionError(f"wave-2 request {r}: {len(tb)} tokens "
+                                     f"through the router, {len(ta)} cold")
+            continue
+        for _, step, gap in stream_partings([(ta[:n], ka[:n])],
+                                            [(tb[:n], kb[:n])],
+                                            BF16_TIE_TOL):
+            partings.append((r, step, gap))
+            log(f"[kv] wave-2 request {r} (prefix hit) parts from its cold "
+                f"stream at step {step} of {n}: tokens {ta[step]} vs "
+                f"{tb[step]}, logprob gap {gap:.4f} nats (tie tolerance "
+                f"{BF16_TIE_TOL}); identical before it")
+    log(f"[kv] wave 2 against the cold in-process streams: "
+        f"{len(w2) - len(partings)} token-identical, {len(partings)} parted "
+        f"at near-ties (K3/K4 reading pages another request wrote)")
+    for wid, text in metrics.items():
+        g = worker_graphs(text)
+        if not g["replays"] > g["captures"] > 0:
+            raise AssertionError(f"worker {wid} replayed no CUDA graph: {g}")
+        log(f"[kv] worker {wid}: CUDA graph captures {g['captures']:.0f}, "
+            f"replays {g['replays']:.0f}, pool "
+            f"{g['pool_bytes'] / 2**20:.1f} MiB")
+    gaps = series_values(fe, "dynamo_router_kv_event_gaps_total")
+    if any(gaps.values()):
+        raise AssertionError(f"the router counted KV-event gaps: {gaps}")
+    events = series_values(fe, "dynamo_router_events_total")
+    dropped = series_values(fe, "dynamo_router_events_dropped_total")
+    if any(dropped.values()):
+        raise AssertionError(f"the router dropped events: {dropped}")
+    n_req = 2 + 2 * len(wave2)
+    kv_events = events.get('{stream="kv"}', 0.0)
+    log(f"[kv] router events by stream {events} ({kv_events / n_req:.1f} KV "
+        f"events per request over {n_req} requests); KV-event gaps "
+        f"{gaps}; dropped {dropped}")
+    ttft1 = [s["ttft_s"] * 1e3 for s in w1]
+    ttft2 = [s["ttft_s"] * 1e3 for s in w2]
+    log(f"[kv] TTFT, wave 1 (cold 1041-token prompts, two at once): "
+        f"{', '.join(f'{t:.1f}' for t in ttft1)} ms; wave 2 (prefix hits, "
+        f"one at a time): p50 {statistics.median(ttft2):.1f} ms, max "
+        f"{max(ttft2):.1f} ms; on {smi}")
+    rows3 = [{"ttft_s": s["ttft_s"], "elapsed_s": s["elapsed_s"],
+              "n": len(s["tokens"])} for s in w3]
+    per3 = {wid: after3[wid] - after2[wid] for wid in after3}
+    log(f"[kv] wave 3 (the 8 again, all in flight): "
+        f"{latency_summary(rows3, wall3)}; decisions per worker {per3}; "
+        f"on {smi}")
 
 
 def _http_get(port: int, path: str) -> bytes:
@@ -1991,6 +2267,12 @@ def main() -> int:
     t0 = time.perf_counter()
     serving_phase(torch, smi, work, ckpt, jobs, phase)
     log(f"[serve] phase 8c in {time.perf_counter() - t0:.1f} s")
+
+    # 8d. the KV router on the card -----------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kv_router_phase(torch, smi, work, ckpt, model, card, 2048)
+    log(f"[kv] phase 8d in {time.perf_counter() - t0:.1f} s")
 
     # 9. quantized main path -------------------------------------------------
 

@@ -56,10 +56,17 @@ its visible page count on the host (`attention.visible_pages`). A
 `BucketLadder` (`bucket_ladder`, None by default) refines the prefill
 token buckets as in the reference (`:1050`, `:2388`).
 
+What the router reads, as the reference publishes it: the page pool's
+KV events (`event_sink`, stamped with `worker_id` / `dp_rank`, `:641`)
+and one `ForwardPassMetrics` per scheduler iteration (`metrics_sink`,
+`_publish_metrics`, `:1091`, `:3343`), both called on the event loop's
+thread (`_on_loop`: a pool change inside a `to_thread` closure hops back
+to the loop, since the runtime's event bus is not thread-safe). The
+engine's counters live in `engine/metrics.py` `EngineMetrics`.
+
 Not in this slice, and rejected per request where a request asks for
 them: disaggregated KV transfer and embeddings. Spec, pipeline/sequence
-parallelism, KVBM, profilers and the rest of the engine's metrics are
-later slices (ROADMAP.md).
+parallelism, KVBM and profilers are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable, Optional
@@ -76,9 +84,9 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.bucketing import BucketLadder
-from dynamo_tpu_torch.engine.compile_tracker import CompileTracker
 from dynamo_tpu_torch.engine.graphs import StepGraphs
-from dynamo_tpu_torch.engine.pages import PagePool
+from dynamo_tpu_torch.engine.metrics import EngineMetrics, itl_percentile
+from dynamo_tpu_torch.engine.pages import EventSink, PagePool
 from dynamo_tpu_torch.engine.quant import (
     QUANTIZE_MODES,
     is_quantized,
@@ -104,7 +112,10 @@ from dynamo_tpu_torch.protocols import (
     FINISH_LENGTH,
     FINISH_STOP,
     EngineOutput,
+    ForwardPassMetrics,
+    KvStats,
     PreprocessedRequest,
+    WorkerStats,
 )
 from dynamo_tpu_torch.runtime.compute import run_cpu
 from dynamo_tpu_torch.runtime.context import Context
@@ -212,6 +223,10 @@ class TorchEngineConfig:
     # (K6) — engine/quant.py
     quantize: Optional[str] = None
     device: str = "cuda"
+    # stamped on every KV event and ForwardPassMetrics: the router keys
+    # its index and load by (worker_id, dp_rank)
+    worker_id: int = 0
+    dp_rank: int = 0
 
 
 @dataclass
@@ -303,13 +318,18 @@ class TorchEngine:
 
     def __init__(self, config: Optional[TorchEngineConfig] = None,
                  model: Optional[LlamaModel] = None,
-                 token_bytes: Any = None, eos_token_id: int = 0) -> None:
+                 token_bytes: Any = None, eos_token_id: int = 0,
+                 event_sink: Optional[EventSink] = None,
+                 metrics_sink: Optional[
+                     Callable[[ForwardPassMetrics], None]] = None) -> None:
         """`token_bytes`: the serving tokenizer's per-token output bytes
         (`llm/guided.py` `token_bytes_of`), or a callable that builds them
         at the first guided request; None leaves guided decoding
         unavailable (such requests fail with an error output).
         `eos_token_id` stands in for a guided lane's stop tokens when its
-        request names none."""
+        request names none. `event_sink` takes the page pool's KV events,
+        `metrics_sink` one ForwardPassMetrics per scheduler iteration
+        (`llm/entrypoint.py` `wire_engine_events` publishes both)."""
         self.config = config or TorchEngineConfig()
         cfg = self.config
         if cfg.attention_impl not in ATTENTION_IMPLS:
@@ -340,7 +360,12 @@ class TorchEngine:
         self.model = model
         self.k_cache, self.v_cache = init_cache(self.model_cfg,
                                                 cfg.num_pages, self.device)
-        self.pool = PagePool(cfg.num_pages, self.model_cfg.page_size)
+        # the scheduler loop's event loop and thread, set at first use
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._loop_thread: Optional[int] = None
+        self.pool = PagePool(cfg.num_pages, self.model_cfg.page_size,
+                             cfg.worker_id, cfg.dp_rank)
+        self.attach_sinks(event_sink, metrics_sink)
         self._waiting: list[_Seq] = []
         self._running: list[_Seq] = []
         self._arrivals = 0
@@ -356,16 +381,14 @@ class TorchEngine:
         # still writes must not go back to the pool)
         self._inflight: Optional[dict] = None
         self._defer_releases: Optional[list] = None
-        # plain counters read by benchmarks: per-request time to first
-        # token (s, from enqueue), tokens emitted, device dispatches
-        # (chunk rounds, bursts, mixed steps, ragged rounds)
+        # histograms, counters and the compile tracker (first dispatch
+        # per (entry, bucket)); the raw per-request TTFT samples (s, from
+        # enqueue) and the device dispatch count (chunk rounds, bursts,
+        # mixed steps, ragged rounds) stay engine-local for benchmarks,
+        # as the reference keeps its raw ITL samples
+        self.metrics = EngineMetrics()
         self.ttft_s: list[float] = []
-        self.tokens_emitted = 0
         self.rounds = 0
-        self.pipelined_bursts = 0     # bursts dispatched behind one in flight
-        # first dispatch per (entry, bucket); the reference's
-        # EngineMetrics holds its tracker as `metrics.compile`
-        self.compile_tracker = CompileTracker()
         # one CUDA graph per fixed-shape (entry, bucket) on the card
         self.graphs = StepGraphs(self.device)
         # extra prefill token-bucket rungs, swapped in at a safe point
@@ -385,6 +408,44 @@ class TorchEngine:
         # {key: first row written there}); none is ever freed, since a
         # graph captured on a bucket reads its buffers at every replay
         self._guided_buffers: dict[int, tuple] = {}
+
+    @property
+    def compile_tracker(self):
+        return self.metrics.compile
+
+    @property
+    def tokens_emitted(self) -> int:
+        return int(self.metrics.tokens_emitted.get())
+
+    @property
+    def pipelined_bursts(self) -> int:
+        """Bursts dispatched behind one in flight."""
+        return int(self.metrics.pipelined_bursts.get())
+
+    @property
+    def perf(self) -> dict:
+        return self.metrics.perf_view()
+
+    def attach_sinks(self, event_sink: Optional[EventSink],
+                     metrics_sink: Optional[
+                         Callable[[ForwardPassMetrics], None]]) -> None:
+        """Set where the KV events and ForwardPassMetrics go. Attach
+        before the engine serves: an event emitted with no sink is not
+        kept."""
+        self.pool.event_sink = (None if event_sink is None
+                                else self._on_loop(event_sink))
+        self.metrics_sink = metrics_sink
+
+    def _on_loop(self, fn: Callable[[Any], None]) -> Callable[[Any], None]:
+        """`fn`, called on the scheduler's event-loop thread: from another
+        thread (a `to_thread` closure) the call hops to the loop."""
+        def call(x) -> None:
+            loop = self._loop
+            if loop is None or threading.get_ident() == self._loop_thread:
+                fn(x)
+            else:
+                loop.call_soon_threadsafe(fn, x)
+        return call
 
     @property
     def ragged(self) -> bool:
@@ -507,7 +568,9 @@ class TorchEngine:
 
     def _ensure_loop(self) -> None:
         if self._loop_task is None or self._loop_task.done():
-            self._loop_task = asyncio.get_running_loop().create_task(
+            self._loop = asyncio.get_running_loop()
+            self._loop_thread = threading.get_ident()
+            self._loop_task = self._loop.create_task(
                 self._scheduler_loop())
 
     async def _scheduler_loop(self) -> None:
@@ -533,6 +596,7 @@ class TorchEngine:
                 else:
                     progressed = await self._prefill_pending()
                 progressed |= await self._decode_iter()
+                self._publish_metrics()
                 if not progressed:
                     await asyncio.sleep(0.001)
             except Exception:
@@ -681,11 +745,13 @@ class TorchEngine:
             active = active[:bp]
             chunk_lens = self._chunk_lens(active, offsets, caps)
             chunk = self._chunk_arrays(active, offsets, chunk_lens, bp)
-            with self.compile_tracker.track(
-                    "prefill", (bp, chunk[0].shape[1], int(bool(aligned_s)))):
+            trk = self.compile_tracker.track(
+                "prefill", (bp, chunk[0].shape[1], int(bool(aligned_s))))
+            with trk:
                 logits = prefill_batch(
                     self.model, self.k_cache, self.v_cache,
                     *map(self._dev, chunk), aligned=bool(aligned_s))
+            self.metrics.prefill_chunk.observe(trk.elapsed_s)
             self.rounds += 1
         done: dict[int, Any] = {}
         for i, s in enumerate(active):
@@ -781,7 +847,8 @@ class TorchEngine:
             seq.token_seq = TokenBlockSequence(page_size, seq.prompt)
             for block in seq.token_seq.blocks:
                 self.pool.register_page(
-                    seq.pages[block.block_index], block.seq_hash)
+                    seq.pages[block.block_index], block.seq_hash,
+                    block.local_hash, block.parent_seq_hash)
             seq.prefilled = True
             seq.prefill_pos = len(seq.prompt)
             topk_fn = None
@@ -877,11 +944,11 @@ class TorchEngine:
             bp = self._prefill_width(len(picks))
             ch = self._chunk_arrays(picks, offsets, chunk_lens, bp)
             d = self._burst_arrays(batch)
-            shape = (bp, ch[0].shape[1], k, int(aligned), tk)
+            trk = self.compile_tracker.track(
+                "mixed_step", (bp, ch[0].shape[1], k, int(aligned), tk))
 
             def dispatch():
-                with torch.inference_mode(), \
-                        self.compile_tracker.track("mixed_step", shape):
+                with torch.inference_mode(), trk:
                     packed, ch_logits = mixed_prefill_decode(
                         self.model, self.k_cache, self.v_cache,
                         *map(self._dev, ch), *map(self._dev, d),
@@ -891,6 +958,12 @@ class TorchEngine:
 
         async with self._device_lock:
             packed, ch_logits = await asyncio.to_thread(dispatch)
+        if not self.ragged:
+            # the ragged round observes its own chunk time
+            self.metrics.prefill_chunk.observe(trk.elapsed_s)
+        self.metrics.mixed_steps.inc()
+        self.metrics.decode_steps_during_prefill.inc(
+            1 if self.ragged else self.config.decode_steps_per_sync)
         done_logits: dict[int, Any] = {}
         for i, s in enumerate(picks):
             offsets[id(s)] += chunk_lens[i]
@@ -999,7 +1072,13 @@ class TorchEngine:
         if not batch:
             return True
         tk = self.TOPK_WIDTH if any(s.wants_topk for s in batch) else 0
-        if any(s.needs_constrained for s in batch):
+        constrained = any(s.needs_constrained for s in batch)
+        if any(not s.prefilled for s in self._running):
+            # decode progressed while a prompt is mid-prefill: the
+            # interleaving the budgeted scheduler exists to create
+            self.metrics.decode_steps_during_prefill.inc(
+                1 if self.ragged and not constrained else k)
+        if constrained:
             return await self._constrained_burst(batch, k, tk)
         if self.ragged:
             def dispatch():
@@ -1089,7 +1168,7 @@ class TorchEngine:
 
                 async with self._device_lock:
                     packed2, handle2 = await asyncio.to_thread(dispatch2)
-                self.pipelined_bursts += 1
+                self.metrics.pipelined_bursts.inc()
                 nxt = {"k": k, "batch": batch, "arrays": arrays, "tk": tk,
                        "packed": packed2, "handle": handle2,
                        "deferred": []}
@@ -1250,10 +1329,14 @@ class TorchEngine:
             return ragged_prefill_decode(self.model, self.k_cache,
                                          self.v_cache, *a, topk_lp=tk)
 
-        packed, ch_logits = self._graphed(
-            "ragged_step", (tb, tk), step,
-            (toks, poss, pages, offs, valid, lanes, lane_tables, ch_rows,
-             d_rows, seeds, steps, temps, top_ps, top_ks))
+        trk = self.compile_tracker.track("ragged_step", (tb, tk))
+        with trk:
+            packed, ch_logits = self.graphs.run(
+                ("ragged_step", (tb, tk)), step,
+                (toks, poss, pages, offs, valid, lanes, lane_tables,
+                 ch_rows, d_rows, seeds, steps, temps, top_ps, top_ks))
+        if picks:
+            self.metrics.prefill_chunk.observe(trk.elapsed_s)
         self.rounds += 1
         if picks:
             ch_logits = ch_logits.clone()
@@ -1526,8 +1609,14 @@ class TorchEngine:
                 self._finish(seq, finish)
             return 0
         now = time.monotonic()
-        if not seq.last_emit_t and seq.generated == 0:
-            self.ttft_s.append(max(time.perf_counter() - seq.t_enqueue, 0.0))
+        if seq.last_emit_t:
+            # inter-token gap at the emission boundary, as the consumer
+            # sees it (prefill rounds between bursts included)
+            self.metrics.itl.observe((now - seq.last_emit_t) * 1000.0)
+        elif seq.generated == 0:
+            ttft = max(time.perf_counter() - seq.t_enqueue, 0.0)
+            self.ttft_s.append(ttft)
+            self.metrics.ttft.observe(ttft)
         seq.last_emit_t = now
         emit_toks = [int(t) for t in toks[:n_emit]]
         guided = seq.guided
@@ -1537,7 +1626,8 @@ class TorchEngine:
                 block = seq.token_seq.append(seq.next_token)
                 if block is not None:
                     self.pool.register_page(
-                        seq.pages[block.block_index], block.seq_hash)
+                        seq.pages[block.block_index], block.seq_hash,
+                        block.local_hash, block.parent_seq_hash)
             if guided is not None:
                 # the authoritative DFA state: each burst starts from it,
                 # so overshoot and preemption replays cannot desync it
@@ -1547,7 +1637,7 @@ class TorchEngine:
                 seq.out_counter[t] = seq.out_counter.get(t, 0) + 1
             seq.next_token = t
         seq.generated += n_emit
-        self.tokens_emitted += n_emit
+        self.metrics.tokens_emitted.inc(n_emit)
         out = EngineOutput(token_ids=emit_toks, finish_reason=finish)
         if lps is not None:
             out.log_probs = [float(x) for x in lps[:n_emit]]
@@ -1574,6 +1664,36 @@ class TorchEngine:
             seq.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=reason).to_dict())
         seq.queue.put_nowait(None)
+
+    def _publish_metrics(self) -> None:
+        """One ForwardPassMetrics to `metrics_sink` (the reference's
+        `_publish_metrics`, `:3343`): slots, queue depth and KV blocks for
+        the router's load view, the scheduler counters for the planner."""
+        if self.metrics_sink is None:
+            return
+        perf = self.perf
+        self.metrics_sink(ForwardPassMetrics(
+            worker_id=self.config.worker_id, dp_rank=self.config.dp_rank,
+            worker_stats=WorkerStats(
+                request_active_slots=len(self._running),
+                request_total_slots=self.config.max_batch_size,
+                num_requests_waiting=len(self._waiting)),
+            kv_stats=KvStats(
+                kv_active_blocks=self.pool.active_pages,
+                kv_total_blocks=self.pool.capacity,
+                hbm_cache_usage=self.pool.usage()),
+            scheduler_stats={
+                "prefill_chunks": perf["prefill_chunks"],
+                "decode_steps_during_prefill":
+                    perf["decode_steps_during_prefill"],
+                "mixed_steps": perf["mixed_steps"],
+                "itl_p50_ms": itl_percentile(perf["itl_hist"], 0.5),
+                "itl_p99_ms": itl_percentile(perf["itl_hist"], 0.99),
+                # no blocking work runs inside the port's admission (the
+                # reference's is KVBM's onboard and drain)
+                "admission_stall_ms": 0.0,
+                "compiles": self.compile_tracker.total,
+            }))
 
     def _pick_victim(self, exclude: _Seq) -> Optional[_Seq]:
         cands = [s for s in self._running

@@ -1,9 +1,8 @@
 """Host-side page allocator for the device KV cache: refcounted pages,
-prefix-cache reuse by sequence hash, LRU eviction.
+prefix-cache reuse by sequence hash, LRU eviction, KV event emission.
 
 Port of `dynamo_tpu/engine/pages.py` (the port keeps its own copy, minus
-the KV events, which arrive with the router, and the KVBM offload pins
-and lifecycle recorder, which arrive with KVBM).
+the KVBM offload pins and the lifecycle recorder, which arrive with KVBM).
 This class only tracks ownership — the device tensors are indexed by the
 page ids it hands out.
 
@@ -16,13 +15,28 @@ Invariants:
   immutable and shareable (prefix reuse increments its refcount)
 - refcount 0 + registered ⇒ inactive LRU, evictable; refcount 0 +
   unregistered ⇒ freed immediately
+- KvCacheEvents are emitted exactly where the router's view must change:
+  `stored` when a sealed page wins its seq_hash, `removed` when a
+  registered page is evicted (or cleared), each stamped from one monotone
+  event id per pool, so the router's index mirrors the cache and counts
+  any event it missed
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
+
+from dynamo_tpu_torch.protocols import (
+    KV_REMOVED,
+    KV_STORED,
+    KvCacheEvent,
+    StoredBlock,
+)
+
+EventSink = Callable[[KvCacheEvent], None]
 
 
 class BlockStateInvalid(RuntimeError):
@@ -45,14 +59,20 @@ class _Page:
 
 
 class PagePool:
-    def __init__(self, num_pages: int, page_size: int) -> None:
+    def __init__(self, num_pages: int, page_size: int, worker_id: int = 0,
+                 dp_rank: int = 0,
+                 event_sink: Optional[EventSink] = None) -> None:
         self.num_pages = num_pages
         self.page_size = page_size
+        self.worker_id = worker_id
+        self.dp_rank = dp_rank
+        self.event_sink = event_sink
         # page 0 reserved as scratch: never in the free list
         self._free: list[int] = list(range(num_pages - 1, 0, -1))
         self._pages: dict[int, _Page] = {}
         self._registered: dict[int, int] = {}       # seq_hash -> page_id
         self._inactive: OrderedDict[int, None] = OrderedDict()  # LRU
+        self._event_ids = itertools.count(1)
 
     @property
     def capacity(self) -> int:
@@ -120,9 +140,13 @@ class PagePool:
             pages.append(self.allocate_page())
         return pages, len(matched) * self.page_size
 
-    def register_page(self, page_id: int, seq_hash: int) -> None:
-        """Seal a PARTIAL page (complete + immutable); first writer of a
-        seq_hash wins reuse."""
+    def register_page(self, page_id: int, seq_hash: int, local_hash: int,
+                      parent_seq_hash: int) -> None:
+        """Seal a PARTIAL page (complete + immutable) and publish the
+        stored event. The first writer of a seq_hash wins reuse; a page
+        that loses it (the same content, prefilled beside the winner)
+        publishes too, as the reference's does: the worker does hold the
+        block, and the router's index applies the event idempotently."""
         page = self._pages.get(page_id)
         if page is None:
             raise BlockStateInvalid(
@@ -140,6 +164,12 @@ class PagePool:
             page.state = REGISTERED
         else:
             page.state = COMPLETE
+        if self.event_sink is not None:
+            self.event_sink(KvCacheEvent(
+                kind=KV_STORED, worker_id=self.worker_id,
+                dp_rank=self.dp_rank, event_id=next(self._event_ids),
+                parent_seq_hash=parent_seq_hash,
+                blocks=[StoredBlock(seq_hash, local_hash)]))
 
     def release_sequence(self, page_ids: list[int]) -> None:
         for pid in page_ids:
@@ -161,7 +191,8 @@ class PagePool:
                 self._discard(page)
 
     def clear_inactive(self) -> int:
-        """Drop every reusable cached page."""
+        """Drop every reusable cached page, publishing removed events so
+        routers forget them too. In-flight (refcounted) pages stay."""
         return self._evict_many(len(self._inactive))
 
     def _discard(self, page: _Page) -> None:
@@ -182,5 +213,11 @@ class PagePool:
         for page in victims:
             if page.seq_hash is not None:
                 self._registered.pop(page.seq_hash, None)
+                if self.event_sink is not None:
+                    self.event_sink(KvCacheEvent(
+                        kind=KV_REMOVED, worker_id=self.worker_id,
+                        dp_rank=self.dp_rank,
+                        event_id=next(self._event_ids),
+                        seq_hashes=[page.seq_hash]))
             self._discard(page)
         return len(victims)

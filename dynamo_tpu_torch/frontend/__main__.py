@@ -1,9 +1,11 @@
 """`python -m dynamo_tpu_torch.frontend` — OpenAI HTTP frontend.
 
-Port of `dynamo_tpu/frontend/__main__.py`: router mode, port, namespace,
-request template and TLS. The KV router's flags (`--kv-*`, `--router-*`,
-`--no-kv-events`), the SLO monitor's (`--slo-*`) and `--grpc-port` are
-parsed under their names and refused, naming what they wait for.
+Port of `dynamo_tpu/frontend/__main__.py`: router mode (`kv`,
+`round_robin`, `random`), the KV router's knobs
+(`--kv-overlap-score-weight`, `--router-temperature`, `--no-kv-events`,
+`--router-replica-sync`), port, namespace, request template and TLS. The
+SLO monitor's flags (`--slo-*`) and `--grpc-port` are parsed under their
+names and refused, naming what they wait for.
 
 Reference: `components/src/dynamo/frontend/main.py:4-16,342`.
 """
@@ -27,14 +29,8 @@ from dynamo_tpu_torch.cli_util import (
 logger = logging.getLogger(__name__)
 
 PROG = "python -m dynamo_tpu_torch.frontend"
-KV = ("the KV router (ROADMAP queue 1: KV events, the radix indexer and "
-      "the KV scheduler)")
 SLO = "the SLO monitor (ROADMAP queue 1: worker and HTTP serving, what waits)"
 FRONTEND_REFUSED = {
-    "--kv-overlap-score-weight": (KV, "value"),
-    "--router-temperature": (KV, "value"),
-    "--no-kv-events": (KV, "store_true"),
-    "--router-replica-sync": (KV, "store_true"),
     "--grpc-port": ("the KServe gRPC frontend (ROADMAP queue 1: worker and "
                     "HTTP serving, what waits)", "value"),
     **{f"--slo-{name}": (SLO, "value")
@@ -52,8 +48,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--router-mode", default=None,
                    choices=["kv", "round_robin", "random"],
-                   help="override each model card's router mode ('kv' is "
-                        "refused until the KV router is ported)")
+                   help="override each model card's router mode")
+    p.add_argument("--kv-overlap-score-weight", type=float, default=1.0)
+    p.add_argument("--router-temperature", type=float, default=0.0)
+    p.add_argument("--no-kv-events", action="store_true",
+                   help="kv mode: predict each worker's cache from the "
+                        "routing decisions (ApproxKvIndexer) instead of "
+                        "consuming its KV events")
+    p.add_argument("--router-replica-sync", action="store_true")
     p.add_argument("--tls-cert-path", default=None,
                    help="PEM certificate; with --tls-key-path serves HTTPS")
     p.add_argument("--tls-key-path", default=None)
@@ -62,6 +64,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "temperature, max_completion_tokens)")
     add_refused(p, FRONTEND_REFUSED)
     return p.parse_args(argv)
+
+
+def router_config_from_args(args: argparse.Namespace):
+    from dynamo_tpu_torch.router.kv_router import KvRouterConfig
+
+    return KvRouterConfig(
+        overlap_weight=args.kv_overlap_score_weight,
+        temperature=args.router_temperature,
+        use_kv_events=not args.no_kv_events,
+        replica_sync=args.router_replica_sync)
 
 
 def main(argv=None) -> None:
@@ -88,6 +100,8 @@ def main(argv=None) -> None:
         fe = await start_frontend(rt, host=args.host, port=args.port,
                                   request_template=template,
                                   router_mode_override=args.router_mode,
+                                  router_config=router_config_from_args(
+                                      args),
                                   namespace=args.namespace,
                                   tls_cert=args.tls_cert_path,
                                   tls_key=args.tls_key_path)

@@ -1,14 +1,17 @@
 """Entrypoints: build a serving engine + card, serve it, front it.
 
 Port of `dynamo_tpu/llm/entrypoint.py`:
-- `start_frontend` (`:65`): model discovery (`ModelWatcher`) + the OpenAI
-  HTTP service. The reference's gRPC frontend, breaker-event counter,
-  telemetry, SLO, serving-class and flight-control planes wait with their
-  subsystems.
+- `start_frontend` (`:65`): model discovery (`ModelWatcher`, with the KV
+  router's config for `kv` cards) + the OpenAI HTTP service. The
+  reference's gRPC frontend, breaker-event counter, telemetry, SLO,
+  serving-class and flight-control planes wait with their subsystems.
 - `serve_engine` (`:263`) / `WorkerHandle` (`:245`): serve an engine on
-  its card's endpoint, join the engine's metrics (its compile tracker and
+  its card's endpoint, join the engine's metrics (`EngineMetrics` and its
   CUDA-graph counts) to the process's registry, publish the card. The
   canary, KVBM, memory, mesh and tenancy surfaces wait.
+- `wire_engine_events` (`:388`): the sinks that publish an engine's KV
+  events and ForwardPassMetrics on the runtime's event bus, under the
+  subjects the card's KV router consumes.
 - `build_tpu_engine` (`:418-566`) as `build_torch_engine`: resolve the checkpoint, read its config.json,
 load the weights through the port's own loader (or random-init them from
 a seed), and fill the card so the pipeline builds the matching
@@ -22,6 +25,7 @@ tokenizer's token-bytes map as a lazy provider and its EOS id
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
 from dataclasses import dataclass
@@ -42,6 +46,11 @@ from dynamo_tpu_torch.llm.model_manager import (
     check_router_mode,
 )
 from dynamo_tpu_torch.llm.tokenizer import make_tokenizer
+from dynamo_tpu_torch.router.kv_router import (
+    KvRouterConfig,
+    kv_events_subject,
+    metrics_subject,
+)
 from dynamo_tpu_torch.models.loader import (
     config_from_hf,
     load_llama_params,
@@ -49,6 +58,7 @@ from dynamo_tpu_torch.models.loader import (
 )
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
+from dynamo_tpu_torch.runtime.events import LocalEventBus
 
 logger = logging.getLogger(__name__)
 
@@ -79,17 +89,19 @@ async def start_frontend(runtime: DistributedRuntime,
                          namespace: Optional[str] = None,
                          tls_cert: Optional[str] = None,
                          tls_key: Optional[str] = None,
-                         request_template: Optional[dict] = None
+                         request_template: Optional[dict] = None,
+                         router_config: Optional[KvRouterConfig] = None
                          ) -> Frontend:
     """HTTP frontend: model discovery + OpenAI server (Input::Http).
 
     `router_mode_override` must be set before the watcher's initial MDC
-    scan builds pipelines (a "kv" override raises `KvRouterUnavailable`);
-    `namespace` (if set) restricts discovery to cards in that namespace;
-    `tls_cert`/`tls_key` serve HTTPS."""
+    scan builds pipelines; `router_config` tunes every `kv` model's
+    router (its block size is always the card's); `namespace` (if set)
+    restricts discovery to cards in that namespace; `tls_cert`/`tls_key`
+    serve HTTPS."""
     if router_mode_override is not None:
         check_router_mode(router_mode_override)
-    manager = ModelManager(runtime)
+    manager = ModelManager(runtime, router_config)
     manager.router_mode_override = router_mode_override
     watcher = await ModelWatcher(manager, namespace=namespace).start()
     try:
@@ -115,13 +127,14 @@ class WorkerHandle:
 
 
 def register_engine_metrics(runtime: DistributedRuntime, engine) -> None:
-    """Join an engine's own metrics to the process's scrape: the compile
-    tracker's `dynamo_compile_total` / `dynamo_compile_seconds_total` and
-    its CUDA-graph captures, replays and pool bytes (one source of truth,
-    no second bookkeeping path). Engines without them are skipped."""
-    tracker = getattr(engine, "compile_tracker", None)
-    if tracker is not None:
-        tracker.register(runtime.metrics)
+    """Join an engine's own metrics to the process's scrape: its
+    `EngineMetrics` (the `dynamo_engine_*` series and the compile
+    tracker's `dynamo_compile_*`) and its CUDA-graph captures, replays and
+    pool bytes (one source of truth, no second bookkeeping path). Engines
+    without them are skipped."""
+    metrics = getattr(engine, "metrics", None)
+    if metrics is not None:
+        metrics.register(runtime.metrics)
     graphs = getattr(engine, "graphs", None)
     if graphs is None:
         return
@@ -152,6 +165,35 @@ async def serve_engine(runtime: DistributedRuntime, engine: AsyncEngine,
     return WorkerHandle(runtime, card, served)
 
 
+def wire_engine_events(runtime: DistributedRuntime,
+                       card: ModelDeploymentCard):
+    """(event_sink, metrics_sink): callables that publish a worker
+    engine's KV events and ForwardPassMetrics on the runtime's event bus
+    under the card's component subjects. Call them on the event loop's
+    thread (the engine does): the in-process bus is not thread-safe, and
+    a coordinator's bus publishes from a task, in call order."""
+    ev_subject = kv_events_subject(card.namespace, card.component)
+    m_subject = metrics_subject(card.namespace, card.component)
+    bus = runtime.events
+    # the loop keeps only weak references to tasks: hold each publish
+    # until it is done
+    in_flight: set[asyncio.Task] = set()
+
+    def publisher(subject: str):
+        if isinstance(bus, LocalEventBus):
+            def publish(item) -> None:
+                bus.publish_nowait(subject, item.to_dict())
+        else:
+            def publish(item) -> None:
+                task = asyncio.get_running_loop().create_task(
+                    bus.publish(subject, item.to_dict()))
+                in_flight.add(task)
+                task.add_done_callback(in_flight.discard)
+        return publish
+
+    return publisher(ev_subject), publisher(m_subject)
+
+
 def attention_impl_from_env() -> str:
     """The engine path DYN_ATTENTION_IMPL selects: "ragged" for "ragged";
     the phase path for anything else ("auto", "xla", "pallas" are all the
@@ -167,7 +209,9 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                        pipeline_bursts: bool = True,
                        random_init: bool = False, rng_seed: int = 0,
                        quantize: Optional[str] = None,
-                       device: str = "cuda", **model_overrides
+                       device: str = "cuda", worker_id: int = 0,
+                       dp_rank: int = 0, event_sink=None,
+                       metrics_sink=None, **model_overrides
                        ) -> tuple[TorchEngine, ModelDeploymentCard]:
     """(TorchEngine, ModelDeploymentCard) for a checkpoint dir (or an
     already-downloaded HF-cache name). `random_init=True` skips the weight
@@ -176,8 +220,10 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
     weights: the loader quantizes each projection as it lands (the
     reference's `load_llama_params_device(quantize=...)`), and a random
     init is quantized by the engine. The path is
-    `attention_impl_from_env()`'s. `model_overrides` tune the config, e.g.
-    ``max_pages_per_seq`` or ``num_layers`` (depth cut)."""
+    `attention_impl_from_env()`'s. `worker_id` / `dp_rank` stamp the
+    engine's KV events and metrics, which go to `event_sink` /
+    `metrics_sink` (`wire_engine_events`). `model_overrides` tune the
+    config, e.g. ``max_pages_per_seq`` or ``num_layers`` (depth cut)."""
     dev = resolve_device(device)
     path = resolve_model(model)
     cfg = config_from_hf(path, **model_overrides)
@@ -207,8 +253,10 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                           pipeline_bursts=pipeline_bursts,
                           attention_impl=attention_impl_from_env(),
                           quantize=quantize, rng_seed=rng_seed,
-                          device=str(dev)),
-        model=params, token_bytes=token_bytes, eos_token_id=eos_id)
+                          device=str(dev), worker_id=worker_id,
+                          dp_rank=dp_rank),
+        model=params, token_bytes=token_bytes, eos_token_id=eos_id,
+        event_sink=event_sink, metrics_sink=metrics_sink)
     card = ModelDeploymentCard(
         name=served_name or os.path.basename(path.rstrip("/")),
         tokenizer_kind="hf" if has_tok else "byte",

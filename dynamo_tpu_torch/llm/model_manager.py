@@ -3,11 +3,12 @@
 Port of `dynamo_tpu/llm/model_manager.py`. When a ModelDeploymentCard
 appears under ``v1/mdc/``, build preprocessor → backend → migration →
 router and expose it by model name; when the last card for a model
-vanishes, tear it down. The port routes round-robin and random
-(`runtime/push.py`); a card or a frontend that asks for the KV router is
-refused with `KvRouterUnavailable`, never routed another way, until the
-KV-router slice lands (ROADMAP queue 1). The reference's multimodal
-encode routing and tool/reasoning parsers wait with those parts.
+vanishes, tear it down. The port routes `kv` through a `KvPushRouter`
+over the card's endpoint (its block size always the card's
+`kv_block_size`, the granularity the engine hashes its KV events at), and
+round-robin and random through `runtime/push.py`. The reference's
+multimodal encode routing and tool/reasoning parsers wait with those
+parts.
 
 Reference: `lib/llm/src/discovery/{watcher.rs:49,model_manager.rs:38}` and
 the pipeline assembly in `entrypoint/input/common.rs:261-325`
@@ -17,6 +18,7 @@ the pipeline assembly in `entrypoint/input/common.rs:261-325`
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 from typing import Optional
 
@@ -25,26 +27,20 @@ from dynamo_tpu_torch.llm.migration import Migration
 from dynamo_tpu_torch.llm.model_card import MDC_PREFIX, ModelDeploymentCard
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.llm.tokenizer import make_tokenizer
+from dynamo_tpu_torch.router.kv_router import KvPushRouter, KvRouterConfig
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, build_pipeline
 from dynamo_tpu_torch.runtime.push import RANDOM, ROUND_ROBIN, PushRouter
 from dynamo_tpu_torch.runtime.store import DELETE, PUT, RESET
 
 logger = logging.getLogger(__name__)
 
-ROUTER_MODES = (ROUND_ROBIN, RANDOM)
-
-
-class KvRouterUnavailable(ValueError):
-    """A KV-aware router mode was asked for; the port has none yet."""
+KV = "kv"
+ROUTER_MODES = (KV, ROUND_ROBIN, RANDOM)
 
 
 def check_router_mode(mode: str) -> None:
-    """Raise unless the port can route `mode` (round_robin | random)."""
-    if mode == "kv":
-        raise KvRouterUnavailable(
-            "router mode 'kv' is not supported by dynamo_tpu_torch yet: it "
-            "waits for the KV-router slice (KV events, the radix indexer "
-            "and the KV scheduler); use --router-mode round_robin or random")
+    """Raise unless the port can route `mode` (kv | round_robin |
+    random)."""
     if mode not in ROUTER_MODES:
         raise ValueError(f"unknown router mode {mode!r}; expected one of "
                          f"{ROUTER_MODES}")
@@ -52,21 +48,26 @@ def check_router_mode(mode: str) -> None:
 
 class ModelEntry:
     def __init__(self, card: ModelDeploymentCard, engine: AsyncEngine,
-                 client) -> None:
+                 kv_router: Optional[KvPushRouter], client) -> None:
         self.card = card
         self.engine = engine
+        self.kv_router = kv_router
         self.client = client
         self.card_keys: set[str] = set()
 
     async def stop_clients(self) -> None:
+        if self.kv_router is not None:
+            await self.kv_router.stop()
         await self.client.stop()
 
 
 class ModelManager:
     """model name → serving pipeline (discovery/model_manager.rs:38)."""
 
-    def __init__(self, runtime) -> None:
+    def __init__(self, runtime,
+                 router_config: Optional[KvRouterConfig] = None) -> None:
         self.runtime = runtime
+        self.router_config = router_config
         # CLI `--router-mode` overrides every card's router_mode
         # (frontend/main.py:4-16 flag semantics)
         self.router_mode_override: Optional[str] = None
@@ -82,6 +83,11 @@ class ModelManager:
         e = self._models.get(model)
         return e.engine if e else None
 
+    def kv_routers(self) -> dict[str, KvPushRouter]:
+        """model name → its KV router, for the models routed `kv`."""
+        return {name: e.kv_router for name, e in sorted(self._models.items())
+                if e.kv_router is not None}
+
     async def add_model(self, card: ModelDeploymentCard,
                         card_key: str) -> ModelEntry:
         entry = self._models.get(card.name)
@@ -95,14 +101,28 @@ class ModelManager:
               .endpoint(card.endpoint))
         client = await ep.client()
         await client.start()
+        kv_router: Optional[KvPushRouter] = None
+        if router_mode == KV:
+            cfg = dataclasses.replace(
+                self.router_config or KvRouterConfig(),
+                block_size=card.kv_block_size)
+            try:
+                kv_router = await KvPushRouter(client, rt.events,
+                                               cfg).start()
+            except BaseException:
+                await client.stop()
+                raise
+            router_engine: AsyncEngine = kv_router
+        else:
+            router_engine = PushRouter(client, mode=router_mode)
         tokenizer = make_tokenizer(card.tokenizer_kind, card.tokenizer_path)
         engine = build_pipeline(
             OpenAIPreprocessor(tokenizer, card.name, card.context_length),
             Backend(tokenizer),
             Migration(card.migration_limit),
-            sink=PushRouter(client, mode=router_mode),
+            sink=router_engine,
         )
-        entry = ModelEntry(card, engine, client)
+        entry = ModelEntry(card, engine, kv_router, client)
         entry.card_keys.add(card_key)
         self._models[card.name] = entry
         logger.info("model added: %s (router=%s)", card.name, router_mode)

@@ -25,8 +25,11 @@ OpenAI frontend over it (`start_frontend`), as the reference does: the
 same discovery-driven path as a multi-process deployment, in one process;
 it prints `RUN_READY <url>` and serves until SIGINT/SIGTERM.
 `out=dyn://ns.comp.ep` routes text and batch inputs to live remote workers
-found through `--store` (`--router-mode` round_robin or random); the
-tokenizer comes from the workers' published card.
+found through `--store`; the tokenizer comes from the workers' published
+card. `--router-mode` (round_robin by default, random, or kv) routes
+both: under `kv` the in-process engine publishes its KV events on the
+runtime's bus and the frontend's KV router reads them, and `dyn://`
+routes through a `KvPushRouter` over the workers' events.
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ def parse_args(rest: list[str]) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=8080,
                    help="in=http: the frontend's port")
     p.add_argument("--router-mode", default="round_robin",
-                   choices=["round_robin", "random"],
+                   choices=["kv", "round_robin", "random"],
                    help="in=http and dyn:// routing")
     p.add_argument("--model-name", default=None,
                    help="served model name (default: checkpoint dir name)")
@@ -206,6 +209,10 @@ async def connect_remote(out: str, args, runtime):
         MDC_PREFIX,
         ModelDeploymentCard,
     )
+    from dynamo_tpu_torch.router.kv_router import (
+        KvPushRouter,
+        KvRouterConfig,
+    )
     from dynamo_tpu_torch.runtime.push import PushRouter
 
     spec = out[len("dyn://"):]
@@ -227,6 +234,9 @@ async def connect_remote(out: str, args, runtime):
                     .endpoint(ep).client())
     await client.start()
     await client.wait_ready()
+    if args.router_mode == "kv":
+        return await KvPushRouter(client, runtime.events, KvRouterConfig(
+            block_size=card.kv_block_size)).start(), card
     return PushRouter(client, mode=args.router_mode), card
 
 
@@ -236,7 +246,11 @@ async def serve_http(engine, card, args) -> None:
     import signal
 
     from dynamo_tpu_torch.cli_util import runtime_config_from_args
-    from dynamo_tpu_torch.llm.entrypoint import serve_engine, start_frontend
+    from dynamo_tpu_torch.llm.entrypoint import (
+        serve_engine,
+        start_frontend,
+        wire_engine_events,
+    )
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
     cfg = runtime_config_from_args(args)
@@ -248,9 +262,14 @@ async def serve_http(engine, card, args) -> None:
     card.namespace = args.namespace
     card.component = "run"
     card.router_mode = args.router_mode
+    if args.router_mode == "kv":
+        engine.attach_sinks(*wire_engine_events(runtime, card))
     handle = fe = None
     try:
-        handle = await serve_engine(runtime, engine, card)
+        # the instance id is the engine's worker id, which its KV events
+        # carry: the KV router keys both by it
+        handle = await serve_engine(runtime, engine, card,
+                                    instance_id=engine.config.worker_id)
         fe = await start_frontend(runtime, host=args.host, port=args.port)
         print(f"RUN_READY {fe.url}", flush=True)
         await runtime.wait_shutdown()
@@ -277,7 +296,7 @@ async def amain(inp: str, out: str, args) -> None:
     if not (inp == "http" or inp.startswith(("text:", "batch:"))):
         raise SystemExit(f"unknown in={inp!r}; expected "
                          f"text:<prompt>|batch:<file>|http")
-    runtime = engine = None
+    runtime = engine = sink = None
     try:
         if remote:
             from dynamo_tpu_torch.cli_util import runtime_config_from_args
@@ -315,6 +334,8 @@ async def amain(inp: str, out: str, args) -> None:
     finally:
         if engine is not None:
             await engine.close()
+        if remote and hasattr(sink, "stop"):
+            await sink.stop()           # a KvPushRouter's consumers
         if runtime is not None:
             await runtime.close()
 

@@ -16,12 +16,15 @@ from __future__ import annotations
 
 import asyncio
 import json
+import logging
 import random
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, FnEngine
 from dynamo_tpu_torch.runtime.store import DELETE, PUT, RESET, Watch
+
+logger = logging.getLogger(__name__)
 
 INSTANCE_PREFIX = "v1/instances/"
 
@@ -172,6 +175,7 @@ class EndpointClient:
         self._ready = asyncio.Event()
         if static_instances is not None:
             self._ready.set()
+        self._listeners: list[Callable[[str, Instance], None]] = []
 
     async def start(self) -> "EndpointClient":
         if self._static is not None or self._watch_task is not None:
@@ -195,11 +199,13 @@ class EndpointClient:
             if ev.kind == PUT:
                 inst = Instance.from_json(ev.value)
                 self._instances[inst.instance_id] = inst
+                self._emit(PUT, inst)
             elif ev.kind == DELETE:
                 iid = int(ev.key.rsplit("/", 1)[-1], 16)
                 inst = self._instances.pop(iid, None)
                 if inst is not None:
                     self._purge_breaker(inst)
+                    self._emit(DELETE, inst)
             elif ev.kind == RESET:
                 # coordinator restarted: the empty store will never send
                 # DELETEs for instances that died with it — drop the
@@ -207,6 +213,7 @@ class EndpointClient:
                 for inst in list(self._instances.values()):
                     self._instances.pop(inst.instance_id, None)
                     self._purge_breaker(inst)
+                    self._emit(DELETE, inst)
             self._ready.set()
 
     def _purge_breaker(self, inst: Instance) -> None:
@@ -217,6 +224,19 @@ class EndpointClient:
         breaker = getattr(self.endpoint.runtime, "breaker", None)
         if breaker is not None:
             breaker.reset(inst.subject)
+
+    def _emit(self, kind: str, inst: Instance) -> None:
+        for fn in self._listeners:
+            try:
+                fn(kind, inst)
+            except Exception:
+                logger.exception("instance listener failed on %s %s",
+                                 kind, inst.subject)
+
+    def on_change(self, fn: Callable[[str, Instance], None]) -> None:
+        """Call `fn(kind, instance)` on every PUT / DELETE the watch sees
+        (the KV router's worker membership)."""
+        self._listeners.append(fn)
 
     async def wait_ready(self, timeout: float = 5.0) -> None:
         await asyncio.wait_for(self._ready.wait(), timeout)

@@ -2,11 +2,19 @@
 
 Port of `dynamo_tpu/runtime/distributed.py`: the store, the transport
 server and client, the process-wide circuit breaker, the metrics
-registry, the in-process engine registry and the re-registration of
-lease-attached keys after a coordinator restart. The status server, the
-health-check manager, the event plane's users (breaker events, KV events:
-the KV-router slice), the adaptive idle timeout, the store-degradation
-flags and the KVBM wiring wait with their subsystems.
+registry, the event bus (the store's own over a coordinator, an in-process
+`LocalEventBus` otherwise: KV events, forward-pass metrics and router
+replica sync ride it), the in-process engine registry and the
+re-registration of lease-attached keys after a coordinator restart. The
+status server, the health-check manager, breaker events, the adaptive
+idle timeout, the store-degradation flags and the KVBM wiring wait with
+their subsystems.
+
+On an in-process store ("memory") the runtime keeps its own lease alive,
+as `StoreClient` does over a coordinator: the reference's runtime does
+not, so there every lease-attached key (instances, model cards) vanishes
+`lease_ttl` seconds after start and an in-process `run in=http` stops
+finding its model.
 
 Reference: `lib/runtime/src/distributed.rs:43-191` — holds the etcd client
 (here: store), NATS client (here: transport server/client), component
@@ -26,8 +34,13 @@ from dynamo_tpu_torch.runtime.breaker import CircuitBreaker
 from dynamo_tpu_torch.runtime.component import Namespace
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
+from dynamo_tpu_torch.runtime.events import EventBus, LocalEventBus
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
-from dynamo_tpu_torch.runtime.store import KeyValueStore, connect_store
+from dynamo_tpu_torch.runtime.store import (
+    KeyValueStore,
+    MemoryStore,
+    connect_store,
+)
 from dynamo_tpu_torch.runtime.transport import TransportClient, TransportServer
 
 logger = logging.getLogger(__name__)
@@ -51,6 +64,14 @@ class DistributedRuntime:
         self.breaker = CircuitBreaker(config.breaker_fail_limit,
                                       config.breaker_cooldown)
         self.lease_id = lease_id
+        # a coordinator's client is its own event bus; in static (memory)
+        # mode a LocalEventBus serves the process
+        self.events: EventBus = (
+            store if isinstance(store, EventBus) else LocalEventBus())
+        self._lease_task: Optional[asyncio.Task] = None
+        if isinstance(store, MemoryStore):
+            self._lease_task = asyncio.get_running_loop().create_task(
+                self._keep_lease_alive())
         self.metrics = MetricsRegistry("dynamo")
         # surface retry/timeout/breaker counters on both observability
         # planes: the `_sys.stats` scrape and the Prometheus registry
@@ -64,6 +85,13 @@ class DistributedRuntime:
         self._reregisters: list = []
         if hasattr(store, "on_reconnect"):
             store.on_reconnect.append(self._on_store_reconnect)
+
+    async def _keep_lease_alive(self) -> None:
+        """Renew this process's lease on an in-process store every third
+        of its TTL (StoreClient renews a coordinator's lease)."""
+        while True:
+            await asyncio.sleep(self.config.lease_ttl / 3)
+            await self.store.keep_alive(self.lease_id)
 
     def _robustness_stats(self) -> dict:
         """Process-level counters merged into the `_sys.stats` scrape:
@@ -166,6 +194,8 @@ class DistributedRuntime:
 
     async def close(self) -> None:
         self.shutdown()
+        if self._lease_task is not None:
+            self._lease_task.cancel()
         try:
             await self.store.revoke_lease(self.lease_id)
         except Exception:

@@ -14,6 +14,11 @@ The engine is built BEFORE the runtime takes its lease: a build that
 holds the event loop (an 8B random init, the first kernel builds) longer
 than the lease TTL would otherwise let the lease expire before the
 worker registers (the reference builds it after `DistributedRuntime.create`).
+It is built with `worker_id` = the instance id, as the reference's is
+(`dynamo_tpu/worker/main.py:403-410`); its KV-event and metrics sinks
+(`wire_engine_events`, which needs the runtime's event bus) are attached
+right after the runtime exists and before the instance is served, so no
+event precedes them.
 
 Reference: `components/src/dynamo/vllm/main.py:69-228`.
 """
@@ -94,8 +99,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--migration-limit", type=int, default=0)
     p.add_argument("--router-mode", default="kv",
                    choices=["kv", "round_robin", "random"],
-                   help="published on the card; 'kv' is refused until the "
-                        "KV router is ported")
+                   help="published on the card")
     p.add_argument("--instance-id", type=int, default=None)
     # engine geometry
     p.add_argument("--num-pages", type=int, default=2048)
@@ -131,8 +135,14 @@ def check_args(args: argparse.Namespace) -> None:
         raise SystemExit(f"{PROG}: one of --model / --echo is required")
 
 
+def instance_id_of(args: argparse.Namespace) -> int:
+    return (args.instance_id if args.instance_id is not None
+            else (os.getpid() << 16 | 1))
+
+
 def build_engine_and_card(args: argparse.Namespace):
-    """(engine, card) per the CLI's engine selection."""
+    """(engine, card) per the CLI's engine selection; the engine's KV
+    events and metrics carry the instance id as their worker id."""
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 
     if args.echo:
@@ -156,7 +166,7 @@ def build_engine_and_card(args: argparse.Namespace):
         num_pages=args.num_pages, max_batch_size=args.max_batch_size,
         decode_steps_per_sync=args.decode_steps_per_sync,
         random_init=args.random_init, quantize=args.quantize,
-        device=args.device, **overrides)
+        device=args.device, worker_id=instance_id_of(args), **overrides)
     engine.config.prefill_chunk = args.prefill_chunk
     card.namespace = args.namespace
     card.component = args.component
@@ -169,7 +179,10 @@ def build_engine_and_card(args: argparse.Namespace):
 async def start_worker(args: argparse.Namespace):
     """Build the engine, then take the lease, serve, publish the card.
     Returns (runtime, engine, handle, monitor)."""
-    from dynamo_tpu_torch.llm.entrypoint import serve_engine
+    from dynamo_tpu_torch.llm.entrypoint import (
+        serve_engine,
+        wire_engine_events,
+    )
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
     from dynamo_tpu_torch.worker.monitor import EngineDeathMonitor
 
@@ -178,8 +191,10 @@ async def start_worker(args: argparse.Namespace):
     logger.info("engine built in %.2f s (before the lease is taken)",
                 time.perf_counter() - t0)
     rt = await DistributedRuntime.create(runtime_config_from_args(args))
-    instance_id = (args.instance_id if args.instance_id is not None
-                   else (os.getpid() << 16 | 1))
+    instance_id = instance_id_of(args)
+    attach = getattr(engine, "attach_sinks", None)
+    if attach is not None:
+        attach(*wire_engine_events(rt, card))
     handle = await serve_engine(rt, engine, card, instance_id=instance_id)
     monitor = EngineDeathMonitor(engine)
     monitor.start()

@@ -1,8 +1,8 @@
 """The port's worker and frontend CLIs refuse what they cannot serve: each
 reference flag whose subsystem is not ported yet, set, exits with a
-message that names what it waits for (none is ignored); a `kv` router mode
-exits naming the KV-router slice; the worker on `--device cuda` without a
-card raises instead of serving on the CPU."""
+message that names what it waits for (none is ignored); the `kv` router
+mode and the frontend's KV-router flags are accepted; the worker on
+`--device cuda` without a card raises instead of serving on the CPU."""
 
 import os
 import subprocess
@@ -55,13 +55,24 @@ def test_worker_accepts_single_device_defaults(flag, value):
     worker_main.check_args(worker_main.parse_args(BASE + [flag, value]))
 
 
-def test_kv_router_mode_exits_naming_the_kv_router(monkeypatch):
-    with pytest.raises(SystemExit, match="KV-router slice"):
-        worker_main.check_args(worker_main.parse_args(["--echo"]))
+def test_kv_router_mode_and_flags_are_accepted(monkeypatch):
+    """The worker's default router mode is kv and passes its checks; the
+    frontend's four KV-router flags reach the router's config."""
+    args = worker_main.parse_args(["--echo"])
+    assert args.router_mode == "kv"
+    worker_main.check_args(args)
+    flags = ["--router-mode", "kv", "--kv-overlap-score-weight", "2.5",
+             "--router-temperature", "0.3", "--no-kv-events",
+             "--router-replica-sync"]
+    cfg = frontend_main.router_config_from_args(
+        frontend_main.parse_args(flags))
+    assert (cfg.overlap_weight, cfg.temperature, cfg.use_kv_events,
+            cfg.replica_sync) == (2.5, 0.3, False, True)
+    started = []
     monkeypatch.setattr(frontend_main, "run_until_signal",
-                        lambda *a, **k: None)
-    with pytest.raises(SystemExit, match="KV-router slice"):
-        frontend_main.main(["--router-mode", "kv"])
+                        lambda *a, **k: started.append(a))
+    frontend_main.main(flags)
+    assert len(started) == 1
 
 
 def test_worker_on_cuda_without_a_card_raises(tmp_path):

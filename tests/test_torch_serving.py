@@ -17,12 +17,13 @@
   with STREAM_ERR_MSG and `Migration` replays it on the survivor within
   `migration_limit` (and past it the SSE stream carries an error event,
   counted as a 500); an unknown model is a 404, no live worker a 503; a
-  `kv` router mode raises `KvRouterUnavailable`.
+  `kv` card (the cards' default) and a `kv` frontend are served through
+  the KV router (tests/test_torch_kv_serving.py holds its placements).
 - A worker whose engine build outlasts the lease TTL stays discoverable
   (the engine is built before the lease is taken).
 
-Every test bounds itself with `asyncio.wait_for` and takes its ports from
-`free_port()`."""
+Every test bounds itself with `asyncio.wait_for`; frontends bind port 0,
+coordinators take theirs from `free_port()`."""
 
 import asyncio
 import http.client
@@ -49,10 +50,6 @@ from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
 from dynamo_tpu_torch.engines import EchoEngine
 from dynamo_tpu_torch.llm import entrypoint as t_entry
 from dynamo_tpu_torch.llm import model_card as t_card
-from dynamo_tpu_torch.llm.model_manager import (
-    KvRouterUnavailable,
-    ModelManager,
-)
 from dynamo_tpu_torch.models import llama as tl
 from dynamo_tpu_torch.models.convert import params_from_jax
 from dynamo_tpu_torch.runtime import config as t_config
@@ -227,11 +224,24 @@ def check_bodies(results, requests) -> None:
                 "length"
 
 
+async def _renew_lease(rt) -> None:
+    """Keep an in-process reference runtime's lease alive. The
+    reference's runtime never renews a lease on its memory store (the
+    port's does), so there the model's card and instance vanish
+    `lease_ttl` (10 s) after start: a run slowed by a loaded machine
+    then met a 404 halfway through."""
+    while True:
+        await asyncio.sleep(rt.config.lease_ttl / 3)
+        await rt.store.keep_alive(rt.lease_id)
+
+
 def test_http_end_to_end_identical_to_jax_package(default_impl):
+    jax_eng, torch_eng = _engines()     # built before the bound
+
     async def main():
-        jax_eng, torch_eng = _engines()
         ref_rt = await ref_dist.DistributedRuntime.create(
             ref_config.RuntimeConfig())
+        renew = asyncio.ensure_future(_renew_lease(ref_rt))
         t_rt = await t_dist.DistributedRuntime.create(
             t_config.RuntimeConfig())
         handles, fes = [], []
@@ -240,9 +250,9 @@ def test_http_end_to_end_identical_to_jax_package(default_impl):
                 ref_rt, jax_eng, _card(ref_card, "tiny", "backend")))
             handles.append(await t_entry.serve_engine(
                 t_rt, torch_eng, _card(t_card, "tiny", "backend")))
-            fes.append(await ref_entry.start_frontend(ref_rt,
-                                                      port=free_port()))
-            fes.append(await t_entry.start_frontend(t_rt, port=free_port()))
+            # both frontends bind port 0 and report the port they got
+            fes.append(await ref_entry.start_frontend(ref_rt, port=0))
+            fes.append(await t_entry.start_frontend(t_rt, port=0))
             ports = (fes[0].http.port, fes[1].http.port)
             reqs = requests_for("tiny")
             want, got = await serve_pair(*ports, reqs)
@@ -259,6 +269,7 @@ def test_http_end_to_end_identical_to_jax_package(default_impl):
                     torch_eng.streams, torch_eng.outputs,
                     ids_body)
         finally:
+            renew.cancel()
             for fe in fes:
                 await fe.stop()
             for h in handles:
@@ -560,35 +571,51 @@ def test_unknown_model_404_and_no_instances_503():
         "service_unavailable"
 
 
-def test_kv_router_mode_is_refused():
+def test_kv_router_mode_is_served():
+    """A card's default router mode is kv: the manager builds a
+    KvPushRouter over its endpoint (block size the card's), a frontend
+    overriding every card to kv does the same, and each answers a
+    request through it."""
     async def main():
         rt = await t_dist.DistributedRuntime.create(t_config.RuntimeConfig())
+        fes = []
         try:
             card = t_card.ModelDeploymentCard(
                 name="kv-model", tokenizer_kind="word",
-                tokenizer_path="kv-model")      # router_mode defaults to kv
+                tokenizer_path="kv-model", kv_block_size=4)
             assert card.router_mode == "kv"
-            with pytest.raises(KvRouterUnavailable, match="KV-router"):
-                await ModelManager(rt).add_model(card, "k")
-            with pytest.raises(KvRouterUnavailable, match="KV-router"):
-                await t_entry.start_frontend(rt, port=free_port(),
-                                             router_mode_override="kv")
-            # a frontend skips a published kv card, loudly, and keeps
-            # serving the others
-            await t_card.register_llm(rt, card)
-            ok = t_card.ModelDeploymentCard(
+            handle = await t_entry.serve_engine(rt, EchoEngine(), card,
+                                                instance_id=3)
+            rr = t_card.ModelDeploymentCard(
                 name="rr", tokenizer_kind="word", tokenizer_path="rr",
-                router_mode="round_robin")
-            await t_card.register_llm(rt, ok)
-            fe = await t_entry.start_frontend(rt, port=free_port())
-            try:
-                return fe.manager.model_names()
-            finally:
-                await fe.stop()
+                component="rr", router_mode="round_robin")
+            handle_rr = await t_entry.serve_engine(rt, EchoEngine(), rr,
+                                                   instance_id=4)
+            fes.append(await t_entry.start_frontend(rt, port=0))
+            fes.append(await t_entry.start_frontend(
+                rt, port=0, router_mode_override="kv"))
+            out = []
+            for fe in fes:
+                routers = fe.manager.kv_routers()
+                body = {"model": "kv-model", "max_tokens": 2,
+                        "messages": [{"role": "user", "content": "a b c"}]}
+                st, _, raw = await call(fe.http.port, "POST",
+                                        "/v1/chat/completions", body)
+                out.append((sorted(routers), st,
+                            [type(r).__name__ for r in routers.values()],
+                            [r.config.block_size for r in routers.values()]))
+            await handle.stop()
+            await handle_rr.stop()
+            return out
         finally:
+            for fe in fes:
+                await fe.stop()
             await rt.close()
 
-    assert asyncio.run(asyncio.wait_for(main(), 20)) == ["rr"]
+    default, override = asyncio.run(asyncio.wait_for(main(), 20))
+    assert default == (["kv-model"], 200, ["KvPushRouter"], [4])
+    assert override[0] == ["kv-model", "rr"] and override[1] == 200
+    assert override[2] == ["KvPushRouter"] * 2
 
 
 def test_worker_start_outlasting_the_lease_ttl_stays_discoverable(
