@@ -39,6 +39,13 @@ on):
     with the plain version of each weight; one K5, one K6 and one grouped
     call captured in a CUDA graph, x changed in place, replayed: equal to
     an eager call
+ 7b. prefill attention through K1 (`attention.prefill_attention` on CUDA
+    tensors) vs the plain prefill attention at the phase batch's widest
+    chunk round (bp 8, T 512, contexts to 1041, cursors aligned and not,
+    one padding lane): valid rows within K1_BF16_TOL, padding rows exact
+    zeros, q = 0 through the same row tags at K1_UNIFORM_TOL; the KV
+    gather (66 pages of 32 layers' K and V, one launch) bit-exact with the
+    per-layer index_select stack
  8. main paths: Llama-3-8B at full width and depth (random weights from a
     seed) served through `dynamo_tpu_torch.run`'s pipeline, a batch of 10
     greedy chat requests of 16..1500 bytes with top-8 logprobs,
@@ -46,12 +53,15 @@ on):
     phase path (the default: k = 8 bursts, pipelined), then the ragged
     path (DYN_ATTENTION_IMPL=ragged) on the same weights; each with the
     launch counts zeroed just before and read just after, replayed CUDA
-    graphs' launches included (phase: K2, K3, K4 > 0 and K1 = K5 = K6 =
-    0; ragged: K1, K2 > 0 and K3 = K4 = K5 = K6 = 0); the path's graphed
-    entry captured and replayed in the batch (phase "decode_burst", ragged
-    "ragged_step"; captures, their seconds from the compile tracker — they
+    graphs' launches included (phase: K1, K2, K3, K4 > 0 and K5 = K6 = 0;
+    ragged: K1, K2 > 0 and K3 = K4 = K5 = K6 = 0); the path's graphed
+    entries captured and replayed in the batch (phase "prefill",
+    "mixed_step", "sample_first", "decode_burst"; ragged "ragged_step";
+    captures and their seconds by entry from the compile tracker — they
     land in the first requests' TTFT — replays and the graphs' pool bytes
-    printed); greedy determinism; the same greedy request (100-token
+    printed); on the phase path a second, steady batch of fresh prompts of
+    the same sizes (tok/s, TTFT p50, new captures beside the first
+    batch's); greedy determinism; the same greedy request (100-token
     prompt, 12 tokens, top-8 logprobs) on both paths, equal up to a
     parting at a bf16 near-tie (BF16_TIE_TOL), printed with its step,
     tokens and gap
@@ -104,11 +114,26 @@ on):
     Both workers replayed their "decode_burst" graphs; wave 1's TTFT
     beside wave 2's, the router's events by stream and its KV-event gaps
     (which must be 0) printed; every subprocess stopped at the end
+ 8e. disaggregated serving, after 8d has stopped its workers: the
+    coordinator, a `.worker --is-prefill-worker` (served as
+    llama3-8b-prefill), a `.worker --enable-disagg
+    --max-local-prefill-length 256` and `.frontend --router-mode kv`, all
+    on the phase-8 checkpoint (random init, seed 0); phase 8's 10 requests
+    all in flight, first with the CUDA IPC plane, then with the decode
+    worker restarted under DYN_KV_PLANE=0 (the host wire). Per request its
+    path (remote above 256 prompt tokens), pull and import times, bytes
+    and GB/s by pull path; remote TTFT p50 beside local; free memory before
+    the workers start and with both up. Checks: with the plane on every
+    remote pull rides the plane with 0 fallbacks, with it off the wire;
+    0 KV-event gaps and no dropped events at the frontend's router; every
+    stream token-identical with phase 8's in-process batch or parting at
+    a near-tie (BF16_TIE_TOL, printed as 8c prints them); the prefill
+    worker launched the KV gather (its `_sys.stats` scrape)
  9. quantized main path: the same batch on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
     same random weights, quantized by the engine): w8a8 launches K5 and
-    not K6, int4 K6 and not K5, both K2, K3, K4 and not K1;
-    "decode_burst" captured and replayed; greedy determinism; every
+    not K6, int4 K6 and not K5, both K1, K2, K3, K4; the phase path's
+    graphed entries captured and replayed; greedy determinism; every
     projection held as int8 / packed int4 only (resident weight bytes
     printed per mode); one bare decode_step
     launches its GEMM exactly 4 x 32 times (q/k/v and gate/up grouped)
@@ -116,19 +141,24 @@ on):
     mixed_prefill_decode step in bf16, and one mixed_prefill_decode step
     per quantized mode (logits within a stated tolerance)
 11a. graph replays at 8B: each bare step of phase 11 (the ragged decode
-    and mixed rounds in bf16, the 8-step burst in bf16, w8a8, int4 and
-    int8) captured in a CUDA graph through `engine/graphs.py` and replayed
-    on a copy of the caches: bit-identical with the eager step on the same
-    inputs (packed output, chunk logits, both caches outside page 0)
+    and mixed rounds in bf16; the phase path's "prefill" at bp 1 and 8, T
+    512, its "mixed_step" and its "sample_first" in bf16; the 8-step burst
+    in bf16, w8a8, int4 and int8) captured in a CUDA graph through
+    `engine/graphs.py` and replayed on a copy of the caches: bit-identical
+    with the eager step on the same inputs (every output, both caches
+    outside page 0)
 11. profiles at 8B: host wall time (with the one sync) and device busy time
     (torch.profiler's CUDA kernels and copies) of a bare ragged decode
-    round, a bare ragged mixed round and a bare 8-step decode burst (bf16,
-    w8a8, int4, and int8 = W8A16), device time by kernel class and device
+    round, a bare ragged mixed round, the phase path's bare prefill rounds,
+    mixed step and first-token sampling, and a bare 8-step decode burst
+    (bf16, w8a8, int4, and int8 = W8A16), device time by kernel class and
+    device
     ops per step; beside each, the same step replayed from its graph
     (host wall, device busy, the replay timed with CUDA events too, device
     ops) and the graph pool's bytes; each
     bf16 path's engine batch once more with kernel tracing only (host wall
-    vs device busy, graph captures and replays)
+    vs device busy and idle share, the dispatches still eager — not run
+    from a graph —, graph captures and replays)
 12. kernel path vs plain path at 2 layers, full width, fp32: greedy
     streams over 16 steps x 3 requests across phase-kernel, phase-plain,
     ragged-kernel and ragged-plain — identical unquantized, and under
@@ -144,8 +174,12 @@ on):
     empty-kernel floor under the same flush, K2 and K3 also per launch in
     a run of 32 (one per layer, 32 cache pairs), bounds from bytes and
     operations; K5/K6 at the four projection shapes at M = 8 (burst) and
-    512 (chunk) beside torch._int_mm + epilogue and bf16 torch.matmul;
-    each path's and mode's output tok/s and TTFT p50
+    512 (chunk) beside torch._int_mm + epilogue and bf16 torch.matmul; K1
+    on the phase path's widest chunk round beside the plain prefill
+    attention and scaled_dot_product_attention on pre-gathered K/V; the
+    KV gather of 66 pages x 32 layers beside its plain version and the
+    per-layer index_select loop; each path's and mode's output tok/s and
+    TTFT p50, the phase path's steady batch apart
 
 The last three lines of stdout are the kernels JSON, the nvidia-smi line
 and `{"ok": true, "device": {...}}`.
@@ -184,9 +218,11 @@ PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12, 1979e12),
          "H100 PCIe": (2.0e12, 756e12, 51e12, 1513e12),
          "H100 NVL": (3.9e12, 835e12, 60e12, 1671e12)}
 # K1 in bf16 vs the plain version (fp32 softmax): |got - want| <=
-# atol + rtol * |want|. The kernel rounds P to bf16 before PV and both
-# sides round the output to bf16 once: two bf16 ulps relative (rtol), and
-# atol 2^-8 for rows whose output is small beside its V values.
+# atol + rtol * |want|. Both sides round the output to bf16 once (the
+# kernel's P·V takes P as a bf16 head and tail, ~16 bits; a kernel that
+# rounded P to bf16 once also met these bounds): two bf16 ulps relative
+# (rtol), and atol 2^-8 for rows whose output is small beside its V
+# values.
 K1_BF16_TOL = {"atol": 4e-3, "rtol": 1.6e-2}
 K1_FP32_TOL = {"atol": 2e-5, "rtol": 2e-5}   # the reference's parity check
 # K1 in bf16 with q = 0: every score is 0, so P = 1 is exact in bf16 and
@@ -197,7 +233,7 @@ K1_FP32_TOL = {"atol": 2e-5, "rtol": 2e-5}   # the reference's parity check
 K1_UNIFORM_TOL = {"atol": 1e-5, "rtol": 4e-3}
 # K4 against its plain version: fp32 at the reference's kernel-parity
 # tolerance; bf16 as K1 (K4's bf16 path is K1's core at one row per lane,
-# so it too rounds P to bf16 before PV); q = 0 as K1
+# with the same P·V); q = 0 as K1
 K4_FP32_TOL = K1_FP32_TOL
 K4_BF16_TOL = K1_BF16_TOL
 K4_UNIFORM_TOL = K1_UNIFORM_TOL
@@ -249,6 +285,8 @@ GEMM_OF = {"w8a8": "w8a8_matmul", "int4": "int4_matmul"}
 K2_LAYOUTS = ("contiguous", "fused", "heads")
 K3_LAYOUTS = ("chunk", "contiguous")
 N_LAYER_RUN = 32          # Llama-3-8B's layers: one KV store each per step
+# the phase path's graphed entries, every one replayed in phase 8's batch
+PHASE_ENTRIES = ("prefill", "mixed_step", "sample_first", "decode_burst")
 
 
 def log(msg: str) -> None:
@@ -542,14 +580,15 @@ class Service:
     process, which has initialised CUDA): stdout lines read by a thread,
     stderr to a file."""
 
-    def __init__(self, work: str, name: str, *args: str) -> None:
+    def __init__(self, work: str, name: str, *args: str,
+                 label: str = "", env: dict | None = None) -> None:
         import queue
         import threading
 
-        env = dict(os.environ, PYTHONPATH=ROOT)
+        env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
         env.pop("DYN_ATTENTION_IMPL", None)       # the phase path
-        self.name = name
-        self.err_path = os.path.join(work, f"{name}.err")
+        self.name = label or name
+        self.err_path = os.path.join(work, f"{self.name}.err")
         self._err = open(self.err_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", f"dynamo_tpu_torch.{name}", *args],
@@ -646,7 +685,8 @@ def http_chat_stream(port: int, body: dict) -> dict:
     if usage["completion_tokens"] != len(toks) or first is None:
         raise AssertionError(f"{usage} for {len(toks)} tokens")
     return {"tokens": toks, "tops": tops, "finish": finish,
-            "ttft_s": first, "elapsed_s": done, "t0": t0}
+            "ttft_s": first, "elapsed_s": done, "t0": t0,
+            "prompt_tokens": usage["prompt_tokens"]}
 
 
 def latency_summary(rows: list, wall: float) -> str:
@@ -1065,6 +1105,240 @@ def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
         f"on {smi}")
 
 
+# phase 8e: prompts longer than this many uncached tokens are prefilled by
+# the prefill worker
+DISAGG_MAX_LOCAL = 256
+
+
+def pull_records(text: str) -> list:
+    """The decode worker's per-pull log lines (`disagg/handlers.py`
+    `_record_pull`): [{"tid", "path", "tokens", "bytes", "seconds"}]."""
+    import re
+
+    rx = re.compile(r"kv pull (\S+): path (\S+), (\d+) tokens, (\d+) bytes "
+                    r"in ([0-9.]+) s")
+    return [{"tid": m[1], "path": m[2], "tokens": int(m[3]),
+             "bytes": int(m[4]), "seconds": float(m[5])}
+            for m in rx.finditer(text)]
+
+
+def import_records(text: str) -> list:
+    """The decode worker's per-import log lines (the engine's
+    `_observe_import`): [{"tokens", "bytes", "seconds", "clock"}]."""
+    import re
+
+    rx = re.compile(r"kv import: (\d+) tokens, (\d+) bytes written in "
+                    r"([0-9.]+) s \((\w+) time\)")
+    return [{"tokens": int(m[1]), "bytes": int(m[2]),
+             "seconds": float(m[3]), "clock": m[4]}
+            for m in rx.finditer(text)]
+
+
+def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
+                 in_proc: dict, model, n_pages: int) -> dict:
+    """Phase 8e: disaggregated serving on the card. The coordinator, a
+    prefill worker (`--is-prefill-worker`), a decode worker
+    (`--enable-disagg --max-local-prefill-length 256`) and the frontend
+    (`--router-mode kv`), all on the phase-8 checkpoint; phase 8's 10
+    requests all in flight, first with the CUDA IPC plane, then with the
+    decode worker restarted under DYN_KV_PLANE=0 (the host wire). Per
+    request: its path, its pull and import seconds, bytes and GB/s by
+    path; TTFT remote beside local. Checks: the plane carries every remote
+    pull with 0 fallbacks; the wire set pulls over the wire; 0 KV-event
+    gaps; every stream token-identical with phase 8's in-process batch or
+    parting at a near-tie (BF16_TIE_TOL). Returns the prefill worker's
+    kernel launches (its `_sys.stats` scrape) and the per-path pulls."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.runtime.distributed import free_port
+
+    cfg = model.cfg
+    with open(jobs) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    free, total = torch.cuda.mem_get_info()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    page_bytes = (2 * cfg.num_layers * cfg.num_kv_heads * cfg.page_size
+                  * cfg.head_dim * 2)
+    pages = min(n_pages, int((free / 2 - weights - 2 * 2**30) // page_bytes))
+    log(f"[disagg] before the workers start: {free / 2**30:.1f} GiB free of "
+        f"{total / 2**30:.1f} GiB (this process holds phase 8's model); "
+        f"each worker: {weights / 1e9:.2f} GB bf16 weights + "
+        f"{pages * page_bytes / 1e9:.2f} GB KV pool ({pages} pages)")
+    common = ["--model", ckpt, "--random-init", "--router-mode", "kv",
+              "--num-pages", str(pages), "--max-batch-size", "8",
+              "--prefill-chunk", "512", "--device", "cuda"]
+    bodies = [{"model": "llama3-8b", "stream": True, "max_tokens": 32,
+               "messages": [{"role": "user", "content": d["text"]}],
+               **{k: v for k, v in d.items() if k != "text"}}
+              for d in lines]
+    services, sets = [], {}
+    try:
+        coord = Service(work, "coordinator", "--port", str(free_port()))
+        services.append(coord)
+        store = coord.wait_line("COORDINATOR_READY", 120)
+        t0 = time.perf_counter()
+        # the frontend binds a model name to the first card it sees: the
+        # prefill pool publishes its own name
+        prefill = Service(work, "worker", *common, "--store", store,
+                          "--is-prefill-worker", "--instance-id", "11",
+                          "--served-model-name", "llama3-8b-prefill",
+                          label="prefill")
+        services.append(prefill)
+
+        def decode_worker(instance: int, env: dict) -> "Service":
+            w = Service(work, "worker", *common, "--store", store,
+                        "--enable-disagg", "--max-local-prefill-length",
+                        str(DISAGG_MAX_LOCAL), "--instance-id",
+                        str(instance), "--served-model-name", "llama3-8b",
+                        label=f"decode{instance}", env=env)
+            services.append(w)
+            return w
+
+        decode = decode_worker(12, {})
+        port = free_port()
+        frontend = Service(work, "frontend", "--store", store, "--host",
+                           "127.0.0.1", "--port", str(port),
+                           "--router-mode", "kv")
+        services.append(frontend)
+        frontend.wait_line("FRONTEND_READY", 120)
+        for w in (prefill, decode):
+            ready = w.wait_line("WORKER_READY", 900)
+            log(f"[disagg] {w.name} worker {ready} ready "
+                f"{time.perf_counter() - t0:.1f} s after the start")
+
+        def discovered():
+            end = time.perf_counter() + 120
+            while b'"llama3-8b"' not in _http_get(port, "/v1/models"):
+                if time.perf_counter() > end:
+                    raise AssertionError("the frontend never discovered "
+                                         "the decode worker's card")
+                time.sleep(0.2)
+            time.sleep(1.0)       # the clients' watches see the instances
+
+        discovered()
+        free_now, _ = torch.cuda.mem_get_info()
+        log(f"[disagg] with both workers up: {free_now / 2**30:.1f} GiB free "
+            f"on the card ({(free - free_now) / 2**30:.1f} GiB taken by the "
+            f"two workers and the frontend)")
+        for label, env in (("plane", {}), ("wire", {"DYN_KV_PLANE": "0"})):
+            if label == "wire":
+                decode.stop()
+                services.remove(decode)
+                decode = decode_worker(13, env)
+                decode.wait_line("WORKER_READY", 900)
+                discovered()
+            t_set = time.perf_counter()
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                streams = list(pool.map(
+                    lambda b: http_chat_stream(port, b), bodies))
+            wall = time.perf_counter() - t_set
+            for p in services:
+                if p.proc.poll() is not None:
+                    raise AssertionError(f"{p.name} exited: "
+                                         f"{p.stderr_tail()}")
+            time.sleep(0.5)       # the last log lines reach the files
+            log_text = decode.stderr_tail(10**7)
+            scrape = asyncio.run(worker_scrape(store))
+            sets[label] = {"streams": streams, "wall": wall,
+                           "pulls": pull_records(log_text),
+                           "imports": import_records(log_text),
+                           "fell_back": log_text.count("kv pull fell back"),
+                           "decode": scrape[int(decode.name[6:])],
+                           "prefill": scrape[11]}
+        fe = _http_get(port, "/metrics").decode()
+    finally:
+        for p in reversed(services):
+            p.stop()
+    out = {"launches": {}}
+    want = [token_ids_of(r["logprobs"]) for r in in_proc["results"]]
+    for label, run in sets.items():
+        streams = run["streams"]
+        remote = [s["prompt_tokens"] > DISAGG_MAX_LOCAL for s in streams]
+        pulls = {p["tokens"]: p for p in run["pulls"]}
+        imports = {i["tokens"]: i for i in run["imports"]}
+        fallbacks = series_values(run["decode"],
+                                  "dynamo_kv_pull_fallbacks_total")
+        if len(run["pulls"]) != sum(remote) or any(
+                s["prompt_tokens"] not in pulls
+                for s, r in zip(streams, remote) if r):
+            raise AssertionError(f"{label}: {len(run['pulls'])} pulls for "
+                                 f"{sum(remote)} remote requests")
+        paths = {p["path"] for p in run["pulls"]}
+        if paths != {label} or any(fallbacks.values()) or run["fell_back"]:
+            raise AssertionError(f"{label} set: pulls took {paths}, "
+                                 f"fallbacks {fallbacks}, {run['fell_back']} "
+                                 f"fallback log lines")
+        partings = []
+        for r, ((ta, ka), s) in enumerate(zip(want, streams)):
+            tb, kb = s["tokens"], s["tops"]
+            n = min(len(ta), len(tb))
+            if ta[:n] == tb[:n]:
+                if len(ta) != len(tb):
+                    raise AssertionError(f"{label} request {r}: {len(tb)} "
+                                         f"tokens disaggregated, {len(ta)} "
+                                         f"in process")
+                continue
+            for _, step, gap in stream_partings([(ta[:n], ka[:n])],
+                                                [(tb[:n], kb[:n])],
+                                                BF16_TIE_TOL):
+                partings.append((r, step, gap))
+        for r, s in enumerate(streams):
+            p = pulls.get(s["prompt_tokens"]) if remote[r] else None
+            i = imports.get(s["prompt_tokens"]) if remote[r] else None
+            log(f"[disagg] {label} set, request {r}: "
+                f"{s['prompt_tokens']} prompt tokens, "
+                + (f"remote: pulled by {p['path']} {p['bytes']} bytes in "
+                   f"{p['seconds'] * 1e3:.2f} ms "
+                   f"({p['bytes'] / p['seconds'] / 1e9:.2f} GB/s), import "
+                   + (f"{i['seconds'] * 1e3:.3f} ms ({i['clock']} time)"
+                      if i else "not logged")
+                   if p else "local")
+                + f"; TTFT {s['ttft_s'] * 1e3:.1f} ms, {len(s['tokens'])} "
+                f"tokens")
+        for r, step, gap in partings:
+            log(f"[disagg] {label} set, request {r} parts from the "
+                f"in-process phase-path stream at step {step}: tokens "
+                f"{want[r][0][step]} vs {streams[r]['tokens'][step]}, "
+                f"logprob gap {gap:.4f} nats (tie tolerance {BF16_TIE_TOL}); "
+                f"identical before it")
+        ttft_r = [s["ttft_s"] * 1e3 for s, r in zip(streams, remote) if r]
+        ttft_l = [s["ttft_s"] * 1e3 for s, r in zip(streams, remote) if not r]
+        nbytes = sum(p["bytes"] for p in run["pulls"])
+        secs = sum(p["seconds"] for p in run["pulls"])
+        rows = [{"ttft_s": s["ttft_s"], "elapsed_s": s["elapsed_s"],
+                 "n": len(s["tokens"])} for s in streams]
+        log(f"[disagg] {label} set: {sum(remote)} remote, "
+            f"{len(streams) - sum(remote)} local; TTFT p50 remote "
+            f"{statistics.median(ttft_r):.1f} ms beside local "
+            f"{statistics.median(ttft_l):.1f} ms; pulls {nbytes} bytes in "
+            f"{secs * 1e3:.2f} ms ({nbytes / secs / 1e9:.2f} GB/s over the "
+            f"pulls) by {label}; fallbacks {fallbacks or 0}; "
+            f"{len(streams) - len(partings)} streams token-identical with "
+            f"the in-process batch, {len(partings)} parted at near-ties; "
+            f"{latency_summary(rows, run['wall'])}; on {smi}")
+        out[label] = {"bytes": nbytes, "seconds": secs,
+                      "pulls": len(run["pulls"])}
+    launches = series_values(sets["wire"]["prefill"],
+                             "dynamo_engine_kernel_launches")
+    out["launches"] = {k.split('"')[1]: int(v) for k, v in launches.items()}
+    if out["launches"].get("paged_kv_gather", 0) == 0:
+        raise AssertionError(f"the prefill worker never launched the KV "
+                             f"gather: {out['launches']}")
+    decode_k3 = {k.split('"')[1]: int(v) for k, v in series_values(
+        sets["wire"]["decode"], "dynamo_engine_kernel_launches").items()}
+    gaps = series_values(fe, "dynamo_router_kv_event_gaps_total")
+    dropped = series_values(fe, "dynamo_router_events_dropped_total")
+    if any(gaps.values()) or any(dropped.values()):
+        raise AssertionError(f"the router counted KV-event gaps {gaps} or "
+                             f"dropped events {dropped}")
+    log(f"[disagg] prefill worker kernel launches (both sets, its "
+        f"_sys.stats scrape): {out['launches']}; the wire set's decode "
+        f"worker: {decode_k3}; KV-event gaps {gaps or 0}, dropped "
+        f"{dropped or 0}; the wire set's prefill worker served its prompts "
+        f"with a warm prefix cache (the same prompts as the plane set)")
+    return out
+
+
 def _http_get(port: int, path: str) -> bytes:
     import http.client
 
@@ -1077,17 +1351,30 @@ def _http_get(port: int, path: str) -> bytes:
 
 
 def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
-                         jobs: str, out_path: str):
-    """The batch once more, through a fresh engine, with CUPTI kernel
-    tracing only (no host-op recording, so the host runs at its normal
-    pace), and host clocks around the engine's device-blocking calls it
-    makes on its own methods (ragged: its rounds and first-token
+                         jobs: list, out_path: str) -> list:
+    """Batches once more, one after another through a fresh engine (the
+    first pays the graph captures, the next ones replay), each with CUPTI
+    kernel tracing only (no host-op recording, so the host runs at its
+    normal pace), host clocks around the engine's device-blocking calls
+    it makes on its own methods (ragged: its rounds and first-token
     sampling; phase: first-token sampling only — its chunk rounds,
-    bursts and mixed steps run inside closures). Returns (wall_s,
-    device_busy_s or None, rounds, seconds inside the clocked calls)."""
+    bursts and mixed steps run inside closures), and a count of the
+    engine's graph runs by entry. Returns per batch (wall_s,
+    device_busy_s or None, rounds, seconds inside the clocked calls,
+    eager dispatches, {entry: graph runs}, captures): a dispatch (chunk
+    round, burst, mixed step, ragged round) not run from a graph is
+    eager."""
     from torch.profiler import ProfilerActivity, profile
 
     inside = [0.0]
+    runs: dict = {}
+    graph_run = engine.graphs.run
+
+    def counted(key, fn, inputs):
+        runs[key[0]] = runs.get(key[0], 0) + 1
+        return graph_run(key, fn, inputs)
+
+    engine.graphs.run = counted
 
     def clocked(fn):
         def run(*a, **kw):
@@ -1100,21 +1387,36 @@ def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
 
     engine._ragged_core = clocked(engine._ragged_core)
     engine._first_token_packed = clocked(engine._first_token_packed)
+    out = []
 
     async def go():
         try:
-            t0 = time.perf_counter()
-            await run_batch(pipeline, name, jobs, 32, out_path)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
+            for path in jobs:
+                rounds0, captures0 = engine.rounds, engine.graphs.captures
+                runs.clear()
+                inside[0] = 0.0
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                t0 = time.perf_counter()
+                await run_batch(pipeline, name, path, 32, out_path)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                prof.stop()
+                busy = sum(e.self_device_time_total
+                           for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           ) / 1e6
+                rounds = engine.rounds - rounds0
+                graphed = sum(n for e, n in runs.items()
+                              if e != "sample_first")
+                out.append((wall, busy or None, rounds, inside[0],
+                            rounds - graphed, dict(runs),
+                            engine.graphs.captures - captures0))
         finally:
             await engine.close()
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = asyncio.run(go())
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
-    return wall, busy or None, engine.rounds, inside[0]
+    asyncio.run(go())
+    return out
 
 
 def graph_stats(eng) -> dict:
@@ -1124,11 +1426,15 @@ def graph_stats(eng) -> dict:
     replays and the shared pool's bytes."""
     keys = sorted(eng.graphs.graphs)
     entries = sorted({k[0] for k in keys})
-    secs = sum(v for lab, v in eng.compile_tracker.compile_seconds.items()
-               if lab["entry"] in entries)
+    by_entry = {e: [sum(1 for k in keys if k[0] == e), 0.0] for e in entries}
+    for lab, v in eng.compile_tracker.compile_seconds.items():
+        if lab["entry"] in by_entry:
+            by_entry[lab["entry"]][1] += v
     return {"entries": entries, "shapes": [k[1] for k in keys],
             "captures": eng.graphs.captures, "replays": eng.graphs.replays,
-            "capture_s": secs, "pool": eng.graphs.pool_bytes()}
+            "capture_s": sum(sec for _, sec in by_entry.values()),
+            "by_entry": {e: tuple(v) for e, v in by_entry.items()},
+            "pool": eng.graphs.pool_bytes()}
 
 
 def graph_summary(eng) -> str:
@@ -1172,8 +1478,11 @@ def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
     """Bare device steps of `model` outside the engine, as the engine runs
     them: host arrays copied to the card, the step, the packed result
     copied back (its one sync) — a ragged decode round and a ragged mixed
-    round, and the phase path's 8-step decode burst over the same 8 lanes
-    (those of `labels`). Each step is also captured in a CUDA graph
+    round, the phase path's 8-step decode burst over the same 8 lanes,
+    its "prefill" chunk rounds (bp 1 and bp 8 at T 512, aligned), its
+    "mixed_step" (a 512-token aligned chunk beside the 8-lane 8-step
+    burst) and its "sample_first" (8 lanes at the full vocabulary) (those
+    of `labels`). Each step is also captured in a CUDA graph
     (`graphs.StepGraphs`, as the engine does) on a copy of the caches,
     held bit-identical with the eager step on another copy (phase 11a),
     and measured as a replay. Returns {label: (eager, graphed, replay ms
@@ -1181,6 +1490,8 @@ def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
     device ops per step, {class: ms}, [(ms, kernel), ...] top 5); busy_ms
     is None where the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine import sampling
 
     cfg = model.cfg
     P, bmax = cfg.page_size, 8
@@ -1233,9 +1544,52 @@ def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
                   torch.tensor(ctx, dtype=torch.int32) - 1, tables,
                   torch.ones(bmax, dtype=torch.bool), z, z,
                   torch.zeros(bmax), torch.ones(bmax), z]
+    def prefill(k_cache, v_cache):
+        return lambda *a: llama.prefill_batch(model, k_cache, v_cache, *a,
+                                              aligned=True)
+
+    def prefill_args(bp):
+        """bp lanes of one aligned 512-token chunk from cursor 0, pages
+        1 + 32 i .. of lane i."""
+        t = torch.zeros(bp, cfg.max_pages_per_seq, dtype=torch.int32)
+        for i in range(bp):
+            t[i, :32] = torch.arange(1 + 32 * i, 33 + 32 * i)
+        return [torch.randint(0, cfg.vocab_size, (bp, 512),
+                              dtype=torch.int32), t,
+                torch.zeros(bp, dtype=torch.int32),
+                torch.full((bp,), 512, dtype=torch.int32)]
+
+    def mixed_step(k_cache, v_cache):
+        return lambda *a: llama.mixed_prefill_decode(
+            model, k_cache, v_cache, *a, num_steps=8, aligned=True)
+
+    def mixed_step_args():
+        """Lane 0's second 512-token chunk (cursor 512, pages 1..64) beside
+        the burst's 8 decode lanes."""
+        t = torch.zeros(1, cfg.max_pages_per_seq, dtype=torch.int32)
+        t[0, :64] = torch.arange(1, 65)
+        return [torch.randint(0, cfg.vocab_size, (1, 512),
+                              dtype=torch.int32), t,
+                torch.tensor([512], dtype=torch.int32),
+                torch.tensor([1024], dtype=torch.int32), *burst_args]
+
+    def sample_first(k_cache, v_cache):
+        return lambda *a: sampling.sample_tokens_lp(*a)
+
+    def sample_args():
+        return [torch.randn(bmax, cfg.vocab_size) * 4,
+                torch.arange(bmax, dtype=torch.int64) + 11, z,
+                torch.tensor([0.0, 0.7, 1.0, 0.0, 0.9, 0.0, 1.2, 0.0]),
+                torch.tensor([1.0, 0.9, 1.0, 1.0, 0.8, 1.0, 1.0, 1.0]),
+                torch.tensor([0, 0, 40, 0, 0, 0, 0, 0]), torch.zeros(bmax)]
+
     steps = {"decode": (one, lambda: host_round(0)),
              "mixed": (one, lambda: host_round(512)),
-             "burst": (burst, lambda: burst_args)}
+             "burst": (burst, lambda: burst_args),
+             "prefill1": (prefill, lambda: prefill_args(1)),
+             "prefill8": (prefill, lambda: prefill_args(8)),
+             "mixed_step": (mixed_step, mixed_step_args),
+             "sample_first": (sample_first, sample_args)}
     out = {}
     with torch.inference_mode():
         for label in labels:
@@ -1265,12 +1619,12 @@ def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
                 if not torch.equal(g[:, 1:], w[:, 1:]):
                     raise AssertionError(f"{mode} {label}: the graph left "
                                          f"other caches than the eager step")
+            n_out = len(got_t)
             del e_caches, want, want_t, got_t
             log(f"[graph] {mode} {label} (8B, bare): captured in "
                 f"{capture_s:.3f} s (warm-up + capture + first replay), "
-                f"replay bit-identical with the eager step (packed output"
-                f"{', chunk logits' if label != 'burst' else ''}, both "
-                f"caches outside page 0)")
+                f"replay bit-identical with the eager step ({n_out} "
+                f"output(s), both caches outside page 0)")
 
             def replay():
                 return packed_of(step_graphs.run(
@@ -1324,23 +1678,32 @@ def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
 
 
 @contextlib.contextmanager
-def plain_path(ragged, kernels, attention, int4_mm, torch, graphs=None):
-    """Swap every kernel's wrapper for its plain version, and with
+def plain_path(ragged, kernels, attention, int4_mm, torch, graphs=None,
+               keep_k1=False):
+    """Swap every kernel's wrapper for its plain version (with `keep_k1`,
+    every one but K1 and the prefill attention it serves), and with
     `graphs` (engine/graphs.py) run the engine's graphed steps eagerly:
     the plain versions read lengths on the host, which a capture cannot
     (this script's comparison only; the package has no such switch)."""
-    names = ((ragged, "ragged_paged_attention"), (kernels, "paged_kv_write"),
+    names = ((kernels, "paged_kv_write"),
              (kernels, "paged_kv_write_pages"),
              (attention, "paged_attention_decode"),
              (int4_mm, "w8a8_matmul"), (int4_mm, "int4_matmul"),
              (int4_mm, "w8a8_matmul_group"), (int4_mm, "int4_matmul_group"))
+    if not keep_k1:
+        names += ((ragged, "ragged_paged_attention"),
+                  (attention, "prefill_attention"))
     if graphs is not None:
         names += ((graphs.StepGraphs, "run"),)
     saved = [getattr(mod, name) for mod, name in names]
     if graphs is not None:
         graphs.StepGraphs.run = lambda self, key, fn, inputs: fn(*(
             graphs._tensor(a).to(self.device) for a in inputs))
-    ragged.ragged_paged_attention = blocked_plain_attention(ragged, torch)
+    if not keep_k1:
+        ragged.ragged_paged_attention = blocked_plain_attention(ragged, torch)
+        ref = attention.prefill_attention_ref
+        # the plain version takes no row tags (it counts visible pages)
+        attention.prefill_attention = lambda *a: ref(*a[:7])
     kernels.paged_kv_write = kernels.paged_kv_write_ref
     kernels.paged_kv_write_pages = kernels.paged_kv_write_pages_ref
     attention.paged_attention_decode = attention.paged_attention_decode_ref
@@ -2126,6 +2489,75 @@ def main() -> int:
         del graph, outs
     del a8_w
 
+    # 7b. prefill attention through K1, and the KV gather -------------------
+    # the phase batch's widest chunk round (prefill_chunk_budget 512): 8
+    # lanes x 512 rows, contexts to 1041, cursors page-aligned and not,
+    # one padding lane; valid rows against the plain function at K1's
+    # tolerance, padding rows exact zeros (the plain version averages the
+    # valid keys there, by design), and q = 0 through the same row tags
+    pf_cached = [0, 512, 0, 529, 64, 0, 0, 0]
+    pf_lens = [512, 1024, 300, 1041, 576, 16, 100, 0]
+    pf_t, pf_bp = 512, len(pf_cached)
+    pf_tables = torch.zeros(pf_bp, MAX_PAGES, dtype=torch.int32)
+    free = (1 + torch.randperm(N_PAGES - 1, generator=gen)).tolist()
+    for i in range(pf_bp):
+        need = -(-(pf_cached[i] + pf_t) // P)
+        pf_tables[i, :need] = torch.tensor(free[:need], dtype=torch.int32)
+        free = free[need:]
+    pf_tables = pf_tables.to(dev)
+    pf_pos = (torch.tensor(pf_cached, dtype=torch.int32)[:, None]
+              + torch.arange(pf_t, dtype=torch.int32)[None, :]).to(dev)
+    pf_seq = torch.tensor(pf_lens, dtype=torch.int32).to(dev)
+    pf_kp = torch.randn(KVH, N_PAGES, P, D, generator=gen).to(dev,
+                                                             torch.bfloat16)
+    pf_vp = torch.randn(KVH, N_PAGES, P, D, generator=gen).to(dev,
+                                                             torch.bfloat16)
+    pf_q = torch.randn(pf_bp, pf_t, H, D, generator=gen).to(dev,
+                                                          torch.bfloat16)
+    pf_valid = pf_pos < pf_seq[:, None]
+    got = attention.prefill_attention(pf_q, pf_kp, pf_vp, pf_tables, pf_pos,
+                                      pf_seq)
+    want = attention.prefill_attention_ref(pf_q, pf_kp, pf_vp, pf_tables,
+                                           pf_pos, pf_seq)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[pf_valid].float(),
+                               want[pf_valid].float(), **K1_BF16_TOL)
+    if not torch.all(got[~pf_valid] == 0):
+        raise AssertionError("K1's prefill padding rows are not exact zeros")
+    pf_err = (got[pf_valid].float() - want[pf_valid].float()).abs().max() \
+        .item()
+    k1_err[torch.bfloat16] = max(k1_err[torch.bfloat16], pf_err)
+    pf_tags = attention.chunk_rows(pf_pos, pf_seq)
+    uniform_check(ragged, plain_k1, torch, pf_kp, pf_vp, *pf_tags, pf_tables,
+                  H, "prefill chunk round (bp 8, T 512, the phase path's "
+                  "rows)")
+    log(f"[k1] prefill_attention through K1, bp {pf_bp} T {pf_t} contexts to "
+        f"{max(pf_lens)} (one padding lane), bf16: valid rows max_abs_err "
+        f"{pf_err:.3e} ({K1_BF16_TOL}), {int((~pf_valid).sum())} padding "
+        f"rows exact zeros")
+    del got, want
+
+    # the KV gather: a 1041-token prompt's 66 pages out of 32 layers' K and
+    # V caches in one launch, bit-exact with the per-layer index_select
+    g_dev = torch.Generator(device=dev).manual_seed(13)
+    g_caches = tuple([torch.randn(KVH, N_PAGES, P, D, generator=g_dev,
+                                  device=dev, dtype=torch.bfloat16)
+                      for _ in range(N_LAYER_RUN)] for _ in range(2))
+    g_ids = (1 + torch.randperm(N_PAGES - 1, generator=gen)[:66]).to(
+        torch.int32).to(dev)
+    g_ptrs = kernels.cache_pointers(*g_caches)
+    got = kernels.paged_kv_gather(*g_caches, g_ids, g_ptrs)
+    want = kernels.paged_kv_gather_ref(*g_caches, g_ids)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("the KV gather differs from its plain version")
+    gather_err = (got.float() - want.float()).abs().max().item()
+    log(f"[gather] paged_kv_gather 66 pages x {N_LAYER_RUN} layers x K,V "
+        f"(KVH {KVH}, P {P}, D {D}, bf16; {got.nbytes} bytes): bit-exact "
+        f"with the per-layer index_select stack")
+    del got, want, g_caches, g_ptrs, pf_kp, pf_vp, pf_q
+    torch.cuda.empty_cache()
+
     # 8. main paths --------------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     ckpt = os.path.join(work, "llama3-8b")
@@ -2162,11 +2594,15 @@ def main() -> int:
             tops.extend(o.get("top_logprobs") or ())
         return (toks, tops) if top else toks
 
-    def serve_batch(eng, label, must_launch, must_not_launch, graph_entry):
+    def serve_batch(eng, label, must_launch, must_not_launch, graph_entries,
+                    steady=False):
         """The batch through the pipeline with launch counts zeroed just
         before and read just after (graph replays included), the path's
-        graphed entry captured and replayed, then greedy determinism; one
-        event loop for the engine, which is closed at the end."""
+        graphed entries captured and replayed (per entry: captures and
+        their seconds), then, with `steady`, a second batch of fresh
+        prompts of the same sizes (the steady state: the graphs exist),
+        then greedy determinism; one event loop for the engine, which is
+        closed at the end."""
         pipeline = build_pipeline_for(card, eng, args)
 
         async def go():
@@ -2182,27 +2618,45 @@ def main() -> int:
                 ttft = list(eng.ttft_s)
                 stats = graph_stats(eng)
                 summary = graph_summary(eng)
+                second = None
+                if steady:
+                    t0 = time.perf_counter()
+                    await run_batch(pipeline, card.name, write_jobs(
+                        os.path.join(work, "jobs_steady.jsonl"), seed=2), 32,
+                        os.path.join(work, "out_steady.jsonl"))
+                    torch.cuda.synchronize()
+                    second = {"wall": time.perf_counter() - t0,
+                              "tokens": eng.tokens_emitted - out_tokens,
+                              "ttft": eng.ttft_s[len(ttft):],
+                              "rounds": eng.rounds - n_rounds,
+                              "captures": eng.graphs.captures
+                              - stats["captures"],
+                              "replays": eng.graphs.replays
+                              - stats["replays"]}
                 prompt = list(range(40, 140))
                 same = await asyncio.gather(
                     greedy_on(eng, prompt, 12, top=8),
                     greedy_on(eng, prompt, 12, top=8))
                 return (results, wall, launches, out_tokens, n_rounds,
-                        ttft, stats, summary, same)
+                        ttft, stats, summary, second, same)
             finally:
                 await eng.close()
 
         (results, wall, launches, out_tokens, n_rounds, ttft, stats, summary,
-         (a, b)) = asyncio.run(go())
+         second, (a, b)) = asyncio.run(go())
         log(f"[main] {label} path: {len(results)} requests, {out_tokens} "
             f"output tokens in {wall:.2f}s; {n_rounds} device dispatches "
             f"({eng.pipelined_bursts} pipelined bursts); launches "
             f"{launches}")
         log(f"[graph] {label} path batch: {summary}; the captures ran "
             f"inside the first requests' TTFT")
-        if stats["entries"] != [graph_entry] or \
+        log(f"[graph] {label} path first batch, captures by entry: "
+            + "; ".join(f"{e} {n} in {sec:.3f} s" for e, (n, sec) in
+                        sorted(stats["by_entry"].items())))
+        if not set(graph_entries) <= set(stats["entries"]) or \
                 not stats["replays"] > stats["captures"] > 0:
             raise AssertionError(f"the {label} batch did not replay its "
-                                 f"{graph_entry} graphs: {stats}")
+                                 f"{graph_entries} graphs: {stats}")
         for r in results:
             if r["finish_reason"] not in ("length", "eos") \
                     or r["completion_tokens"] < 1:
@@ -2219,15 +2673,26 @@ def main() -> int:
             raise AssertionError(f"greedy streams differ: {a[0]} vs {b[0]}")
         log(f"[main] {label} greedy determinism: two identical requests -> "
             f"{a[0][:6]}...")
+        if second is not None:
+            log(f"[batch] {label} path, first batch (graph captures inside): "
+                f"{out_tokens / wall:.1f} output tok/s, TTFT p50 "
+                f"{statistics.median(ttft) * 1e3:.1f} ms, {n_rounds} "
+                f"dispatches, {stats['captures']} captures in "
+                f"{stats['capture_s']:.3f} s; steady batch (fresh prompts of "
+                f"the same sizes): {second['tokens'] / second['wall']:.1f} "
+                f"output tok/s, TTFT p50 "
+                f"{statistics.median(second['ttft']) * 1e3:.1f} ms, "
+                f"{second['rounds']} dispatches, {second['captures']} new "
+                f"captures, {second['replays']} replays; on {smi}")
         return {"wall": wall, "launches": launches, "tokens": out_tokens,
                 "rounds": n_rounds, "ttft": ttft, "stream": a,
-                "graphs": stats, "results": results}
+                "graphs": stats, "results": results, "steady": second}
 
     phase = serve_batch(engine, "phase",
                         ("paged_kv_write", "paged_kv_write_pages",
-                         "paged_attention_decode"),
-                        ("ragged_paged_attention", "w8a8_matmul",
-                         "int4_matmul"), "decode_burst")
+                         "paged_attention_decode", "ragged_paged_attention"),
+                        ("w8a8_matmul", "int4_matmul"), PHASE_ENTRIES,
+                        steady=True)
     del engine
     torch.cuda.empty_cache()
     ragged_eng = TorchEngine(TorchEngineConfig(
@@ -2238,7 +2703,7 @@ def main() -> int:
                              ("ragged_paged_attention", "paged_kv_write"),
                              ("paged_kv_write_pages",
                               "paged_attention_decode", "w8a8_matmul",
-                              "int4_matmul"), "ragged_step")
+                              "int4_matmul"), ("ragged_step",))
     del ragged_eng
     torch.cuda.empty_cache()
     # the same greedy request on both paths: equal up to a parting at a
@@ -2273,6 +2738,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kv_router_phase(torch, smi, work, ckpt, model, card, 2048)
     log(f"[kv] phase 8d in {time.perf_counter() - t0:.1f} s")
+
+    # 8e. disaggregated serving --------------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    disagg = disagg_phase(torch, smi, work, ckpt, jobs, phase, model, 2048)
+    log(f"[disagg] phase 8e in {time.perf_counter() - t0:.1f} s")
 
     # 9. quantized main path -------------------------------------------------
 
@@ -2325,8 +2796,8 @@ def main() -> int:
         quantized[mode] = serve_batch(
             q_engine, f"phase {mode}",
             (gemm, "paged_kv_write", "paged_kv_write_pages",
-             "paged_attention_decode"), (other, "ragged_paged_attention"),
-            "decode_burst")
+             "paged_attention_decode", "ragged_paged_attention"), (other,),
+            PHASE_ENTRIES)
         quantized[mode]["bytes"] = q_bytes
         del q_engine
         torch.cuda.empty_cache()
@@ -2435,9 +2906,22 @@ def main() -> int:
             with plain_path(ragged, kernels, attention, int4_mm, torch):
                 p_ch, p_top = mixed_step(mdl, *caches[1])
                 after = cuda_build.launch_counts()
+            if mode != "bf16":
+                # under A8 activations a bf16 ulp that K1 and the plain
+                # prefill attention round apart crosses int8 steps, and
+                # 32 layers carry it to the chunk logits (0.52-0.70 on an
+                # H100): printed, not held; the chunk side is held with K1
+                # on both sides, where K2, K3 and the A8 GEMMs must leave
+                # the chunk logits bit-identical
+                k1_ch = p_ch
+                k1_caches = llama.init_cache(cfg, 1 + 57 + 64 * 8, dev)
+                with plain_path(ragged, kernels, attention, int4_mm, torch,
+                                keep_k1=True):
+                    p_ch, p_top2 = mixed_step(mdl, *k1_caches)
+                del k1_caches
             torch.cuda.synchronize()
             for kname in ("paged_kv_write", "paged_kv_write_pages",
-                          "paged_attention_decode",
+                          "paged_attention_decode", "ragged_paged_attention",
                           *((GEMM_OF[mode],) if mode in GEMM_OF else ())):
                 if mid[kname] == before[kname]:
                     raise AssertionError(f"the {mode} mixed step skipped "
@@ -2449,10 +2933,17 @@ def main() -> int:
             tol = LOGITS_BF16_TOL if mode == "bf16" else LOGITS_A8_TOL
             log(f"[path] 8B mixed_prefill_decode step {mode} (chunks 512 + "
                 f"300, 8 decode lanes): chunk logits max |diff| {ch_err:.4f} "
-                f"(|logits| max {p_ch.abs().max().item():.2f}), decode top-8 "
-                f"logprobs max |diff| {top_err:.4f}, tolerance {tol}; chunk "
-                f"greedy agree "
+                f"(|logits| max {p_ch.abs().max().item():.2f}"
+                + ("" if mode == "bf16" else
+                   ", K1 on both sides; against the plain prefill attention "
+                   f"{(k_ch - k1_ch).abs().max().item():.4f}, not held")
+                + f"), decode top-8 logprobs max |diff| {top_err:.4f}, "
+                f"tolerance {tol}; chunk greedy agree "
                 f"{int((k_ch.argmax(-1) == p_ch.argmax(-1)).sum())}/2")
+            if mode != "bf16" and ch_err != 0.0:
+                raise AssertionError(f"8B {mode} mixed step: the chunk logits "
+                                     f"with K1 on both sides differ by "
+                                     f"{ch_err}")
             if not max(ch_err, top_err) <= tol:
                 raise AssertionError(f"8B {mode} mixed step kernel vs plain: "
                                      f"{ch_err}, {top_err}")
@@ -2461,7 +2952,9 @@ def main() -> int:
 
     # 11a + 11. graph replays and profiles ---------------------------------
     profiles = {("bf16", k): v for k, v in profile_rounds(
-        torch, llama, graphs, model, dev, n_pad_mixed=768 - 520).items()}
+        torch, llama, graphs, model, dev, n_pad_mixed=768 - 520,
+        labels=("decode", "mixed", "burst", "prefill1", "prefill8",
+                "mixed_step", "sample_first")).items()}
     # "int8" (W8A16: cuBLAS over weights converted to bf16 on every call)
     # is not a main-path cell; its burst is profiled for its step time
     # only, on a model that shares every other tensor with the bf16 one
@@ -2474,7 +2967,11 @@ def main() -> int:
     for (mode, label), (eager, graphed, event_ms, pool) in profiles.items():
         what = {"decode": "ragged decode round", "mixed":
                 "ragged mixed round", "burst": "phase decode burst (8 "
-                "steps)"}[label] + f", {mode}"
+                "steps)", "prefill1": "phase prefill chunk round (bp 1, T "
+                "512)", "prefill8": "phase prefill chunk round (bp 8, T "
+                "512)", "mixed_step": "phase mixed step (512-token chunk "
+                "+ 8-lane 8-step burst)", "sample_first": "phase first-"
+                "token sampling (8 lanes)"}[label] + f", {mode}"
         for how, (wall_ms, busy, n_k, by_class, top) in (
                 ("eager", eager), ("graphed", graphed)):
             per_step = f" ({n_k / 8:.0f} per step)" if label == "burst" \
@@ -2506,19 +3003,24 @@ def main() -> int:
             model=cfg, num_pages=N_PAGES, max_batch_size=8,
             prefill_chunk_budget=512, attention_impl=impl, device="cuda"),
             model=model)
-        b_wall, b_busy, b_rounds, b_inside = profile_engine_batch(
+        traced = profile_engine_batch(
             torch, eng2, build_pipeline_for(card, eng2, args), run_batch,
             card.name,
-            write_jobs(os.path.join(work, f"jobs_{label}.jsonl"), seed=1),
+            [write_jobs(os.path.join(work, f"jobs_{label}_{seed}.jsonl"),
+                        seed=seed) for seed in (1, 3)],
             os.path.join(work, f"out_{label}.jsonl"))
-        busy_txt = "not measured" if b_busy is None else \
-            f"{b_busy:.3f} s, idle {100 * max(0.0, 1 - b_busy / b_wall):.1f}%"
-        log(f"[profile] engine batch, {label} path (fresh prompts, kernels "
-            f"traced): wall {b_wall:.3f} s, {b_rounds} dispatches, "
-            f"{b_inside:.3f} s inside the engine's own device calls "
-            f"({'rounds + ' if impl == 'ragged' else ''}first-token "
-            f"sampling), device busy {busy_txt}; {graph_summary(eng2)}, on "
-            f"{smi}")
+        for which, (b_wall, b_busy, b_rounds, b_inside, b_eager, b_runs,
+                    b_caps) in zip(("first", "steady"), traced):
+            busy_txt = "not measured" if b_busy is None else (
+                f"{b_busy:.3f} s, idle "
+                f"{100 * max(0.0, 1 - b_busy / b_wall):.1f}%")
+            log(f"[profile] engine batch, {label} path, {which} batch "
+                f"(fresh prompts, kernels traced): wall {b_wall:.3f} s, "
+                f"{b_rounds} dispatches, {b_eager} of them eager (graph runs "
+                f"by entry {b_runs}), {b_caps} graph captures, "
+                f"{b_inside:.3f} s inside the engine's own device calls "
+                f"({'rounds + ' if impl == 'ragged' else ''}first-token "
+                f"sampling), device busy {busy_txt}; on {smi}")
         del eng2
     shutil.rmtree(work)
     del model, q_models
@@ -2795,6 +3297,65 @@ def main() -> int:
     bound4, by4 = k4_bound_ms(l4.cpu(), t4.cpu(), H, KVH, D, P, 2, peaks)
     rows[("k4", "burst")] = (8, ms4, plain4, bound4, by4, None, ms4_w, None)
 
+    # K1 on the phase path's widest chunk round (phase 7b's shape: bp 8,
+    # T 512, contexts to 1041); the library yardstick is
+    # scaled_dot_product_attention on K/V already gathered per lane
+    # (contiguous, the gather not timed) under the same causal mask
+    pq = torch.randn(pf_bp, pf_t, H, D, generator=gen).to(dev,
+                                                        torch.bfloat16)
+    p_tags = attention.chunk_rows(pf_pos, pf_seq)
+    ms_pf, ms_pf_w = timed(lambda: attention.prefill_attention(
+        pq, kp, vp, pf_tables, pf_pos, pf_seq, None, p_tags))
+    plain_pf = time_ms(torch, lambda: attention.prefill_attention_ref(
+        pq, kp, vp, pf_tables, pf_pos, pf_seq), reps=5, flush=flush)
+    n_vis = -(-max(pf_lens) // P)
+    kg = attention._gather_pages(kp, pf_tables[:, :n_vis])
+    vg = attention._gather_pages(vp, pf_tables[:, :n_vis])
+    s_pos = torch.arange(kg.shape[2], device=dev)
+    sdpa_mask = ((s_pos[None, None, :] <= pf_pos[:, :, None])
+                 & (s_pos[None, None, :] < pf_seq[:, None, None]))[:, None]
+    qt = pq.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=sdpa_mask, enable_gqa=True)
+
+    lib_pf = time_ms(torch, sdpa, flush=flush)
+    bnd_pf, by_pf = k1_bound_ms(torch, p_tags[0].cpu(), p_tags[1].cpu(),
+                                pf_tables.cpu(), H, KVH, D, P, 2, peaks)
+    rows[("k1", "prefill8")] = (pf_bp * pf_t, ms_pf, plain_pf, bnd_pf,
+                                by_pf, lib_pf, ms_pf_w, None)
+    del pq, kg, vg, sdpa_mask, qt
+
+    # the KV gather of a 1041-token prompt: 66 pages of 32 layers' K and V
+    # (phase 8e's pull of the longest prompt), beside the per-layer
+    # index_select loop (2L calls, no stack)
+    g_dev = torch.Generator(device=dev).manual_seed(14)
+    gc = tuple([torch.randn(KVH, N_PAGES, P, D, generator=g_dev, device=dev,
+                            dtype=torch.bfloat16)
+                for _ in range(N_LAYER_RUN)] for _ in range(2))
+    g_ids = (1 + torch.randperm(N_PAGES - 1, generator=gen)[:66]).to(
+        torch.int32).to(dev)
+    g_ptrs = kernels.cache_pointers(*gc)
+    g_out = kernels.paged_kv_gather(*gc, g_ids, g_ptrs)
+    if not torch.equal(g_out, kernels.paged_kv_gather_ref(*gc, g_ids)):
+        raise AssertionError("the KV gather differs from its plain version "
+                             "at the timed shape")
+    ms_g, ms_g_w = timed(lambda: kernels.paged_kv_gather(
+        *gc, g_ids, g_ptrs, out=g_out))
+    plain_g = time_ms(torch, lambda: kernels.paged_kv_gather_ref(*gc, g_ids),
+                      flush=flush)
+    g_long = g_ids.long()
+    lib_g = time_ms(torch, lambda: [c.index_select(1, g_long)
+                                    for c in (*gc[0], *gc[1])], flush=flush)
+    bnd_g, by_g = bound(2 * g_out.nbytes + 4 * 66, 0.0, peaks[1], peaks)
+    rows[("gather", "66 pages")] = (66, ms_g, plain_g, bnd_g, by_g, lib_g,
+                                    ms_g_w, None)
+    log(f"[time] paged_kv_gather 66 pages x {N_LAYER_RUN} layers x K,V "
+        f"({g_out.nbytes} bytes out): {g_out.nbytes / ms_g / 1e6:.1f} GB/s "
+        f"read + the same written; on {smi}")
+    del gc, g_out
+
     del kp, vp
     torch.cuda.empty_cache()
 
@@ -2858,6 +3419,12 @@ def main() -> int:
             f"{in_run}, plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}{extra}, bound "
             f"{bnd:.6f} ms ({by}) on {smi}")
+    st = phase["steady"]
+    log(f"[batch] phase path steady batch (fresh prompts of the same sizes, "
+        f"graphs captured): output {st['tokens'] / st['wall']:.1f} tok/s, "
+        f"TTFT p50 {statistics.median(st['ttft']) * 1e3:.1f} ms over "
+        f"{len(st['ttft'])} requests, {st['rounds']} dispatches, "
+        f"{st['captures']} new captures, {st['replays']} replays; on {smi}")
     for label, run in (("phase", phase), ("ragged", ragged_run),
                        *((f"phase {m}", quantized[m]) for m in QUANT_MODES)):
         ttft, g = run["ttft"], run["graphs"]
@@ -2900,6 +3467,9 @@ def main() -> int:
         entry("int4_matmul", "dynamo_tpu_torch/csrc/int4_matmul.cu",
               "dynamo_tpu/engine/int4_mm.py:168", ("int4", "burst"),
               a8_err["int4"], quantized["int4"]),
+        entry("paged_kv_gather", "dynamo_tpu_torch/csrc/paged_kv_gather.cu",
+              "dynamo_tpu/engine/engine.py:72", ("gather", "66 pages"),
+              gather_err, disagg),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,13 @@
 // Function: query row t (one head group per KV head g) attends the KV
 // positions s <= qpos[t] of its lane, whose pages are tables[lane, s / P],
 // clamped to the first max_pages pages; GQA (G = H/KVH query heads share a
-// KV head); scores scaled by 1/sqrt(D); fp32 online softmax; P rounded to
-// bf16 before P·V; rows with qpos < 0 write exact zeros and read no page.
+// KV head); scores scaled by 1/sqrt(D); fp32 online softmax; P·V from P
+// split into a bf16 head and a bf16 tail (two MMAs), so P keeps ~16 bits
+// where one bf16 rounding kept 8: the phase path's chunk attention reads
+// as the plain fp32 version does to about a bf16 ulp of the output (one
+// rounding of P drifted Llama-3-8B's logits by up to 0.14 in bf16 and
+// 0.70 under w8a8 activations, on an H100); rows with qpos < 0 write
+// exact zeros and read no page.
 // K1 passes qpos and lanes per row. K4 (kDecode) passes lengths: row b is
 // lane b with qpos = lengths[b] - 1, so a length-0 lane is a zero row.
 //
@@ -329,6 +334,12 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// what pack_f32 rounded away from (lo, hi), itself packed as two bf16
+__device__ __forceinline__ uint32_t pack_tail(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return pack_f32(lo - __low2float(h), hi - __high2float(h));
+}
+
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);   // 2 bf16, 4-byte aligned
 }
@@ -581,11 +592,16 @@ __global__ void __launch_bounds__(kThreads, 2)
           o[nt][2] *= alpha1;
           o[nt][3] *= alpha1;
         }
-        // O += P V: the two score tiles are one A fragment over 16 keys
+        // O += P V: the two score tiles are one A fragment over 16 keys,
+        // P as its bf16 head plus its bf16 tail
         const uint32_t pa[4] = {pack_f32(sc[0][0], sc[0][1]),
                                 pack_f32(sc[0][2], sc[0][3]),
                                 pack_f32(sc[1][0], sc[1][1]),
                                 pack_f32(sc[1][2], sc[1][3])};
+        const uint32_t pt[4] = {pack_tail(sc[0][0], sc[0][1]),
+                                pack_tail(sc[0][2], sc[0][3]),
+                                pack_tail(sc[1][0], sc[1][1]),
+                                pack_tail(sc[1][2], sc[1][3])};
         const __nv_bfloat16* vrow =
             vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * KS + (lane >> 4) * 8;
 #pragma unroll
@@ -593,7 +609,9 @@ __global__ void __launch_bounds__(kThreads, 2)
           uint32_t vb[4];
           ldsm_x4_trans(vb, vrow + dp * 16);
           mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * dp], pt, vb[0], vb[1]);
           mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+          mma_bf16(o[2 * dp + 1], pt, vb[2], vb[3]);
         }
       }
       __syncwarp();

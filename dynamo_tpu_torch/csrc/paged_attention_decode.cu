@@ -20,7 +20,7 @@
 //   arrive by cp.async into an 8-stage mbarrier ring fed by a producer warp,
 //   the CTAs split the visible (lane, KV head, page) work evenly on the
 //   device and the last CTA of a split (lane, KV head) merges the pieces in
-//   the same launch. P is rounded to bf16 before P·V, as in K1.
+//   the same launch. P·V from P's bf16 head and tail, as in K1.
 // - fp32 (the tests' exact path; no tensor-core type keeps fp32): one CTA
 //   per (lane b, KV head g, split), 128 threads; the G query heads in
 //   shared memory as fp32 pre-scaled by 1/sqrt(D); the CTA walks only the

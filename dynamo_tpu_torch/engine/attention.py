@@ -2,7 +2,9 @@
 
 Port of `dynamo_tpu/engine/attention.py`: its `_NEG_INF` mask convention
 (`:27`), `prefill_attention` (`:117`) and `mixed_attention` (`:147`) —
-XLA in the reference, plain PyTorch here — and the two kernel entries:
+XLA in the reference; here `prefill_attention_ref` is the plain version,
+and `prefill_attention` runs K1's kernel on CUDA tensors (the chunk rows
+flattened into K1's flat rows, `chunk_rows`) — and the two kernel entries:
 - K4 `paged_attention_decode` (`:178`): one query token per lane, the
   decode burst's hot loop. CUDA tensors launch the hand-written kernel
   `csrc/paged_attention_decode.cu` (bf16: the paged-attention core shared
@@ -81,22 +83,24 @@ def _gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
         b, kvh, -1, d)
 
 
-def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                      v_pages: torch.Tensor, page_tables: torch.Tensor,
-                      q_positions: torch.Tensor, seq_lens: torch.Tensor,
-                      kv_pages: Optional[int] = None) -> torch.Tensor:
-    """Causal attention of a batch of prefill chunks, reading K/V from
-    pages (the reference's per-sequence function, vmapped over Bp).
+def prefill_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_tables: torch.Tensor,
+                          q_positions: torch.Tensor, seq_lens: torch.Tensor,
+                          kv_pages: Optional[int] = None) -> torch.Tensor:
+    """Plain version of `prefill_attention`: causal attention of a batch
+    of prefill chunks, reading K/V from pages (the reference's
+    per-sequence function, vmapped over Bp).
 
     q: (Bp, T, H, D); page_tables: (Bp, max_pages); q_positions: (Bp, T)
     absolute positions; seq_lens: (Bp,) valid lengths. Returns (Bp, T, H,
     D) in q's dtype. Row t of sequence i attends keys s <= q_positions[i,
     t] and s < seq_lens[i]; fp32 scores / sqrt(D), softmax, weighted sum
-    of V. Plain PyTorch on any device, as the reference leaves it to XLA:
-    the query heads of a KV head are grouped instead of repeating K/V, and
-    only the pages the longest sequence can see are gathered — `kv_pages`
-    of them when the caller knows the count (one host read per forward
-    instead of one per layer), else counted from seq_lens."""
+    of V. The query heads of a KV head are grouped instead of repeating
+    K/V, and only the pages the longest sequence can see are gathered —
+    `kv_pages` of them when the caller knows the count (one host read per
+    forward instead of one per layer), else counted from seq_lens. A
+    padding row (position >= seq_len) averages V over the valid keys, as
+    the reference's does."""
     bp, t, h, d = q.shape
     kvh, _, p, _ = k_pages.shape
     groups = h // kvh
@@ -115,25 +119,76 @@ def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(bp, t, h, d).to(q.dtype)
 
 
+def chunk_rows(q_positions: torch.Tensor, seq_lens: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's row tags for a batch of chunks flattened to Bp·T rows:
+    (token_qpos, token_lanes), (Bp·T,) int32 each — a row's position, or
+    -1 past its sequence's length (a padding row), and its sequence's
+    index into the page tables. Computed once per step and handed to
+    every layer's `prefill_attention`."""
+    bp, t = q_positions.shape
+    qpos = torch.where(q_positions < seq_lens[:, None], q_positions,
+                       torch.full_like(q_positions, -1))
+    lanes = torch.arange(bp, dtype=torch.int32,
+                         device=q_positions.device).repeat_interleave(t)
+    return qpos.reshape(bp * t).to(torch.int32), lanes
+
+
+def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, page_tables: torch.Tensor,
+                      q_positions: torch.Tensor, seq_lens: torch.Tensor,
+                      kv_pages: Optional[int] = None,
+                      row_tags: Optional[tuple] = None) -> torch.Tensor:
+    """Signature of `prefill_attention_ref`. CPU: the plain version.
+    CUDA: K1's kernel (`ragged.ragged_paged_attention`) on the chunk rows
+    viewed as Bp·T flat rows of a (Bp·T, H, D) query, each tagged by
+    `chunk_rows` (`row_tags`, when the caller computed them once per step)
+    and reading its sequence's row of `page_tables`: a chunk's rows are
+    consecutive rows of one lane, the tiles K1's core is built for. No
+    host read: the kernel finds each row's visible pages on the card, so
+    the step can be captured in a CUDA graph.
+
+    Padding rows differ by design: K1 gives a row past its sequence's
+    length exact zeros, the plain version an average over the valid keys.
+    Rows are independent outside attention and attention reads only keys
+    below seq_len, so valid rows, the last-token logits and the cache
+    rows below seq_len are the same either way (the padding rows' own
+    K/V, written to page 0 or past seq_len in a partly filled page, are
+    masked until decode overwrites them)."""
+    if q.device.type == "cpu":
+        return prefill_attention_ref(q, k_pages, v_pages, page_tables,
+                                     q_positions, seq_lens, kv_pages)
+    from dynamo_tpu_torch.engine import ragged
+
+    bp, t, h, d = q.shape
+    qpos, lanes = (row_tags if row_tags is not None
+                   else chunk_rows(q_positions, seq_lens))
+    out = ragged.ragged_paged_attention(
+        q.reshape(bp * t, h, d).contiguous(), k_pages, v_pages, qpos, lanes,
+        page_tables)
+    return out.view(bp, t, h, d)
+
+
 def mixed_attention(q_dec: torch.Tensor, q_chunk: torch.Tensor,
                     k_pages: torch.Tensor, v_pages: torch.Tensor,
                     dec_lengths: torch.Tensor, dec_tables: torch.Tensor,
                     chunk_tables: torch.Tensor,
                     chunk_positions: torch.Tensor,
                     chunk_seq_lens: torch.Tensor,
-                    chunk_kv_pages: Optional[int] = None
+                    chunk_kv_pages: Optional[int] = None,
+                    chunk_row_tags: Optional[tuple] = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One attention entry for a mixed prefill+decode step: the decode
     sub-batch through K4 `paged_attention_decode`, the chunk sub-batch
-    through `prefill_attention`, against the same caches. The sub-batches
-    are different sequences with disjoint page tables, so each side's
-    numerics are exactly the stand-alone function's. Returns (dec_out (B,
-    H, D), chunk_out (Bp, T, H, D))."""
+    through `prefill_attention` (K1 on CUDA tensors), against the same
+    caches. The sub-batches are different sequences with disjoint page
+    tables, so each side's numerics are exactly the stand-alone
+    function's. Returns (dec_out (B, H, D), chunk_out (Bp, T, H, D))."""
     dec_out = paged_attention_decode(q_dec, k_pages, v_pages, dec_lengths,
                                      dec_tables)
     chunk_out = prefill_attention(q_chunk, k_pages, v_pages, chunk_tables,
                                   chunk_positions, chunk_seq_lens,
-                                  chunk_kv_pages)
+                                  chunk_kv_pages, chunk_row_tags)
     return dec_out, chunk_out
 
 

@@ -45,16 +45,34 @@ Device work runs in `asyncio.to_thread` under one device lock, with
 `torch.inference_mode()` entered inside the thread (it is thread-local).
 Every step entry is bucketed as in the reference and tracked per (entry,
 bucket) in `compile_tracker` (the reference's `metrics.compile`, `:1406`,
-`:2094`, `:2513`, `:2648`); on the card the three fixed-shape entries,
-"decode_burst", "decode_guided" and "ragged_step", replay one CUDA graph
-per bucket (`engine/graphs.py`), the port's counterpart of the
-reference's jitted entries. The guided tables are not graph inputs: each
-row bucket has resident device buffers that its graphs read and that a
-new grammar is written into in place. "prefill", "mixed_step" and
-"sample_first" stay eager: the phase path's plain prefill attention reads
-its visible page count on the host (`attention.visible_pages`). A
-`BucketLadder` (`bucket_ladder`, None by default) refines the prefill
-token buckets as in the reference (`:1050`, `:2388`).
+`:2094`, `:2513`, `:2648`); on the card every fixed-shape entry —
+"prefill" (bp, T, aligned), "mixed_step" (bp, T, k, aligned, tk),
+"sample_first" (width, tk), "decode_burst", "decode_guided" and
+"ragged_step" — replays one CUDA graph per bucket (`engine/graphs.py`),
+the port's counterpart of the reference's jitted entries. No step reads
+the card on the host: the phase path's chunk attention runs K1's kernel
+on the card (`attention.prefill_attention`). A graph's outputs are
+static and the graphs share one pool, so any replay may overwrite them:
+what the engine keeps is copied right behind the replay that made it (a
+chunk round's and a mixed step's last-token logits, a pipelined burst's
+next input tokens and its host copy). The first
+token's penalties and grammar mask run eagerly before its sampling
+graph, as the reference keeps them outside its tracked entry. The
+guided tables are not graph inputs: each row bucket has resident device
+buffers that its graphs read and that a new grammar is written into in
+place. A `BucketLadder` (`bucket_ladder`, None by default) refines the
+prefill token buckets as in the reference (`:1050`, `:2388`).
+
+Disaggregated serving, as the reference's engine serves it (the handlers
+are `disagg/handlers.py`): a request with `kv_transfer_params.
+do_remote_decode` pins, when it finishes, the pages holding its written
+tokens and returns a `transfer_id` (`_export`, `:3141-3163`); the decode
+worker pulls them (`read_kv_pages` / `read_kv_pages_device`, one gather
+launch, `kernels.paged_kv_gather`) and the owner releases them
+(`complete_transfer`) or reaps them after `transfer_ttl`. A request with
+`kv_transfer_params.kv_data` (and `prefill_len`) imports that KV into
+fresh pages before any chunk touches them (`write_kv_pages`, K3 per
+layer) and prefills only what follows it.
 
 What the router reads, as the reference publishes it: the page pool's
 KV events (`event_sink`, stamped with `worker_id` / `dp_rank`, `:641`)
@@ -65,8 +83,8 @@ to the loop, since the runtime's event bus is not thread-safe). The
 engine's counters live in `engine/metrics.py` `EngineMetrics`.
 
 Not in this slice, and rejected per request where a request asks for
-them: disaggregated KV transfer and embeddings. Spec, pipeline/sequence
-parallelism, KVBM and profilers are later slices (ROADMAP.md).
+them: embeddings. Spec, pipeline/sequence parallelism, KVBM and
+profilers are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -76,6 +94,7 @@ import json
 import logging
 import threading
 import time
+import uuid
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable, Optional
 
@@ -83,6 +102,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine import kernels
 from dynamo_tpu_torch.engine.bucketing import BucketLadder
 from dynamo_tpu_torch.engine.graphs import StepGraphs
 from dynamo_tpu_torch.engine.metrics import EngineMetrics, itl_percentile
@@ -252,6 +272,11 @@ class _Seq:
     guided_state: int = 0                 # authoritative DFA state (host)
     out_counter: dict = field(default_factory=dict)  # token -> emit count
     _hist: Optional[tuple] = None         # (len(prompt), (V,) histogram)
+    # disagg import: ((2, L, KVH, n, P, D) tensor, prefill_len) until the
+    # pages land (`_stage_imports`); then how long the write took to
+    # read at the first token (CUDA events, or host seconds on the CPU)
+    import_kv: Optional[tuple] = None
+    import_timing: Optional[tuple] = None
 
     @property
     def wants_topk(self) -> bool:
@@ -295,9 +320,6 @@ class _Seq:
 
 def _unsupported(req: PreprocessedRequest) -> Optional[str]:
     """Why this engine cannot serve `req` faithfully, or None."""
-    if (req.kv_transfer_params or {}).get("kv_data") is not None \
-            or (req.kv_transfer_params or {}).get("do_remote_decode"):
-        return "disaggregated KV transfer"
     if req.extra.get("embed"):
         return "embeddings"
     return None
@@ -408,6 +430,13 @@ class TorchEngine:
         # {key: first row written there}); none is ever freed, since a
         # graph captured on a bucket reads its buffers at every replay
         self._guided_buffers: dict[int, tuple] = {}
+        # disagg: finished prefill-only sequences whose pages stay pinned
+        # until the decode worker pulls them (transfer_id -> (pages, len,
+        # deadline)); reaped by the scheduler loop after transfer_ttl
+        self._transfers: dict[str, tuple[list[int], int, float]] = {}
+        self.transfer_ttl = 60.0
+        # the caches' base pointers on the card, for the KV gather
+        self._cache_ptrs: Optional[torch.Tensor] = None
 
     @property
     def compile_tracker(self):
@@ -514,6 +543,14 @@ class TorchEngine:
                 yield error(f"prompt+max_tokens exceeds capacity (context "
                             f"{max_len}, pages {self.pool.capacity})")
                 return
+            import_kv = None
+            ktp = req.kv_transfer_params or {}
+            if ktp.get("kv_data") is not None:
+                import_kv = self._check_import(ktp, len(req.token_ids))
+                if isinstance(import_kv, str):
+                    # a malformed import fails this request only
+                    yield error(import_kv)
+                    return
             seq = _Seq(
                 req=req, ctx=context, queue=asyncio.Queue(),
                 token_seq=TokenBlockSequence(mcfg.page_size),
@@ -525,6 +562,7 @@ class TorchEngine:
                       else int(self._rng.randint(0, 2**31 - 1))),
                 arrival=self._arrivals,
                 t_enqueue=time.perf_counter(),
+                import_kv=import_kv,
             )
             self._arrivals += 1
             self._ensure_loop()
@@ -583,13 +621,23 @@ class TorchEngine:
                     await asyncio.to_thread(self._drain_inflight_sync)
                     continue
                 self._wake.clear()
-                await self._wake.wait()
+                if self._transfers:
+                    # stay reapable: pinned transfers expire even when no
+                    # request is in flight
+                    try:
+                        await asyncio.wait_for(self._wake.wait(), 1.0)
+                    except asyncio.TimeoutError:
+                        pass
+                    self._reap_transfers()
+                else:
+                    await self._wake.wait()
                 continue
             try:
                 if self.bucket_ladder is not None:
                     # safe point: between dispatches, before this
                     # iteration picks its batch shapes
                     self.bucket_ladder.maybe_apply()
+                self._reap_transfers()
                 self._admit()
                 if self.config.prefill_chunk_budget > 0:
                     progressed = await self._prefill_budgeted()
@@ -645,11 +693,19 @@ class TorchEngine:
                 > self.config.watermark * self.pool.capacity
                 and self._running):
             return False
-        alloc = self.pool.allocate_sequence(cand.prompt_hashes,
-                                            len(cand.prompt))
-        if alloc is None:
-            return False
-        cand.pages, cand.cached_len = alloc
+        if cand.import_kv is not None:
+            # disagg import: fresh pages only (the imported KV overwrites
+            # them); the cached length comes from the transfer
+            alloc = self.pool.allocate_sequence([], len(cand.prompt))
+            if alloc is None:
+                return False
+            cand.pages, cand.cached_len = alloc[0], cand.import_kv[1]
+        else:
+            alloc = self.pool.allocate_sequence(cand.prompt_hashes,
+                                                len(cand.prompt))
+            if alloc is None:
+                return False
+            cand.pages, cand.cached_len = alloc
         cand.prefill_pos = cand.cached_len
         self._waiting.pop(0)
         self._running.append(cand)
@@ -670,6 +726,7 @@ class TorchEngine:
         pending = [s for s in self._running if not s.prefilled]
         if not pending:
             return False
+        await self._stage_imports(pending)
 
         def prefill_all():
             with torch.inference_mode():
@@ -745,20 +802,26 @@ class TorchEngine:
             active = active[:bp]
             chunk_lens = self._chunk_lens(active, offsets, caps)
             chunk = self._chunk_arrays(active, offsets, chunk_lens, bp)
-            trk = self.compile_tracker.track(
-                "prefill", (bp, chunk[0].shape[1], int(bool(aligned_s))))
-            with trk:
-                logits = prefill_batch(
-                    self.model, self.k_cache, self.v_cache,
-                    *map(self._dev, chunk), aligned=bool(aligned_s))
-            self.metrics.prefill_chunk.observe(trk.elapsed_s)
+            aligned = bool(aligned_s)
+
+            def step(*a):
+                return prefill_batch(self.model, self.k_cache, self.v_cache,
+                                     *a, aligned=aligned)
+            logits = self._graphed(
+                "prefill", (bp, chunk[0].shape[1], int(aligned)), step,
+                chunk, hist=self.metrics.prefill_chunk)
             self.rounds += 1
         done: dict[int, Any] = {}
         for i, s in enumerate(active):
             offsets[id(s)] += chunk_lens[i]
             if offsets[id(s)] >= len(s.prompt):
-                done[id(s)] = logits[i]
-        return done
+                done[id(s)] = i
+        if done and not self.ragged:
+            # the graph's logits are static: the next replay of this
+            # (bp, T, aligned) key overwrites them, while these sequences
+            # are sampled after later rounds
+            logits = logits.clone()
+        return {k: logits[i] for k, i in done.items()}
 
     def _chunk_lens(self, active: list[_Seq], offsets, caps) -> list[int]:
         cfg = self.config
@@ -814,8 +877,11 @@ class TorchEngine:
         def arr(fn, dtype):
             vals = [fn(s) for s in pending]
             vals += [vals[0]] * (width - len(pending))
-            return torch.tensor(vals, dtype=dtype, device=self.device)
+            return np.asarray(vals, dtype=dtype)
 
+        # the penalties and the grammar mask stay eager, before the graph
+        # (the reference keeps them outside its tracked entry); only the
+        # sampling is captured
         logits = torch.stack(stack)
         if penalty_args is not None:
             rep_a, freq_a, pres_a, pc, oc = map(self._dev, penalty_args)
@@ -823,17 +889,17 @@ class TorchEngine:
         if guided_mask is not None:
             logits = logits + self._dev(guided_mask)
         tk = self.TOPK_WIDTH if any(s.wants_topk for s in pending) else 0
-        with self.compile_tracker.track("sample_first", (width, tk)):
-            packed = sample_tokens_lp(
-                logits,
-                arr(lambda s: s.seed & 0xFFFFFFFF, torch.int64),
-                arr(lambda s: s.generated, torch.int64),
-                arr(lambda s: s.req.sampling.temperature, torch.float32),
-                arr(lambda s: s.req.sampling.top_p, torch.float32),
-                arr(lambda s: s.req.sampling.top_k, torch.int64),
-                arr(lambda s: s.req.sampling.min_p, torch.float32),
-                topk_lp=tk)
-            return packed.cpu().numpy(), tk
+        inputs = (logits,
+                  arr(lambda s: s.seed & 0xFFFFFFFF, np.int64),
+                  arr(lambda s: s.generated, np.int64),
+                  arr(lambda s: s.req.sampling.temperature, np.float32),
+                  arr(lambda s: s.req.sampling.top_p, np.float32),
+                  arr(lambda s: s.req.sampling.top_k, np.int64),
+                  arr(lambda s: s.req.sampling.min_p, np.float32))
+        packed = self._graphed(
+            "sample_first", (width, tk),
+            lambda *a: sample_tokens_lp(*a, topk_lp=tk), inputs)
+        return packed.cpu().numpy(), tk
 
     def _emit_first_tokens(self, pending: list[_Seq], packed: np.ndarray,
                            tk: int) -> None:
@@ -842,6 +908,9 @@ class TorchEngine:
         page_size = self.model_cfg.page_size
         tokens = packed[0].astype(np.int32)
         logprobs = packed[1]
+        for seq in pending:
+            if seq.import_timing is not None:
+                self._observe_import(seq)
         for i, (seq, token, lp) in enumerate(zip(pending, tokens,
                                                  logprobs)):
             seq.token_seq = TokenBlockSequence(page_size, seq.prompt)
@@ -877,6 +946,7 @@ class TorchEngine:
                 pending.remove(s)
         if not pending:
             return True
+        await self._stage_imports(pending)
         for s in pending:
             s.prefill_pos = max(s.prefill_pos, s.cached_len)
         offsets = {id(s): s.prefill_pos for s in pending}
@@ -944,23 +1014,27 @@ class TorchEngine:
             bp = self._prefill_width(len(picks))
             ch = self._chunk_arrays(picks, offsets, chunk_lens, bp)
             d = self._burst_arrays(batch)
-            trk = self.compile_tracker.track(
-                "mixed_step", (bp, ch[0].shape[1], k, int(aligned), tk))
+
+            def step(*a):
+                return mixed_prefill_decode(
+                    self.model, self.k_cache, self.v_cache, *a, num_steps=k,
+                    aligned=aligned, topk_lp=tk)
 
             def dispatch():
-                with torch.inference_mode(), trk:
-                    packed, ch_logits = mixed_prefill_decode(
-                        self.model, self.k_cache, self.v_cache,
-                        *map(self._dev, ch), *map(self._dev, d),
-                        num_steps=k, aligned=aligned, topk_lp=tk)
+                with torch.inference_mode():
+                    packed, ch_logits = self._graphed(
+                        "mixed_step", (bp, ch[0].shape[1], k, int(aligned),
+                                       tk), step, (*ch, *d),
+                        hist=self.metrics.prefill_chunk)
                     self.rounds += 1
+                    # the graph's outputs are static: the chunk logits
+                    # outlive this replay (sampled after the lock is
+                    # released), so they are copied before the one sync
+                    ch_logits = ch_logits.clone()
                     return packed.cpu().numpy(), ch_logits   # ONE sync
 
         async with self._device_lock:
             packed, ch_logits = await asyncio.to_thread(dispatch)
-        if not self.ragged:
-            # the ragged round observes its own chunk time
-            self.metrics.prefill_chunk.observe(trk.elapsed_s)
         self.metrics.mixed_steps.inc()
         self.metrics.decode_steps_during_prefill.inc(
             1 if self.ragged else self.config.decode_steps_per_sync)
@@ -1095,10 +1169,10 @@ class TorchEngine:
 
         def dispatch():
             with torch.inference_mode():
+                if pipelined:
+                    return self._pipelined_burst(k, tk, arrays)
                 packed = self._burst(k, tk, arrays)
                 self.rounds += 1
-                if pipelined:
-                    return packed, _start_copy(packed)    # no sync here
                 return packed.cpu().numpy()               # ONE host sync
 
         async with self._device_lock:
@@ -1107,9 +1181,20 @@ class TorchEngine:
             self._emit_burst(batch, out, tk)
             return True
         self._inflight = {"k": k, "batch": batch, "arrays": arrays,
-                          "tk": tk, "packed": out[0], "handle": out[1],
-                          "deferred": []}
+                          "tk": tk, "next_tokens": out[0],
+                          "handle": out[1], "deferred": []}
         return await self._pipeline_consume()
+
+    def _pipelined_burst(self, k: int, tk: int, inputs):
+        """One burst whose results land later: (its last step's tokens,
+        the next burst's input, on the device; the handle of its packed
+        output's host copy). Both copies are queued right behind the burst:
+        on the card its packed output is a graph's static one, which a
+        later replay of any graph sharing the pool may overwrite (a chunk
+        round or a first-token sampling runs before the next burst)."""
+        packed = self._burst(k, tk, inputs)
+        self.rounds += 1
+        return packed[0, k - 1].to(torch.int32), _start_copy(packed)
 
     async def _pipeline_consume(self) -> bool:
         """Land the in-flight burst. First, when nothing can change the
@@ -1157,20 +1242,15 @@ class TorchEngine:
                           steps + k, temps, top_ps, top_ks)
 
                 def dispatch2():
-                    # on the card, the same graph as the in-flight burst:
-                    # its tokens are read, and its host copy was queued,
-                    # before this replay overwrites its packed output
                     with torch.inference_mode():
-                        tokens = inf["packed"][0, k - 1].to(torch.int32)
-                        packed = self._burst(k, tk, (tokens, *arrays[1:]))
-                        self.rounds += 1
-                        return packed, _start_copy(packed)
+                        return self._pipelined_burst(
+                            k, tk, (inf["next_tokens"], *arrays[1:]))
 
                 async with self._device_lock:
-                    packed2, handle2 = await asyncio.to_thread(dispatch2)
+                    tokens2, handle2 = await asyncio.to_thread(dispatch2)
                 self.metrics.pipelined_bursts.inc()
                 nxt = {"k": k, "batch": batch, "arrays": arrays, "tk": tk,
-                       "packed": packed2, "handle": handle2,
+                       "next_tokens": tokens2, "handle": handle2,
                        "deferred": []}
         packed = await asyncio.to_thread(_land, inf["handle"])
         # while the next burst runs, finished lanes' pages must not return
@@ -1241,14 +1321,20 @@ class TorchEngine:
         return True
 
     def _graphed(self, entry: str, shape: tuple, fn, inputs,
-                 bucket: tuple = ()):
+                 bucket: tuple = (), hist=None):
         """One dispatch of a fixed-shape entry: tracked under (entry,
         shape) and, on the card, replayed from the CUDA graph of (entry,
         shape + bucket) (captured at first use, `engine/graphs.py`);
         `bucket` keys what the step closes over, not an input (the
-        guided tables' row bucket)."""
-        with self.compile_tracker.track(entry, shape):
-            return self.graphs.run((entry, shape + bucket), fn, inputs)
+        guided tables' row bucket). `hist` observes the dispatch's
+        seconds. The outputs are the graph's static ones on the card:
+        copy what outlives the next replay of the key."""
+        trk = self.compile_tracker.track(entry, shape)
+        with trk:
+            out = self.graphs.run((entry, shape + bucket), fn, inputs)
+        if hist is not None:
+            hist.observe(trk.elapsed_s)
+        return out
 
     def _ragged_bucket(self, n: int) -> int:
         """Total-token bucket of a round: pow2 below min_prefill_bucket,
@@ -1643,27 +1729,198 @@ class TorchEngine:
             out.log_probs = [float(x) for x in lps[:n_emit]]
         if topk_fn is not None:
             out.top_logprobs = [topk_fn(k) for k in range(n_emit)]
+        exported = finish is not None and bool(
+            (seq.req.kv_transfer_params or {}).get("do_remote_decode"))
+        if exported:
+            out.kv_transfer_params = self._export(seq)
         seq.queue.put_nowait(out.to_dict())
         if finish is not None:
-            self._finish(seq, finish, emit=False)
+            self._finish(seq, finish, emit=False,
+                         release_pages=not exported)
         return n_emit
 
-    def _finish(self, seq: _Seq, reason: str, emit: bool = True) -> None:
+    def _release(self, pages: list[int]) -> None:
+        if self._defer_releases is not None:
+            # an in-flight burst still writes these pages
+            self._defer_releases.append(list(pages))
+        else:
+            self.pool.release_sequence(pages)
+
+    def _finish(self, seq: _Seq, reason: str, emit: bool = True,
+                release_pages: bool = True) -> None:
         seq.finished = True
         if seq in self._running:
             self._running.remove(seq)
         if seq in self._waiting:
             self._waiting.remove(seq)
-        if self._defer_releases is not None:
-            # an in-flight burst still writes these pages
-            self._defer_releases.append(list(seq.pages))
-        else:
-            self.pool.release_sequence(seq.pages)
+        if release_pages:
+            self._release(seq.pages)
         seq.pages = []
         if emit:
             seq.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=reason).to_dict())
         seq.queue.put_nowait(None)
+
+    # -- disaggregated KV transfer ------------------------------------------
+
+    def _check_import(self, ktp: dict, n_tokens: int):
+        """(data, prefill_len) of a request's `kv_transfer_params` import
+        (`kv_data` a (2, L, KVH, n, P, D) tensor or array, `prefill_len`
+        the tokens it holds), or why it is malformed (the reference's
+        check, `dynamo_tpu/engine/engine.py:882-900`)."""
+        mcfg = self.model_cfg
+        data = ktp["kv_data"]
+        if not isinstance(data, torch.Tensor):
+            data = torch.from_numpy(np.asarray(data))
+        plen = int(ktp.get("prefill_len") or 0)
+        n_pages = (plen + mcfg.page_size - 1) // mcfg.page_size
+        want = (2, mcfg.num_layers, mcfg.num_kv_heads, n_pages,
+                mcfg.page_size, mcfg.head_dim)
+        if not (0 < plen < n_tokens) or tuple(data.shape) != want:
+            return (f"bad kv import: prefill_len={plen}, "
+                    f"shape={tuple(data.shape)} != {want}")
+        return data, plen
+
+    async def _stage_imports(self, pending: list[_Seq]) -> None:
+        """Write the admitted imports' KV into their fresh pages, before
+        any chunk round touches those pages."""
+        imports = [s for s in pending if s.import_kv is not None]
+        if not imports:
+            return
+        page = self.model_cfg.page_size
+
+        def stage():
+            with torch.inference_mode():
+                for s in imports:
+                    data, n_tok = s.import_kv
+                    events = None
+                    if self.device.type == "cuda":
+                        events = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                        events[0].record()
+                    t0 = time.perf_counter()
+                    self.write_kv_pages(s.pages[:-(-n_tok // page)], data)
+                    if events is not None:
+                        events[1].record()
+                    s.import_timing = (events, time.perf_counter() - t0,
+                                       n_tok, data.numel()
+                                       * data.element_size())
+                    s.import_kv = None
+
+        async with self._device_lock:
+            await asyncio.to_thread(stage)
+
+    def _observe_import(self, seq: _Seq) -> None:
+        """An import's write time, read once its first token has reached
+        the host (the stream has passed the write): the device time of its
+        K3 launches on the card, host seconds on the CPU."""
+        events, host_s, n_tok, nbytes = seq.import_timing
+        seq.import_timing = None
+        secs = (events[0].elapsed_time(events[1]) / 1e3
+                if events is not None else host_s)
+        self.metrics.kv_import.observe(secs)
+        logger.info("kv import: %d tokens, %d bytes written in %.6f s (%s)",
+                    n_tok, nbytes, secs,
+                    "device time" if events is not None else "host time")
+
+    def _export(self, seq: _Seq) -> dict:
+        """A do_remote_decode sequence finishes: pin the pages that hold
+        its `seq.pos` written tokens for the decode worker's pull, release
+        the lookahead pages (the importer's shapes cover only the former)
+        and return the transfer's `kv_transfer_params`."""
+        n_pages = -(-seq.pos // self.model_cfg.page_size)
+        self._release(seq.pages[n_pages:])
+        tid = uuid.uuid4().hex
+        self._transfers[tid] = (seq.pages[:n_pages], seq.pos,
+                                time.monotonic() + self.transfer_ttl)
+        return {"transfer_id": tid, "prefill_len": seq.pos,
+                "worker_id": self.config.worker_id}
+
+    def take_transfer(self, transfer_id: str) -> tuple[list[int], int]:
+        """(pages, prefill_len) of a pinned transfer; KeyError if unknown
+        or reaped. Refreshes its deadline: a chunked pull has many await
+        points, and a reaper releasing the pages mid-pull (then a new
+        prefill reusing them) would ship another sequence's KV."""
+        pages, plen, _ = self._transfers[transfer_id]
+        self._transfers[transfer_id] = (
+            pages, plen, time.monotonic() + self.transfer_ttl)
+        return pages, plen
+
+    def complete_transfer(self, transfer_id: str) -> None:
+        """Release a transfer's pinned pages; idempotent."""
+        entry = self._transfers.pop(transfer_id, None)
+        if entry is not None:
+            self.pool.release_sequence(entry[0])
+
+    def _reap_transfers(self) -> None:
+        now = time.monotonic()
+        for tid in [t for t, (_, _, dl) in self._transfers.items()
+                    if dl <= now]:
+            logger.warning("disagg transfer %s expired unpulled", tid)
+            self.complete_transfer(tid)
+
+    def _gather_kv_pages(self, page_ids: list[int]) -> torch.Tensor:
+        """The one gather both transfer paths use: the pages of every
+        layer's K and V caches as a (2, L, KVH, n, P, D) tensor on the
+        engine's device, in one launch of the gather kernel on the card
+        (`kernels.paged_kv_gather`), queued on the engine's stream behind
+        the step that wrote them."""
+        if self._cache_ptrs is None and self.device.type == "cuda":
+            self._cache_ptrs = kernels.cache_pointers(self.k_cache,
+                                                      self.v_cache)
+        ids = self._dev(np.asarray(page_ids, dtype=np.int32))
+        with self.compile_tracker.track("gather_kv", (len(page_ids),)):
+            return kernels.paged_kv_gather(self.k_cache, self.v_cache, ids,
+                                           self._cache_ptrs)
+
+    async def read_kv_pages(self, page_ids: list[int]) -> torch.Tensor:
+        """The pages as a host tensor (2, L, KVH, n, P, D) [k; v], the
+        wire format. Under the device lock, so no step writes the caches
+        meanwhile."""
+        def read():
+            with torch.inference_mode():
+                return self._gather_kv_pages(page_ids).cpu()
+
+        async with self._device_lock:
+            return await asyncio.to_thread(read)
+
+    async def read_kv_pages_device(self, page_ids: list[int]
+                                   ) -> torch.Tensor:
+        """The pages as a (2, L, KVH, n, P, D) tensor on the engine's
+        device, no host copy: the same-process and CUDA IPC transfer
+        paths. The gather is queued on the engine's stream; the call
+        returns once it has completed."""
+        def read():
+            with torch.inference_mode():
+                got = self._gather_kv_pages(page_ids)
+                if got.device.type == "cuda":
+                    torch.cuda.current_stream(got.device).synchronize()
+                return got
+
+        async with self._device_lock:
+            return await asyncio.to_thread(read)
+
+    def write_kv_pages(self, page_ids: list[int], data) -> None:
+        """Store imported (2, L, KVH, n, P, D) KV as pages `page_ids` of
+        every layer: K3 `paged_kv_write_pages`, one launch per layer for K
+        and V, reading `data[0, l]` and `data[1, l]` as (n, KVH, P, D)
+        blocks by their strides, without a copy. Call from inside the
+        engine's device-locked work (`_stage_imports`)."""
+        dtype = self.k_cache[0].dtype
+        if not isinstance(data, torch.Tensor):
+            data = torch.from_numpy(np.asarray(data))
+        if data.device != self.device:
+            data = (data.pin_memory().to(self.device, non_blocking=True)
+                    if self.device.type == "cuda" and data.device.type == "cpu"
+                    else data.to(self.device))
+        data = data.to(dtype)
+        ids = self._dev(np.asarray(page_ids, dtype=np.int32))
+        with self.compile_tracker.track("write_kv", (len(page_ids),)):
+            for l in range(self.model_cfg.num_layers):
+                kernels.paged_kv_write_pages(
+                    self.k_cache[l], self.v_cache[l],
+                    data[0, l].permute(1, 0, 2, 3),
+                    data[1, l].permute(1, 0, 2, 3), ids)
 
     def _publish_metrics(self) -> None:
         """One ForwardPassMetrics to `metrics_sink` (the reference's

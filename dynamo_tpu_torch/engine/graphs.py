@@ -4,17 +4,21 @@ reference's `jax.jit` step entries.
 The reference never runs a step op by op: each device entry is a jitted
 program, compiled once per shape bucket (`engine/compile_tracker.py`
 records the first call of each), so a fused k-step burst is one dispatch.
-Here the engine routes its fixed-shape entries ("decode_burst",
-"decode_guided", "ragged_step") through `StepGraphs.run`, which captures
+Here the engine routes its fixed-shape entries ("prefill",
+"mixed_step", "sample_first", "decode_burst", "decode_guided",
+"ragged_step") through `StepGraphs.run`, which captures
 the step into a CUDA graph the first time its key is seen and replays that
 graph after.
 
 - **Static buffers.** Each graph owns static device input buffers and the
   outputs its capture allocated. A dispatch copies the host arrays into
   the inputs (pinned memory, non-blocking, on the current stream) and
-  replays; a device tensor (the pipelined burst's input tokens) is copied
-  on the device. The outputs are the same tensors at every replay: a
-  caller must copy or consume them before the graph replays again.
+  replays; a device tensor (the pipelined burst's input tokens, the first
+  token's logits) is copied on the device. The outputs are the same
+  tensors at every replay: a caller must copy or consume them before the
+  graph replays again (the engine copies a chunk round's and a mixed
+  step's last-token logits when it keeps them: two prompts that finish
+  in different rounds of one key are sampled from their own rows).
 - **State a step closes over.** What is large and changes rarely is not
   an input: "decode_guided" reads the engine's resident grammar tables
   (hundreds of MB for JSON mode at a 128k vocabulary), one set of buffers
@@ -23,24 +27,30 @@ graph after.
   bucket that grows gets new buffers and a new graph, and the old buffers
   stay alive for the old graph.
 - **One memory pool.** All of an engine's graphs share one pool
-  (`torch.cuda.graph_pool_handle()`). Replays are serialized by the
+  (`torch.cuda.graph_pool_handle()`), so a graph captured later may keep
+  its intermediates where an earlier graph left its output: any replay
+  may overwrite any other graph's outputs. Replays are serialized by the
   engine's device lock on one stream, and the engine copies every output
-  it keeps right behind its replay on that stream, so a later replay of
-  another graph that reuses a block of the pool cannot clobber it.
+  it keeps right behind its replay on that stream (a pipelined burst's
+  host copy and its next input tokens, a chunk round's kept logits), so
+  no later replay can clobber it.
 - **No hidden fallback.** A capture that fails raises; nothing falls back
   to eager quietly. On the CPU there are no graphs: `run` calls the step.
 - **The warm-up call.** Before its capture, a step runs once eagerly on
   the live inputs, on the capture stream: that loads the kernels,
   creates cuBLAS's handle and workspace for the stream, and sizes the
   kernels' persistent scratch (which refuses to grow during a capture,
-  `paged_core.grow_scratch`). Running the step twice is harmless only
-  because every captured step is idempotent on its inputs: K2 rewrites
-  the same cache rows with the same values (attention reads only rows
-  below or at a row's own position, which the step itself rewrites
-  alike), sampling is keyed by (seed, step) on the device, and the
-  constrained burst advances copies of its output counts and DFA states,
-  never its inputs, so the warm-up and the first replay give the same
-  outputs and leave the same caches.
+  `paged_core.grow_scratch`: a "prefill" warm-up at bp 8, T 512 sizes
+  K1's tickets for its 4096 rows x KV heads). Running the step twice is
+  harmless only because every captured step is idempotent on its inputs:
+  K2 and K3 rewrite the same cache rows with the same values (attention
+  reads only rows below or at a row's own position, which the step itself
+  rewrites alike — a prefill chunk rewrites its own rows, a mixed step
+  its chunk rows and its burst's decode rows, as the plain burst does),
+  sampling is keyed by (seed, step) on the device ("sample_first" writes
+  nothing but its output), and the constrained burst advances copies of
+  its output counts and DFA states, never its inputs, so the warm-up and
+  the first replay give the same outputs and leave the same caches.
 - **Launch counts.** A replay calls no kernel wrapper, so the graph
   records each kernel's launch delta at capture (`cuda_build.launch_delta`),
   takes it back (a capture runs nothing) and adds it at every replay.

@@ -15,7 +15,15 @@ chunks, stored without reading the destination back. CUDA tensors launch
 `csrc/paged_kv_write_pages.cu` (a TMA box in, a bulk copy out, per slot
 and head); CPU tensors run `paged_kv_write_pages_ref`.
 
-Both kernels read K and V as the caller hands them: any strides on the
+`paged_kv_gather` is no TPU kernel: it copies a sequence's pages out of
+every layer's caches into one (2, L, KVH, n, P, D) tensor for the
+disaggregated KV transfer, the function the reference computes in XLA as
+`_gather_kv_jit` (`dynamo_tpu/engine/engine.py:72`). CUDA tensors launch
+`csrc/paged_kv_gather.cu` (one launch for all 2L caches, a flat list of
+16-byte chunks); CPU tensors run `paged_kv_gather_ref`, a stack of
+per-layer `index_select`s. It is a copy, so the two are bit-identical.
+
+K2 and K3 read K and V as the caller hands them: any strides on the
 leading dimensions (a step passes its projections' output, and K3 a
 permuted view of the chunk's token-major K/V), stride 1 on D, every row
 start 16-byte aligned. The caches are contiguous. Any other device, or a
@@ -45,6 +53,11 @@ _PAGES_KERNEL = CudaKernel("paged_kv_write_pages", [
     *[_c.c_longlong] * 6,                                 # kb, vb strides
     _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,     # M KVH N P bytes
     _c.c_void_p])                                         # stream
+
+_GATHER_KERNEL = CudaKernel("paged_kv_gather", [
+    _c.c_void_p, _c.c_void_p, _c.c_void_p,               # caches ids out
+    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # 2L KVH N n bytes
+    _c.c_void_p])                                        # stream
 
 
 # K3 stages a slot's K and V pages in one CTA's shared memory
@@ -195,3 +208,81 @@ def paged_kv_write_pages(kc: torch.Tensor, vc: torch.Tensor,
                   v_blocks.data_ptr(), page_ids.data_ptr(), *strides, m, kvh,
                   n_pages, p, row_bytes,
                   torch.cuda.current_stream(kc.device).cuda_stream)
+
+
+def paged_kv_gather_ref(k_cache: list, v_cache: list,
+                        page_ids: torch.Tensor) -> torch.Tensor:
+    """Plain version: k_cache/v_cache, L per-layer (KVH, N, P, D) caches
+    each; page_ids (n,). Returns (2, L, KVH, n, P, D), the K pages of
+    every layer then the V pages — `_gather_kv_jit`'s layout."""
+    ids = page_ids.long()
+    return torch.stack([torch.stack([c.index_select(1, ids) for c in caches])
+                        for caches in (k_cache, v_cache)])
+
+
+def cache_pointers(k_cache: list, v_cache: list) -> torch.Tensor:
+    """(2L,) int64 device array of the caches' base pointers, K caches
+    first: what `paged_kv_gather` reads. The engine builds it once (its
+    caches are updated in place and never move)."""
+    ptrs = [c.data_ptr() for c in (*k_cache, *v_cache)]
+    return torch.tensor(ptrs, dtype=torch.int64).to(k_cache[0].device)
+
+
+def paged_kv_gather(k_cache: list, v_cache: list, page_ids: torch.Tensor,
+                    pointers: torch.Tensor | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Signature of `paged_kv_gather_ref`, returning a new tensor, or
+    `out` (2, L, KVH, n, P, D) contiguous when given. `pointers`: the
+    caches' `cache_pointers`, built here when not given (a host-to-device
+    copy). CUDA: the kernel, on the current stream; CPU: the plain
+    version."""
+    kc0 = k_cache[0]
+    if kc0.device.type == "cpu":
+        got = paged_kv_gather_ref(k_cache, v_cache, page_ids)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
+    if kc0.device.type != "cuda":
+        raise ValueError(f"paged_kv_gather: unsupported device {kc0.device}")
+    kvh, n_pages, p, d = kc0.shape
+    n = page_ids.shape[0]
+    layers = len(k_cache)
+    if len(v_cache) != layers:
+        raise ValueError("paged_kv_gather: as many V caches as K caches")
+    for i, c in enumerate((*k_cache, *v_cache)):
+        if c.shape != kc0.shape or c.dtype != kc0.dtype \
+                or c.device != kc0.device or not c.is_contiguous() \
+                or c.data_ptr() % 16:
+            raise ValueError(f"paged_kv_gather: cache {i} must be a "
+                             f"contiguous, 16-byte aligned {tuple(kc0.shape)} "
+                             f"{kc0.dtype} tensor on {kc0.device}")
+    _check_cuda_args("paged_kv_gather", kc0, page_ids=page_ids)
+    if page_ids.dtype != torch.int32 or page_ids.dim() != 1:
+        raise ValueError("paged_kv_gather: page_ids must be (n,) int32")
+    page_bytes = p * d * kc0.element_size()
+    if page_bytes % 16:
+        raise ValueError(f"paged_kv_gather: a page of {p} x {d} x "
+                         f"{kc0.element_size()} B is not a multiple of the "
+                         f"16-byte vector width")
+    if pointers is None:
+        pointers = cache_pointers(k_cache, v_cache)
+    if pointers.shape != (2 * layers,) or pointers.dtype != torch.int64 \
+            or pointers.device != kc0.device:
+        raise ValueError(f"paged_kv_gather: pointers must be ({2 * layers},) "
+                         f"int64 on {kc0.device}")
+    shape = (2, layers, kvh, n, p, d)
+    if out is None:
+        out = torch.empty(shape, dtype=kc0.dtype, device=kc0.device)
+    elif tuple(out.shape) != shape or out.dtype != kc0.dtype \
+            or out.device != kc0.device or not out.is_contiguous() \
+            or out.data_ptr() % 16:
+        raise ValueError(f"paged_kv_gather: out must be a contiguous, "
+                         f"16-byte aligned {shape} {kc0.dtype} tensor on "
+                         f"{kc0.device}")
+    if n == 0:
+        return out
+    _GATHER_KERNEL(pointers.data_ptr(), page_ids.data_ptr(), out.data_ptr(),
+                   2 * layers, kvh, n_pages, n, page_bytes,
+                   torch.cuda.current_stream(kc0.device).cuda_stream)
+    return out

@@ -9,8 +9,9 @@ tracker (`engine/compile_tracker.py`, as `metrics.compile`). The engine
 observes into these objects and every consumer reads them: `/metrics`
 and the worker's `_sys.stats` scrape (`register`), `_publish_metrics`
 (`perf_view`), and the engine's own `tokens_emitted` /
-`pipelined_bursts` / `compile_tracker` attributes. The KVBM, disagg,
-spec and step-profiler series wait with their subsystems. The ITL
+`pipelined_bursts` / `compile_tracker` attributes; the disagg KV pull
+series (`kv_pull*`), which the decode worker's handler observes. The
+KVBM, spec and step-profiler series wait with their subsystems. The ITL
 histogram's edges and quantile are the part of `dynamo_tpu/llm/perf.py`
 (`:18-60`) the published metrics need.
 
@@ -59,6 +60,9 @@ def itl_percentile(hist: list[int], q: float) -> float | None:
 _STAGE_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
                   0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
                   30.0)
+# per-transfer KV pull bandwidth (bytes/s), the reference's _BW_BUCKETS
+_BW_BUCKETS = (1e6, 3e6, 1e7, 3e7, 1e8, 3e8, 1e9, 3e9, 1e10, 3e10,
+               1e11, 3e11)
 # the wire histogram's edges, so the Prometheus view and the published
 # percentiles agree; +Inf is implicit in Histogram
 _ITL_BUCKETS_MS = tuple(e for e in ITL_BUCKET_EDGES_MS
@@ -93,6 +97,29 @@ class EngineMetrics:
         self.decode_steps_during_prefill = c(
             "dynamo_engine_decode_steps_during_prefill_total",
             "decode steps interleaved while requests were prefilling")
+        # disaggregated KV transfer, on the decode worker
+        # (disagg/handlers.py): pull latency, bytes and bandwidth by path
+        # under the reference's names, and the port's count of pulls that
+        # fell back from the path they tried to the next one
+        self.kv_pull = h(
+            "dynamo_engine_kv_pull_seconds",
+            "disagg KV pull, prefill worker -> decode worker",
+            _STAGE_BUCKETS)
+        self.kv_pull_bytes = c(
+            "dynamo_kv_pull_bytes_total",
+            "disagg KV bytes pulled onto this decode worker, by "
+            "transfer path (device/plane/wire)")
+        self.kv_pull_bw = h(
+            "dynamo_kv_pull_bandwidth_bytes_per_s",
+            "per-transfer disagg KV pull bandwidth", _BW_BUCKETS)
+        self.kv_import = h(
+            "dynamo_engine_kv_import_seconds",
+            "disagg KV import: the imported pages' write on this worker",
+            _STAGE_BUCKETS)
+        self.kv_pull_fallbacks = c(
+            "dynamo_kv_pull_fallbacks_total",
+            "disagg KV pulls that failed on one path (from) and went on "
+            "to the next (to)")
         self.compile = CompileTracker()
 
     def register(self, registry: MetricsRegistry) -> None:
@@ -100,7 +127,9 @@ class EngineMetrics:
         renders them (idempotent; the first engine wins a name)."""
         for m in (self.prefill_chunk, self.ttft, self.itl,
                   self.tokens_emitted, self.pipelined_bursts,
-                  self.mixed_steps, self.decode_steps_during_prefill):
+                  self.mixed_steps, self.decode_steps_during_prefill,
+                  self.kv_pull, self.kv_pull_bytes, self.kv_pull_bw,
+                  self.kv_import, self.kv_pull_fallbacks):
             registry.register(m)
         self.compile.register(registry)
 

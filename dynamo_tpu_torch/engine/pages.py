@@ -82,6 +82,11 @@ class PagePool:
     def active_pages(self) -> int:
         return self.capacity - len(self._free) - len(self._inactive)
 
+    @property
+    def used_pages(self) -> int:
+        """Pages out of the free list: active plus cached (inactive)."""
+        return self.capacity - len(self._free)
+
     def usage(self) -> float:
         return self.active_pages / self.capacity if self.capacity else 1.0
 

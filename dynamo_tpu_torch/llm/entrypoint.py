@@ -32,6 +32,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine import cuda_build
 from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
 from dynamo_tpu_torch.llm.guided import token_bytes_of
 from dynamo_tpu_torch.llm.http_service import HttpService
@@ -129,9 +130,10 @@ class WorkerHandle:
 def register_engine_metrics(runtime: DistributedRuntime, engine) -> None:
     """Join an engine's own metrics to the process's scrape: its
     `EngineMetrics` (the `dynamo_engine_*` series and the compile
-    tracker's `dynamo_compile_*`) and its CUDA-graph captures, replays and
-    pool bytes (one source of truth, no second bookkeeping path). Engines
-    without them are skipped."""
+    tracker's `dynamo_compile_*`), its CUDA-graph captures, replays and
+    pool bytes, and the process's kernel launch counts (one source of
+    truth, no second bookkeeping path). Engines without them are
+    skipped."""
     metrics = getattr(engine, "metrics", None)
     if metrics is not None:
         metrics.register(runtime.metrics)
@@ -141,11 +143,17 @@ def register_engine_metrics(runtime: DistributedRuntime, engine) -> None:
     g = runtime.metrics.gauge(
         "engine_cuda_graphs",
         "the engine's CUDA graphs: captures, replays and pool bytes")
+    launches = runtime.metrics.gauge(
+        "engine_kernel_launches",
+        "hand-written kernel launches in this process, graph replays "
+        "included (engine/cuda_build.py)")
 
     def sync() -> None:
         g.set(graphs.captures, kind="captures")
         g.set(graphs.replays, kind="replays")
         g.set(graphs.pool_bytes(), kind="pool_bytes")
+        for name, n in cuda_build.launch_counts().items():
+            launches.set(n, kernel=name)
 
     runtime.metrics.on_scrape(sync)
 
@@ -154,8 +162,10 @@ async def serve_engine(runtime: DistributedRuntime, engine: AsyncEngine,
                        card: ModelDeploymentCard,
                        instance_id: Optional[int] = None) -> WorkerHandle:
     """Worker side (entrypoint/input/endpoint.rs): serve a core engine on
-    the card's endpoint and publish the card."""
-    register_engine_metrics(runtime, engine)
+    the card's endpoint and publish the card. A disagg worker serves a
+    handler wrapping its engine (`disagg/handlers.py`): the engine's own
+    metrics join the scrape."""
+    register_engine_metrics(runtime, getattr(engine, "engine", engine))
     ep = (runtime.namespace(card.namespace).component(card.component)
           .endpoint(card.endpoint))
     served = await ep.serve(

@@ -15,8 +15,10 @@ penalties on the device), `_mixed_forward` (`:487`) and
 Kernels per layer: the phase path writes K/V with K3
 `paged_kv_write_pages` (page-aligned prefill chunks) or K2
 `paged_kv_write` (decode rows, unaligned chunks) and reads them with K4
-`paged_attention_decode` (decode) or plain `prefill_attention` (chunks);
-the ragged step writes with K2 and reads with K1. Every write runs on
+`paged_attention_decode` (decode) or `prefill_attention` (chunks: K1 on
+the card, the plain version on the CPU); the ragged step writes with K2
+and reads with K1. No phase-path step reads the card on the host, so the
+engine captures each in a CUDA graph. Every write runs on
 torch's current stream before the same layer's attention reads the cache.
 
 Layout kept from the reference, so the two packages compute with the same
@@ -320,6 +322,19 @@ def _chunk_kv_writer(cfg: LlamaConfig, page_tables: torch.Tensor,
     return write
 
 
+def _chunk_attention_args(cfg: LlamaConfig, page_tables: torch.Tensor,
+                          positions: torch.Tensor, seq_lens: torch.Tensor):
+    """What every layer's chunk attention shares, computed once per step:
+    (kv_pages, row_tags). CPU: the pages the longest chunk can see, read
+    on the host for the plain version. CUDA: K1's row tags
+    (`attention.chunk_rows`) and no host read, so nothing in the step
+    waits for the card and the step can be captured in a CUDA graph."""
+    if positions.device.type == "cpu":
+        return attention.visible_pages(seq_lens, cfg.page_size,
+                                       page_tables.shape[1]), None
+    return None, attention.chunk_rows(positions, seq_lens)
+
+
 def paged_forward(model: LlamaModel, k_cache: list, v_cache: list,
                   tokens: torch.Tensor, page_tables: torch.Tensor,
                   cached_lens: torch.Tensor, seq_lens: torch.Tensor,
@@ -338,8 +353,8 @@ def paged_forward(model: LlamaModel, k_cache: list, v_cache: list,
     positions = cached_lens[:, None] + torch.arange(
         T, dtype=cached_lens.dtype, device=tokens.device)[None, :]
     write = _chunk_kv_writer(cfg, page_tables, positions, seq_lens, aligned)
-    kv_pages = attention.visible_pages(seq_lens, cfg.page_size,
-                                       page_tables.shape[1])
+    kv_pages, row_tags = _chunk_attention_args(cfg, page_tables, positions,
+                                               seq_lens)
     cos, sin = rope_tables(positions, D, cfg.rope_theta)
     for l, layer in enumerate(model.layers):
         hn = rms_norm(x, layer.attn_norm, cfg.rms_eps)
@@ -349,7 +364,7 @@ def paged_forward(model: LlamaModel, k_cache: list, v_cache: list,
         write(k_cache[l], v_cache[l], k, v.view(Bp, T, KVH, D))
         attn = attention.prefill_attention(q, k_cache[l], v_cache[l],
                                            page_tables, positions, seq_lens,
-                                           kv_pages)
+                                           kv_pages, row_tags)
         x = x + qm(attn.reshape(Bp, T, H * D), layer.wo)
         hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
         x = x + _swiglu(hn, layer)
@@ -556,8 +571,8 @@ def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
         T, dtype=ch_cached.dtype, device=ch_tokens.device)[None, :]
     write = _chunk_kv_writer(cfg, ch_tables, c_positions, ch_seq_lens,
                              aligned)
-    kv_pages = attention.visible_pages(ch_seq_lens, cfg.page_size,
-                                       ch_tables.shape[1])
+    kv_pages, row_tags = _chunk_attention_args(cfg, ch_tables, c_positions,
+                                               ch_seq_lens)
     c_cos, c_sin = rope_tables(c_positions, D, cfg.rope_theta)
     xd = model.embed[d_tokens.long()]                      # (B, E)
     d_pages, d_offsets = _kv_targets(
@@ -581,7 +596,7 @@ def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
                                d_offsets)
         attn_d, attn_c = attention.mixed_attention(
             qd.contiguous(), q, kc, vc, d_lengths, d_tables, ch_tables,
-            c_positions, ch_seq_lens, kv_pages)
+            c_positions, ch_seq_lens, kv_pages, row_tags)
         xc = xc + qm(attn_c.reshape(Bp, T, H * D), layer.wo)
         xc = xc + _swiglu(rms_norm(xc, layer.mlp_norm, cfg.rms_eps), layer)
         xd = xd + qm(attn_d.reshape(B, H * D), layer.wo)

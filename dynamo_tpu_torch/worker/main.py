@@ -5,6 +5,13 @@ register the endpoint and the model card, serve until signal; the engine
 monitor force-exits so the lease drops when the engine dies.
 
 Flags keep the reference's names and defaults for what this slice serves.
+Disaggregated serving as the reference's worker serves it
+(`dynamo_tpu/worker/main.py:280-310`, `:360-432`): `--is-prefill-worker`
+serves the engine under `<component>_prefill` behind
+`PrefillWorkerHandler` and its `kv_pull` endpoint; `--enable-disagg`
+serves it behind `DecodeWorkerHandler`, which sends prompts longer than
+`--max-local-prefill-length` uncached tokens to that prefill pool (the
+threshold follows the store key `disagg_config_key`).
 One flag is the port's own: `--device` (default cuda; the worker raises
 without a card unless `--device cpu` asks for the CPU). The reference's
 flags for parts the port has not ported yet are parsed under their names
@@ -43,7 +50,8 @@ from dynamo_tpu_torch.cli_util import (
 logger = logging.getLogger(__name__)
 
 PROG = "python -m dynamo_tpu_torch.worker"
-DISAGG = "disaggregated serving (ROADMAP queue 1: KVBM and disagg)"
+QUEUE = ("the durable prefill-queue dispatch (ROADMAP queue 1: "
+         "disagg/prefill_queue.py and runtime/queue.py)")
 SPEC = "speculative decoding (ROADMAP queue 1: engine/spec.py)"
 MULTI = "the multi-device paths (ROADMAP queue 1: TP, PP, SP)"
 KVBM = "KVBM (ROADMAP queue 1: KVBM and disagg)"
@@ -51,10 +59,7 @@ MM = "multimodal serving (ROADMAP queue 1: multimodal)"
 MOCK = ("the mocker engine, which the port does not carry (--echo serves "
         "without a model)")
 WORKER_REFUSED = {
-    "--is-prefill-worker": (DISAGG, "store_true"),
-    "--enable-disagg": (DISAGG, "store_true"),
-    "--prefill-queue": (DISAGG, "store_true"),
-    "--max-local-prefill-length": (DISAGG, "value"),
+    "--prefill-queue": (QUEUE, "store_true"),
     "--draft-model": (SPEC, "value"),
     "--spec-gamma": (SPEC, "value"),
     "--spec-iters-per-sync": (SPEC, "value"),
@@ -117,6 +122,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="skip weight load (synthetic benchmarking)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    # disaggregated serving
+    p.add_argument("--is-prefill-worker", action="store_true",
+                   help="serve remote prefill for decode workers "
+                        "(component <component>_prefill)")
+    p.add_argument("--enable-disagg", action="store_true",
+                   help="decode worker: long prompts go to the prefill pool")
+    p.add_argument("--max-local-prefill-length", type=int, default=512,
+                   help="uncached prompt tokens above which a decode worker "
+                        "prefills remotely")
     add_refused(p, WORKER_REFUSED)
     return p.parse_args(argv)
 
@@ -133,6 +147,12 @@ def check_args(args: argparse.Namespace) -> None:
         raise SystemExit(f"{PROG}: {e}") from None
     if not args.model and not args.echo:
         raise SystemExit(f"{PROG}: one of --model / --echo is required")
+    if args.is_prefill_worker and args.enable_disagg:
+        raise SystemExit(f"{PROG}: --is-prefill-worker and --enable-disagg "
+                         f"name the two sides; give one")
+    if args.echo and (args.is_prefill_worker or args.enable_disagg):
+        raise SystemExit(f"{PROG}: disaggregated serving needs --model (the "
+                         f"echo engine holds no KV)")
 
 
 def instance_id_of(args: argparse.Namespace) -> int:
@@ -145,12 +165,15 @@ def build_engine_and_card(args: argparse.Namespace):
     events and metrics carry the instance id as their worker id."""
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 
+    # the reference's component suffix for the prefill pool (:159)
+    component = args.component + ("_prefill" if args.is_prefill_worker
+                                  else "")
     if args.echo:
         from dynamo_tpu_torch.engines import EchoEngine
 
         name = args.served_model_name or "echo"
         card = ModelDeploymentCard(
-            name=name, namespace=args.namespace, component=args.component,
+            name=name, namespace=args.namespace, component=component,
             endpoint=args.endpoint, tokenizer_kind="word",
             tokenizer_path=name, migration_limit=args.migration_limit,
             router_mode=args.router_mode)
@@ -169,16 +192,41 @@ def build_engine_and_card(args: argparse.Namespace):
         device=args.device, worker_id=instance_id_of(args), **overrides)
     engine.config.prefill_chunk = args.prefill_chunk
     card.namespace = args.namespace
-    card.component = args.component
+    card.component = component
     card.endpoint = args.endpoint
     card.migration_limit = args.migration_limit
     card.router_mode = args.router_mode
     return engine, card
 
 
+async def _build_decode_handler(rt, args, card, engine):
+    """Decode-side wiring: the prefill pool's generate and kv_pull
+    clients and the threshold router, watching its store key."""
+    from dynamo_tpu_torch.disagg.disagg_router import DisaggRouter
+    from dynamo_tpu_torch.disagg.handlers import (
+        KV_PULL_ENDPOINT,
+        DecodeWorkerHandler,
+    )
+    from dynamo_tpu_torch.runtime.push import PushRouter
+
+    pf = rt.namespace(card.namespace).component(args.component + "_prefill")
+    pull_client = await pf.endpoint(KV_PULL_ENDPOINT).client()
+    await pull_client.start()
+    gen_client = await pf.endpoint(args.endpoint).client()
+    await gen_client.start()
+    dr = await DisaggRouter(
+        max_local_prefill_length=args.max_local_prefill_length
+    ).start_watch(rt, card.namespace, args.component)
+    handler = DecodeWorkerHandler(
+        engine, prefill_router=PushRouter(gen_client),
+        kv_pull_router=PushRouter(pull_client), disagg_router=dr)
+    return handler, [dr.stop, pull_client.stop, gen_client.stop]
+
+
 async def start_worker(args: argparse.Namespace):
     """Build the engine, then take the lease, serve, publish the card.
-    Returns (runtime, engine, handle, monitor)."""
+    Returns (runtime, engine, handle, monitor, stops): `stops` are the
+    disagg wiring's shutdown coroutines."""
     from dynamo_tpu_torch.llm.entrypoint import (
         serve_engine,
         wire_engine_events,
@@ -195,18 +243,33 @@ async def start_worker(args: argparse.Namespace):
     attach = getattr(engine, "attach_sinks", None)
     if attach is not None:
         attach(*wire_engine_events(rt, card))
-    handle = await serve_engine(rt, engine, card, instance_id=instance_id)
+    serving, stops = engine, []
+    if args.is_prefill_worker:
+        from dynamo_tpu_torch.disagg.handlers import (
+            PrefillWorkerHandler,
+            serve_kv_pull,
+        )
+
+        serving = PrefillWorkerHandler(engine, instance_id)
+        served = await serve_kv_pull(rt, card.namespace, card.component,
+                                     serving, instance_id)
+        stops.append(served.shutdown)
+    elif args.enable_disagg:
+        serving, stops = await _build_decode_handler(rt, args, card, engine)
+    handle = await serve_engine(rt, serving, card, instance_id=instance_id)
     monitor = EngineDeathMonitor(engine)
     monitor.start()
     print(f"WORKER_READY {card.namespace}/{card.component}/"
           f"{card.endpoint}/{instance_id:x}", flush=True)
-    return rt, engine, handle, monitor
+    return rt, engine, handle, monitor, stops
 
 
 async def stop_worker(objs) -> None:
-    rt, engine, handle, monitor = objs
+    rt, engine, handle, monitor, stops = objs
     monitor.stop()
     await handle.stop()
+    for stop in stops:
+        await stop()
     close = getattr(engine, "close", None)
     if close is not None:
         await close()

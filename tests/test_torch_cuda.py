@@ -12,18 +12,22 @@ Tolerances: K2 and K3 are copies, bit-exact outside scratch page 0, on
 contiguous and on strided sources (the views a step hands them). K1
 and K4 in fp32 at atol/rtol 2e-5 (the
 reference's kernel-parity tolerance); in bf16 at rtol 1.6e-2, two bf16
-ulps (2^-7 relative), since the kernel rounds P to bf16 before PV and
-both sides round the output to bf16 once, with atol 4e-3 (2^-8) for rows
-whose output is small beside its V values. With q = 0 every score is 0
+ulps (2^-7 relative), since both sides round the output to bf16 once
+(the kernel's P·V takes P as a bf16 head and tail), with atol 4e-3
+(2^-8) for rows whose output is small beside its V values. With q = 0 every score is 0
 and P = 1 is exact in bf16, so the bf16 kernel's output is each row's
 fp32 mean of the V rows it can see, rounded once: held to the fp32 plain
 version at rtol 4e-3 (half a bf16 ulp), atol 1e-5. K4 in bf16 runs K1's
-core at one row per lane (it rounds P the same way) and is held to the
+core at one row per lane (the same P·V) and is held to the
 same tolerances. K5 and K6 (the A8
 GEMMs) compute an exact int32 product between two roundings that both
 sides make alike: bit-identical with their plain versions. The engine's
 CUDA graphs (engine/graphs.py) replay the same kernels on the same
-inputs: bit-identical with eager calls, outputs and caches.
+inputs: bit-identical with eager calls, outputs and caches. The phase
+path's prefill attention through K1 (`attention.prefill_attention`) is
+held to K1's tolerances on the valid rows, its padding rows exact zeros.
+The KV gather is a copy: bit-exact. The CUDA IPC plane moves bytes:
+bit-exact across two processes.
 """
 
 import asyncio
@@ -1002,7 +1006,8 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
 
 def test_phase_engine_on_card_matches_engine_on_cpu(cuda_device):
     """The same on the phase path, with pipelined bursts: greedy fp32
-    streams identical on the card (K2, K3, K4) and on the CPU."""
+    streams identical on the card (K2, K3, K4, and K1 for the chunk
+    attention) and on the CPU."""
     before = {k: kern.launches for k, kern in
               (("k1", ragged._KERNEL), ("k2", kernels._KERNEL),
                ("k3", kernels._PAGES_KERNEL),
@@ -1011,8 +1016,7 @@ def test_phase_engine_on_card_matches_engine_on_cpu(cuda_device):
     after = {"k1": ragged._KERNEL.launches, "k2": kernels._KERNEL.launches,
              "k3": kernels._PAGES_KERNEL.launches,
              "k4": attention._DECODE_KERNEL.launches}
-    assert after["k1"] == before["k1"]
-    for k in ("k2", "k3", "k4"):
+    for k in ("k1", "k2", "k3", "k4"):
         assert after[k] > before[k], k
 
 
@@ -1166,10 +1170,11 @@ def _ragged_step(model, tk):
                                                     topk_lp=tk)
 
 
-def _graph_vs_eager(dev, cfg, step, inputs_seq):
+def _graph_vs_eager(dev, cfg, step, inputs_seq, launches=True):
     """Each inputs of `inputs_seq` through one graph (captured at the
     first) and through eager calls, on two identical random caches:
-    outputs, caches and kernel launches equal call by call."""
+    outputs, caches and kernel launches equal call by call (`launches`:
+    the step launches a hand-written kernel)."""
     from dynamo_tpu_torch.engine import cuda_build
     from dynamo_tpu_torch.engine.graphs import StepGraphs
 
@@ -1184,11 +1189,11 @@ def _graph_vs_eager(dev, cfg, step, inputs_seq):
         before = cuda_build.launch_counts()
         got = graphs.run(("step",), lambda *a: step(*graphed, *a), inputs)
         torch.cuda.synchronize()
-        launches = cuda_build.launch_delta(before, cuda_build.launch_counts())
+        delta = cuda_build.launch_delta(before, cuda_build.launch_counts())
         # the first call also ran the warm-up eagerly
-        assert launches == {k: n * (2 if i == 0 else 1)
-                            for k, n in eager_launches.items()}
-        assert eager_launches
+        assert delta == {k: n * (2 if i == 0 else 1)
+                         for k, n in eager_launches.items()}
+        assert bool(eager_launches) == launches
         _assert_same_outputs(got, want)
         _assert_same_caches(eager, graphed)
     assert graphs.captures == 1 and graphs.replays == len(inputs_seq)
@@ -1495,8 +1500,18 @@ def test_guided_engine_buckets_on_card_match_cpu(cuda_device):
         out, buckets = [], []
         try:
             for specs in phases:
-                out.append(await asyncio.gather(
-                    *(one(dict(s)) for s in specs)))
+                # each request goes in once the one before has its grammar
+                # registered: a burst that ran between two compiles of one
+                # phase would otherwise capture at an intermediate row
+                # bucket, as the host pool's timing decides
+                tasks = []
+                for spec in specs:
+                    tasks.append(asyncio.ensure_future(one(dict(spec))))
+                    key = eng._guided_key(
+                        {k: v for k, v in spec.items() if k != "t"})
+                    while key not in eng._guided_tables:
+                        await asyncio.sleep(0.001)
+                out.append(await asyncio.gather(*tasks))
                 buckets.append(eng._guided_layout()[0])
         finally:
             await eng.close()
@@ -1510,3 +1525,309 @@ def test_guided_engine_buckets_on_card_match_cpu(cuda_device):
     keys = sorted(k for k in eng.graphs.graphs if k[0] == "decode_guided")
     assert [k[1][-1] for k in keys] == sorted({small, big})
     assert set(eng._guided_buffers) == {small, big}
+
+
+# --- the phase path's prefill attention through K1 ---------------------------
+
+PREFILL_CASES = {
+    # (cached, seq_lens, T, geometry (H, KVH, P, D))
+    "tiny-mid-page": ([3, 17, 0, 0], [10, 23, 1, 0], 16, (8, 2, 8, 64)),
+    "8b-bp1-aligned": ([0], [480], 512, (32, 8, 16, 128)),
+    "8b-bp8-chunk": ([0, 512, 0, 1024, 64, 0, 0, 0],
+                     [512, 1024, 300, 1041, 576, 16, 100, 0], 512,
+                     (32, 8, 16, 128)),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("case", list(PREFILL_CASES))
+def test_prefill_attention_through_k1_matches_plain(cuda_device, case,
+                                                    dtype, tol):
+    """`prefill_attention` on CUDA tensors launches K1 once over the
+    flattened chunk rows and equals the plain prefill attention on every
+    valid row within K1's tolerance; padding rows (position >= seq_len)
+    are exact zeros, where the plain version averages the valid keys."""
+    cached, lens, t, (h, kvh, p, d) = PREFILL_CASES[case]
+    bp = len(cached)
+    gen = torch.Generator().manual_seed(bp * 1000 + t)
+    max_pages = (max(lens) + t) // p + 2
+    n_pages = 1 + bp * max_pages
+    q = torch.randn(bp, t, h, d, generator=gen).to(cuda_device, dtype)
+    k = torch.randn(kvh, n_pages, p, d, generator=gen).to(cuda_device, dtype)
+    v = torch.randn(kvh, n_pages, p, d, generator=gen).to(cuda_device, dtype)
+    tables = (1 + torch.randperm(bp * max_pages, generator=gen)).reshape(
+        bp, max_pages).to(torch.int32).to(cuda_device)
+    pos = (torch.tensor(cached, dtype=torch.int32)[:, None]
+           + torch.arange(t, dtype=torch.int32)[None, :]).to(cuda_device)
+    seq = torch.tensor(lens, dtype=torch.int32).to(cuda_device)
+    before = ragged._KERNEL.launches
+    got = attention.prefill_attention(q, k, v, tables, pos, seq)
+    assert ragged._KERNEL.launches == before + 1
+    want = attention.prefill_attention_ref(q, k, v, tables, pos, seq)
+    torch.cuda.synchronize()
+    valid = pos < seq[:, None]
+    torch.testing.assert_close(got[valid].float(), want[valid].float(), **tol)
+    assert torch.all(got[~valid] == 0)
+
+
+def _prefill_inputs(cfg, bp, t, aligned, shift=0):
+    """A chunk round's host arrays in `prefill_batch`'s order: lanes with
+    cursors at page starts (aligned) or mid-page, one padding lane."""
+    P = cfg.page_size
+    starts = [0, 2 * P, 0, 0] if aligned else [3, P + 5, 1, 0]
+    lens = [t, 2 * P + t - 5, 7, 0]
+    toks = ((np.arange(bp * t).reshape(bp, t) * 13 + shift) % 256) \
+        .astype(np.int32)
+    return [toks, _lane_tables(cfg, bp),
+            np.array(starts[:bp], np.int32),
+            np.array([max(s, n) for s, n in zip(starts, lens)][:bp],
+                     np.int32)]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["K3", "K2"])
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_prefill_graph_replays_bit_identical_to_eager(cuda_device, mode,
+                                                      aligned):
+    """A "prefill" chunk round (K3 or K2 writes, K1 attention) replayed
+    from its graph equals the eager round: last-token logits and both
+    caches, bit for bit, with the inputs changed between replays."""
+    from dynamo_tpu_torch.models.llama import prefill_batch
+
+    cfg, model = _graph_model(cuda_device, mode)
+    step = (lambda kc, vc, *a: prefill_batch(model, kc, vc, *a,
+                                             aligned=aligned))
+    with torch.inference_mode():
+        _graph_vs_eager(cuda_device, cfg, step,
+                        [_prefill_inputs(cfg, 4, 16, aligned),
+                         _prefill_inputs(cfg, 4, 16, aligned, shift=5)])
+
+
+@pytest.mark.parametrize("tk", [0, 8])
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_mixed_step_graph_replays_bit_identical_to_eager(cuda_device, mode,
+                                                         tk):
+    """A "mixed_step" (an aligned chunk sub-batch riding a 4-step burst)
+    replayed from its graph equals the eager step: packed output, chunk
+    logits and both caches."""
+    from dynamo_tpu_torch.models.llama import mixed_prefill_decode
+
+    cfg, model = _graph_model(cuda_device, mode)
+
+    def step(kc, vc, *a):
+        return mixed_prefill_decode(model, kc, vc, *a, num_steps=4,
+                                    aligned=True, topk_lp=tk)
+
+    def inputs(shift):
+        ch = _prefill_inputs(cfg, 2, 16, True, shift)
+        ch[1] = ch[1] + 4 * cfg.max_pages_per_seq       # other pages
+        burst = _burst_inputs(cfg, shift)
+        return ch + burst
+
+    with torch.inference_mode():
+        _graph_vs_eager(cuda_device, cfg, step, [inputs(0), inputs(9)])
+
+
+@pytest.mark.parametrize("tk", [0, 8])
+def test_sample_first_graph_replays_bit_identical_to_eager(cuda_device, tk):
+    """"sample_first" (the first token's sampling over the fixed width,
+    logits a device input) replayed from its graph equals eager
+    sampling: greedy, temperature, top-p, top-k and min_p lanes."""
+    from dynamo_tpu_torch.engine.sampling import sample_tokens_lp
+
+    rng = np.random.default_rng(5)
+
+    def inputs(shift):
+        return [rng.standard_normal((8, 1000)).astype(np.float32) * 3,
+                np.arange(8, dtype=np.int64) + 100 * shift,
+                np.zeros(8, np.int64),
+                np.array([0, 0.7, 1.0, 1.3, 0, 0.9, 1.0, 0.5], np.float32),
+                np.array([1, 0.9, 1, 1, 1, 0.5, 1, 1], np.float32),
+                np.array([0, 0, 40, 0, 0, 0, 5, 0], np.int64),
+                np.array([0, 0, 0, 0.1, 0, 0, 0, 0.05], np.float32)]
+
+    step = (lambda kc, vc, *a: sample_tokens_lp(*a, topk_lp=tk))
+    cfg, _ = _graph_model(cuda_device, "bf16")
+    with torch.inference_mode():
+        _graph_vs_eager(cuda_device, cfg, step, [inputs(0), inputs(1)],
+                        launches=False)
+
+
+def test_first_tokens_of_one_prefill_key_survive_its_next_replay(
+        cuda_device):
+    """Prompts of 8 tokens finish in round 1 and prompts of 32 in round 2
+    of one (4, 16, aligned) "prefill" graph: the engine copies the rows it
+    keeps, so the card's streams (graphs replayed) are the CPU's."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+    from dynamo_tpu_torch.runtime.context import Context
+
+    mcfg = LlamaConfig.tiny(dtype=torch.float32, head_dim=32, page_size=4)
+    cpu_model = init_params(mcfg, 0, torch.device("cpu"))
+    prompts = [list(range(1, 9)), list(range(3, 35)), list(range(40, 48)),
+               list(range(9, 41))]
+
+    async def serve(device):
+        model = cpu_model if device.type == "cpu" else \
+            copy.deepcopy(cpu_model).to(device)
+        eng = TorchEngine(TorchEngineConfig(
+            model=mcfg, num_pages=64, max_batch_size=4, prefill_chunk=16,
+            min_prefill_bucket=8, prefill_batch_widths=(4,),
+            device=str(device)), model=model)
+
+        async def one(prompt):
+            toks = []
+            async for o in eng.generate(
+                    {"token_ids": prompt, "sampling": {"temperature": 0.0},
+                     "stop": {"max_tokens": 4}}, Context()):
+                toks.extend(o.get("token_ids", ()))
+            return toks
+
+        try:
+            return (await asyncio.gather(*map(one, prompts)),
+                    sorted(k for k in eng.graphs.graphs
+                           if k[0] == "prefill"))
+        finally:
+            await eng.close()
+
+    on_card, keys = asyncio.run(serve(cuda_device))
+    assert keys == [("prefill", (4, 16, 1))]
+    assert on_card == asyncio.run(serve(torch.device("cpu")))[0]
+
+
+# --- the KV gather and the disagg import on the card ------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layers,kvh,p,d,n", [(2, 2, 4, 16, 5),
+                                               (32, 8, 16, 128, 66)])
+def test_kv_gather_kernel_bit_exact(cuda_device, dtype, layers, kvh, p, d,
+                                    n):
+    """One gather launch over 2L caches equals the plain per-layer
+    index_select stack bit for bit, into a fresh tensor and into `out`."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    n_pages = 3 * n + 1
+    kc = [torch.randn(kvh, n_pages, p, d, generator=gen, device=cuda_device)
+          .to(dtype) for _ in range(layers)]
+    vc = [torch.randn(kvh, n_pages, p, d, generator=gen, device=cuda_device)
+          .to(dtype) for _ in range(layers)]
+    ids = torch.randperm(n_pages - 1, device=cuda_device)[:n].to(
+        torch.int32) + 1
+    ptrs = kernels.cache_pointers(kc, vc)
+    before = kernels._GATHER_KERNEL.launches
+    got = kernels.paged_kv_gather(kc, vc, ids, ptrs)
+    out = torch.empty_like(got)
+    assert kernels.paged_kv_gather(kc, vc, ids, ptrs, out=out) is out
+    assert kernels._GATHER_KERNEL.launches == before + 2
+    want = kernels.paged_kv_gather_ref(kc, vc, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(out, want)
+
+
+def test_kv_export_import_on_card(cuda_device):
+    """An engine's gathered pages, written into another engine's fresh
+    pages through K3 (`write_kv_pages`), read back equal; a decode-first
+    continuation from them equals the aggregated stream (fp32)."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+    from dynamo_tpu_torch.runtime.context import Context
+
+    mcfg = LlamaConfig.tiny(dtype=torch.float32, head_dim=32, page_size=8)
+    model = init_params(mcfg, 0, cuda_device)
+    prompt = list(range(1, 30))
+
+    def engine():
+        return TorchEngine(TorchEngineConfig(
+            model=mcfg, num_pages=64, max_batch_size=4, prefill_chunk=32,
+            min_prefill_bucket=8, device="cuda"), model=model)
+
+    async def toks(eng, request):
+        out, ktp = [], None
+        request["sampling"] = {"temperature": 0.0}
+        async for o in eng.generate(request, Context()):
+            assert o.get("finish_reason") != "error", o
+            out.extend(o.get("token_ids", ()))
+            ktp = o.get("kv_transfer_params") or ktp
+        return out, ktp
+
+    async def main():
+        agg, pe, de = engine(), engine(), engine()
+        try:
+            want, _ = await toks(agg, {"token_ids": prompt,
+                                       "stop": {"max_tokens": 6}})
+            (first,), ktp = await toks(pe, {
+                "token_ids": prompt, "stop": {"max_tokens": 1},
+                "kv_transfer_params": {"do_remote_decode": True}})
+            pages, plen = pe.take_transfer(ktp["transfer_id"])
+            data = await pe.read_kv_pages_device(pages)
+            assert data.device.type == "cuda"
+            host = await pe.read_kv_pages(pages)
+            assert torch.equal(data.cpu(), host)
+            pe.complete_transfer(ktp["transfer_id"])
+            rest, _ = await toks(de, {
+                "token_ids": prompt + [first], "stop": {"max_tokens": 5},
+                "kv_transfer_params": {"kv_data": data,
+                                       "prefill_len": plen}})
+            return want, [first] + rest
+        finally:
+            for e in (agg, pe, de):
+                await e.close()
+
+    want, got = asyncio.run(main())
+    assert got == want
+
+
+_PRODUCER = r"""
+import json, sys, torch
+from dynamo_tpu_torch.disagg.transfer_plane import get_plane
+gen = torch.Generator(device="cuda").manual_seed(int(sys.argv[1]))
+pad = torch.empty(1000, dtype=torch.uint8, device="cuda")   # offset > 0
+buf = torch.randn(2, 4, 2, 3, 16, 64, generator=gen, device="cuda").to(
+    torch.bfloat16)
+torch.cuda.synchronize()
+desc = get_plane().publish("t1", buf)
+desc["handle"] = desc["handle"].hex()
+print(json.dumps(desc), flush=True)
+sys.stdin.readline()              # until the consumer has copied
+print(json.dumps({"released": get_plane().release("t1"),
+                  "staged": get_plane().staged}), flush=True)
+"""
+
+
+def test_ipc_plane_pulls_across_two_processes(cuda_device):
+    """A producer process stages a bf16 buffer that lies inside a larger
+    allocation (a non-zero offset); this process pulls it through CUDA
+    IPC: the copy is bit-exact, and the producer frees the buffer on the
+    ack. A descriptor of this process's own buffer is refused."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from dynamo_tpu_torch.disagg.transfer_plane import TransferPlane
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.Popen([sys.executable, "-c", _PRODUCER, "7"], env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        desc = json.loads(proc.stdout.readline())
+        assert desc["kind"] == "cuda_ipc" and desc["offset"] >= 0
+        desc["handle"] = bytes.fromhex(desc["handle"])
+        plane = TransferPlane()
+        got = plane.pull(desc, cuda_device)
+        proc.stdin.write("\n")
+        proc.stdin.flush()
+        done = json.loads(proc.stdout.readline())
+    finally:
+        proc.stdin.close()
+        assert proc.wait(60) == 0
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    want = torch.randn(2, 4, 2, 3, 16, 64, generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert done == {"released": True, "staged": 0}
+    mine = plane.publish("own", want)
+    with pytest.raises(ValueError, match="process that exported it"):
+        plane.pull(mine, cuda_device)
+    assert plane.release("own")
