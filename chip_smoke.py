@@ -120,15 +120,51 @@ on):
     --max-local-prefill-length 256` and `.frontend --router-mode kv`, all
     on the phase-8 checkpoint (random init, seed 0); phase 8's 10 requests
     all in flight, first with the CUDA IPC plane, then with the decode
-    worker restarted under DYN_KV_PLANE=0 (the host wire). Per request its
+    worker restarted under DYN_KV_PLANE=0 (the host wire; every other
+    request, 3 remote and 2 local, to bound the script's time), then
+    restarted with `--prefill-queue` (the plane on; the prefill worker runs
+    `--prefill-queue` from the start and serves push too). Per request its
     path (remote above 256 prompt tokens), pull and import times, bytes
     and GB/s by pull path; remote TTFT p50 beside local; free memory before
     the workers start and with both up. Checks: with the plane on every
     remote pull rides the plane with 0 fallbacks, with it off the wire;
+    in the queue set every remote prefill rides the queue (the prefill
+    worker's `dynamo_prefill_queue_jobs{outcome="done"}` moves by the
+    remote count, none failed; the largest queue depth seen printed);
     0 KV-event gaps and no dropped events at the frontend's router; every
     stream token-identical with phase 8's in-process batch or parting at
     a near-tie (BF16_TIE_TOL, printed as 8c prints them); the prefill
     worker launched the KV gather (its `_sys.stats` scrape)
+ 8f. KVBM, in process, on phase 8's weights: a phase-path engine (batch
+    8, chunk budget 512, 320 pages + scratch, 0.63 GiB of KV) with a
+    KvbmManager (host tier 1024 blocks of 2 MiB); 12 greedy requests, each
+    a distinct 1024-byte prefix + its own 32-byte suffix (byte tokens, 66
+    pages: the 792 pages are 2.5x the pool), max_tokens 8, top-8
+    logprobs, after one warm-up request. Sync pass (every knob 0): the 12
+    one at a time (cold), then again (revisit: onboards from G2); TTFT
+    p50 of each, blocks offloaded / onboarded, the admission stall, the
+    mean onboard split into host stack, host-to-device copy and K3 and
+    the mean offload read split into gather, device-to-host copy and host
+    split (the engine's `kvbm_stage` histograms: CUDA events), the gather
+    and K3 launch counts (zeroed before the cold wave, read after the
+    revisit; both > 0). Pipelined pass (queue 256, 2 IO workers, prefetch
+    64; a fresh engine whose graphs capture while offloads run): the 12 in
+    flight, twice; offload pins seen, inline offloads, prefetch hits,
+    TTFT p50 per wave; blocks offloaded, onboarded and prefetch-hit all
+    above 0, no inline offload, no pin left at the end. G3 pass (host 128
+    blocks, disk 1024 in a temporary directory): a revisit wave one at a
+    time, TTFT of the onboards from disk, each revisit held on disk
+    onboarding blocks. G4 pass:
+    two engines sharing the weights, each with a KvbmDistributed on one
+    in-process runtime; A serves the 12 and 5 fillers (its pages go to its
+    host tier) and clears its device cache; B serves the 12: blocks
+    remote-onboarded, pull seconds and GB/s (fetch timeout 2 s, partial
+    runs kept), B's TTFT beside its cold TTFT; A's tiers hold all 12
+    prefixes and B remote-onboards blocks. Checks: every request
+    finishes with 8 tokens and no refusal or error (a failed gather, K3
+    launch or pinned allocation fails its request); every revisit / wave / G3 / G4
+    stream equals its cold stream or parts at a near-tie (BF16_TIE_TOL,
+    printed); KV event ids with no gap in every engine
  9. quantized main path: the same batch on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
     same random weights, quantized by the engine): w8a8 launches K5 and
@@ -176,7 +212,10 @@ on):
     operations; K5/K6 at the four projection shapes at M = 8 (burst) and
     512 (chunk) beside torch._int_mm + epilogue and bf16 torch.matmul; K1
     on the phase path's widest chunk round beside the plain prefill
-    attention and scaled_dot_product_attention on pre-gathered K/V; the
+    attention and scaled_dot_product_attention on pre-gathered K/V (its
+    causal mask), K1's decode round and K4's burst beside the same call
+    under a padding mask (the mixed round's ragged mix has no single
+    library call; its library column stays null); the
     KV gather of 66 pages x 32 layers beside its plain version and the
     per-layer index_select loop; each path's and mode's output tok/s and
     TTFT p50, the phase path's steady batch apart
@@ -487,6 +526,25 @@ def decode_case(torch, gen, dev, dtype, lengths, n_pages, max_pages, h, kvh,
     vp = torch.randn(kvh, n_pages, p, d, generator=gen)
     return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
             torch.tensor(lengths, dtype=torch.int32).to(dev), tables.to(dev))
+
+
+def sdpa_decode(torch, attention, q, kp, vp, lengths, tables):
+    """The library yardstick of a decode round (one query per lane, lane
+    i attending positions < lengths[i]): scaled_dot_product_attention on
+    K/V gathered per lane beforehand (contiguous; the gather not timed)
+    under a padding mask. Returns the call."""
+    n_vis = -(-int(lengths.max()) // kp.shape[2])
+    kg = attention._gather_pages(kp, tables[:, :n_vis])
+    vg = attention._gather_pages(vp, tables[:, :n_vis])
+    s_pos = torch.arange(kg.shape[2], device=kg.device)
+    mask = (s_pos[None, :] < lengths[:, None])[:, None, None]
+    qt = q[:, :, None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    return sdpa
 
 
 def uniform_check(ragged, plain_k1, torch, kp, vp, qpos, lanes, tables,
@@ -1134,20 +1192,56 @@ def import_records(text: str) -> list:
             for m in rx.finditer(text)]
 
 
+def queue_depth_sampler(store_url: str, queue: str):
+    """(start, stop) of a thread that polls the prefill queue's depth
+    (unacked items under `v1/queue/dynamo/<queue>/items/`) on the
+    coordinator every 5 ms; stop() returns the largest depth seen."""
+    import threading
+
+    from dynamo_tpu_torch.runtime.store import connect_store
+
+    seen, done = [0], threading.Event()
+
+    async def poll():
+        store = await connect_store(store_url)
+        try:
+            while not done.is_set():
+                items = await store.get_prefix(
+                    f"v1/queue/dynamo/{queue}/items/")
+                seen[0] = max(seen[0], len(items))
+                await asyncio.sleep(0.005)
+        finally:
+            await store.close()
+
+    thread = threading.Thread(target=lambda: asyncio.run(poll()),
+                              daemon=True)
+
+    def stop() -> int:
+        done.set()
+        thread.join(30)
+        return seen[0]
+
+    return thread.start, stop
+
+
 def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
                  in_proc: dict, model, n_pages: int) -> dict:
     """Phase 8e: disaggregated serving on the card. The coordinator, a
-    prefill worker (`--is-prefill-worker`), a decode worker
-    (`--enable-disagg --max-local-prefill-length 256`) and the frontend
-    (`--router-mode kv`), all on the phase-8 checkpoint; phase 8's 10
-    requests all in flight, first with the CUDA IPC plane, then with the
-    decode worker restarted under DYN_KV_PLANE=0 (the host wire). Per
-    request: its path, its pull and import seconds, bytes and GB/s by
-    path; TTFT remote beside local. Checks: the plane carries every remote
-    pull with 0 fallbacks; the wire set pulls over the wire; 0 KV-event
-    gaps; every stream token-identical with phase 8's in-process batch or
-    parting at a near-tie (BF16_TIE_TOL). Returns the prefill worker's
-    kernel launches (its `_sys.stats` scrape) and the per-path pulls."""
+    prefill worker (`--is-prefill-worker --prefill-queue`: it serves push
+    and takes queue jobs), a decode worker (`--enable-disagg
+    --max-local-prefill-length 256`) and the frontend (`--router-mode
+    kv`), all on the phase-8 checkpoint; phase 8's 10 requests all in
+    flight, first with the CUDA IPC plane, then with the decode worker
+    restarted under DYN_KV_PLANE=0 (the host wire; every other request),
+    then restarted with `--prefill-queue` and the plane on (every remote
+    prefill rides the durable queue). Per request: its path, its pull and import seconds,
+    bytes and GB/s by path; TTFT remote beside local. Checks: the plane
+    carries every remote pull with 0 fallbacks; the wire set pulls over
+    the wire; in the queue set the prefill worker took one job per remote
+    request and no remote prefill failed; 0 KV-event gaps; every stream
+    token-identical with phase 8's in-process batch or parting at a
+    near-tie (BF16_TIE_TOL). Returns the prefill worker's kernel launches
+    (its `_sys.stats` scrape) and the per-path pulls."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dynamo_tpu_torch.runtime.distributed import free_port
@@ -1180,17 +1274,19 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
         # the frontend binds a model name to the first card it sees: the
         # prefill pool publishes its own name
         prefill = Service(work, "worker", *common, "--store", store,
-                          "--is-prefill-worker", "--instance-id", "11",
+                          "--is-prefill-worker", "--prefill-queue",
+                          "--instance-id", "11",
                           "--served-model-name", "llama3-8b-prefill",
                           label="prefill")
         services.append(prefill)
 
-        def decode_worker(instance: int, env: dict) -> "Service":
+        def decode_worker(instance: int, env: dict,
+                          *extra: str) -> "Service":
             w = Service(work, "worker", *common, "--store", store,
                         "--enable-disagg", "--max-local-prefill-length",
                         str(DISAGG_MAX_LOCAL), "--instance-id",
                         str(instance), "--served-model-name", "llama3-8b",
-                        label=f"decode{instance}", env=env)
+                        *extra, label=f"decode{instance}", env=env)
             services.append(w)
             return w
 
@@ -1220,18 +1316,27 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
         log(f"[disagg] with both workers up: {free_now / 2**30:.1f} GiB free "
             f"on the card ({(free - free_now) / 2**30:.1f} GiB taken by the "
             f"two workers and the frontend)")
-        for label, env in (("plane", {}), ("wire", {"DYN_KV_PLANE": "0"})):
-            if label == "wire":
+        # the wire set runs every other request (3 remote, 2 local): its
+        # pulls take seconds each, and the script's time limit is shared
+        for label, env, extra, instance, idx in (
+                ("plane", {}, (), 12, range(10)),
+                ("wire", {"DYN_KV_PLANE": "0"}, (), 13, range(0, 10, 2)),
+                ("queue", {}, ("--prefill-queue",), 14, range(10))):
+            if instance != 12:
                 decode.stop()
                 services.remove(decode)
-                decode = decode_worker(13, env)
+                decode = decode_worker(instance, env, *extra)
                 decode.wait_line("WORKER_READY", 900)
                 discovered()
+            start_depth, stop_depth = queue_depth_sampler(
+                store, "backend_prefill")
+            start_depth()
             t_set = time.perf_counter()
-            with ThreadPoolExecutor(len(bodies)) as pool:
+            with ThreadPoolExecutor(len(idx)) as pool:
                 streams = list(pool.map(
-                    lambda b: http_chat_stream(port, b), bodies))
+                    lambda i: http_chat_stream(port, bodies[i]), idx))
             wall = time.perf_counter() - t_set
+            depth = stop_depth()
             for p in services:
                 if p.proc.poll() is not None:
                     raise AssertionError(f"{p.name} exited: "
@@ -1239,10 +1344,13 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
             time.sleep(0.5)       # the last log lines reach the files
             log_text = decode.stderr_tail(10**7)
             scrape = asyncio.run(worker_scrape(store))
-            sets[label] = {"streams": streams, "wall": wall,
+            sets[label] = {"streams": streams, "wall": wall, "idx": idx,
                            "pulls": pull_records(log_text),
                            "imports": import_records(log_text),
                            "fell_back": log_text.count("kv pull fell back"),
+                           "remote_failed": log_text.count(
+                               "remote prefill failed"),
+                           "depth": depth,
                            "decode": scrape[int(decode.name[6:])],
                            "prefill": scrape[11]}
         fe = _http_get(port, "/metrics").decode()
@@ -1251,8 +1359,10 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
             p.stop()
     out = {"launches": {}}
     want = [token_ids_of(r["logprobs"]) for r in in_proc["results"]]
+    jobs_before = 0
     for label, run in sets.items():
         streams = run["streams"]
+        want_l = [want[i] for i in run["idx"]]
         remote = [s["prompt_tokens"] > DISAGG_MAX_LOCAL for s in streams]
         pulls = {p["tokens"]: p for p in run["pulls"]}
         imports = {i["tokens"]: i for i in run["imports"]}
@@ -1264,17 +1374,35 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
             raise AssertionError(f"{label}: {len(run['pulls'])} pulls for "
                                  f"{sum(remote)} remote requests")
         paths = {p["path"] for p in run["pulls"]}
-        if paths != {label} or any(fallbacks.values()) or run["fell_back"]:
+        path = "plane" if label == "queue" else label
+        if paths != {path} or any(fallbacks.values()) or run["fell_back"] \
+                or run["remote_failed"]:
             raise AssertionError(f"{label} set: pulls took {paths}, "
                                  f"fallbacks {fallbacks}, {run['fell_back']} "
-                                 f"fallback log lines")
+                                 f"fallback log lines, "
+                                 f"{run['remote_failed']} failed remote "
+                                 f"prefills")
+        jobs = series_values(run["prefill"], "dynamo_prefill_queue_jobs")
+        done = int(jobs.get('{outcome="done"}', 0))
+        taken, jobs_before = done - jobs_before, done
+        if taken != (sum(remote) if label == "queue" else 0) \
+                or jobs.get('{outcome="failed"}', 0):
+            raise AssertionError(f"{label} set: the prefill worker took "
+                                 f"{taken} queue jobs for {sum(remote)} "
+                                 f"remote requests ({jobs})")
+        if label == "queue":
+            log(f"[disagg] queue set: every remote prefill rode the "
+                f"prefill queue: {taken} jobs taken by the prefill worker "
+                f"for {sum(remote)} remote requests, largest queue depth "
+                f"seen {run['depth']}, 0 failed remote prefills")
         partings = []
-        for r, ((ta, ka), s) in enumerate(zip(want, streams)):
+        for r, ((ta, ka), s) in enumerate(zip(want_l, streams)):
             tb, kb = s["tokens"], s["tops"]
             n = min(len(ta), len(tb))
             if ta[:n] == tb[:n]:
                 if len(ta) != len(tb):
-                    raise AssertionError(f"{label} request {r}: {len(tb)} "
+                    raise AssertionError(f"{label} request {run['idx'][r]}: "
+                                         f"{len(tb)} "
                                          f"tokens disaggregated, {len(ta)} "
                                          f"in process")
                 continue
@@ -1285,7 +1413,7 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
         for r, s in enumerate(streams):
             p = pulls.get(s["prompt_tokens"]) if remote[r] else None
             i = imports.get(s["prompt_tokens"]) if remote[r] else None
-            log(f"[disagg] {label} set, request {r}: "
+            log(f"[disagg] {label} set, request {run['idx'][r]}: "
                 f"{s['prompt_tokens']} prompt tokens, "
                 + (f"remote: pulled by {p['path']} {p['bytes']} bytes in "
                    f"{p['seconds'] * 1e3:.2f} ms "
@@ -1296,9 +1424,9 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
                 + f"; TTFT {s['ttft_s'] * 1e3:.1f} ms, {len(s['tokens'])} "
                 f"tokens")
         for r, step, gap in partings:
-            log(f"[disagg] {label} set, request {r} parts from the "
+            log(f"[disagg] {label} set, request {run['idx'][r]} parts from the "
                 f"in-process phase-path stream at step {step}: tokens "
-                f"{want[r][0][step]} vs {streams[r]['tokens'][step]}, "
+                f"{want_l[r][0][step]} vs {streams[r]['tokens'][step]}, "
                 f"logprob gap {gap:.4f} nats (tie tolerance {BF16_TIE_TOL}); "
                 f"identical before it")
         ttft_r = [s["ttft_s"] * 1e3 for s, r in zip(streams, remote) if r]
@@ -1312,13 +1440,13 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
             f"{statistics.median(ttft_r):.1f} ms beside local "
             f"{statistics.median(ttft_l):.1f} ms; pulls {nbytes} bytes in "
             f"{secs * 1e3:.2f} ms ({nbytes / secs / 1e9:.2f} GB/s over the "
-            f"pulls) by {label}; fallbacks {fallbacks or 0}; "
+            f"pulls) by {path}; fallbacks {fallbacks or 0}; "
             f"{len(streams) - len(partings)} streams token-identical with "
             f"the in-process batch, {len(partings)} parted at near-ties; "
             f"{latency_summary(rows, run['wall'])}; on {smi}")
         out[label] = {"bytes": nbytes, "seconds": secs,
                       "pulls": len(run["pulls"])}
-    launches = series_values(sets["wire"]["prefill"],
+    launches = series_values(sets["queue"]["prefill"],
                              "dynamo_engine_kernel_launches")
     out["launches"] = {k.split('"')[1]: int(v) for k, v in launches.items()}
     if out["launches"].get("paged_kv_gather", 0) == 0:
@@ -1331,11 +1459,410 @@ def disagg_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
     if any(gaps.values()) or any(dropped.values()):
         raise AssertionError(f"the router counted KV-event gaps {gaps} or "
                              f"dropped events {dropped}")
-    log(f"[disagg] prefill worker kernel launches (both sets, its "
+    log(f"[disagg] prefill worker kernel launches (the three sets, its "
         f"_sys.stats scrape): {out['launches']}; the wire set's decode "
         f"worker: {decode_k3}; KV-event gaps {gaps or 0}, dropped "
         f"{dropped or 0}; the wire set's prefill worker served its prompts "
         f"with a warm prefix cache (the same prompts as the plane set)")
+    return out
+
+
+# phase 8f: the KVBM pool and traffic. 320 pages of 16 tokens (+ scratch
+# page 0) hold 0.63 GiB of Llama-3-8B KV; each prompt is a distinct
+# 1024-byte prefix and its own 32-byte suffix (byte tokenizer: one token
+# per byte, 66 pages), so the 12 prompts' 792 pages are 2.5x the pool
+KVBM_PAGES = 321
+KVBM_HOST_BLOCKS = 1024
+KVBM_PROMPTS = 12
+
+
+def kvbm_traffic(seed: int = 8) -> tuple[list, list, list]:
+    """(prompts, warm-up prompt, fillers): printable bytes as token ids."""
+    rng = random.Random(seed)
+
+    def text(n):
+        return [rng.randrange(32, 127) for _ in range(n)]
+
+    prompts = [text(1024) + text(32) for _ in range(KVBM_PROMPTS)]
+    return prompts, text(1056), [text(1056) for _ in range(5)]
+
+
+def kvbm_phase(torch, smi: str, model) -> dict:
+    """Phase 8f: KVBM on the card, in process (see the module docstring).
+    Four passes on phase 8's weights, each a fresh phase-path engine
+    (batch 8, chunk budget 512, 321 pages) with a KvbmManager: sync (every
+    knob 0: cold, then the same 12 again), pipelined (queue 256, 2 IO
+    workers, prefetch 64: two waves of 12 in flight), G3 (host 128 blocks,
+    disk 1024: a revisit wave from disk) and G4 (two engines sharing the
+    weights on one in-process runtime, each with a KvbmDistributed: B
+    pulls what A offloaded). Returns the numbers PERF.md keeps."""
+    from dynamo_tpu_torch.engine import cuda_build
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.kvbm import (
+        KvbmConfig,
+        KvbmDistributed,
+        KvbmManager,
+    )
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.tokens import TokenBlockSequence
+
+    cfg = model.cfg
+    prompts, warm, fillers = kvbm_traffic()
+    block_bytes = (2 * cfg.num_layers * cfg.num_kv_heads * cfg.page_size
+                   * cfg.head_dim * 2)
+    first_hash = [TokenBlockSequence(cfg.page_size, p).seq_hashes()[0]
+                  for p in prompts]
+    out: dict = {}
+
+    def make(**kvbm_kw):
+        events = []
+        eng = TorchEngine(TorchEngineConfig(
+            model=cfg, num_pages=KVBM_PAGES, max_batch_size=8,
+            prefill_chunk_budget=512, device="cuda"), model=model,
+            event_sink=events.append)
+        mgr = KvbmManager(eng, KvbmConfig(**kvbm_kw))
+        return eng, mgr, events
+
+    async def one(eng, prompt):
+        """(tokens, top-8 per token) of one greedy request, max_tokens 8;
+        a refusal or error fails the phase."""
+        toks, tops = [], []
+        async for o in eng.generate(
+                {"token_ids": prompt,
+                 "sampling": {"temperature": 0.0, "top_logprobs": 8},
+                 "stop": {"max_tokens": 8}}, Context()):
+            if o.get("finish_reason") == "error":
+                raise AssertionError(f"8f request refused or failed: {o}")
+            toks.extend(o.get("token_ids", ()))
+            tops.extend(o.get("top_logprobs") or ())
+        if len(toks) != 8:
+            raise AssertionError(f"8f request gave {len(toks)} tokens")
+        return toks, tops
+
+    async def sequential(eng, ps):
+        n0 = len(eng.ttft_s)
+        streams = [await one(eng, p) for p in ps]
+        return streams, [t * 1e3 for t in eng.ttft_s[n0:]]
+
+    async def in_flight(eng, ps):
+        n0 = len(eng.ttft_s)
+        streams = await asyncio.gather(*(one(eng, p) for p in ps))
+        return list(streams), [t * 1e3 for t in eng.ttft_s[n0:]]
+
+    async def settle(eng, mgr):
+        """No lane, pin or queued offload left."""
+        while (eng.pool.active_pages or eng.pool.pending_offload_pages
+               or mgr._offload_q_blocks):
+            await asyncio.sleep(0.005)
+
+    def check_events(label, events):
+        ids = [e.event_id for e in events]
+        if ids != list(range(1, len(ids) + 1)):
+            gaps = sum(1 for a, b in zip(ids, ids[1:]) if b != a + 1)
+            raise AssertionError(f"8f {label}: {gaps} KV-event gaps")
+        kinds = [e.kind for e in events]
+        return kinds.count("stored"), kinds.count("removed")
+
+    def compare(label, cold, got) -> str:
+        partings = stream_partings(cold, got, BF16_TIE_TOL)
+        for r, step, gap in partings:
+            log(f"[kvbm] {label}, request {r} parts from its cold stream at "
+                f"step {step}: tokens {cold[r][0][step]} vs {got[r][0][step]}"
+                f", logprob gap {gap:.4f} nats (tie tolerance "
+                f"{BF16_TIE_TOL}); identical before it")
+        return (f"{len(got) - len(partings)} streams token-identical with "
+                f"their cold streams, {len(partings)} parted at near-ties")
+
+    def p50(xs):
+        return statistics.median(xs) if xs else float("nan")
+
+    # sync pass: every knob 0 ----------------------------------------------
+    async def sync_pass():
+        eng, mgr, events = make(host_blocks=KVBM_HOST_BLOCKS)
+        try:
+            await one(eng, warm)
+            await settle(eng, mgr)
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            cold, ttft_cold = await sequential(eng, prompts)
+            off_cold = mgr.stats.offloaded
+            revisit, ttft_rev = await sequential(eng, prompts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cuda_build.launch_counts()
+            await settle(eng, mgr)
+            return {"cold": cold, "revisit": revisit,
+                    "ttft_cold": ttft_cold, "ttft_rev": ttft_rev,
+                    "launches": launches, "wall": wall,
+                    "stats": dict(vars(mgr.stats)), "off_cold": off_cold,
+                    "status": mgr.status(),
+                    # read after the close, which settles the last
+                    # onboard's copy and K3
+                    "stage": eng.metrics.kvbm_stage,
+                    "stall": eng.metrics.admission_stall,
+                    "events": check_events("sync pass", events),
+                    "graphs": graph_summary(eng)}
+        finally:
+            await eng.close()
+
+    s = asyncio.run(sync_pass())
+    if not (s["launches"]["paged_kv_gather"] > 0
+            and s["launches"]["paged_kv_write_pages"] > 0):
+        raise AssertionError(f"8f sync pass: the gather or K3 never "
+                             f"launched: {s['launches']}")
+    if s["stats"]["onboarded"] == 0 or s["off_cold"] == 0:
+        raise AssertionError(f"8f sync pass offloaded or onboarded nothing: "
+                             f"{s['stats']}")
+    stage = {k: (h.count, h.mean() * 1e3) for k, h in s["stage"].items()}
+    n_onboards = stage["onboard_stack"][0]
+    n_offloads = stage["offload_gather"][0]
+    if not (n_onboards == stage["onboard_copy"][0]
+            == stage["onboard_write"][0] > 0 and n_offloads
+            == stage["offload_copy"][0] == stage["offload_split"][0] > 0):
+        raise AssertionError(f"8f sync pass: a transfer stage went untimed "
+                             f"or never ran: {stage}")
+    onboard_k3 = cfg.num_layers * n_onboards
+    log(f"[kvbm] sync pass (every knob 0): cold TTFT p50 "
+        f"{p50(s['ttft_cold']):.1f} ms (min {min(s['ttft_cold']):.1f}, max "
+        f"{max(s['ttft_cold']):.1f}), revisit TTFT p50 "
+        f"{p50(s['ttft_rev']):.1f} ms (min {min(s['ttft_rev']):.1f}, max "
+        f"{max(s['ttft_rev']):.1f}); offloaded {s['stats']['offloaded']} "
+        f"blocks ({s['off_cold']} during the cold wave), onboarded "
+        f"{s['stats']['onboarded']} in {n_onboards} onboards "
+        f"(queries {s['stats']['onboard_queries']}); admission stall p50 "
+        f"{s['stall'].quantile(0.5) * 1e3:.3f} ms (bucket edge), mean "
+        f"{s['stall'].mean() * 1e3:.3f} ms, sum "
+        f"{s['stall'].sum * 1e3:.1f} ms over {s['stall'].count} admitted "
+        f"requests; "
+        f"{s['events'][0]} stored / {s['events'][1]} removed KV events, 0 "
+        f"gaps; on {smi}")
+    log(f"[kvbm] sync pass launches (zeroed before the cold wave, read "
+        f"after the revisit wave): paged_kv_gather "
+        f"{s['launches']['paged_kv_gather']}, paged_kv_write_pages "
+        f"{s['launches']['paged_kv_write_pages']} ({onboard_k3} of them the "
+        f"onboards' K3, one per layer per onboard), all {s['launches']}; "
+        f"graphs {s['graphs']}")
+    # mean blocks per onboard / offload read, mean ms per stage
+    ob = s["stats"]["onboarded"] / n_onboards
+    ofb = s["stats"]["offloaded"] / n_offloads
+    osplit = {k: v[1] for k, v in stage.items()}
+    log(f"[kvbm] inline offload reads (the sync pass's {n_offloads}, mean "
+        f"{ofb:.1f} blocks): mean gather + block-order copy "
+        f"{osplit['offload_gather']:.3f} ms, device-to-host "
+        f"{osplit['offload_copy']:.3f} ms "
+        f"({ofb * block_bytes / osplit['offload_copy'] / 1e6:.2f} GB/s), "
+        f"host split into blocks {osplit['offload_split']:.3f} ms "
+        f"(EngineMetrics.kvbm_stage); on {smi}")
+    log(f"[kvbm] onboard split, mean over {n_onboards} onboards of "
+        f"{ob:.1f} blocks ({ob * block_bytes / 2**20:.0f} MiB): host stack "
+        f"{osplit['onboard_stack']:.3f} ms, host-to-device "
+        f"{osplit['onboard_copy']:.3f} ms "
+        f"({ob * block_bytes / osplit['onboard_copy'] / 1e6:.2f} GB/s), K3 x "
+        f"{cfg.num_layers} {osplit['onboard_write']:.3f} ms "
+        f"({osplit['onboard_write'] / cfg.num_layers:.4f} ms per launch; "
+        f"EngineMetrics.kvbm_stage); revisit vs cold: "
+        f"{compare('sync revisit', s['cold'], s['revisit'])}; on {smi}")
+    cold = s["cold"]
+    out["sync"] = {"ttft_cold_p50": p50(s["ttft_cold"]),
+                   "ttft_revisit_p50": p50(s["ttft_rev"]),
+                   "split_mean_ms": osplit, "stats": s["stats"],
+                   "launches": s["launches"]}
+
+    # pipelined pass --------------------------------------------------------
+    async def pipelined_pass():
+        eng, mgr, events = make(host_blocks=KVBM_HOST_BLOCKS,
+                                offload_queue_depth=256, offload_workers=2,
+                                prefetch_blocks=64)
+        pins, done = [0], [False]
+
+        async def watch():
+            while not done[0]:
+                pins[0] = max(pins[0], eng.pool.pending_offload_pages)
+                await asyncio.sleep(0.001)
+
+        watcher = asyncio.get_running_loop().create_task(watch())
+        try:
+            # no warm-up: the graphs capture while offloads run
+            w1, t1 = await in_flight(eng, prompts)
+            w2, t2 = await in_flight(eng, prompts)
+            await settle(eng, mgr)
+            done[0] = True
+            await watcher
+            return {"w1": w1, "w2": w2, "t1": t1, "t2": t2,
+                    "pins": pins[0], "stats": dict(vars(mgr.stats)),
+                    "pending": eng.pool.pending_offload_pages,
+                    "stall": eng.metrics.admission_stall,
+                    "events": check_events("pipelined pass", events),
+                    "graphs": graph_summary(eng)}
+        finally:
+            done[0] = True
+            await eng.close()
+
+    pl = asyncio.run(pipelined_pass())
+    if pl["pending"] != 0 or pl["pins"] == 0:
+        raise AssertionError(f"8f pipelined pass: {pl['pending']} pages "
+                             f"still pinned at the end, {pl['pins']} seen")
+    # the worker offloaded every eviction and the revisits onboarded
+    # staged blocks: a failed gather or onboard would show as a miss here
+    # (and a device failure fails the requests: `one` raises)
+    ps = pl["stats"]
+    if not (ps["offloaded"] > 0 and ps["onboarded"] > 0
+            and ps["prefetch_hits"] > 0 and ps["offload_inline"] == 0):
+        raise AssertionError(f"8f pipelined pass: offloads, onboards or "
+                             f"prefetch hits missing, or inline offloads: "
+                             f"{ps}")
+    log(f"[kvbm] pipelined pass (queue 256, 2 IO workers, prefetch 64; 12 "
+        f"in flight, twice): wave 1 TTFT p50 {p50(pl['t1']):.1f} ms (graph "
+        f"captures inside), wave 2 TTFT p50 {p50(pl['t2']):.1f} ms; offload "
+        f"pins seen up to {pl['pins']}, offloaded "
+        f"{pl['stats']['offloaded']}, offload_inline "
+        f"{pl['stats']['offload_inline']}, prefetched "
+        f"{pl['stats']['prefetched']}, prefetch_hits "
+        f"{pl['stats']['prefetch_hits']}, onboarded "
+        f"{pl['stats']['onboarded']}; pending_offload_pages at the end "
+        f"{pl['pending']}; admission stall p50 "
+        f"{pl['stall'].quantile(0.5) * 1e3:.3f} ms, mean "
+        f"{pl['stall'].mean() * 1e3:.3f} ms over {pl['stall'].count}; "
+        f"{pl['events'][0]} stored / {pl['events'][1]} removed KV events, 0 "
+        f"gaps; wave 1: {compare('pipelined wave 1', cold, pl['w1'])}; "
+        f"wave 2: {compare('pipelined wave 2', cold, pl['w2'])}; graphs "
+        f"{pl['graphs']}; on {smi}")
+    out["pipelined"] = {"ttft_w1_p50": p50(pl["t1"]),
+                        "ttft_w2_p50": p50(pl["t2"]), "pins": pl["pins"],
+                        "stats": pl["stats"]}
+
+    # G3 pass: host 128 blocks, disk 1024 ---------------------------------
+    async def disk_pass(disk_dir):
+        eng, mgr, events = make(host_blocks=128, disk_blocks=1024,
+                                disk_dir=disk_dir)
+        try:
+            await one(eng, warm)
+            await sequential(eng, prompts)
+            await settle(eng, mgr)
+            rows = []
+            for i, p in enumerate(prompts):
+                h = first_hash[i]
+                tier = ("g1" if eng.pool.match_prefix([h]) else
+                        "g2" if mgr.store.host.contains(h) else
+                        "g3" if mgr.store.disk is not None
+                        and mgr.store.disk.contains(h) else "none")
+                before = mgr.stats.onboarded
+                got, ttft = await sequential(eng, [p])
+                rows.append((tier, ttft[0], got[0],
+                             mgr.stats.onboarded - before))
+                await settle(eng, mgr)
+            return {"rows": rows, "stats": dict(vars(mgr.stats)),
+                    "status": mgr.status(),
+                    "events": check_events("G3 pass", events)}
+        finally:
+            await eng.close()
+
+    disk_dir = tempfile.mkdtemp(prefix="chip_smoke_kvbm_")
+    try:
+        g3 = asyncio.run(disk_pass(disk_dir))
+    finally:
+        shutil.rmtree(disk_dir, ignore_errors=True)
+    from_disk = [t for tier, t, _, _ in g3["rows"] if tier == "g3"]
+    if not from_disk or any(n == 0 for tier, _, _, n in g3["rows"]
+                            if tier == "g3"):
+        raise AssertionError(f"8f G3 pass: a revisit held on disk onboarded "
+                             f"nothing: {[(r[0], r[3]) for r in g3['rows']]}")
+    log(f"[kvbm] G3 pass (host 128 blocks, disk 1024 in a temporary "
+        f"directory): revisit tiers {[r[0] for r in g3['rows']]}; TTFT p50 "
+        f"of the {len(from_disk)} onboards from disk {p50(from_disk):.1f} ms"
+        f" (min {min(from_disk):.1f}, max {max(from_disk):.1f}); all "
+        f"revisits {p50([r[1] for r in g3['rows']]):.1f} ms; tiers "
+        f"{ {k: v for k, v in g3['status'].items() if k in ('g2', 'g3')} };"
+        f" onboarded {g3['stats']['onboarded']}; "
+        f"{compare('G3 revisit', cold, [r[2] for r in g3['rows']])}; on "
+        f"{smi}")
+    out["g3"] = {"ttft_disk_p50": p50(from_disk), "n_disk": len(from_disk)}
+
+    # G4 pass: B pulls what A offloaded ------------------------------------
+    async def remote_pass():
+        rt = await DistributedRuntime.create(
+            RuntimeConfig(store_url="memory", lease_ttl=60.0))
+        a, mgr_a, ev_a = make(host_blocks=KVBM_HOST_BLOCKS)
+        b, mgr_b, ev_b = make(host_blocks=KVBM_HOST_BLOCKS)
+        dist_a = KvbmDistributed(mgr_a, rt, "dynamo", "backend",
+                                 worker_id=1)
+        dist_b = KvbmDistributed(mgr_b, rt, "dynamo", "backend",
+                                 worker_id=2)
+        pulls = []
+        fetch = dist_b.fetch
+
+        async def timed_fetch(hashes, expect_shape=None):
+            t0 = time.perf_counter()
+            got = await fetch(hashes, expect_shape=expect_shape)
+            pulls.append((len(hashes), len(got), time.perf_counter() - t0))
+            return got
+
+        dist_b.fetch = timed_fetch
+        try:
+            await dist_a.start()
+            await dist_b.start()
+            await one(a, warm)
+            await one(b, warm)
+            await sequential(a, prompts)
+            # push the last prompts' pages off A's device into its tier,
+            # then drop what is left there (a clear forgets, it does not
+            # offload)
+            await sequential(a, fillers)
+            await settle(a, mgr_a)
+            a.clear_kv_blocks()
+            await dist_a._publish()
+            held = sum(mgr_a.store.contains(h) for h in first_hash)
+            rows = []
+            for p in prompts:
+                before = mgr_b.stats.remote_onboarded
+                n_pulls = len(pulls)
+                got, ttft = await sequential(b, [p])
+                rows.append((mgr_b.stats.remote_onboarded - before,
+                             pulls[n_pulls:], ttft[0], got[0]))
+                await settle(b, mgr_b)
+            return {"rows": rows, "held": held,
+                    "events": (check_events("G4 pass, engine A", ev_a),
+                               check_events("G4 pass, engine B", ev_b))}
+        finally:
+            for x in (dist_a, dist_b, a, b, rt):
+                await x.close()
+
+    g4 = asyncio.run(remote_pass())
+    if g4["held"] != KVBM_PROMPTS or sum(r[0] for r in g4["rows"]) == 0:
+        raise AssertionError(f"8f G4 pass: engine A's tiers held "
+                             f"{g4['held']} of {KVBM_PROMPTS} prompts, engine "
+                             f"B remote-onboarded "
+                             f"{sum(r[0] for r in g4['rows'])} blocks")
+    for i, (n, pulls, ttft, _) in enumerate(g4["rows"]):
+        desc = "; ".join(
+            f"asked {asked}, got {got} in {sec * 1e3:.1f} ms "
+            f"({got * block_bytes / sec / 1e9:.3f} GB/s)"
+            for asked, got, sec in pulls) or "no pull"
+        log(f"[kvbm] G4 pass, engine B request {i}: {n} blocks "
+            f"remote-onboarded ({desc}); TTFT {ttft:.1f} ms beside its cold "
+            f"TTFT {s['ttft_cold'][i]:.1f} ms")
+    remote = [r for r in g4["rows"] if r[0]]
+    pulled = [p for r in g4["rows"] for p in r[1]]
+    nbytes = sum(got for _, got, _ in pulled) * block_bytes
+    secs = sum(sec for _, _, sec in pulled)
+    log(f"[kvbm] G4 pass: engine A's tiers held {g4['held']} of the 12 "
+        f"prompts' first blocks after the fillers and the clear; engine B "
+        f"remote-onboarded {sum(r[0] for r in g4['rows'])} blocks for "
+        f"{len(remote)} requests, {len(pulled)} pulls moved "
+        f"{nbytes / 2**20:.0f} MiB in {secs:.3f} s "
+        f"({nbytes / max(secs, 1e-9) / 1e9:.3f} GB/s; fetch timeout 2.0 s, "
+        f"partial runs kept); B's TTFT p50 "
+        f"{p50([r[2] for r in g4['rows']]):.1f} ms (remote-onboarded "
+        f"requests {p50([r[2] for r in remote]):.1f} ms) beside its cold "
+        f"TTFT p50 {p50(s['ttft_cold']):.1f} ms; "
+        f"{compare('G4', cold, [r[3] for r in g4['rows']])}; KV events A "
+        f"{g4['events'][0]}, B {g4['events'][1]} (stored, removed), 0 gaps; "
+        f"on {smi}")
+    out["g4"] = {"remote_onboarded": sum(r[0] for r in g4["rows"]),
+                 "bytes": nbytes, "seconds": secs,
+                 "ttft_p50": p50([r[2] for r in g4["rows"]])}
     return out
 
 
@@ -2745,6 +3272,13 @@ def main() -> int:
     disagg = disagg_phase(torch, smi, work, ckpt, jobs, phase, model, 2048)
     log(f"[disagg] phase 8e in {time.perf_counter() - t0:.1f} s")
 
+    # 8f. KVBM ------------------------------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kvbm_phase(torch, smi, model)
+    torch.cuda.empty_cache()
+    log(f"[kvbm] phase 8f in {time.perf_counter() - t0:.1f} s")
+
     # 9. quantized main path -------------------------------------------------
 
     def bare_decode_launches(mdl):
@@ -3185,7 +3719,18 @@ def main() -> int:
                            flush=flush)
         k1_bound, by = k1_bound_ms(torch, qp, ln, tb, H, KVH, D, P, 2,
                                    peaks)
-        rows[("k1", label)] = (qp.numel(), ms, plain_ms, k1_bound, by, None,
+        lib1 = None
+        if label == "decode":
+            # one query per lane: SDPA with a padding mask computes the
+            # round; the mixed round's causal chunk beside decode rows of
+            # other lanes is no single SDPA call (library_ms stays null)
+            # row r is lane r, attending positions <= its qpos
+            sdpa = sdpa_decode(torch, attention, q, kp, vp, qp_d + 1, tb_d)
+            torch.testing.assert_close(
+                sdpa().float(), plain_k1(q, kp, vp, qp_d, ln_d,
+                                         tb_d).float(), **K1_BF16_TOL)
+            lib1 = time_ms(torch, sdpa, flush=flush)
+        rows[("k1", label)] = (qp.numel(), ms, plain_ms, k1_bound, by, lib1,
                                ms_w, None)
         got = ragged.ragged_paged_attention(q, kp, vp, qp_d, ln_d, tb_d)
         want = plain_k1(q, kp, vp, qp_d, ln_d, tb_d)
@@ -3295,7 +3840,10 @@ def main() -> int:
     log(f"[check] burst shape: K4 max_abs_err {err4:.3e} ({K4_BF16_TOL}), "
         f"K3 bit-exact outside page 0")
     bound4, by4 = k4_bound_ms(l4.cpu(), t4.cpu(), H, KVH, D, P, 2, peaks)
-    rows[("k4", "burst")] = (8, ms4, plain4, bound4, by4, None, ms4_w, None)
+    sdpa4 = sdpa_decode(torch, attention, q4, kp, vp, l4, t4)
+    torch.testing.assert_close(sdpa4().float(), want.float(), **K4_BF16_TOL)
+    lib4 = time_ms(torch, sdpa4, flush=flush)
+    rows[("k4", "burst")] = (8, ms4, plain4, bound4, by4, lib4, ms4_w, None)
 
     # K1 on the phase path's widest chunk round (phase 7b's shape: bp 8,
     # T 512, contexts to 1041); the library yardstick is

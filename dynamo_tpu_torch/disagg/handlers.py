@@ -16,16 +16,17 @@ of three paths, in this order:
   (`disagg/transfer_plane.py`; `DYN_KV_PLANE=0` turns it off on either
   side);
 - **wire**: chunked host frames over the runtime transport, byte for byte
-  the reference's (`_tensor_bytes` / `_tensor_from` read and write the
-  reference's bf16 bytes with `torch.frombuffer`, where the reference
-  uses `ml_dtypes`).
+  the reference's (`runtime/tensors.py` reads and writes the reference's
+  bf16 bytes with `torch.frombuffer`, where the reference uses
+  `ml_dtypes`).
 
 Where a path that was tried fails, the pull goes on as the reference's
 does (device → wire, plane → wire before staging, plane → local serve
 after it) and the handler counts it: `fallbacks` and the engine's
 `dynamo_kv_pull_fallbacks_total` by (path, to). Nothing falls back
-uncounted. The prefill-queue dispatch (`--prefill-queue`) is a later
-slice.
+uncounted. With a `prefill_queue_client` (`--prefill-queue`) the remote
+prefill rides the durable queue (`disagg/prefill_queue.py`) instead of
+push routing, and the KV moves as above.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-import warnings
 from collections import deque
 from typing import Any, AsyncIterator, Optional
 
@@ -48,6 +48,7 @@ from dynamo_tpu_torch.disagg.transfer_plane import (
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
 from dynamo_tpu_torch.runtime.push import PushRouter
+from dynamo_tpu_torch.runtime.tensors import tensor_bytes, tensor_from
 from dynamo_tpu_torch.runtime.topology import link_for_pull_path
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
@@ -69,30 +70,6 @@ _ABORT_TASKS: set = set()
 # overall bound on one KV pull, every path: a stalled prefill worker
 # degrades to local serving instead of hanging the request (0: none)
 DEFAULT_PULL_DEADLINE_S = 60.0
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
-
-
-def _tensor_bytes(t: torch.Tensor) -> tuple[bytes, list[int], str]:
-    """A host tensor as the reference's wire frame fields: its bytes, its
-    shape and its dtype's numpy name."""
-    t = t.contiguous()
-    raw = t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
-    return raw, list(t.shape), str(t.dtype).removeprefix("torch.")
-
-
-def _tensor_from(raw: bytes, shape: list[int], dtype: str) -> torch.Tensor:
-    """The inverse of `_tensor_bytes` (and of the reference's
-    `_bf16_bytes`): a host tensor over the frame's bytes, read only."""
-    dt = _DTYPES[dtype]
-    if not raw:
-        return torch.empty(shape, dtype=dt)
-    with warnings.catch_warnings():
-        # the frame's bytes are immutable; nothing writes through the view
-        warnings.simplefilter("ignore", UserWarning)
-        return torch.frombuffer(raw, dtype=dt).reshape(shape)
-
 
 class PrefillWorkerHandler:
     """Serves `generate` on the prefill pool; the engine does the work
@@ -172,7 +149,7 @@ class PrefillWorkerHandler:
                         yield {"error": f"transfer {tid} expired mid-pull"}
                         return
                 data = await self.engine.read_kv_pages(pages[i:i + chunk])
-                raw, shape, dtype = _tensor_bytes(data)
+                raw, shape, dtype = tensor_bytes(data)
                 yield {"kv": raw, "shape": shape, "dtype": dtype,
                        "page_offset": i, "total_pages": total,
                        "prefill_len": prefill_len}
@@ -218,13 +195,18 @@ class DecodeWorkerHandler:
                  kv_pull_router: Optional[PushRouter] = None,
                  disagg_router: Optional[DisaggRouter] = None,
                  pull_chunk_pages: int = DEFAULT_PULL_CHUNK_PAGES,
-                 pull_deadline: float = DEFAULT_PULL_DEADLINE_S) -> None:
+                 pull_deadline: float = DEFAULT_PULL_DEADLINE_S,
+                 prefill_queue_client=None) -> None:
         self.engine = engine
         self.prefill_router = prefill_router
         self.kv_pull_router = kv_pull_router
         self.disagg_router = disagg_router or DisaggRouter()
         self.pull_chunk_pages = pull_chunk_pages
         self.pull_deadline = pull_deadline
+        # the pull-model alternative to prefill_router: jobs ride the
+        # durable queue and any prefill worker takes them
+        # (`disagg/prefill_queue.py` QueuePrefillClient)
+        self.prefill_queue_client = prefill_queue_client
         # "device" | "plane" | "wire"
         self.last_pull_path: Optional[str] = None
         # bounded per-transfer records: bytes, seconds, bandwidth by path
@@ -237,7 +219,9 @@ class DecodeWorkerHandler:
         return getattr(self.engine, "metrics", None)
 
     def _can_prefill_remote(self) -> bool:
-        if self.kv_pull_router is None or self.prefill_router is None:
+        if self.kv_pull_router is None or (
+                self.prefill_router is None
+                and self.prefill_queue_client is None):
             return False
         try:
             return bool(self.kv_pull_router.client.instances())
@@ -385,7 +369,7 @@ class DecodeWorkerHandler:
                     ktp["instance_id"], context):
                 if "kv" not in frame:
                     return None
-                chunk = _tensor_from(frame["kv"], frame["shape"],
+                chunk = tensor_from(frame["kv"], frame["shape"],
                                      frame["dtype"])
                 if "page_offset" not in frame:     # a single-frame peer
                     buf = chunk
@@ -468,22 +452,37 @@ class DecodeWorkerHandler:
         first_lp: Optional[float] = None
         first_top: Optional[list] = None
         ktp: Optional[dict] = None
-        try:
-            async for out in self.prefill_router.generate(prefill_req,
-                                                          context):
-                if out.get("token_ids"):
-                    first_token = out["token_ids"][0]
-                    if out.get("log_probs"):
-                        first_lp = out["log_probs"][0]
-                    if out.get("top_logprobs"):
-                        first_top = out["top_logprobs"][0]
-                if out.get("kv_transfer_params"):
-                    ktp = out["kv_transfer_params"]
-                if out.get("finish_reason") == "error":
-                    ktp = None
-                    break
-        except ConnectionError:
-            ktp = None
+        if self.prefill_queue_client is not None:
+            try:
+                result = await self.prefill_queue_client.prefill(
+                    prefill_req, context)
+            except Exception:
+                # a store or transport hiccup: the push path's contract,
+                # serve fully locally
+                logger.exception("prefill queue unavailable")
+                result = None
+            if result is not None:
+                first_token, ktp = result
+                first_lp = (ktp or {}).pop("first_token_logprob", None)
+                first_top = (ktp or {}).pop("first_token_top_logprobs",
+                                            None)
+        else:
+            try:
+                async for out in self.prefill_router.generate(prefill_req,
+                                                              context):
+                    if out.get("token_ids"):
+                        first_token = out["token_ids"][0]
+                        if out.get("log_probs"):
+                            first_lp = out["log_probs"][0]
+                        if out.get("top_logprobs"):
+                            first_top = out["top_logprobs"][0]
+                    if out.get("kv_transfer_params"):
+                        ktp = out["kv_transfer_params"]
+                    if out.get("finish_reason") == "error":
+                        ktp = None
+                        break
+            except ConnectionError:
+                ktp = None
         if ktp is None or first_token is None:
             logger.warning("remote prefill failed; serving locally")
             async for out in self.engine.generate(request, context):

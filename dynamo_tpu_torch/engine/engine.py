@@ -82,9 +82,25 @@ thread (`_on_loop`: a pool change inside a `to_thread` closure hops back
 to the loop, since the runtime's event bus is not thread-safe). The
 engine's counters live in `engine/metrics.py` `EngineMetrics`.
 
+KVBM, as the reference's engine hooks it (`kvbm/manager.py` attaches
+itself as `self.kvbm`): an evicted registered page is offloaded to the
+host tier through the KV gather (`_read_kv_pages_sync`: one launch, one
+copy to a reused pinned buffer), inline or by the pipelined offload
+worker, which pins the page until its gather lands (the admission
+watermark nets pinned pages out, and `_alloc_admission` drains the queue
+inline when allocation keeps failing behind pins); at admission the
+prompt's blocks past the device prefix hit are onboarded from the tiers
+(`write_kv_blocks`: stacked into a reused pinned buffer, one copy to the
+card, K3 per layer) and prefill starts after them; the scheduler loop
+prefetches waiting requests' tier blocks (the router's `kv_hints` too)
+and continues admitted prompts from peer workers' tiers
+(`onboard_remote`). `admission_stall` times, with KVBM attached, the
+blocking part of each admitted request's admission (0 without KVBM). The KV lifecycle recorder (`kv_lifecycle`) is None unless
+`DYN_KV_LIFECYCLE` arms it.
+
 Not in this slice, and rejected per request where a request asks for
-them: embeddings. Spec, pipeline/sequence parallelism, KVBM and
-profilers are later slices (ROADMAP.md).
+them: embeddings. Spec, pipeline/sequence parallelism and profilers are
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -114,6 +130,7 @@ from dynamo_tpu_torch.engine.quant import (
     remark_act_bits,
 )
 from dynamo_tpu_torch.engine.sampling import apply_penalties, sample_tokens_lp
+from dynamo_tpu_torch.kvbm.lifecycle import KvbmMetrics, recorder_from_env
 from dynamo_tpu_torch.llm.guided import compile_guided
 from dynamo_tpu_torch.models.llama import (
     LlamaConfig,
@@ -277,6 +294,9 @@ class _Seq:
     # read at the first token (CUDA events, or host seconds on the CPU)
     import_kv: Optional[tuple] = None
     import_timing: Optional[tuple] = None
+    # KVBM: blocking seconds spent in this request's failed admission
+    # attempts, observed with the one that admits it
+    stall_s: float = 0.0
 
     @property
     def wants_topk(self) -> bool:
@@ -387,6 +407,13 @@ class TorchEngine:
         self._loop_thread: Optional[int] = None
         self.pool = PagePool(cfg.num_pages, self.model_cfg.page_size,
                              cfg.worker_id, cfg.dp_rank)
+        self.kvbm = None   # set by kvbm.KvbmManager when attached
+        # KV lifecycle recorder: None unless DYN_KV_LIFECYCLE, its
+        # metrics always on; the pool shares it, and KvbmManager hands it
+        # to the tier store when attached
+        self.kv_metrics = KvbmMetrics()
+        self.kv_lifecycle = recorder_from_env(self.kv_metrics)
+        self.pool.lifecycle = self.kv_lifecycle
         self.attach_sinks(event_sink, metrics_sink)
         self._waiting: list[_Seq] = []
         self._running: list[_Seq] = []
@@ -397,6 +424,24 @@ class TorchEngine:
         self._rng = np.random.RandomState(cfg.rng_seed)
         # serializes device access: steps write the caches in place
         self._device_lock = asyncio.Lock()
+        # the asyncio lock cannot exclude SYNCHRONOUS loop-thread code:
+        # an admission's onboard (write_kv_blocks) runs with no await
+        # while the KVBM offload worker gathers in a thread under the
+        # device lock, and both use the engine's pinned staging buffers.
+        # This thread lock covers only the synchronous cache entry points
+        # (the gather, write_kv_pages, write_kv_blocks); holders never
+        # await, so it cannot deadlock.
+        self._kv_buffer_lock = threading.RLock()
+        # KVBM's reused pinned host buffers ("offload": a gathered batch
+        # on its way to the tiers; "onboard": blocks on their way to the
+        # card) and the onboard's reused device buffer, grown when a
+        # batch outgrows them; the events around the last onboard's
+        # host-to-device copy and K3 launches (the host buffer is free
+        # once the copy's fires; `_settle_onboard` observes both stages)
+        self._kv_staging: dict[str, torch.Tensor] = {}
+        self._onboard_events: Optional[list] = None
+        # first failed admission with offload pins outstanding
+        self._admit_fail_since: Optional[float] = None
         # decode-burst pipeline (phase path, config.pipeline_bursts): the
         # in-flight burst awaiting its host copy, and — while one is in
         # flight — a redirect for page releases (pages a running burst
@@ -594,6 +639,11 @@ class TorchEngine:
             except asyncio.CancelledError:
                 pass
         self._drain_inflight_sync()
+        if self.kvbm is not None:
+            # stop the offload/prefetch pipeline and release any pending
+            # offload pins before the sequences below free their pages
+            await self.kvbm.close()
+        self._settle_onboard()
         for s in self._running + self._waiting:
             s.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=FINISH_CANCELLED).to_dict())
@@ -638,7 +688,32 @@ class TorchEngine:
                     # iteration picks its batch shapes
                     self.bucket_ladder.maybe_apply()
                 self._reap_transfers()
+                if self.kvbm is not None:
+                    # a failed device read of the offload worker fails
+                    # this iteration's requests
+                    self.kvbm.raise_device_error()
                 self._admit()
+                if self.kvbm is not None and self._waiting:
+                    # stage tier blocks for still-queued requests so their
+                    # admission onboard is one device write (no-op unless
+                    # prefetch_blocks > 0); the router's prefix hints
+                    # (request extra.kv_hints) ride along
+                    hints = [s.req.extra.get("kv_hints")
+                             for s in self._waiting]
+                    self.kvbm.prefetch_waiting(
+                        self._waiting, hints=[h for h in hints if h] or None)
+                if self.kvbm is not None and self.kvbm.remote is not None:
+                    # G4: continue freshly admitted prompts' block chains
+                    # from peer workers' tiers before prefill, all at once
+                    # (the worst stall is one fetch timeout per wave);
+                    # a failed fetch is a miss, a failed device write
+                    # raises
+                    fresh = [s for s in self._running
+                             if not s.prefilled and s.import_kv is None
+                             and s.prefill_pos <= s.cached_len]
+                    if fresh:
+                        await asyncio.gather(
+                            *(self.kvbm.onboard_remote(s) for s in fresh))
                 if self.config.prefill_chunk_budget > 0:
                     progressed = await self._prefill_budgeted()
                 else:
@@ -679,6 +754,33 @@ class TorchEngine:
 
     # -- admission ----------------------------------------------------------
 
+    # how long allocation may keep failing behind offload pins before the
+    # queued offloads drain inline: the worker's gather lands in a few
+    # scheduler iterations, and an early flush would turn every deficit
+    # eviction into the inline copy
+    _ADMIT_FLUSH_GRACE_S = 0.25
+
+    def _alloc_admission(self, hashes, prompt_len: int):
+        """allocate_sequence with the pinned-page escape hatch. With the
+        KVBM pipeline on, a failed allocation behind offload pins is
+        normal (the victims stay pinned until the worker's gather lands)
+        and the caller retries next iteration; failing past the grace
+        period (a slow or stuck worker) drains the queued batches
+        inline, so their pins recycle, and allocates again."""
+        alloc = self.pool.allocate_sequence(hashes, prompt_len)
+        if alloc is not None:
+            self._admit_fail_since = None
+            return alloc
+        if self.kvbm is not None and self.pool.pending_offload_pages:
+            now = time.monotonic()
+            if self._admit_fail_since is None:
+                self._admit_fail_since = now
+            elif (now - self._admit_fail_since >= self._ADMIT_FLUSH_GRACE_S
+                    and self.kvbm.flush_queued_offloads()):
+                self._admit_fail_since = None
+                alloc = self.pool.allocate_sequence(hashes, prompt_len)
+        return alloc
+
     def _admit_one(self) -> bool:
         """One admission attempt on the FIFO head; True when the caller
         should keep going (admitted, or a dead entry was reaped)."""
@@ -689,23 +791,41 @@ class TorchEngine:
             return True
         page_size = self.model_cfg.page_size
         need_pages = (len(cand.prompt) + page_size - 1) // page_size
-        if (self.pool.active_pages + need_pages
+        # pinned pages are taken but free themselves without any sequence
+        # finishing (the offload worker's gather lands): net them out
+        occupied = self.pool.active_pages - self.pool.pending_offload_pages
+        if (occupied + need_pages
                 > self.config.watermark * self.pool.capacity
                 and self._running):
             return False
+        t_adm = time.perf_counter()
         if cand.import_kv is not None:
             # disagg import: fresh pages only (the imported KV overwrites
             # them); the cached length comes from the transfer
-            alloc = self.pool.allocate_sequence([], len(cand.prompt))
+            alloc = self._alloc_admission([], len(cand.prompt))
             if alloc is None:
+                cand.stall_s += time.perf_counter() - t_adm
                 return False
             cand.pages, cand.cached_len = alloc[0], cand.import_kv[1]
         else:
-            alloc = self.pool.allocate_sequence(cand.prompt_hashes,
-                                                len(cand.prompt))
+            alloc = self._alloc_admission(cand.prompt_hashes,
+                                          len(cand.prompt))
             if alloc is None:
+                cand.stall_s += time.perf_counter() - t_adm
                 return False
             cand.pages, cand.cached_len = alloc
+            if self.kvbm is not None:
+                # blocks past the device prefix hit that the host/disk
+                # tiers hold are written into the fresh pages, so prefill
+                # skips them
+                cand.cached_len = self.kvbm.onboard(cand)
+        if self.kvbm is not None:
+            # one sample per admitted request: the blocking work of all
+            # its attempts (inline eviction gathers, a flush of queued
+            # offloads, the onboard's tier reads and device write), not
+            # the wait between them, which is queue wait
+            self.metrics.admission_stall.observe(
+                cand.stall_s + time.perf_counter() - t_adm)
         cand.prefill_pos = cand.cached_len
         self._waiting.pop(0)
         self._running.append(cand)
@@ -1869,9 +1989,138 @@ class TorchEngine:
             self._cache_ptrs = kernels.cache_pointers(self.k_cache,
                                                       self.v_cache)
         ids = self._dev(np.asarray(page_ids, dtype=np.int32))
-        with self.compile_tracker.track("gather_kv", (len(page_ids),)):
+        with self._kv_buffer_lock, \
+                self.compile_tracker.track("gather_kv", (len(page_ids),)):
             return kernels.paged_kv_gather(self.k_cache, self.v_cache, ids,
                                            self._cache_ptrs)
+
+    def _staging(self, name: str, shape: tuple, dtype: torch.dtype,
+                 pinned: bool) -> torch.Tensor:
+        """A view of the reused buffer `name` with this shape: pinned
+        host memory or the engine's device, grown (to the next power of
+        two of bytes) only when a batch outgrows it. Call under
+        `_kv_buffer_lock`, never while a CUDA graph captures: the engine
+        allocates only from its scheduler's own iteration, outside any
+        capture."""
+        nbytes = dtype.itemsize
+        for d in shape:
+            nbytes *= d
+        buf = self._kv_staging.get(name)
+        if buf is None or buf.numel() < nbytes:
+            size = 1 << max(nbytes - 1, 1).bit_length()
+            buf = (torch.empty(size, dtype=torch.uint8, pin_memory=True)
+                   if pinned else
+                   torch.empty(size, dtype=torch.uint8, device=self.device))
+            self._kv_staging[name] = buf
+        return buf[:nbytes].view(dtype).view(shape)
+
+    def _read_kv_pages_sync(self, page_ids: list[int]) -> list[torch.Tensor]:
+        """KVBM's offload read: each page as its own host tensor (2, L,
+        KVH, P, D) [k; v] that owns its storage, the tier format. On the
+        card, on the engine's stream (behind every step that wrote the
+        pages): one gather launch, one copy into the reused device buffer
+        "offload_dev" in block order (n, 2, L, KVH, P, D), one copy to the
+        reused pinned "offload" buffer; then a wait for that copy and one
+        contiguous host copy per block. Each stage's time goes to
+        `metrics.kvbm_stage`. Blocks the caller: the inline offload stalls
+        admission for it."""
+        mcfg = self.model_cfg
+        n = len(page_ids)
+        shape = (n, 2, mcfg.num_layers, mcfg.num_kv_heads, mcfg.page_size,
+                 mcfg.head_dim)
+        stage = self.metrics.kvbm_stage
+        with torch.inference_mode(), self._kv_buffer_lock:
+            t0 = time.perf_counter()
+            events = None
+            if self.device.type == "cuda":
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(3)]
+                events[0].record()
+            got = self._gather_kv_pages(page_ids).permute(3, 0, 1, 2, 4, 5)
+            if events is not None:
+                dev = self._staging("offload_dev", shape, got.dtype,
+                                    pinned=False)
+                dev.copy_(got)
+                events[1].record()
+                host = self._staging("offload", shape, got.dtype,
+                                     pinned=True)
+                host.copy_(dev, non_blocking=True)
+                events[2].record()
+                events[2].synchronize()
+                stage["offload_gather"].observe(
+                    events[0].elapsed_time(events[1]) / 1e3)
+                stage["offload_copy"].observe(
+                    events[1].elapsed_time(events[2]) / 1e3)
+            else:
+                host = got
+                stage["offload_gather"].observe(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            blocks = [host[i].clone(memory_format=torch.contiguous_format)
+                      for i in range(n)]
+            stage["offload_split"].observe(time.perf_counter() - t0)
+            return blocks
+
+    def write_kv_blocks(self, page_ids: list[int],
+                        blocks: list[torch.Tensor]) -> None:
+        """KVBM's onboard write: store host blocks (2, L, KVH, P, D) as
+        pages `page_ids`. On the card the blocks are stacked into the
+        reused pinned "onboard" buffer (n, 2, L, KVH, P, D), copied to the
+        card in one copy on the engine's stream and written by K3, one
+        launch per layer reading each layer's K and V blocks by their
+        strides; the pinned buffer is reused once the previous onboard has
+        left it. Each stage's time goes to `metrics.kvbm_stage` (the
+        copy's and K3's once they have run: `_settle_onboard`). Call on
+        the scheduler's thread or under the device lock."""
+        mcfg = self.model_cfg
+        n = len(blocks)
+        shape = (n, 2, mcfg.num_layers, mcfg.num_kv_heads, mcfg.page_size,
+                 mcfg.head_dim)
+        dtype = self.k_cache[0].dtype
+        cuda = self.device.type == "cuda"
+        stage = self.metrics.kvbm_stage
+        with torch.inference_mode(), self._kv_buffer_lock:
+            self._settle_onboard()
+            t0 = time.perf_counter()
+            host = self._staging("onboard", shape, dtype, pinned=cuda)
+            torch.stack([b.to(dtype) for b in blocks], out=host)
+            stage["onboard_stack"].observe(time.perf_counter() - t0)
+            ids = self._dev(np.asarray(page_ids, dtype=np.int32))
+            events = None
+            if cuda:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(3)]
+                events[0].record()
+                data = self._staging("onboard_dev", shape, dtype,
+                                     pinned=False)
+                data.copy_(host, non_blocking=True)
+                events[1].record()
+            else:
+                data = host
+            t0 = time.perf_counter()
+            with self.compile_tracker.track("write_kv", (n,)):
+                for l in range(mcfg.num_layers):
+                    kernels.paged_kv_write_pages(
+                        self.k_cache[l], self.v_cache[l], data[:, 0, l],
+                        data[:, 1, l], ids)
+            if cuda:
+                events[2].record()
+                self._onboard_events = events
+            else:
+                stage["onboard_write"].observe(time.perf_counter() - t0)
+
+    def _settle_onboard(self) -> None:
+        """Wait for the last onboard's copy and K3 launches to finish (its
+        pinned buffer is free after) and observe their device times."""
+        with self._kv_buffer_lock:
+            events, self._onboard_events = self._onboard_events, None
+            if events is None:
+                return
+            events[2].synchronize()
+            stage = self.metrics.kvbm_stage
+            stage["onboard_copy"].observe(
+                events[0].elapsed_time(events[1]) / 1e3)
+            stage["onboard_write"].observe(
+                events[1].elapsed_time(events[2]) / 1e3)
 
     async def read_kv_pages(self, page_ids: list[int]) -> torch.Tensor:
         """The pages as a host tensor (2, L, KVH, n, P, D) [k; v], the
@@ -1915,7 +2164,8 @@ class TorchEngine:
                     else data.to(self.device))
         data = data.to(dtype)
         ids = self._dev(np.asarray(page_ids, dtype=np.int32))
-        with self.compile_tracker.track("write_kv", (len(page_ids),)):
+        with self._kv_buffer_lock, \
+                self.compile_tracker.track("write_kv", (len(page_ids),)):
             for l in range(self.model_cfg.num_layers):
                 kernels.paged_kv_write_pages(
                     self.k_cache[l], self.v_cache[l],
@@ -1946,9 +2196,12 @@ class TorchEngine:
                 "mixed_steps": perf["mixed_steps"],
                 "itl_p50_ms": itl_percentile(perf["itl_hist"], 0.5),
                 "itl_p99_ms": itl_percentile(perf["itl_hist"], 0.99),
-                # no blocking work runs inside the port's admission (the
-                # reference's is KVBM's onboard and drain)
-                "admission_stall_ms": 0.0,
+                # the median admitted request's blocking work (KVBM's
+                # inline offloads and onboard; 0.0 without KVBM), where
+                # the reference publishes the running sum
+                # (perf["admission_stall_ms"] here)
+                "admission_stall_ms": round(
+                    self.metrics.admission_stall.quantile(0.5) * 1e3, 3),
                 "compiles": self.compile_tracker.total,
             }))
 

@@ -10,8 +10,11 @@ observes into these objects and every consumer reads them: `/metrics`
 and the worker's `_sys.stats` scrape (`register`), `_publish_metrics`
 (`perf_view`), and the engine's own `tokens_emitted` /
 `pipelined_bursts` / `compile_tracker` attributes; the disagg KV pull
-series (`kv_pull*`), which the decode worker's handler observes. The
-KVBM, spec and step-profiler series wait with their subsystems. The ITL
+series (`kv_pull*`), which the decode worker's handler observes; KVBM's
+`admission_stall` (the blocking work inside an admission: inline
+offloads, the onboard), `offload_drain` (one pipelined offload batch) and
+`kvbm_stage` (each onboard's and offload read's time by stage).
+The spec and step-profiler series wait with their subsystems. The ITL
 histogram's edges and quantile are the part of `dynamo_tpu/llm/perf.py`
 (`:18-60`) the published metrics need.
 
@@ -74,6 +77,28 @@ class EngineMetrics:
 
     def __init__(self) -> None:
         h, c = Histogram, Counter
+        self.admission_stall = h(
+            "dynamo_engine_admission_stall_seconds",
+            "blocking work (kvbm onboard/offload-drain) inside _admit",
+            _STAGE_BUCKETS)
+        self.offload_drain = h(
+            "dynamo_engine_offload_drain_seconds",
+            "one kvbm offload batch: device gather + tier demote",
+            _STAGE_BUCKETS)
+        # KVBM's transfers by stage: an onboard's host stack, copy to the
+        # card and K3 launches; an offload read's gather (in block order),
+        # copy to the host and host split. Device time on the card, host
+        # time on the CPU (where the copies are none).
+        self.kvbm_stage = {
+            name: h(f"dynamo_engine_kvbm_{name}_seconds", f"kvbm {what}",
+                    _STAGE_BUCKETS)
+            for name, what in (
+                ("onboard_stack", "onboard: blocks stacked on the host"),
+                ("onboard_copy", "onboard: copy to the card"),
+                ("onboard_write", "onboard: the page writes (K3)"),
+                ("offload_gather", "offload: the pages gathered"),
+                ("offload_copy", "offload: copy to the host"),
+                ("offload_split", "offload: the batch split into blocks"))}
         self.prefill_chunk = h(
             "dynamo_engine_prefill_chunk_seconds",
             "one prefill chunk round (standalone, mixed, or ragged)",
@@ -125,11 +150,13 @@ class EngineMetrics:
     def register(self, registry: MetricsRegistry) -> None:
         """Adopt every metric into a runtime registry so one scrape
         renders them (idempotent; the first engine wins a name)."""
-        for m in (self.prefill_chunk, self.ttft, self.itl,
+        for m in (self.admission_stall, self.offload_drain,
+                  self.prefill_chunk, self.ttft, self.itl,
                   self.tokens_emitted, self.pipelined_bursts,
                   self.mixed_steps, self.decode_steps_during_prefill,
                   self.kv_pull, self.kv_pull_bytes, self.kv_pull_bw,
-                  self.kv_import, self.kv_pull_fallbacks):
+                  self.kv_import, self.kv_pull_fallbacks,
+                  *self.kvbm_stage.values()):
             registry.register(m)
         self.compile.register(registry)
 
@@ -146,4 +173,5 @@ class EngineMetrics:
                 int(self.decode_steps_during_prefill.get()),
             "mixed_steps": int(self.mixed_steps.get()),
             "itl_hist": itl_counts,
+            "admission_stall_ms": self.admission_stall.sum * 1e3,
         }

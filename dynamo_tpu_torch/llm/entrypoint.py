@@ -7,8 +7,9 @@ Port of `dynamo_tpu/llm/entrypoint.py`:
   serving-class and flight-control planes wait with their subsystems.
 - `serve_engine` (`:263`) / `WorkerHandle` (`:245`): serve an engine on
   its card's endpoint, join the engine's metrics (`EngineMetrics` and its
-  CUDA-graph counts) to the process's registry, publish the card. The
-  canary, KVBM, memory, mesh and tenancy surfaces wait.
+  CUDA-graph counts) to the process's registry, serve the admin endpoints
+  `clear_kv_blocks` and (with KVBM) `kvbm_controller` (`:335-369`),
+  publish the card. The canary, memory, mesh and tenancy surfaces wait.
 - `wire_engine_events` (`:388`): the sinks that publish an engine's KV
   events and ForwardPassMetrics on the runtime's event bus, under the
   subjects the card's KV router consumes.
@@ -20,20 +21,23 @@ when no card is present — on the phase path, or on the ragged path when
 `DYN_ATTENTION_IMPL=ragged`, as the reference reads that variable
 (`dynamo_tpu/engine/attention.py:36`). Guided decoding gets the serving
 tokenizer's token-bytes map as a lazy provider and its EOS id
-(`:508-545`).
+(`:508-545`). `kvbm_host_blocks` > 0 attaches a `KvbmManager` with the
+pipeline knobs (`:546-554`).
 """
 
 from __future__ import annotations
 
 import asyncio
+import inspect
 import logging
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine import cuda_build
 from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+from dynamo_tpu_torch.kvbm.lifecycle import tier_occupancy
 from dynamo_tpu_torch.llm.guided import token_bytes_of
 from dynamo_tpu_torch.llm.http_service import HttpService
 from dynamo_tpu_torch.llm.model_card import (
@@ -122,21 +126,31 @@ class WorkerHandle:
     runtime: DistributedRuntime
     card: ModelDeploymentCard
     served: object
+    admin: list = field(default_factory=list)   # the admin endpoints
 
     async def stop(self) -> None:
+        for served in self.admin:
+            await served.shutdown()
         await self.served.shutdown()
 
 
 def register_engine_metrics(runtime: DistributedRuntime, engine) -> None:
     """Join an engine's own metrics to the process's scrape: its
     `EngineMetrics` (the `dynamo_engine_*` series and the compile
-    tracker's `dynamo_compile_*`), its CUDA-graph captures, replays and
+    tracker's `dynamo_compile_*`), its `KvbmMetrics` (`dynamo_kv_lifecycle_*`,
+    `dynamo_kvbm_tier_*`), its CUDA-graph captures, replays and
     pool bytes, and the process's kernel launch counts (one source of
     truth, no second bookkeeping path). Engines without them are
     skipped."""
     metrics = getattr(engine, "metrics", None)
     if metrics is not None:
         metrics.register(runtime.metrics)
+    # the KV lifecycle counters and the per-tier occupancy gauges
+    # (refreshed per scrape; the recorder stays None unless armed)
+    km = getattr(engine, "kv_metrics", None)
+    if km is not None:
+        km.register(runtime.metrics,
+                    occupancy=lambda eng=engine: tier_occupancy(eng))
     graphs = getattr(engine, "graphs", None)
     if graphs is None:
         return
@@ -165,14 +179,46 @@ async def serve_engine(runtime: DistributedRuntime, engine: AsyncEngine,
     the card's endpoint and publish the card. A disagg worker serves a
     handler wrapping its engine (`disagg/handlers.py`): the engine's own
     metrics join the scrape."""
-    register_engine_metrics(runtime, getattr(engine, "engine", engine))
-    ep = (runtime.namespace(card.namespace).component(card.component)
-          .endpoint(card.endpoint))
-    served = await ep.serve(
+    core = getattr(engine, "engine", engine)
+    register_engine_metrics(runtime, core)
+    comp = runtime.namespace(card.namespace).component(card.component)
+    served = await comp.endpoint(card.endpoint).serve(
         engine, instance_id=instance_id,
         metadata={"dp_size": card.runtime_config.data_parallel_size})
+    admin = []
+    clear_fn = getattr(core, "clear_kv_blocks", None)
+    if clear_fn is not None:
+        async def clear_handler(request, context):
+            n = clear_fn()
+            if inspect.isawaitable(n):
+                n = await n
+            yield {"status": "success", "cleared_pages": int(n or 0)}
+
+        admin.append(await comp.endpoint("clear_kv_blocks").serve(
+            clear_handler, instance_id=served.instance.instance_id))
+    kvbm = getattr(core, "kvbm", None)
+    if kvbm is not None:
+        async def controller_handler(request, context):
+            # the reference's block_manager/controller.rs ControlMessage:
+            # Status / ResetPool(level) / ResetAll
+            op = (request or {}).get("op", "status")
+            if op == "status":
+                yield {"status": "success", **kvbm.status()}
+            elif op == "reset":
+                try:
+                    dropped = kvbm.reset((request or {}).get("level", "all"))
+                except ValueError as e:
+                    yield {"status": "error", "error": str(e)}
+                    return
+                yield {"status": "success", "dropped": dropped}
+            else:
+                yield {"status": "error",
+                       "error": f"unknown kvbm controller op {op!r}"}
+
+        admin.append(await comp.endpoint("kvbm_controller").serve(
+            controller_handler, instance_id=served.instance.instance_id))
     await register_llm(runtime, card)
-    return WorkerHandle(runtime, card, served)
+    return WorkerHandle(runtime, card, served, admin)
 
 
 def wire_engine_events(runtime: DistributedRuntime,
@@ -221,7 +267,11 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                        quantize: Optional[str] = None,
                        device: str = "cuda", worker_id: int = 0,
                        dp_rank: int = 0, event_sink=None,
-                       metrics_sink=None, **model_overrides
+                       metrics_sink=None, kvbm_host_blocks: int = 0,
+                       kvbm_offload_queue: int = 0,
+                       kvbm_offload_workers: int = 0,
+                       kvbm_prefetch_blocks: int = 0,
+                       kvbm_offload_queue_bytes: int = 0, **model_overrides
                        ) -> tuple[TorchEngine, ModelDeploymentCard]:
     """(TorchEngine, ModelDeploymentCard) for a checkpoint dir (or an
     already-downloaded HF-cache name). `random_init=True` skips the weight
@@ -232,8 +282,11 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
     init is quantized by the engine. The path is
     `attention_impl_from_env()`'s. `worker_id` / `dp_rank` stamp the
     engine's KV events and metrics, which go to `event_sink` /
-    `metrics_sink` (`wire_engine_events`). `model_overrides` tune the
-    config, e.g. ``max_pages_per_seq`` or ``num_layers`` (depth cut)."""
+    `metrics_sink` (`wire_engine_events`). `kvbm_host_blocks` > 0
+    attaches KVBM's host tier of that many blocks, its pipeline set by
+    the other `kvbm_*` knobs (`kvbm/manager.py` KvbmConfig; all 0 = the
+    synchronous path). `model_overrides` tune the config, e.g.
+    ``max_pages_per_seq`` or ``num_layers`` (depth cut)."""
     dev = resolve_device(device)
     path = resolve_model(model)
     cfg = config_from_hf(path, **model_overrides)
@@ -267,6 +320,15 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                           dp_rank=dp_rank),
         model=params, token_bytes=token_bytes, eos_token_id=eos_id,
         event_sink=event_sink, metrics_sink=metrics_sink)
+    if kvbm_host_blocks:
+        from dynamo_tpu_torch.kvbm import KvbmConfig, KvbmManager
+
+        KvbmManager(engine, KvbmConfig(
+            host_blocks=kvbm_host_blocks,
+            offload_queue_depth=kvbm_offload_queue,
+            offload_workers=kvbm_offload_workers,
+            prefetch_blocks=kvbm_prefetch_blocks,
+            offload_queue_bytes=kvbm_offload_queue_bytes))
     card = ModelDeploymentCard(
         name=served_name or os.path.basename(path.rstrip("/")),
         tokenizer_kind="hf" if has_tok else "byte",

@@ -9,10 +9,13 @@ error bodies and SSE framing are the reference's:
 
   POST /v1/chat/completions, POST /v1/completions (SSE when stream=true,
   ending in `data: [DONE]`), GET /v1/models, GET /health, GET /live,
-  GET /metrics
+  GET /metrics, and the admin routes POST /clear_kv_blocks,
+  GET /kvbm/status and POST /kvbm/reset (`_fanout_admin`: one request to
+  every instance of every served model's admin endpoint, results keyed
+  by model and instance id)
 
 An unknown path answers 404, a known path with another method 405. The
-reference's /v1/embeddings, /v1/responses, KVBM, fleet, tenancy, serving
+reference's /v1/embeddings, /v1/responses, fleet, tenancy, serving
 class and /debug/* routes wait with their subsystems and answer 404.
 
 Errors: a malformed request is a 400, an unknown model a 404, a model
@@ -50,7 +53,7 @@ from dynamo_tpu_torch.llm.protocols_openai import (
     sse_encode,
 )
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.runtime.push import NoInstancesError
+from dynamo_tpu_torch.runtime.push import NoInstancesError, PushRouter
 
 logger = logging.getLogger(__name__)
 
@@ -213,6 +216,9 @@ class HttpService:
             ("GET", "/health"): self._health,
             ("GET", "/live"): self._live,
             ("GET", "/metrics"): self._metrics,
+            ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
+            ("GET", "/kvbm/status"): self._kvbm_status,
+            ("POST", "/kvbm/reset"): self._kvbm_reset,
         }
         self._paths = {path for _, path in self.routes}
         self._server: Optional[asyncio.base_events.Server] = None
@@ -547,6 +553,64 @@ class HttpService:
     async def _metrics(self, request: Request, conn) -> Response:
         return Response(self.manager.runtime.metrics.render().encode(),
                         content_type="text/plain; charset=utf-8")
+
+
+    async def _fanout_admin(self, endpoint: str, payload: dict) -> dict:
+        """Send one admin request to every instance of every served
+        model's `endpoint`; per-instance results keyed by model, then by
+        instance id in hex."""
+        results: dict[str, dict] = {}
+        for name in self.manager.model_names():
+            entry = self.manager.get(name)
+            if entry is None:
+                continue
+            card = entry.card
+            client = await (self.manager.runtime.namespace(card.namespace)
+                            .component(card.component)
+                            .endpoint(endpoint).client())
+            await client.start()
+            router = PushRouter(client)
+            per_instance: dict[str, object] = {}
+            try:
+                for inst in client.instances():
+                    try:
+                        async for out in router.direct(
+                                payload, inst.instance_id, Context()):
+                            per_instance[f"{inst.instance_id:x}"] = out
+                    except Exception as e:  # instance died mid-call
+                        per_instance[f"{inst.instance_id:x}"] = {
+                            "status": "error", "error": str(e)}
+            finally:
+                await client.stop()
+            results[name] = per_instance
+        return results
+
+    async def _clear_kv_blocks(self, request: Request, conn) -> Response:
+        """Admin route (service/clear_kv_blocks.rs): every worker instance
+        of every served model drops its reusable KV cache."""
+        results = await self._fanout_admin("clear_kv_blocks", {})
+        return json_response({"status": "success", "results": results})
+
+    async def _kvbm_status(self, request: Request, conn) -> Response:
+        """KVBM controller status (block_manager/controller.rs
+        ControlMessage::Status): per-tier occupancy, offload/onboard
+        stats and the pipeline counters of every worker running KVBM;
+        workers without KVBM serve no kvbm_controller and are absent."""
+        results = await self._fanout_admin("kvbm_controller",
+                                           {"op": "status"})
+        return json_response({"status": "success", "results": results})
+
+    async def _kvbm_reset(self, request: Request, conn) -> Response:
+        """KVBM controller reset (ResetPool / ResetAll): body {"level":
+        "g1" | "g2" | "g3" | "all"} (default all)."""
+        try:
+            body = request.json() if request.body else {}
+        except ValueError:
+            body = {}
+        level = body.get("level", "all") if isinstance(body, dict) else "all"
+        results = await self._fanout_admin(
+            "kvbm_controller", {"op": "reset", "level": level})
+        return json_response({"status": "success", "results": results})
 
 
 def _as_openai_error(e: BaseException) -> OpenAIError:

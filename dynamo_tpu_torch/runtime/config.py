@@ -2,8 +2,9 @@
 
 Port of `dynamo_tpu/runtime/config.py`: the fields of the runtime this
 slice serves (control-plane store, transport, leases, request deadlines,
-dial retries, the circuit breaker). The status server, health canaries,
-KVBM pipeline, telemetry and SLO fields wait with their subsystems.
+dial retries, the circuit breaker, the KVBM pipeline knobs). The status
+server, health canaries, telemetry and SLO fields wait with their
+subsystems.
 
 Reference: `lib/runtime/src/config.rs` (figment: defaults < file < DYN_* env).
 Here: dataclass defaults < optional JSON file < ``DYN_*`` environment.
@@ -52,6 +53,13 @@ class RuntimeConfig:
     # cooldown, seconds.
     breaker_fail_limit: int = 3
     breaker_cooldown: float = 5.0
+    # KVBM async offload/onboard pipeline (kvbm/manager.py KvbmConfig),
+    # read by the worker when its --kvbm-* flag is unset. All 0 = the
+    # synchronous in-scheduler behavior.
+    kvbm_offload_queue: int = 0
+    kvbm_offload_workers: int = 0
+    kvbm_prefetch_blocks: int = 0
+    kvbm_offload_queue_bytes: int = 0
 
     @classmethod
     def from_env(cls, path: Optional[str] = None) -> "RuntimeConfig":

@@ -75,6 +75,7 @@ class DistributedRuntime:
         self.metrics = MetricsRegistry("dynamo")
         # surface retry/timeout/breaker counters on both observability
         # planes: the `_sys.stats` scrape and the Prometheus registry
+        self._kvbm_manager = None   # wire_kvbm
         transport_server.extra_stats = self._robustness_stats
         self._wire_robustness_metrics()
         self._local_engines: dict[str, AsyncEngine] = {}
@@ -98,9 +99,12 @@ class DistributedRuntime:
         the transport client's and the breaker's, and this process's
         metrics registry as Prometheus text (a worker serves no HTTP of
         its own until the status server is ported)."""
-        return {"transport": dict(self.transport_client.stats),
-                "breaker": self.breaker.snapshot(),
-                "metrics": self.metrics.render()}
+        out = {"transport": dict(self.transport_client.stats),
+               "breaker": self.breaker.snapshot(),
+               "metrics": self.metrics.render()}
+        if self._kvbm_manager is not None:
+            out["kvbm"] = self._kvbm_manager.pipeline_stats()
+        return out
 
     def _wire_robustness_metrics(self) -> None:
         events = self.metrics.gauge(
@@ -120,6 +124,23 @@ class DistributedRuntime:
             for state, n in self.breaker.transitions.items():
                 transitions.set(n, state=state)
             open_g.set(self.breaker.open_count())
+
+        self.metrics.on_scrape(sync)
+
+    def wire_kvbm(self, manager) -> None:
+        """Export a KvbmManager's pipeline counters on the `_sys.stats`
+        scrape ("kvbm") and the Prometheus registry
+        (`dynamo_kvbm_pipeline{kind=...}`), as the robustness counters
+        above."""
+        self._kvbm_manager = manager
+        g = self.metrics.gauge(
+            "kvbm_pipeline",
+            "KVBM offload/onboard pipeline counters by kind (blocks "
+            "unless the kind is suffixed _bytes/_ms/_pages)")
+
+        def sync() -> None:
+            for kind, v in manager.pipeline_stats().items():
+                g.set(v, kind=kind)
 
         self.metrics.on_scrape(sync)
 

@@ -11,7 +11,15 @@ serves the engine under `<component>_prefill` behind
 `PrefillWorkerHandler` and its `kv_pull` endpoint; `--enable-disagg`
 serves it behind `DecodeWorkerHandler`, which sends prompts longer than
 `--max-local-prefill-length` uncached tokens to that prefill pool (the
-threshold follows the store key `disagg_config_key`).
+threshold follows the store key `disagg_config_key`). With
+`--prefill-queue` the remote prefills ride the durable queue
+(`disagg/prefill_queue.py`): the decode worker enqueues, and a prefill
+worker runs a `PrefillQueueConsumer` on its component's queue beside its
+push endpoint (`:297-303`, `:420-430`). `--kvbm-host-blocks` attaches
+KVBM's host tier to the engine, the other `--kvbm-*` flags (or their
+`DYN_KVBM_*` runtime-config fields) set its offload pipeline, and the
+worker serves the G4 tier (`KvbmDistributed`) and the pipeline counters on
+its scrape (`:444-455`).
 One flag is the port's own: `--device` (default cuda; the worker raises
 without a card unless `--device cpu` asks for the CPU). The reference's
 flags for parts the port has not ported yet are parsed under their names
@@ -50,16 +58,12 @@ from dynamo_tpu_torch.cli_util import (
 logger = logging.getLogger(__name__)
 
 PROG = "python -m dynamo_tpu_torch.worker"
-QUEUE = ("the durable prefill-queue dispatch (ROADMAP queue 1: "
-         "disagg/prefill_queue.py and runtime/queue.py)")
 SPEC = "speculative decoding (ROADMAP queue 1: engine/spec.py)"
 MULTI = "the multi-device paths (ROADMAP queue 1: TP, PP, SP)"
-KVBM = "KVBM (ROADMAP queue 1: KVBM and disagg)"
 MM = "multimodal serving (ROADMAP queue 1: multimodal)"
 MOCK = ("the mocker engine, which the port does not carry (--echo serves "
         "without a model)")
 WORKER_REFUSED = {
-    "--prefill-queue": (QUEUE, "store_true"),
     "--draft-model": (SPEC, "value"),
     "--spec-gamma": (SPEC, "value"),
     "--spec-iters-per-sync": (SPEC, "value"),
@@ -74,11 +78,6 @@ WORKER_REFUSED = {
     "--num-nodes": (MULTI, "int>1"),
     "--node-rank": (MULTI, "value"),
     "--leader-addr": (MULTI, "value"),
-    "--kvbm-host-blocks": (KVBM, "value"),
-    "--kvbm-offload-queue": (KVBM, "value"),
-    "--kvbm-offload-workers": (KVBM, "value"),
-    "--kvbm-prefetch-blocks": (KVBM, "value"),
-    "--kvbm-offload-queue-bytes": (KVBM, "value"),
     "--mock": (MOCK, "store_true"),
     "--mock-speedup": (MOCK, "value"),
     "--mock-decode-ms": (MOCK, "value"),
@@ -131,6 +130,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-local-prefill-length", type=int, default=512,
                    help="uncached prompt tokens above which a decode worker "
                         "prefills remotely")
+    p.add_argument("--prefill-queue", action="store_true",
+                   help="disagg jobs ride the durable queue (pull model) "
+                        "instead of push routing; on prefill workers "
+                        "starts the queue consumer")
+    # KVBM
+    p.add_argument("--kvbm-host-blocks", type=int, default=0,
+                   help="enable the KVBM host tier with this many blocks")
+    p.add_argument("--kvbm-offload-queue", type=int, default=None,
+                   help="async KVBM pipeline: staging-queue bound in "
+                        "blocks for background offload (default: "
+                        "DYN_KVBM_OFFLOAD_QUEUE or 0 = inline/sync)")
+    p.add_argument("--kvbm-offload-workers", type=int, default=None,
+                   help="tier-IO thread pool width (default: "
+                        "DYN_KVBM_OFFLOAD_WORKERS or 0 = one thread)")
+    p.add_argument("--kvbm-prefetch-blocks", type=int, default=None,
+                   help="blocks prefetched per waiting request into the "
+                        "staged host buffer (default: "
+                        "DYN_KVBM_PREFETCH_BLOCKS or 0 = off)")
+    p.add_argument("--kvbm-offload-queue-bytes", type=int, default=None,
+                   help="byte bound on the staged offload queue — "
+                        "tightens --kvbm-offload-queue when both are set "
+                        "(default: DYN_KVBM_OFFLOAD_QUEUE_BYTES or 0 = "
+                        "block count only)")
     add_refused(p, WORKER_REFUSED)
     return p.parse_args(argv)
 
@@ -153,6 +175,9 @@ def check_args(args: argparse.Namespace) -> None:
     if args.echo and (args.is_prefill_worker or args.enable_disagg):
         raise SystemExit(f"{PROG}: disaggregated serving needs --model (the "
                          f"echo engine holds no KV)")
+    if args.echo and args.kvbm_host_blocks:
+        raise SystemExit(f"{PROG}: KVBM needs --model (the echo engine "
+                         f"holds no KV)")
 
 
 def instance_id_of(args: argparse.Namespace) -> int:
@@ -189,7 +214,13 @@ def build_engine_and_card(args: argparse.Namespace):
         num_pages=args.num_pages, max_batch_size=args.max_batch_size,
         decode_steps_per_sync=args.decode_steps_per_sync,
         random_init=args.random_init, quantize=args.quantize,
-        device=args.device, worker_id=instance_id_of(args), **overrides)
+        device=args.device, worker_id=instance_id_of(args),
+        kvbm_host_blocks=args.kvbm_host_blocks,
+        kvbm_offload_queue=args.kvbm_offload_queue or 0,
+        kvbm_offload_workers=args.kvbm_offload_workers or 0,
+        kvbm_prefetch_blocks=args.kvbm_prefetch_blocks or 0,
+        kvbm_offload_queue_bytes=args.kvbm_offload_queue_bytes or 0,
+        **overrides)
     engine.config.prefill_chunk = args.prefill_chunk
     card.namespace = args.namespace
     card.component = component
@@ -199,9 +230,20 @@ def build_engine_and_card(args: argparse.Namespace):
     return engine, card
 
 
+def apply_kvbm_defaults(args: argparse.Namespace, cfg) -> None:
+    """Unset --kvbm-* pipeline flags fall back to the runtime config's
+    (`DYN_KVBM_*` env or its file), so a fleet flips the pipeline without
+    touching every unit file."""
+    for name in ("kvbm_offload_queue", "kvbm_offload_workers",
+                 "kvbm_prefetch_blocks", "kvbm_offload_queue_bytes"):
+        if getattr(args, name) is None:
+            setattr(args, name, getattr(cfg, name))
+
+
 async def _build_decode_handler(rt, args, card, engine):
-    """Decode-side wiring: the prefill pool's generate and kv_pull
-    clients and the threshold router, watching its store key."""
+    """Decode-side wiring: the prefill pool's kv_pull client, the
+    threshold router watching its store key, and either the pool's
+    generate client (push) or the queue client (`--prefill-queue`)."""
     from dynamo_tpu_torch.disagg.disagg_router import DisaggRouter
     from dynamo_tpu_torch.disagg.handlers import (
         KV_PULL_ENDPOINT,
@@ -209,14 +251,24 @@ async def _build_decode_handler(rt, args, card, engine):
     )
     from dynamo_tpu_torch.runtime.push import PushRouter
 
-    pf = rt.namespace(card.namespace).component(args.component + "_prefill")
+    pf_comp = args.component + "_prefill"
+    pf = rt.namespace(card.namespace).component(pf_comp)
     pull_client = await pf.endpoint(KV_PULL_ENDPOINT).client()
     await pull_client.start()
-    gen_client = await pf.endpoint(args.endpoint).client()
-    await gen_client.start()
     dr = await DisaggRouter(
         max_local_prefill_length=args.max_local_prefill_length
     ).start_watch(rt, card.namespace, args.component)
+    if args.prefill_queue:
+        from dynamo_tpu_torch.disagg.prefill_queue import QueuePrefillClient
+
+        handler = DecodeWorkerHandler(
+            engine, kv_pull_router=PushRouter(pull_client),
+            disagg_router=dr,
+            prefill_queue_client=QueuePrefillClient(
+                rt, card.namespace, queue=pf_comp))
+        return handler, [dr.stop, pull_client.stop]
+    gen_client = await pf.endpoint(args.endpoint).client()
+    await gen_client.start()
     handler = DecodeWorkerHandler(
         engine, prefill_router=PushRouter(gen_client),
         kv_pull_router=PushRouter(pull_client), disagg_router=dr)
@@ -234,11 +286,13 @@ async def start_worker(args: argparse.Namespace):
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
     from dynamo_tpu_torch.worker.monitor import EngineDeathMonitor
 
+    cfg = runtime_config_from_args(args)
+    apply_kvbm_defaults(args, cfg)
     t0 = time.perf_counter()
     engine, card = build_engine_and_card(args)
     logger.info("engine built in %.2f s (before the lease is taken)",
                 time.perf_counter() - t0)
-    rt = await DistributedRuntime.create(runtime_config_from_args(args))
+    rt = await DistributedRuntime.create(cfg)
     instance_id = instance_id_of(args)
     attach = getattr(engine, "attach_sinks", None)
     if attach is not None:
@@ -254,8 +308,29 @@ async def start_worker(args: argparse.Namespace):
         served = await serve_kv_pull(rt, card.namespace, card.component,
                                      serving, instance_id)
         stops.append(served.shutdown)
+        if args.prefill_queue:
+            from dynamo_tpu_torch.disagg.prefill_queue import (
+                PrefillQueueConsumer,
+            )
+
+            # scoped like the push path's pool: two models in one
+            # namespace never take each other's jobs
+            consumer = PrefillQueueConsumer(
+                rt, serving, card.namespace, queue=card.component).start()
+            stops.append(consumer.stop)
+            consumer.register(rt.metrics)
     elif args.enable_disagg:
         serving, stops = await _build_decode_handler(rt, args, card, engine)
+    if getattr(engine, "kvbm", None) is not None:
+        # G4: advertise and serve this worker's tier blocks, pull peers'
+        # at admission; the pipeline counters join the scrape
+        from dynamo_tpu_torch.kvbm.distributed import KvbmDistributed
+
+        kvbm_dist = KvbmDistributed(engine.kvbm, rt, card.namespace,
+                                    card.component, worker_id=instance_id)
+        await kvbm_dist.start()
+        stops.append(kvbm_dist.close)
+        rt.wire_kvbm(engine.kvbm)
     handle = await serve_engine(rt, serving, card, instance_id=instance_id)
     monitor = EngineDeathMonitor(engine)
     monitor.start()

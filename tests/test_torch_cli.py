@@ -34,6 +34,40 @@ def test_worker_refuses_unported_flag(flag):
     assert flag in msg and waits_for in msg
 
 
+# flags the worker serves since KVBM and the prefill queue were ported:
+# parsed under the reference's names and accepted
+SERVED_FLAGS = {"--prefill-queue": ([], "prefill_queue", True),
+                "--kvbm-host-blocks": (["64"], "kvbm_host_blocks", 64),
+                "--kvbm-offload-queue": (["8"], "kvbm_offload_queue", 8),
+                "--kvbm-offload-workers": (["2"], "kvbm_offload_workers", 2),
+                "--kvbm-prefetch-blocks": (["4"], "kvbm_prefetch_blocks", 4),
+                "--kvbm-offload-queue-bytes": (["1024"],
+                                               "kvbm_offload_queue_bytes",
+                                               1024)}
+
+
+@pytest.mark.parametrize("flag", sorted(SERVED_FLAGS))
+def test_worker_serves_kvbm_and_queue_flags(flag, monkeypatch):
+    """Each flag parses and passes the checks with a model; an unset
+    pipeline flag falls back to its DYN_KVBM_* runtime-config field."""
+    value, dest, want = SERVED_FLAGS[flag]
+    assert flag not in worker_main.WORKER_REFUSED
+    args = worker_main.parse_args(["--model", "x", "--router-mode",
+                                   "round_robin", flag] + value)
+    worker_main.check_args(args)
+    assert getattr(args, dest) == want
+    if dest.startswith("kvbm_") and dest != "kvbm_host_blocks":
+        monkeypatch.setenv("DYN_" + dest.upper(), "3")
+        args = worker_main.parse_args(["--model", "x"])
+        worker_main.apply_kvbm_defaults(
+            args, worker_main.runtime_config_from_args(args))
+        assert getattr(args, dest) == 3
+    if dest == "kvbm_host_blocks":
+        with pytest.raises(SystemExit, match="KVBM needs --model"):
+            worker_main.check_args(worker_main.parse_args(
+                BASE + [flag] + value))
+
+
 @pytest.mark.parametrize(
     "flag", sorted({**RUNTIME_REFUSED, **frontend_main.FRONTEND_REFUSED}))
 def test_frontend_refuses_unported_flag(flag, monkeypatch):

@@ -27,7 +27,11 @@ inputs: bit-identical with eager calls, outputs and caches. The phase
 path's prefill attention through K1 (`attention.prefill_attention`) is
 held to K1's tolerances on the valid rows, its padding rows exact zeros.
 The KV gather is a copy: bit-exact. The CUDA IPC plane moves bytes:
-bit-exact across two processes.
+bit-exact across two processes. KVBM's offload (the gather, a block-order
+copy, the pinned copy to the host) and onboard (the pinned stack, one copy
+to the card, K3) move bytes too: bit-exact at Llama-3-8B's KV geometry;
+with the pipelined offload running across graph captures, fp32 streams
+equal the eager engine's bit for bit.
 """
 
 import asyncio
@@ -1831,3 +1835,164 @@ def test_ipc_plane_pulls_across_two_processes(cuda_device):
     with pytest.raises(ValueError, match="process that exported it"):
         plane.pull(mine, cuda_device)
     assert plane.release("own")
+
+
+# -- KVBM on the card ------------------------------------------------------------
+
+
+def _kvbm_engine(dev, num_pages=200, **kvbm_kw):
+    """A TorchEngine at Llama-3-8B's KV geometry (32 layers, 8 KV heads,
+    pages of 16 rows of 128, bf16; narrow elsewhere) with a KvbmManager,
+    its caches filled with random values."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.kvbm import KvbmConfig, KvbmManager
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    mcfg = LlamaConfig.tiny(num_layers=32, num_heads=8, num_kv_heads=8,
+                            head_dim=128, page_size=16, hidden_size=256,
+                            intermediate_size=512, max_pages_per_seq=80)
+    eng = TorchEngine(TorchEngineConfig(model=mcfg, num_pages=num_pages,
+                                        device="cuda"))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for c in (*eng.k_cache, *eng.v_cache):
+        c.copy_(torch.randn(c.shape, generator=gen, device=dev))
+    return eng, KvbmManager(eng, KvbmConfig(host_blocks=256, **kvbm_kw))
+
+
+def test_kvbm_offload_onboard_round_trip_bit_exact_at_8b_geometry(
+        cuda_device):
+    """66 pages offloaded through the gather and the pinned copy (one
+    block each, owning its storage, equal to the pages bit for bit), put
+    in and read back from the host tier, then onboarded into 66 other
+    pages through the pinned stack, one copy and K3: the new pages equal
+    the old ones bit for bit; one gather launch, 32 K3 launches."""
+    from dynamo_tpu_torch.engine import cuda_build
+    from dynamo_tpu_torch.tokens import compute_seq_hashes
+
+    eng, mgr = _kvbm_engine(cuda_device)
+    src = list(range(1, 67))
+    dst = list(range(100, 166))
+    before = cuda_build.launch_counts()
+    blocks = eng._read_kv_pages_sync(src)
+    hashes = compute_seq_hashes(list(range(66 * 16)), 16)
+    for i, (h, b) in enumerate(zip(hashes, blocks)):
+        assert b.device.type == "cpu" and b.dtype == torch.bfloat16
+        assert b.shape == (2, 32, 8, 16, 128) and b.is_contiguous()
+        assert b.untyped_storage().nbytes() == b.nbytes == 2 << 20
+        want = torch.stack([torch.stack([c[:, src[i]] for c in caches])
+                            for caches in (eng.k_cache, eng.v_cache)])
+        assert torch.equal(b, want.cpu())
+        mgr.store.put(h, b)
+    eng.write_kv_blocks(dst, [mgr.store.get(h) for h in hashes])
+    torch.cuda.synchronize()
+    delta = cuda_build.launch_delta(before, cuda_build.launch_counts())
+    assert delta == {"paged_kv_gather": 1, "paged_kv_write_pages": 32}
+    for caches in (eng.k_cache, eng.v_cache):
+        for c in caches:
+            assert torch.equal(c[:, dst], c[:, src])
+    asyncio.run(eng.close())
+    # one onboard and one offload read, each stage timed once (close
+    # settles the onboard's copy and K3)
+    for name, h in eng.metrics.kvbm_stage.items():
+        assert h.count == 1 and h.sum > 0, name
+
+
+def test_kvbm_pinned_staging_reused_across_onboards(cuda_device):
+    """Onboards of 66, 40 and 66 blocks and offloads of 66 and 10 pages
+    reuse one pinned host buffer each (and one device buffer each): the
+    same allocation, page-locked, never replaced."""
+    eng, _ = _kvbm_engine(cuda_device)
+    blocks = eng._read_kv_pages_sync(list(range(1, 67)))
+    offload = eng._kv_staging["offload"]
+    offload_dev = eng._kv_staging["offload_dev"]
+    eng._read_kv_pages_sync(list(range(70, 80)))
+    assert eng._kv_staging["offload_dev"] is offload_dev
+    ptrs = None
+    for n in (66, 40, 66):
+        eng.write_kv_blocks(list(range(100, 100 + n)), blocks[:n])
+        now = {k: (v.data_ptr(), v.numel()) for k, v in
+               eng._kv_staging.items()}
+        assert ptrs is None or now == ptrs
+        ptrs = now
+    torch.cuda.synchronize()
+    assert eng._kv_staging["offload"] is offload and offload.is_pinned()
+    assert eng._kv_staging["onboard"].is_pinned()
+    assert eng._kv_staging["onboard_dev"].device.type == "cuda"
+    asyncio.run(eng.close())
+
+
+def test_kvbm_pipelined_offload_across_graph_captures(cuda_device):
+    """The pipelined offload worker (delayed 0.1 s a batch, so its pins
+    stay out) runs while the engine captures new CUDA graphs: some
+    captures happen with offload pins outstanding, and every stream —
+    revisits onboarded from the host tier included — equals the same
+    engine's with every graph replaced by its eager call, token and
+    logprob bit for bit (fp32)."""
+    from dynamo_tpu_torch.engine import graphs as graphs_mod
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.kvbm import KvbmConfig, KvbmManager
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.faults import FaultInjector
+
+    mcfg = LlamaConfig.tiny(dtype=torch.float32, head_dim=32, page_size=8)
+    model = init_params(mcfg, 0, cuda_device)
+    prompts = [list(range(b, b + n)) for b, n in
+               ((1, 30), (40, 30), (80, 60), (1, 30), (150, 100),
+                (40, 30), (200, 14))]
+
+    class EagerGraphs(graphs_mod.StepGraphs):
+        def run(self, key, fn, inputs):
+            self.replays += 1
+            return fn(*(graphs_mod._tensor(a).to(self.device)
+                        for a in inputs))
+
+    def run(eager: bool):
+        eng = TorchEngine(TorchEngineConfig(
+            model=mcfg, num_pages=24, max_batch_size=4, prefill_chunk=32,
+            min_prefill_bucket=8, device="cuda"), model=model)
+        mgr = KvbmManager(eng, KvbmConfig(
+            host_blocks=256, offload_queue_depth=64, offload_workers=2),
+            fault_injector=FaultInjector.from_spec(
+                "kind=offload_delay,times=*,delay_s=0.1"))
+        pins_at_capture = []
+        if eager:
+            eng.graphs = EagerGraphs(cuda_device)
+        else:
+            capture = eng.graphs._capture
+
+            def counted(fn, inputs):
+                pins_at_capture.append(eng.pool.pending_offload_pages)
+                return capture(fn, inputs)
+
+            eng.graphs._capture = counted
+
+        async def main():
+            outs = []
+            try:
+                for p in prompts:
+                    toks, lps = [], []
+                    async for o in eng.generate(
+                            {"token_ids": p,
+                             "sampling": {"temperature": 0.0},
+                             "stop": {"max_tokens": 6}}, Context()):
+                        assert o.get("finish_reason") != "error", o
+                        toks.extend(o.get("token_ids", ()))
+                        lps.extend(o.get("log_probs") or ())
+                    outs.append((toks, lps))
+                while eng.pool.pending_offload_pages or mgr._offload_q_blocks:
+                    await asyncio.sleep(0.01)
+                return outs, dict(vars(mgr.stats))
+            finally:
+                await eng.close()
+
+        outs, stats = asyncio.run(main())
+        return outs, stats, pins_at_capture, eng.graphs
+
+    got, stats, pins, graphed = run(eager=False)
+    want, _, _, _ = run(eager=True)
+    assert got == want
+    assert got[3] == got[0] and got[5] == got[1]
+    assert stats["offloaded"] > 0 and stats["onboarded"] > 0
+    assert graphed.captures == len(pins) and graphed.replays > len(pins)
+    assert any(n > 0 for n in pins), pins

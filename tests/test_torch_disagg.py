@@ -52,6 +52,7 @@ from dynamo_tpu_torch.models import llama as tl
 from dynamo_tpu_torch.models.convert import params_from_jax
 from dynamo_tpu_torch.runtime import config as t_config
 from dynamo_tpu_torch.runtime import distributed as t_dist
+from dynamo_tpu_torch.runtime import tensors
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
@@ -785,7 +786,8 @@ def test_wire_frames_interoperate_with_the_jax_package(xla_impl,
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_wire_bytes_match_the_reference_encoding(dtype):
-    """`_tensor_bytes` / `_tensor_from` against the reference's
+    """`runtime/tensors.py` `tensor_bytes` / `tensor_from` against the
+    reference's
     `_bf16_bytes` / `_bf16_from` (ml_dtypes bf16): the same bytes, shape
     and dtype name, both ways."""
     import ml_dtypes
@@ -795,9 +797,9 @@ def test_wire_bytes_match_the_reference_encoding(dtype):
     np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
     ref = x.astype(np_dt)
     t = torch.from_numpy(x).to(getattr(torch, dtype))
-    raw, shape, name = H._tensor_bytes(t)
+    raw, shape, name = tensors.tensor_bytes(t)
     assert (raw, shape, name) == ref_handlers._bf16_bytes(ref)
-    back = H._tensor_from(*ref_handlers._bf16_bytes(ref))
+    back = tensors.tensor_from(*ref_handlers._bf16_bytes(ref))
     assert torch.equal(back, t)
     theirs = ref_handlers._bf16_from(raw, shape, name)
     assert theirs.tobytes() == raw and theirs.dtype == np.dtype(np_dt)
@@ -806,13 +808,25 @@ def test_wire_bytes_match_the_reference_encoding(dtype):
 # -- the workers as processes --------------------------------------------------
 
 def test_disagg_workers_serve_and_load_no_foreign_module(tmp_path):
+    _disagg_fleet(tmp_path, "push")
+
+
+def test_disagg_queue_workers_serve_and_load_no_foreign_module(tmp_path):
+    _disagg_fleet(tmp_path, "queue")
+
+
+def _disagg_fleet(tmp_path, dispatch):
     """The coordinator, a `--is-prefill-worker` worker, an
     `--enable-disagg --max-local-prefill-length 32` worker (both `--device
-    cpu`, one synthetic checkpoint) and the frontend as subprocesses: a
-    long prompt is prefilled remotely and pulled over the wire, a short
-    one stays local, both answer; the prefill worker registers under
-    `backend_prefill`; none of the processes loaded jax, any dynamo_tpu
-    module, msgpack or aiohttp."""
+    cpu` and `--kvbm-host-blocks 64`, both with `--prefill-queue` in the
+    queue case, one synthetic checkpoint) and the frontend as
+    subprocesses: a long prompt is prefilled remotely (pushed to the
+    prefill pool, or through the queue, the decode worker's only
+    dispatch then) and pulled over the wire, a short one stays local,
+    both answer; the prefill worker registers under `backend_prefill`;
+    the frontend's `/kvbm/status` lists both workers' KVBM; none of the
+    processes loaded jax, any dynamo_tpu module, ml_dtypes, msgpack or
+    aiohttp."""
     import time
 
     from dynamo_tpu.models.synth_ckpt import write_synthetic_hf_checkpoint
@@ -836,6 +850,20 @@ def test_disagg_workers_serve_and_load_no_foreign_module(tmp_path):
         finally:
             conn.close()
 
+    def admin(url, method, path, body=None):
+        import http.client
+        import json
+        from urllib.parse import urlsplit
+
+        u = urlsplit(url)
+        conn = http.client.HTTPConnection(u.hostname, u.port, timeout=60)
+        try:
+            conn.request(method, path, body=body)
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
     ckpt = write_synthetic_hf_checkpoint(str(tmp_path / "tiny"),
                                          preset="tiny")
     procs = []
@@ -846,7 +874,10 @@ def test_disagg_workers_serve_and_load_no_foreign_module(tmp_path):
         procs.append(coord)
         store = coord.wait_line("COORDINATOR_READY")
         common = ["--model", ckpt, "--device", "cpu", "--store", store,
-                  "--num-pages", "64", "--router-mode", "round_robin"]
+                  "--num-pages", "64", "--router-mode", "round_robin",
+                  "--kvbm-host-blocks", "64"]
+        if dispatch == "queue":
+            common.append("--prefill-queue")
         # the frontend binds a model name to the first card it sees: the
         # prefill pool publishes its own name
         prefill = _Proc(tmp_path, "prefill", "dynamo_tpu_torch.worker",
@@ -878,6 +909,21 @@ def test_disagg_workers_serve_and_load_no_foreign_module(tmp_path):
         assert body["usage"]["completion_tokens"] == 4
         status, body = run_chat(url, "tiny", text="hi")
         assert status == 200, body
+        status, body = admin(url, "GET", "/kvbm/status")
+        assert status == 200 and body["status"] == "success", body
+        rows = {m: list(r.values()) for m, r in body["results"].items()}
+        assert rows["tiny"][0]["g2"]["capacity"] == 64
+        assert rows["tiny-prefill"][0]["status"] == "success"
+        status, body = admin(url, "POST", "/kvbm/reset", b'{"level": "g2"}')
+        assert status == 200, body
+        assert [list(r.values())[0]["dropped"]
+                for r in body["results"].values()] == [{"g2": 0}] * 2
+        status, body = admin(url, "POST", "/kvbm/reset", b'{"level": "g9"}')
+        assert list(body["results"]["tiny"].values())[0]["status"] == "error"
+        status, body = admin(url, "POST", "/clear_kv_blocks")
+        assert status == 200 and all(
+            list(r.values())[0]["status"] == "success"
+            for r in body["results"].values()), body
     finally:
         rcs = [p.stop() for p in reversed(procs)]
     for p, rc in zip(reversed(procs), rcs):
@@ -904,6 +950,12 @@ def test_worker_disagg_flags():
         worker_main.check_args(worker_main.parse_args(
             ["--echo", "--router-mode", "round_robin",
              "--is-prefill-worker"]))
-    with pytest.raises(SystemExit, match="prefill_queue.py"):
-        worker_main.check_args(worker_main.parse_args(
-            base + ["--enable-disagg", "--prefill-queue"]))
+    args = worker_main.parse_args(base + ["--enable-disagg",
+                                          "--prefill-queue"])
+    worker_main.check_args(args)
+    assert args.prefill_queue and args.enable_disagg
+    args = worker_main.parse_args(base + ["--is-prefill-worker",
+                                          "--prefill-queue"])
+    worker_main.check_args(args)
+    assert args.prefill_queue and args.is_prefill_worker
+    assert not worker_main.parse_args(base).prefill_queue

@@ -236,7 +236,8 @@ _FOREIGN_PROBE = (
     "    runpy.run_module(sys.argv[0], run_name='__main__')\n"
     "finally:\n"
     "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-    "('jax', 'jaxlib', 'dynamo_tpu', 'msgpack', 'aiohttp'))\n"
+    "('jax', 'jaxlib', 'dynamo_tpu', 'ml_dtypes', 'msgpack', "
+    "'aiohttp'))\n"
     "    print('FOREIGN', bad, flush=True)\n")
 
 
