@@ -28,6 +28,13 @@ on):
     17, 32), contexts to 4096 (split across CTAs); in bf16 also q = 0; one
     bf16 call captured in a CUDA graph and replayed with lengths changed in
     place, equal to an eager call
+ 3-6 at the draft's geometry (Llama-3.2-1B: H 32, KVH 8, D 64, P 16),
+    bf16: K2 and K3 bit-exact outside page 0 on every source layout; K1
+    (ragged mix, decode rows) and K4 (page edges, long lanes) within
+    K1_BF16_TOL / K4_BF16_TOL, padding rows and empty lanes exact zeros,
+    q = 0 at the uniform tolerance; and one K1 call at a verify round
+    (8 lanes x 5 rows from unaligned cursors, D 128) against the plain
+    version
  7. K5 w8a8_matmul and K6 int4_matmul vs plain at the four Llama-3-8B
     projection shapes (4096x4096 wq/wo, 4096x1024 wk/wv, 4096x14336
     gate/up, 14336x4096 down), M in A8_MS (both sides of every design
@@ -93,8 +100,12 @@ on):
     parting at a bf16 near-tie (BF16_TIE_TOL, printed with step and gap);
     TTFT p50/p99, ITL p50 and tok/s through HTTP beside the in-process
     batch's, the frontend's response frames per second, the worker's CUDA
-    graph captures and replays (from its `_sys.stats` scrape); every
-    subprocess stopped at the end
+    graph captures and replays (from its `_sys.stats` scrape); then the
+    running worker answers one /v1/embeddings request (a 300-token input
+    as ids; its vector within cosine 0.9999 of the in-process
+    `embed_batch` on phase 8's weights), one n = 2 chat (two choices)
+    and one /v1/responses request (completed, a message, its usage);
+    every subprocess stopped at the end
  8d. the KV router on the card: the coordinator, TWO `.worker`s with
     phase 8c's flags but `--router-mode kv` (Llama-3-8B full shape, random
     init seed 0, cuda, 2048 pages of 16 — fewer, printed, only if the
@@ -165,7 +176,34 @@ on):
     launch or pinned allocation fails its request); every revisit / wave / G3 / G4
     stream equals its cold stream or parts at a near-tie (BF16_TIE_TOL,
     printed); KV event ids with no gap in every engine
- 9. quantized main path: the same batch on the phase path through
+ 8g. speculative decoding, in process, on phase 8's 8B weights and a
+    random Llama-3.2-1B-shaped draft (DRAFT_1B_CONFIG, bf16, seed 1; its
+    config read through the loader at the target's page geometry), on
+    the phase path: gamma 4, 8 iterations a burst, batch 8, chunk budget
+    512; phase 8's 10 requests all in flight (greedy, top-8 logprobs,
+    max_tokens 32) with the launch counts zeroed just before and read
+    just after (K1, K2, K3, K4 > 0, K5 = K6 = 0); "prefill",
+    "prefill_draft", "sample_first" and "spec_decode" captured and the
+    graphs replayed; every stream equal to phase 8's no-draft batch or
+    parting at a near-tie (BF16_TIE_TOL, printed with step and gap);
+    draft tokens > 0; greedy determinism; a seeded request at
+    temperature 0.8 identical when run twice on an empty prefix cache,
+    then once more with a prefix hit, and the same three runs on a
+    no-draft phase engine (printed: whether the prefix hit moves the
+    stream, and how far the first token's top-8 logprobs move). Then
+    the disagreement rate of the draft's and the verify's argmax at the
+    same positions (`draft_verify_disagreement`: the 8B model's greedy
+    decode steps through K4 against its gamma + 1-row verify forwards
+    through K1 over the same tokens), and a self-draft pass (the 8B
+    model is its own draft, with caches of its own) on the first four
+    requests at max_tokens 64 (at least two spec bursts): acceptance at
+    or above the floor `self_draft_floor` derives from that rate, its
+    streams equal to phase 8's over their 32 tokens or parting at
+    near-ties. Printed per pass: the acceptance rate and tokens per
+    burst (random weights: a bound on the path's cost, not a claim),
+    tok/s and TTFT p50 (the 1B pass's steady batch beside phase 8's)
+ 9. quantized main path: every other request of the batch (5; cut since
+    8g was added) on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
     same random weights, quantized by the engine): w8a8 launches K5 and
     not K6, int4 K6 and not K5, both K1, K2, K3, K4; the phase path's
@@ -182,19 +220,24 @@ on):
     in bf16, w8a8, int4 and int8) captured in a CUDA graph through
     `engine/graphs.py` and replayed on a copy of the caches: bit-identical
     with the eager step on the same inputs (every output, both caches
-    outside page 0)
+    outside page 0); likewise one bare 8-lane spec burst of the 8B target
+    and the 1B draft (gamma 4, 8 iterations) on copies of both cache
+    pairs
 11. profiles at 8B: host wall time (with the one sync) and device busy time
     (torch.profiler's CUDA kernels and copies) of a bare ragged decode
     round, a bare ragged mixed round, the phase path's bare prefill rounds,
-    mixed step and first-token sampling, and a bare 8-step decode burst
-    (bf16, w8a8, int4, and int8 = W8A16), device time by kernel class and
-    device
-    ops per step; beside each, the same step replayed from its graph
-    (host wall, device busy, the replay timed with CUDA events too, device
-    ops) and the graph pool's bytes; each
-    bf16 path's engine batch once more with kernel tracing only (host wall
-    vs device busy and idle share, the dispatches still eager — not run
-    from a graph —, graph captures and replays)
+    mixed step and first-token sampling, a bare 8-step decode burst
+    (bf16, w8a8, int4 and int8: W8A16, cuBLAS over weights converted to
+    bf16 on every call, not a main-path cell), device time by kernel
+    class and device ops per step; beside each, the same step replayed
+    from its graph (host wall, device busy, the replay timed with CUDA
+    events too, device ops) and the graph pool's bytes; the bare spec
+    burst replayed only (eager, it issues tens of thousands of launches:
+    cut since 8g was added); the phase path's
+    engine batch once more (the ragged path's: cut since 8g was added)
+    with kernel tracing only (host wall vs device busy and idle share,
+    the dispatches still eager — not run from a graph —, graph captures
+    and replays)
 12. kernel path vs plain path at 2 layers, full width, fp32: greedy
     streams over 16 steps x 3 requests across phase-kernel, phase-plain,
     ragged-kernel and ragged-plain — identical unquantized, and under
@@ -217,8 +260,12 @@ on):
     under a padding mask (the mixed round's ragged mix has no single
     library call; its library column stays null); the
     KV gather of 66 pages x 32 layers beside its plain version and the
-    per-layer index_select loop; each path's and mode's output tok/s and
-    TTFT p50, the phase path's steady batch apart
+    per-layer index_select loop; K4 on the burst's lanes and K1 on the
+    decode round at the draft's geometry (D 64) beside their plain
+    versions and SDPA; each path's and mode's output tok/s and TTFT p50,
+    the phase path's steady batch apart
+
+Each phase's seconds are printed on a `[phase-time]` line.
 
 The last three lines of stdout are the kernels JSON, the nvidia-smi line
 and `{"ok": true, "device": {...}}`.
@@ -251,6 +298,22 @@ LLAMA3_8B_CONFIG = {
     "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
     "max_position_embeddings": 8192, "tie_word_embeddings": False,
 }
+# Llama-3.2-1B's published shape (meta-llama/Llama-3.2-1B config.json), the
+# draft of phase 8g. The published config also has rope_scaling
+# {"rope_type": "llama3", ...}, which neither package reads (both apply
+# plain RoPE at rope_theta): with it left out, this draft differs from the
+# published model in its rotary frequencies
+DRAFT_1B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64, "vocab_size": 128256,
+    "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
+    "max_position_embeddings": 131072, "tie_word_embeddings": True,
+}
+# phase 8g's speculative decoding: draft tokens per iteration, iterations
+# per burst
+SPEC_GAMMA, SPEC_ITERS = 4, 8
 # card peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16 and fp32 flop/s,
 # int8 op/s
 PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12, 1979e12),
@@ -600,6 +663,154 @@ def blocked_plain_attention(ragged, torch):
     return run
 
 
+def draft_geometry_checks(torch, gen, dev, kernels, attention, ragged,
+                          plain_k1, n_pages: int, max_pages: int) -> dict:
+    """Phases 3-6 at the draft's geometry (Llama-3.2-1B: H 32, KVH 8, D 64,
+    P 16), bf16: K2 and K3 bit-exact outside page 0 on every source
+    layout; K1 on a ragged mix and on decode rows, K4 on page-edge and long
+    lanes, within K1_BF16_TOL / K4_BF16_TOL, padding rows and empty lanes
+    exact zeros, and with q = 0 at the uniform tolerance. Then one K1 call
+    at a verify round's shape (8 lanes x SPEC_GAMMA + 1 rows from
+    unaligned cursors, D 128) against the plain version. Returns the max
+    abs errors by kernel."""
+    H, KVH, D, P = 32, 8, 64, 16
+    dt = torch.bfloat16
+    errs = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "k4": 0.0}
+    kc = torch.randn(KVH, n_pages, P, D, generator=gen).to(dev, dt)
+    vc = torch.randn(KVH, n_pages, P, D, generator=gen).to(dev, dt)
+    B = 64
+    slots = torch.randperm((n_pages - 1) * P, generator=gen)[:B]
+    pages = (1 + slots // P).to(torch.int32)
+    offs = (slots % P).to(torch.int32)
+    pages[-6:], offs[-6:] = 0, 0
+    pages, offs = pages.to(dev), offs.to(dev)
+    for layout in K2_LAYOUTS:
+        rows = [k2_rows(torch, gen, dev, B, KVH, D, layout) for _ in range(2)]
+        want = (kc.clone(), vc.clone())
+        kernels.paged_kv_write_ref(*want, *rows, pages, offs)
+        got = (kc.clone(), vc.clone())
+        kernels.paged_kv_write(*got, *rows, pages, offs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g[:, 1:], w[:, 1:])
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"K2 at D {D} differs from its plain "
+                                 f"version on {layout} sources")
+    M = 40
+    ids = (1 + torch.randperm(n_pages - 1, generator=gen)[:M]).to(
+        torch.int32)
+    ids[[5, 17, 30, 31, 39]] = 0
+    ids = ids.to(dev)
+    for layout in K3_LAYOUTS:
+        blocks = [k3_blocks(torch, gen, dev, M, KVH, P, D, layout)
+                  for _ in range(2)]
+        want = (kc.clone(), vc.clone())
+        kernels.paged_kv_write_pages_ref(*want, *blocks, ids)
+        got = (kc.clone(), vc.clone())
+        kernels.paged_kv_write_pages(*got, *blocks, ids)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g[:, 1:], w[:, 1:])
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"K3 at D {D} differs from its plain "
+                                 f"version on {layout} blocks")
+    log(f"[draft-geometry] K2 (B {B}, sources {K2_LAYOUTS}) and K3 (M {M}, "
+        f"5 padding slots, blocks {K3_LAYOUTS}) at KVH {KVH} D {D} P {P} "
+        f"bf16: bit-exact outside page 0")
+    del got, want
+    decode_ctx = [1, 17, 100, 511, 1024, 2047, 3000, 4096]
+    for label, mix in (("mixed", (decode_ctx, [(1000, 100), (0, 60),
+                                               (7, 25)], 12)),
+                       ("decode", (decode_ctx, [], 2))):
+        qpos, lanes, tables = (x.to(dev) for x in attention_mix(
+            torch, gen, n_pages, P, max_pages, *mix))
+        q = torch.randn(qpos.numel(), H, D, generator=gen).to(dev, dt)
+        got = ragged.ragged_paged_attention(q, kc, vc, qpos, lanes, tables)
+        want = plain_k1(q, kc, vc, qpos, lanes, tables)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **K1_BF16_TOL)
+        if not torch.all(got[qpos < 0] == 0):
+            raise AssertionError("K1 padding rows at D 64 are not zeros")
+        err = (got.float() - want.float()).abs().max().item()
+        errs["k1"] = max(errs["k1"], err)
+        log(f"[draft-geometry] K1 {label} H {H} KVH {KVH} D {D} bf16 rows "
+            f"{qpos.numel()}: max_abs_err {err:.3e} ({K1_BF16_TOL})")
+        uniform_check(ragged, plain_k1, torch, kc, vc, qpos, lanes, tables,
+                      H, f"D {D} {label}")
+    for label, lens in (("edges", [1, 15, 16, 17, 32, 0, 33, 0]),
+                        ("long", [0, 100, 511, 1024, 2047, 3000, 4096,
+                                  4000])):
+        args = decode_case(torch, gen, dev, dt, lens, n_pages, max_pages, H,
+                           KVH, P, D)
+        got = attention.paged_attention_decode(*args)
+        want = attention.paged_attention_decode_ref(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **K4_BF16_TOL)
+        if not torch.all(got[args[3] == 0] == 0):
+            raise AssertionError("K4 empty lanes at D 64 are not zeros")
+        err = (got.float() - want.float()).abs().max().item()
+        errs["k4"] = max(errs["k4"], err)
+        zq = (torch.zeros_like(args[0]),) + args[1:]
+        got = attention.paged_attention_decode(*zq)
+        want = attention.paged_attention_decode_ref(
+            *[a.float() if a.is_floating_point() else a for a in zq])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, **K4_UNIFORM_TOL)
+        log(f"[draft-geometry] K4 {label} H {H} KVH {KVH} D {D} bf16 lanes "
+            f"{lens}: max_abs_err {err:.3e} ({K4_BF16_TOL}); q = 0 "
+            f"{(got.float() - want).abs().max().item():.3e} "
+            f"({K4_UNIFORM_TOL})")
+        del args
+    del kc, vc
+    # a verify round: 8 lanes x (gamma + 1) rows from unaligned cursors
+    g1, d8 = SPEC_GAMMA + 1, 128
+    starts = [44, 73, 133, 233, 383, 653, 853, 1033]
+    tables = torch.zeros(8, max_pages, dtype=torch.int32)
+    free = (1 + torch.randperm(n_pages - 1, generator=gen)).tolist()
+    for i, st in enumerate(starts):
+        need = -(-(st + g1) // P)
+        tables[i, :need] = torch.tensor(free[:need], dtype=torch.int32)
+        free = free[need:]
+    qpos = torch.tensor([st + j for st in starts for j in range(g1)],
+                        dtype=torch.int32).to(dev)
+    lanes = torch.tensor([i for i in range(8) for _ in range(g1)],
+                         dtype=torch.int32).to(dev)
+    tables = tables.to(dev)
+    kp = torch.randn(KVH, n_pages, P, d8, generator=gen).to(dev, dt)
+    vp = torch.randn(KVH, n_pages, P, d8, generator=gen).to(dev, dt)
+    q = torch.randn(qpos.numel(), H, d8, generator=gen).to(dev, dt)
+    got = ragged.ragged_paged_attention(q, kp, vp, qpos, lanes, tables)
+    want = plain_k1(q, kp, vp, qpos, lanes, tables)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **K1_BF16_TOL)
+    err = (got.float() - want.float()).abs().max().item()
+    errs["k1"] = max(errs["k1"], err)
+    log(f"[draft-geometry] K1 at a verify round (8 lanes x {g1} rows from "
+        f"cursors {starts}, D {d8}) bf16: max_abs_err {err:.3e} "
+        f"({K1_BF16_TOL})")
+    return errs
+
+
+def compare_streams(want: list, got: list, label: str) -> list:
+    """(tokens, top-k) per request, `got` against `want`: equal, or parting
+    at a bf16 near-tie within BF16_TIE_TOL (each printed with its step
+    and gap); a length mismatch without a parting raises. Returns the
+    partings [(request, step, gap)]."""
+    partings = []
+    for r, ((ta, ka), (tb, kb)) in enumerate(zip(want, got)):
+        n = min(len(ta), len(tb))
+        if next((i for i in range(n) if ta[i] != tb[i]), None) is None:
+            if len(ta) != len(tb):
+                raise AssertionError(f"{label}, request {r}: {len(tb)} "
+                                     f"tokens against {len(ta)}")
+            continue
+        for _, s, g in stream_partings([(ta[:n], ka[:n])],
+                                       [(tb[:n], kb[:n])], BF16_TIE_TOL):
+            partings.append((r, s, g))
+            log(f"[{label}] request {r} parts at step {s} of {len(tb)}: "
+                f"tokens {ta[s]} vs {tb[s]}, logprob gap {g:.4f} nats (tie "
+                f"tolerance {BF16_TIE_TOL}); identical before it")
+    return partings
+
+
 # a batch request's fields beside its text: greedy, the top-8 logprobs of
 # each token, logprobs tokens as "token_id:<id>" (random weights emit
 # tokens the byte tokenizer decodes to nothing) and one chunk per engine
@@ -793,8 +1004,71 @@ async def worker_scrape(store_url: str) -> dict:
     return out
 
 
+def _http_post(port: int, path: str, body: dict) -> tuple[int, dict]:
+    """One unary JSON request: (status, decoded body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def serving_extras(torch, port: int, model, llama) -> None:
+    """Phase 8c's extras against the running worker: one /v1/embeddings
+    request (a 300-token prompt as ids), its vector held to the in-process
+    `embed_batch` of phase 8's weights on the same padded bucket at
+    cosine >= 0.9999; one n = 2 chat and one /v1/responses request, each
+    well-formed."""
+    ids = [(7 * i + 3) % 256 for i in range(300)]
+    t0 = time.perf_counter()
+    status, emb = _http_post(port, "/v1/embeddings",
+                             {"model": "llama3-8b", "input": ids})
+    emb_s = time.perf_counter() - t0
+    if status != 200 or len(emb.get("data", ())) != 1:
+        raise AssertionError(f"/v1/embeddings answered {status}: {emb}")
+    got = torch.tensor(emb["data"][0]["embedding"], dtype=torch.float64)
+    bucket = 16
+    while bucket < len(ids):
+        bucket *= 2
+    toks = torch.zeros(1, bucket, dtype=torch.int32)
+    toks[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    want = llama.embed_batch(model, toks.cuda(), torch.tensor(
+        [len(ids)], dtype=torch.int32).cuda())[0].double().cpu()
+    cos = float(got @ want / (got.norm() * want.norm()))
+    if not (got.numel() == model.cfg.hidden_size and cos >= 0.9999
+            and emb["usage"]["prompt_tokens"] == len(ids)):
+        raise AssertionError(f"/v1/embeddings: dim {got.numel()}, cosine "
+                             f"{cos} with the in-process embed_batch")
+    status, chat = _http_post(port, "/v1/chat/completions", {
+        "model": "llama3-8b", "n": 2, "max_tokens": 8, "temperature": 0.8,
+        "seed": 3, "messages": [{"role": "user", "content": "two ways"}]})
+    if status != 200 or [c["index"] for c in chat["choices"]] != [0, 1] \
+            or any(c["finish_reason"] not in ("length", "stop")
+                   for c in chat["choices"]) \
+            or chat["usage"]["completion_tokens"] < 2:
+        raise AssertionError(f"n = 2 chat answered {status}: {chat}")
+    status, resp = _http_post(port, "/v1/responses", {
+        "model": "llama3-8b", "input": "respond", "max_output_tokens": 8,
+        "temperature": 0})
+    if status != 200 or resp.get("status") != "completed" \
+            or resp["output"][0]["type"] != "message" \
+            or resp["usage"]["output_tokens"] < 1:
+        raise AssertionError(f"/v1/responses answered {status}: {resp}")
+    log(f"[serve] /v1/embeddings of a {len(ids)}-token input: "
+        f"{got.numel()} floats in {emb_s:.3f} s, cosine {cos:.7f} with the "
+        f"in-process embed_batch; n = 2 chat: 2 choices, "
+        f"{chat['usage']['completion_tokens']} completion tokens; "
+        f"/v1/responses: status {resp['status']}, "
+        f"{resp['usage']['output_tokens']} output tokens")
+
+
 def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
-                  in_proc: dict) -> None:
+                  in_proc: dict, model, llama) -> None:
     """Phase 8c: the port as a deployment on the card. The coordinator,
     a worker serving the phase-8 checkpoint (random init, seed 0) on cuda
     and the OpenAI frontend run as three processes; phase 8's 10 chat
@@ -803,7 +1077,8 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
     in-process phase-path batch for the same request (or parting at a
     bf16 near-tie within BF16_TIE_TOL). Prints TTFT, ITL and tok/s through
     HTTP beside the in-process batch's, the frames the frontend received,
-    and the worker's CUDA-graph captures and replays."""
+    and the worker's CUDA-graph captures and replays. Then the worker
+    answers the serving extras (`serving_extras`)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dynamo_tpu_torch.runtime.distributed import free_port
@@ -855,6 +1130,8 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
                 raise AssertionError(f"{p.name} exited: "
                                      f"{p.stderr_tail()}")
         fe_metrics = _http_get(port, "/metrics").decode()
+        with torch.inference_mode():
+            serving_extras(torch, port, model, llama)
         (wk_metrics,) = asyncio.run(worker_scrape(store)).values()
     finally:
         for p in reversed(services):
@@ -862,24 +1139,7 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
     # tokens against the in-process phase-path batch
     want = [token_ids_of(r["logprobs"]) for r in in_proc["results"]]
     got = [(s["tokens"], s["tops"]) for s in streams]
-    partings = []
-    for r, ((ta, ka), (tb, kb)) in enumerate(zip(want, got)):
-        n = min(len(ta), len(tb))
-        step = next((i for i in range(n) if ta[i] != tb[i]), None)
-        if step is None:
-            if len(ta) != len(tb):
-                raise AssertionError(f"request {r}: {len(ta)} tokens in "
-                                     f"process, {len(tb)} through HTTP")
-            continue
-        for _, s, g in stream_partings([(ta[:n], ka[:n])], [(tb[:n], kb[:n])],
-                                       BF16_TIE_TOL):
-            partings.append((r, s, g))
-    for r, step, gap in partings:
-        log(f"[serve] request {r} through HTTP parts from the in-process "
-            f"phase-path stream at step {step} of "
-            f"{len(streams[r]['tokens'])}: tokens {want[r][0][step]} vs "
-            f"{got[r][0][step]}, logprob gap {gap:.4f} nats (tie tolerance "
-            f"{BF16_TIE_TOL}); identical before it")
+    partings = compare_streams(want, got, "serve")
     log(f"[serve] {len(streams)} HTTP streams complete (200, SSE, [DONE], "
         f"finish reasons {sorted({s['finish'] for s in streams})}); "
         f"{len(streams) - len(partings)} token-identical with the "
@@ -2175,6 +2435,160 @@ def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
     return out
 
 
+def profile_spec(torch, llama, graphs, model, draft, dev):
+    """Phase 11a / 11 for the spec burst: a bare 8-lane burst (gamma
+    SPEC_GAMMA, SPEC_ITERS iterations, greedy, the burst lanes of
+    `profile_rounds`) of `model` verifying `draft`'s proposals, captured
+    in a CUDA graph on copies of both cache pairs and held bit-identical
+    with the eager burst on other copies (packed output, all four caches
+    outside page 0), then its replay measured as `profile_rounds`
+    measures a graphed step (eager, the burst issues tens of thousands of
+    launches: not measured). Returns (None, graphed, replay ms by CUDA
+    events, pool bytes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine.spec import spec_decode_multi_step
+
+    cfg, bmax = model.cfg, 8
+    ctx = [44, 73, 133, 233, 383, 653, 853, 1033]
+    n_pages = 1 + 72 * bmax
+    caches = [*llama.init_cache(cfg, n_pages, dev),
+              *llama.init_cache(draft.cfg, n_pages, dev)]
+    for c in caches:
+        for t in c:
+            t.normal_()
+    tables = torch.zeros(bmax, cfg.max_pages_per_seq, dtype=torch.int32)
+    for i in range(bmax):
+        tables[i, :72] = torch.arange(1 + 72 * i, 73 + 72 * i)
+    z = torch.zeros(bmax, dtype=torch.int64)
+    args = [torch.randint(0, cfg.vocab_size, (bmax,), dtype=torch.int32),
+            torch.tensor(ctx, dtype=torch.int32) - 1, tables,
+            torch.ones(bmax, dtype=torch.bool),
+            torch.arange(bmax, dtype=torch.int64) * 7 + 1, z,
+            torch.zeros(bmax), torch.ones(bmax), z]
+    host = [a.numpy() for a in args]
+
+    def fn(cs):
+        return lambda *a: spec_decode_multi_step(
+            model, draft, *cs, *a, gamma=SPEC_GAMMA,
+            num_iters=SPEC_ITERS)[0]
+
+    with torch.inference_mode():
+        g_caches = [[t.clone() for t in c] for c in caches]
+        e_caches = [[t.clone() for t in c] for c in caches]
+        step_graphs = graphs.StepGraphs(dev)
+        t0 = time.perf_counter()
+        got = step_graphs.run(("spec",), fn(g_caches), host)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        want = fn(e_caches)(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("the spec burst's graph replay differs from "
+                                 "the eager burst")
+        for g, e in zip(g_caches, e_caches):
+            for tg, te in zip(g, e):
+                if not torch.equal(tg[:, 1:], te[:, 1:]):
+                    raise AssertionError("the spec burst's graph left other "
+                                         "caches than the eager burst")
+        del e_caches, want
+        log(f"[graph] bf16 spec burst (8B + 1B draft, 8 lanes, gamma "
+            f"{SPEC_GAMMA}, {SPEC_ITERS} iterations, bare): captured in "
+            f"{capture_s:.3f} s (warm-up + capture + first replay), replay "
+            f"bit-identical with the eager burst (packed output, target and "
+            f"draft caches outside page 0)")
+
+        def replay():
+            return step_graphs.run(("spec",), None, host).cpu()
+
+        graphed = measure(torch, replay, ProfilerActivity, profile, reps=1)
+        ev = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            replay()
+            end.record()
+            end.synchronize()
+            ev.append(start.elapsed_time(end))
+        pool = step_graphs.pool_bytes()
+        del step_graphs, g_caches, got, caches
+    torch.cuda.empty_cache()
+    return None, graphed, statistics.median(ev), pool
+
+
+def draft_verify_disagreement(torch, llama, model, dev, n_steps: int = 80):
+    """How often a self-draft's proposal and the verify's argmax part, at
+    the same positions: 8 lanes of random prompts (the contexts of the
+    bare steps) prefilled, then `n_steps` greedy decode steps of `model`
+    (K2 + K4, as the draft steps) on one copy of the caches, and on
+    another copy the same tokens fed through gamma + 1-row forwards (K2 +
+    K1's chunk rows, as the verify). Returns (positions compared, the
+    positions where the two argmaxes differ, the verify's largest logit
+    gap between its own argmax and the decode's at those positions)."""
+    cfg, g1 = model.cfg, SPEC_GAMMA + 1
+    ctx = [44, 73, 133, 233, 383, 653, 853, 1033]
+    b = len(ctx)
+    gen = torch.Generator().manual_seed(5)
+    tables = torch.zeros(b, cfg.max_pages_per_seq, dtype=torch.int32)
+    for i in range(b):
+        tables[i, :72] = torch.arange(1 + 72 * i, 73 + 72 * i)
+    tables = tables.to(dev)
+    lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, max(ctx)), generator=gen,
+                           dtype=torch.int32).to(dev)
+    with torch.inference_mode():
+        kc, vc = llama.init_cache(cfg, 1 + 72 * b, dev)
+        first = torch.argmax(llama.prefill_batch(
+            model, kc, vc, prompt, tables, torch.zeros_like(lens), lens), -1)
+        verify_kv = ([c.clone() for c in kc], [c.clone() for c in vc])
+        valid = torch.ones(b, dtype=torch.bool, device=dev)
+        fed, dec = [first.to(torch.int32)], []
+        for t in range(n_steps):
+            logits = llama._decode_once(model, kc, vc, fed[-1], lens + t,
+                                        tables, valid)
+            dec.append(torch.argmax(logits, -1).to(torch.int32))
+            fed.append(dec[-1])
+        fed = torch.stack(fed[:n_steps], 1)
+        dec = torch.stack(dec, 1)
+        differ, gaps = 0, [0.0]
+        for c in range(0, n_steps, g1):
+            x = llama.paged_forward(model, *verify_kv,
+                                    fed[:, c:c + g1].contiguous(), tables,
+                                    lens + c, lens + c + g1)
+            logits = llama.qm(x, model.lm_head).float()
+            top, own = logits.max(-1)
+            want = dec[:, c:c + g1]
+            gap = top - logits.gather(-1, want[..., None].long())[..., 0]
+            off = own.to(torch.int32) != want
+            differ += int(off.sum())
+            gaps += gap[off].tolist()
+        del kc, vc, verify_kv
+    torch.cuda.empty_cache()
+    return dec.numel(), differ, max(gaps)
+
+
+def self_draft_floor(p: float, n_pos: int, n_iters: int,
+                     gamma: int = SPEC_GAMMA) -> tuple[float, float]:
+    """The self-draft's acceptance floor from the measured rate `p` (over
+    `n_pos` positions) at which the draft's and the verify's argmaxes
+    part: a greedy iteration accepts k < gamma proposals with probability
+    (1 - p)^k p and all gamma with (1 - p)^gamma (a rejection discards
+    the rest of its iteration). The floor is that law's mean acceptance
+    at p three standard errors above the measured rate, less three
+    standard deviations of the mean over `n_iters` iterations. Returns
+    (floor, the mean acceptance at the measured p)."""
+    def law(q):
+        return [(1 - q) ** k * q for k in range(gamma)] + [(1 - q) ** gamma]
+
+    p_hi = min(1.0, p + 3 * math.sqrt(max(p * (1 - p), 1 / n_pos) / n_pos))
+    probs = law(p_hi)
+    mean = sum(k / gamma * w for k, w in enumerate(probs))
+    var = sum((k / gamma) ** 2 * w for k, w in enumerate(probs)) - mean ** 2
+    return (mean - 3 * math.sqrt(max(var, 0.0) / max(n_iters, 1)),
+            sum(k / gamma * w for k, w in enumerate(law(p))))
+
+
 def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
     """Host wall (median of 10) of `step` (which ends in its one sync),
     then `reps` more under torch.profiler: (wall_ms, busy_ms or None,
@@ -2759,6 +3173,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(label: str) -> None:
+        """Each phase's seconds on a line of its own."""
+        now = time.perf_counter()
+        log(f"[phase-time] {label}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     # 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -2780,6 +3201,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {kname}: {line.strip()}")
 
+    lap("1-2 device and build")
     gen = torch.Generator().manual_seed(0)
     KVH, D, P, H = 8, 128, 16, 32
     N_PAGES, MAX_PAGES = 2048, 512
@@ -2815,6 +3237,7 @@ def main() -> int:
         k2_err = max(k2_err, err)
     log(f"[k2] paged_kv_write B={B} KVH={KVH} D={D} P={P} N={N_PAGES}, "
         f"sources {K2_LAYOUTS}: bit-exact outside page 0")
+    lap("3 K2")
 
     # 4. K3 vs plain ---------------------------------------------------------
     M = 40
@@ -2845,6 +3268,7 @@ def main() -> int:
         f"KVH={KVH} P={P} D={D} N={N_PAGES}, blocks {K3_LAYOUTS}: bit-exact "
         f"outside page 0")
     del kc, vc, got_k, got_v, want_k, want_v
+    lap("4 K3")
 
     # 5. K1 vs plain ---------------------------------------------------------
     decode_ctx = [1, 17, 100, 511, 1024, 2047, 3000, 4096]
@@ -2896,6 +3320,7 @@ def main() -> int:
                 f"K1 {label} round")
             del qg
         del kp, vp
+    lap("5 K1")
 
     # 6. K4 vs plain ---------------------------------------------------------
     k4_lengths = {  # lanes: page edges, empty lanes, long contexts
@@ -2940,6 +3365,15 @@ def main() -> int:
                 lens_d, [lens_d.flip(0), torch.zeros_like(lens_d),
                          lens_d.clone()], f"K4 {label} lanes")
         del args, got, want
+    lap("6 K4")
+
+    # 3-6 at the draft's geometry (D 64), and K1 at a verify round --------
+    d64 = draft_geometry_checks(torch, gen, dev, kernels, attention, ragged,
+                                plain_k1, N_PAGES, MAX_PAGES)
+    k1_err[torch.bfloat16] = max(k1_err[torch.bfloat16], d64["k1"])
+    k4_err[torch.bfloat16] = max(k4_err[torch.bfloat16], d64["k4"])
+    torch.cuda.empty_cache()
+    lap("3-6 at D 64")
 
     # 7. K5 / K6 vs plain ---------------------------------------------------
     a8_err = {"w8a8": 0.0, "int4": 0.0}
@@ -3015,6 +3449,7 @@ def main() -> int:
             f"call")
         del graph, outs
     del a8_w
+    lap("7 K5/K6")
 
     # 7b. prefill attention through K1, and the KV gather -------------------
     # the phase batch's widest chunk round (prefill_chunk_budget 512): 8
@@ -3084,6 +3519,7 @@ def main() -> int:
         f"with the per-layer index_select stack")
     del got, want, g_caches, g_ptrs, pf_kp, pf_vp, pf_q
     torch.cuda.empty_cache()
+    lap("7b prefill attention and gather")
 
     # 8. main paths --------------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3122,21 +3558,23 @@ def main() -> int:
         return (toks, tops) if top else toks
 
     def serve_batch(eng, label, must_launch, must_not_launch, graph_entries,
-                    steady=False):
-        """The batch through the pipeline with launch counts zeroed just
-        before and read just after (graph replays included), the path's
-        graphed entries captured and replayed (per entry: captures and
-        their seconds), then, with `steady`, a second batch of fresh
-        prompts of the same sizes (the steady state: the graphs exist),
-        then greedy determinism; one event loop for the engine, which is
-        closed at the end."""
+                    steady=False, batch_jobs=None, extra=None):
+        """The batch (`batch_jobs`, default phase 8's 10 requests) through
+        the pipeline with launch counts zeroed just before and read just
+        after (graph replays included), the path's graphed entries
+        captured and replayed (per entry: captures and their seconds),
+        then, with `steady`, a second batch of fresh prompts of the same
+        sizes (the steady state: the graphs exist), then greedy
+        determinism, then `extra(eng)` (its result returned as "extra");
+        one event loop for the engine, which is closed at the end."""
         pipeline = build_pipeline_for(card, eng, args)
 
         async def go():
             try:
                 cuda_build.reset_launch_counts()
                 t0 = time.perf_counter()
-                results = await run_batch(pipeline, card.name, jobs, 32,
+                results = await run_batch(pipeline, card.name,
+                                          batch_jobs or jobs, 32,
                                           os.path.join(work, "out.jsonl"))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
@@ -3145,6 +3583,10 @@ def main() -> int:
                 ttft = list(eng.ttft_s)
                 stats = graph_stats(eng)
                 summary = graph_summary(eng)
+                spec = None
+                if eng.draft is not None:
+                    spec = dict(eng._spec_stats.to_dict(), bursts=int(
+                        eng.metrics.spec_bursts.get()))
                 second = None
                 if steady:
                     t0 = time.perf_counter()
@@ -3164,13 +3606,14 @@ def main() -> int:
                 same = await asyncio.gather(
                     greedy_on(eng, prompt, 12, top=8),
                     greedy_on(eng, prompt, 12, top=8))
+                more = await extra(eng) if extra is not None else None
                 return (results, wall, launches, out_tokens, n_rounds,
-                        ttft, stats, summary, second, same)
+                        ttft, stats, summary, second, same, spec, more)
             finally:
                 await eng.close()
 
         (results, wall, launches, out_tokens, n_rounds, ttft, stats, summary,
-         second, (a, b)) = asyncio.run(go())
+         second, (a, b), spec, more) = asyncio.run(go())
         log(f"[main] {label} path: {len(results)} requests, {out_tokens} "
             f"output tokens in {wall:.2f}s; {n_rounds} device dispatches "
             f"({eng.pipelined_bursts} pipelined bursts); launches "
@@ -3213,7 +3656,8 @@ def main() -> int:
                 f"captures, {second['replays']} replays; on {smi}")
         return {"wall": wall, "launches": launches, "tokens": out_tokens,
                 "rounds": n_rounds, "ttft": ttft, "stream": a,
-                "graphs": stats, "results": results, "steady": second}
+                "graphs": stats, "results": results, "steady": second,
+                "spec": spec, "extra": more}
 
     phase = serve_batch(engine, "phase",
                         ("paged_kv_write", "paged_kv_write_pages",
@@ -3248,29 +3692,34 @@ def main() -> int:
     else:
         log(f"[main] greedy stream of the same 100-token prompt, phase vs "
             f"ragged path (bf16): identical over 12 steps")
+    lap("8 main paths")
 
     # 8b. constrained sampling ---------------------------------------------
     t0 = time.perf_counter()
     constrained = constrained_phase(torch, model, dev, smi, N_PAGES)
     log(f"[constrained] phase 8b in {time.perf_counter() - t0:.1f} s")
+    lap("8b constrained")
 
     # 8c. the port as a deployment ----------------------------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serving_phase(torch, smi, work, ckpt, jobs, phase)
+    serving_phase(torch, smi, work, ckpt, jobs, phase, model, llama)
     log(f"[serve] phase 8c in {time.perf_counter() - t0:.1f} s")
+    lap("8c serving")
 
     # 8d. the KV router on the card -----------------------------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     kv_router_phase(torch, smi, work, ckpt, model, card, 2048)
     log(f"[kv] phase 8d in {time.perf_counter() - t0:.1f} s")
+    lap("8d kv router")
 
     # 8e. disaggregated serving --------------------------------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     disagg = disagg_phase(torch, smi, work, ckpt, jobs, phase, model, 2048)
     log(f"[disagg] phase 8e in {time.perf_counter() - t0:.1f} s")
+    lap("8e disagg")
 
     # 8f. KVBM ------------------------------------------------------------
     torch.cuda.empty_cache()
@@ -3278,6 +3727,167 @@ def main() -> int:
     kvbm_phase(torch, smi, model)
     torch.cuda.empty_cache()
     log(f"[kvbm] phase 8f in {time.perf_counter() - t0:.1f} s")
+    lap("8f kvbm")
+
+    # 8g. speculative decoding ---------------------------------------------
+    from dynamo_tpu_torch.models.loader import config_from_hf
+
+    dckpt = os.path.join(work, "llama3.2-1b")
+    os.makedirs(dckpt)
+    with open(os.path.join(dckpt, "config.json"), "w") as f:
+        json.dump(DRAFT_1B_CONFIG, f)
+    dcfg = config_from_hf(dckpt, page_size=cfg.page_size,
+                          max_pages_per_seq=cfg.max_pages_per_seq,
+                          dtype=cfg.dtype)
+    draft = llama.init_params(dcfg, 1, dev)
+    spec_kw = dict(num_pages=N_PAGES, max_batch_size=8,
+                   prefill_chunk_budget=512, spec_gamma=SPEC_GAMMA,
+                   spec_iters_per_sync=SPEC_ITERS, device="cuda")
+    spec_entries = ("prefill", "prefill_draft", "sample_first",
+                    "spec_decode")
+    attn_kernels = ("paged_kv_write", "paged_kv_write_pages",
+                    "paged_attention_decode", "ragged_paged_attention")
+
+    async def seeded_runs(eng):
+        """The same seeded request (temperature 0.8, top-8 logprobs) twice
+        on an empty prefix cache, then once more with its prefix cached:
+        [(tokens, top-8 of each token, prompt tokens found cached)] x 3."""
+        req = {"token_ids": list(range(60, 200)),
+               "sampling": {"temperature": 0.8, "seed": 1234,
+                            "top_logprobs": 8},
+               "stop": {"max_tokens": 24}}
+        admit, cached = eng._alloc_admission, []
+
+        def spy(*a):                # the admission's prefix-hit length
+            out = admit(*a)
+            if out is not None:
+                cached.append(out[1])
+            return out
+
+        eng._alloc_admission = spy
+        runs = []
+        for clear in (True, True, False):
+            if clear:
+                eng.clear_kv_blocks()
+            toks, tops = [], []
+            async for o in eng.generate(dict(req), Context()):
+                toks.extend(o.get("token_ids", ()))
+                tops.extend(o.get("top_logprobs") or ())
+            runs.append((toks, tops, cached[-1]))
+        eng._alloc_admission = admit
+        return runs
+
+    def prefix_hit_effect(runs) -> str:
+        """Whether the prefix-hit run's stream left the cold one's, and
+        how far its first token's top-8 logprobs moved."""
+        (cold, cold_top, _), _, (hit, hit_top, n_hit) = runs
+        lp = dict((int(i), v) for i, v in cold_top[0])
+        moved = max((abs(v - lp[int(i)]) for i, v in hit_top[0]
+                     if int(i) in lp), default=float("nan"))
+        step = next((i for i, (x, y) in enumerate(zip(cold, hit))
+                     if x != y), None)
+        same = step is None and len(hit) == len(cold)
+        return (f"{n_hit} prompt tokens cached, "
+                + (f"stream identical over {len(hit)} tokens" if same
+                   else f"stream parts at step {step}")
+                + f", first token's top-8 logprobs moved by at most "
+                f"{moved:.4f} nats")
+
+    spec_run = serve_batch(
+        TorchEngine(TorchEngineConfig(model=cfg, draft_model=dcfg,
+                                      **spec_kw), model=model, draft=draft),
+        "spec (8B + 1B draft)", attn_kernels, ("w8a8_matmul", "int4_matmul"),
+        spec_entries, steady=True, extra=seeded_runs)
+    want = [token_ids_of(r["logprobs"]) for r in phase["results"]]
+    parts = compare_streams(want, [token_ids_of(r["logprobs"])
+                                   for r in spec_run["results"]], "spec")
+    seeded = spec_run["extra"]
+    (a, _, _), (b, _, _) = seeded[:2]
+    if a != b or len(a) != 24:
+        raise AssertionError(f"seeded spec streams differ: {a} vs {b}")
+    st = spec_run["spec"]
+    if not st["num_draft_tokens"] > 0:
+        raise AssertionError(f"the spec batch proposed no draft token: {st}")
+    # the same seeded request on a no-draft phase engine: does a prefix hit
+    # move its stream as it moves the spec engine's?
+    plain_eng = TorchEngine(TorchEngineConfig(
+        model=cfg, num_pages=N_PAGES, max_batch_size=8,
+        prefill_chunk_budget=512, device="cuda"), model=model)
+
+    async def plain_seeded():
+        try:
+            return await seeded_runs(plain_eng)
+        finally:
+            await plain_eng.close()
+
+    plain_seeded_runs = asyncio.run(plain_seeded())
+    del plain_eng
+    plain_cold = [run[0] for run in plain_seeded_runs[:2]]
+    log(f"[spec] seeded request (temperature 0.8, seed 1234, 140-token "
+        f"prompt, 24 tokens): on the spec engine twice on an empty prefix "
+        f"cache identical, {a[:6]}...; with a prefix hit: "
+        f"{prefix_hit_effect(seeded)}. On a no-draft phase engine (its "
+        f"decode draws other keys than the spec burst's): first token "
+        f"cold equal to the spec engine's: {plain_cold[0][:1] == a[:1]}, twice "
+        f"cold identical: {plain_cold[0] == plain_cold[1]}, with a prefix "
+        f"hit: {prefix_hit_effect(plain_seeded_runs)}")
+    n_pos, n_off, tie_gap = draft_verify_disagreement(torch, llama, model,
+                                                      dev)
+    with open(jobs) as f:
+        jobs4 = os.path.join(work, "jobs_self_draft.jsonl")
+        with open(jobs4, "w") as g:
+            g.writelines(json.dumps(dict(json.loads(line), max_tokens=64))
+                         + "\n" for line in f.readlines()[:4])
+    self_run = serve_batch(
+        TorchEngine(TorchEngineConfig(model=cfg, draft_model=cfg,
+                                      **spec_kw), model=model, draft=model),
+        "spec self-draft (8B + 8B)", attn_kernels,
+        ("w8a8_matmul", "int4_matmul"), spec_entries, batch_jobs=jobs4)
+    self_streams = [token_ids_of(r["logprobs"]) for r in self_run["results"]]
+    self_parts = compare_streams(want[:4], [(t[:32], k[:32])
+                                            for t, k in self_streams],
+                                 "spec self-draft")
+    sst = self_run["spec"]
+    floor, expect = self_draft_floor(n_off / n_pos, n_pos,
+                                     sst["num_draft_tokens"] // SPEC_GAMMA)
+    log(f"[spec] draft (K4 decode steps) vs verify (K1 rows of gamma + 1) "
+        f"argmax on the 8B model, teacher-forced over {n_pos} positions of "
+        f"8 lanes: {n_off} differ (rate {n_off / n_pos:.4f}), at logit gaps "
+        f"up to {tie_gap:.4f} nats; the self-draft's acceptance at that "
+        f"rate {expect:.4f}, floor {floor:.4f} (`self_draft_floor`); on "
+        f"{smi}")
+    if not sst["acceptance_rate"] >= floor:
+        raise AssertionError(f"self-draft acceptance {sst} below {floor:.4f}"
+                             f", derived from the measured disagreement "
+                             f"{n_off} of {n_pos}")
+    steady = phase["steady"]
+    for label, run, n_parts in (("8B + 1B draft", spec_run, len(parts)),
+                                ("self-draft", self_run, len(self_parts))):
+        rs, st2 = run["spec"], run["steady"]
+        emitted = rs["num_accepted_tokens"] + rs["num_draft_tokens"] \
+            // SPEC_GAMMA
+        steady_txt = "" if st2 is None else (
+            f"; steady batch (10 fresh prompts) "
+            f"{st2['tokens'] / st2['wall']:.1f} tok/s, TTFT p50 "
+            f"{statistics.median(st2['ttft']) * 1e3:.1f} ms, "
+            f"{st2['captures']} new captures")
+        log(f"[spec] {label}: {len(run['results'])} requests, "
+            f"{len(run['results']) - n_parts} token-identical with phase 8's "
+            f"no-draft batch, {n_parts} parted at near-ties; draft tokens "
+            f"{rs['num_draft_tokens']}, accepted {rs['num_accepted_tokens']}"
+            f" (rate {rs['acceptance_rate']:.4f}; random weights: a bound "
+            f"on the path's cost, not a claim), {rs['bursts']} spec bursts, "
+            f"{emitted / max(rs['bursts'], 1):.1f} tokens per burst (all "
+            f"lanes); first batch (captures inside) "
+            f"{run['tokens'] / run['wall']:.1f} output tok/s, TTFT p50 "
+            f"{statistics.median(run['ttft']) * 1e3:.1f} ms "
+            f"({run['graphs']['captures']} captures in "
+            f"{run['graphs']['capture_s']:.3f} s){steady_txt}; phase 8's "
+            f"no-draft steady batch {steady['tokens'] / steady['wall']:.1f} "
+            f"tok/s, TTFT p50 {statistics.median(steady['ttft']) * 1e3:.1f} "
+            f"ms; on {smi}")
+    torch.cuda.empty_cache()
+    lap("8g speculative decoding")
 
     # 9. quantized main path -------------------------------------------------
 
@@ -3303,6 +3913,12 @@ def main() -> int:
 
     bf16_bytes = quant.weight_bytes(model)
     quantized, q_models = {}, {}
+    # cut since 8g was added: each quantized batch serves every other of
+    # phase 8's requests (16, 100, 350, 800, 1250 bytes)
+    with open(jobs) as f:
+        jobs_q = os.path.join(work, "jobs_quantized.jsonl")
+        with open(jobs_q, "w") as g:
+            g.writelines(f.readlines()[::2])
     for mode in QUANT_MODES:
         gemm = GEMM_OF[mode]
         other = GEMM_OF["int4" if mode == "w8a8" else "w8a8"]
@@ -3331,7 +3947,7 @@ def main() -> int:
             q_engine, f"phase {mode}",
             (gemm, "paged_kv_write", "paged_kv_write_pages",
              "paged_attention_decode", "ragged_paged_attention"), (other,),
-            PHASE_ENTRIES)
+            PHASE_ENTRIES, batch_jobs=jobs_q)
         quantized[mode]["bytes"] = q_bytes
         del q_engine
         torch.cuda.empty_cache()
@@ -3346,6 +3962,7 @@ def main() -> int:
             f"grouped); launches {counts}")
         q_models[mode] = q_model
     torch.cuda.empty_cache()
+    lap("9 quantized")
 
     # 10. kernel path vs plain path -----------------------------------------
 
@@ -3483,12 +4100,14 @@ def main() -> int:
                                      f"{ch_err}, {top_err}")
             del caches
     torch.cuda.empty_cache()
+    lap("10 kernel vs plain at 8B")
 
     # 11a + 11. graph replays and profiles ---------------------------------
     profiles = {("bf16", k): v for k, v in profile_rounds(
         torch, llama, graphs, model, dev, n_pad_mixed=768 - 520,
         labels=("decode", "mixed", "burst", "prefill1", "prefill8",
                 "mixed_step", "sample_first")).items()}
+    lap("11a-11 bf16 bare steps")
     # "int8" (W8A16: cuBLAS over weights converted to bf16 on every call)
     # is not a main-path cell; its burst is profiled for its step time
     # only, on a model that shares every other tensor with the bf16 one
@@ -3498,6 +4117,11 @@ def main() -> int:
             torch, llama, graphs, mdl, dev, n_pad_mixed=0,
             labels=("burst",), mode=mode)["burst"]
         del mdl
+    lap("11a-11 quantized bursts")
+    profiles[("bf16", "spec")] = profile_spec(torch, llama, graphs, model,
+                                              draft, dev)
+    del draft
+    lap("11a-11 spec burst")
     for (mode, label), (eager, graphed, event_ms, pool) in profiles.items():
         what = {"decode": "ragged decode round", "mixed":
                 "ragged mixed round", "burst": "phase decode burst (8 "
@@ -3505,11 +4129,16 @@ def main() -> int:
                 "512)", "prefill8": "phase prefill chunk round (bp 8, T "
                 "512)", "mixed_step": "phase mixed step (512-token chunk "
                 "+ 8-lane 8-step burst)", "sample_first": "phase first-"
-                "token sampling (8 lanes)"}[label] + f", {mode}"
-        for how, (wall_ms, busy, n_k, by_class, top) in (
-                ("eager", eager), ("graphed", graphed)):
-            per_step = f" ({n_k / 8:.0f} per step)" if label == "burst" \
-                else ""
+                "token sampling (8 lanes)", "spec": f"spec burst (8 lanes, "
+                f"gamma {SPEC_GAMMA}, {SPEC_ITERS} iterations, 1B draft)"
+                }[label] + f", {mode}"
+        for how, measured in (("eager", eager), ("graphed", graphed)):
+            if measured is None:
+                continue        # the spec burst: replayed only
+            wall_ms, busy, n_k, by_class, top = measured
+            per_step = {"burst": f" ({n_k / 8:.0f} per step)",
+                        "spec": f" ({n_k / SPEC_ITERS:.0f} per iteration)"
+                        }.get(label, "")
             extra = (f"; the replay by CUDA events {event_ms:.2f} ms; graph "
                      f"pool {pool} bytes" if how == "graphed" else "")
             if busy is None:
@@ -3521,7 +4150,7 @@ def main() -> int:
                 f"(median of 10), device busy {busy:.2f} ms, idle "
                 f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%, {n_k:.0f} "
                 f"device ops{per_step}{extra}, on {smi}")
-            if how == "graphed":
+            if how == "graphed" and eager is not None:
                 continue
             for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
                 log(f"[profile]   {cls}: {ms:.3f} ms ({100 * ms / busy:.1f}% "
@@ -3533,6 +4162,8 @@ def main() -> int:
         log(f"[profile] engine (phase 7, {label}): "
             f"{1e3 * run['wall'] / run['rounds']:.2f} ms per dispatch on "
             f"average over the batch's {run['rounds']} dispatches")
+        if impl == "ragged":
+            continue    # its traced batches: cut since 8g was added
         eng2 = TorchEngine(TorchEngineConfig(
             model=cfg, num_pages=N_PAGES, max_batch_size=8,
             prefill_chunk_budget=512, attention_impl=impl, device="cuda"),
@@ -3556,6 +4187,7 @@ def main() -> int:
                 f"({'rounds + ' if impl == 'ragged' else ''}first-token "
                 f"sampling), device busy {busy_txt}; on {smi}")
         del eng2
+    lap("11 engine batches traced")
     shutil.rmtree(work)
     del model, q_models
     torch.cuda.empty_cache()
@@ -3666,6 +4298,7 @@ def main() -> int:
             + f" (tie tolerance {A8_TIE_TOL})")
     del model2
     torch.cuda.empty_cache()
+    lap("12 kernel vs plain at 2 layers")
 
     # 13. numbers ------------------------------------------------------------
     # every kernel timed after a read flush (the yardstick) and, for
@@ -3845,6 +4478,46 @@ def main() -> int:
     lib4 = time_ms(torch, sdpa4, flush=flush)
     rows[("k4", "burst")] = (8, ms4, plain4, bound4, by4, lib4, ms4_w, None)
 
+    # the draft's geometry (Llama-3.2-1B: D 64): K4 on the burst's lanes
+    # and K1 on the decode round's rows, beside their plain versions and
+    # SDPA on pre-gathered K/V under a padding mask
+    q64, kp64, vp64, l64, t64 = decode_case(
+        torch, gen, dev, torch.bfloat16, lens4, N_PAGES, MAX_PAGES, H, KVH,
+        P, 64)
+    want = attention.paged_attention_decode_ref(q64, kp64, vp64, l64, t64)
+    torch.testing.assert_close(attention.paged_attention_decode(
+        q64, kp64, vp64, l64, t64).float(), want.float(), **K4_BF16_TOL)
+    ms, ms_w = timed(lambda: attention.paged_attention_decode(
+        q64, kp64, vp64, l64, t64))
+    plain = time_ms(torch, lambda: attention.paged_attention_decode_ref(
+        q64, kp64, vp64, l64, t64), flush=flush)
+    sdpa64 = sdpa_decode(torch, attention, q64, kp64, vp64, l64, t64)
+    torch.testing.assert_close(sdpa64().float(), want.float(), **K4_BF16_TOL)
+    rows[("k4", "burst D64")] = (
+        8, ms, plain, *k4_bound_ms(l64.cpu(), t64.cpu(), H, KVH, 64, P, 2,
+                                   peaks),
+        time_ms(torch, sdpa64, flush=flush), ms_w, None)
+    qp, ln, tb = (x.to(dev) for x in shapes["decode"])
+    q1 = torch.randn(qp.numel(), H, 64, generator=gen).to(dev,
+                                                          torch.bfloat16)
+    want = plain_k1(q1, kp64, vp64, qp, ln, tb)
+    torch.testing.assert_close(ragged.ragged_paged_attention(
+        q1, kp64, vp64, qp, ln, tb).float(), want.float(), **K1_BF16_TOL)
+    ms, ms_w = timed(lambda: ragged.ragged_paged_attention(
+        q1, kp64, vp64, qp, ln, tb))
+    plain = time_ms(torch, lambda: plain_k1(q1, kp64, vp64, qp, ln, tb),
+                    reps=5, flush=flush)
+    sdpa1 = sdpa_decode(torch, attention, q1, kp64, vp64, qp + 1, tb)
+    torch.testing.assert_close(sdpa1().float(), want.float(), **K1_BF16_TOL)
+    rows[("k1", "decode D64")] = (
+        qp.numel(), ms, plain, *k1_bound_ms(
+            torch, qp.cpu(), ln.cpu(), tb.cpu(), H, KVH, 64, P, 2, peaks),
+        time_ms(torch, sdpa1, flush=flush), ms_w, None)
+    log(f"[check] the draft's geometry (D 64): K4 on the burst's lanes and "
+        f"K1 on the decode round within {K1_BF16_TOL} of their plain "
+        f"versions, SDPA likewise")
+    del q64, kp64, vp64, q1, want
+
     # K1 on the phase path's widest chunk round (phase 7b's shape: bp 8,
     # T 512, contexts to 1041); the library yardstick is
     # scaled_dot_product_attention on K/V already gathered per lane
@@ -3983,6 +4656,7 @@ def main() -> int:
             f"random weights ({label.split()[-1] if ' ' in label else 'bf16'}"
             f"), max_tokens 32; {g['captures']} graph captures in "
             f"{g['capture_s']:.3f} s, {g['replays']} replays; on {smi}")
+    lap("13 numbers")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
     def entry(kname, source, replaces, key, err, run):

@@ -46,9 +46,10 @@ Device work runs in `asyncio.to_thread` under one device lock, with
 Every step entry is bucketed as in the reference and tracked per (entry,
 bucket) in `compile_tracker` (the reference's `metrics.compile`, `:1406`,
 `:2094`, `:2513`, `:2648`); on the card every fixed-shape entry —
-"prefill" (bp, T, aligned), "mixed_step" (bp, T, k, aligned, tk),
-"sample_first" (width, tk), "decode_burst", "decode_guided" and
-"ragged_step" — replays one CUDA graph per bucket (`engine/graphs.py`),
+"prefill" (bp, T, aligned), "prefill_draft" (likewise, the draft's
+rounds), "mixed_step" (bp, T, k, aligned, tk), "sample_first" (width, tk),
+"decode_burst", "decode_guided", "spec_decode" and "ragged_step" —
+replays one CUDA graph per bucket (`engine/graphs.py`),
 the port's counterpart of the reference's jitted entries. No step reads
 the card on the host: the phase path's chunk attention runs K1's kernel
 on the card (`attention.prefill_attention`). A graph's outputs are
@@ -98,9 +99,28 @@ and continues admitted prompts from peer workers' tiers
 blocking part of each admitted request's admission (0 without KVBM). The KV lifecycle recorder (`kv_lifecycle`) is None unless
 `DYN_KV_LIFECYCLE` arms it.
 
-Not in this slice, and rejected per request where a request asks for
-them: embeddings. Spec, pipeline/sequence parallelism and profilers are
-later slices (ROADMAP.md).
+Speculative decoding, as the reference serves it (`:207-219`, `:509-541`,
+`:1825-2001`): with `TorchEngineConfig.draft_model` the engine holds a
+draft model (the caller's `draft=` weights, or a random init from
+`rng_seed + 1`) and its own caches at the target's page geometry. The
+draft prefills every prompt in full after the target (never trusting a
+cached prefix, whose pages may hold target KV only: KVBM onboards, disagg
+imports, bursts that did not speculate); on the budgeted path it starts
+at 0 and `_draft_catchup` replays what it lacks before a spec burst. Every
+decode burst of a draft engine is a spec burst (`engine/spec.py`
+`spec_decode_multi_step`, "spec_decode": one CUDA graph per bucket on the
+card), whatever its lanes' sampling: grammars, min_p and penalties ride
+it. A draft engine runs no pipelined burst, no mixed step and no ragged
+round. `SpecDecodeStats` counts over the iterations a lane consumed.
+
+Embeddings (`extra.embed`, `:855-866`, `:961`): a dense cache-free
+forward (`models/llama.py` `embed_batch`) of the prompt padded to a
+power-of-two bucket, refused above the context length before it runs. A
+queued request whose `Context.deadline` has passed is dropped at
+admission with `DEADLINE_ADMIT_ERR` and no prefill (`:1203-1215`).
+
+Pipeline/sequence parallelism and the profilers are later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -130,6 +150,7 @@ from dynamo_tpu_torch.engine.quant import (
     remark_act_bits,
 )
 from dynamo_tpu_torch.engine.sampling import apply_penalties, sample_tokens_lp
+from dynamo_tpu_torch.engine.spec import spec_decode_multi_step
 from dynamo_tpu_torch.kvbm.lifecycle import KvbmMetrics, recorder_from_env
 from dynamo_tpu_torch.llm.guided import compile_guided
 from dynamo_tpu_torch.models.llama import (
@@ -137,6 +158,7 @@ from dynamo_tpu_torch.models.llama import (
     LlamaModel,
     decode_multi_step,
     decode_multi_step_guided,
+    embed_batch,
     init_cache,
     init_params,
     mixed_prefill_decode,
@@ -144,6 +166,7 @@ from dynamo_tpu_torch.models.llama import (
     ragged_prefill_decode,
 )
 from dynamo_tpu_torch.protocols import (
+    DEADLINE_ADMIT_ERR,
     FINISH_CANCELLED,
     FINISH_ERROR,
     FINISH_LENGTH,
@@ -152,6 +175,7 @@ from dynamo_tpu_torch.protocols import (
     ForwardPassMetrics,
     KvStats,
     PreprocessedRequest,
+    SpecDecodeStats,
     WorkerStats,
 )
 from dynamo_tpu_torch.runtime.compute import run_cpu
@@ -164,6 +188,14 @@ logger = logging.getLogger(__name__)
 def _topk_list(ids_vec, lps_vec, width: int) -> list:
     """[[token_id, logprob], ...] from parallel packed top-k vectors."""
     return [[int(ids_vec[j]), float(lps_vec[j])] for j in range(width)]
+
+
+def _prompt(s) -> list[int]:
+    return s.prompt
+
+
+def _prompt_len(s) -> int:
+    return len(s.prompt)
 
 
 def _next_bucket(n: int, lo: int, hi: int, align: int = 1) -> int:
@@ -264,6 +296,13 @@ class TorchEngineConfig:
     # its index and load by (worker_id, dp_rank)
     worker_id: int = 0
     dp_rank: int = 0
+    # speculative decoding: a draft model (same page_size and
+    # max_pages_per_seq as the target: one page table serves both caches)
+    # proposes spec_gamma tokens per iteration, the target verifies them
+    # in one forward; spec_iters_per_sync iterations per burst
+    draft_model: Optional[LlamaConfig] = None
+    spec_gamma: int = 4
+    spec_iters_per_sync: int = 8
 
 
 @dataclass
@@ -282,6 +321,7 @@ class _Seq:
     generated: int = 0
     prefilled: bool = False
     finished: bool = False
+    draft_pos: int = 0                    # draft-cache-valid positions < this
     seed: int = 0
     arrival: int = 0
     t_enqueue: float = 0.0
@@ -338,13 +378,6 @@ class _Seq:
         return self.req.stop.max_tokens or 0
 
 
-def _unsupported(req: PreprocessedRequest) -> Optional[str]:
-    """Why this engine cannot serve `req` faithfully, or None."""
-    if req.extra.get("embed"):
-        return "embeddings"
-    return None
-
-
 class TorchEngine:
     """AsyncEngine over a PyTorch model with a paged KV cache."""
 
@@ -363,7 +396,8 @@ class TorchEngine:
                  token_bytes: Any = None, eos_token_id: int = 0,
                  event_sink: Optional[EventSink] = None,
                  metrics_sink: Optional[
-                     Callable[[ForwardPassMetrics], None]] = None) -> None:
+                     Callable[[ForwardPassMetrics], None]] = None,
+                 draft: Optional[LlamaModel] = None) -> None:
         """`token_bytes`: the serving tokenizer's per-token output bytes
         (`llm/guided.py` `token_bytes_of`), or a callable that builds them
         at the first guided request; None leaves guided decoding
@@ -371,7 +405,10 @@ class TorchEngine:
         `eos_token_id` stands in for a guided lane's stop tokens when its
         request names none. `event_sink` takes the page pool's KV events,
         `metrics_sink` one ForwardPassMetrics per scheduler iteration
-        (`llm/entrypoint.py` `wire_engine_events` publishes both)."""
+        (`llm/entrypoint.py` `wire_engine_events` publishes both).
+        `draft`: the draft model's weights when `config.draft_model` is
+        set (None draws them from `rng_seed + 1`); it may be `model`
+        itself (a self-draft), and keeps caches of its own either way."""
         self.config = config or TorchEngineConfig()
         cfg = self.config
         if cfg.attention_impl not in ATTENTION_IMPLS:
@@ -402,6 +439,10 @@ class TorchEngine:
         self.model = model
         self.k_cache, self.v_cache = init_cache(self.model_cfg,
                                                 cfg.num_pages, self.device)
+        self.draft = self._build_draft(draft)
+        # the brownout actuator of a later control layer: True serves a
+        # draft engine's bursts without speculating
+        self.spec_shrink = False
         # the scheduler loop's event loop and thread, set at first use
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._loop_thread: Optional[int] = None
@@ -483,6 +524,52 @@ class TorchEngine:
         # the caches' base pointers on the card, for the KV gather
         self._cache_ptrs: Optional[torch.Tensor] = None
 
+    def _build_draft(self, draft: Optional[LlamaModel]
+                     ) -> Optional[LlamaModel]:
+        """The draft model (quantized as the target is) and its caches, or
+        None without `config.draft_model`; raises on a page geometry that
+        differs from the target's or on gamma / iterations below 1 (the
+        reference's checks, `dynamo_tpu/engine/engine.py:509-518`)."""
+        cfg, mcfg = self.config, self.model_cfg
+        self.dk_cache = self.dv_cache = None
+        dm = cfg.draft_model
+        if dm is None:
+            return None
+        if (dm.page_size != mcfg.page_size
+                or dm.max_pages_per_seq != mcfg.max_pages_per_seq):
+            raise ValueError(
+                "draft model must share the target's page geometry")
+        if cfg.spec_gamma < 1 or cfg.spec_iters_per_sync < 1:
+            raise ValueError(
+                "spec_gamma and spec_iters_per_sync must be >= 1")
+        owned = draft is None
+        if draft is None:
+            draft = init_params(dm, cfg.rng_seed + 1, self.device)
+        elif draft.cfg != dm or draft.device != self.device:
+            raise ValueError(
+                f"draft ({draft.device}) does not match the engine's "
+                f"draft_model and device ({self.device})")
+        if cfg.quantize:
+            if not is_quantized(draft):
+                draft = quantize_params(draft, mode=cfg.quantize,
+                                        inplace=owned)
+            elif cfg.quantize == "w8a8":
+                draft = remark_act_bits(draft, inplace=owned)
+        self.dk_cache, self.dv_cache = init_cache(dm, cfg.num_pages,
+                                                  self.device)
+        return draft
+
+    @property
+    def _spec_stats(self) -> Optional[SpecDecodeStats]:
+        """A draft engine's speculative-decoding counters as the
+        reference's `SpecDecodeStats` (read from `metrics`, their one
+        record); None without a draft."""
+        if self.draft is None:
+            return None
+        m = self.metrics
+        return SpecDecodeStats(int(m.spec_draft_tokens.get()),
+                               int(m.spec_accepted_tokens.get()))
+
     @property
     def compile_tracker(self):
         return self.metrics.compile
@@ -523,17 +610,24 @@ class TorchEngine:
 
     @property
     def ragged(self) -> bool:
-        """True when every round is the flat-token ragged step."""
-        return self.config.attention_impl == "ragged"
+        """True when every round is the flat-token ragged step. A draft
+        engine keeps the phase path, as the reference's (its bursts are
+        spec bursts)."""
+        return self.config.attention_impl == "ragged" and self.draft is None
 
     @property
     def _burst_lookahead(self) -> int:
         """Positions past prompt+max_tokens the admission guard budgets:
         one burst of decode_steps_per_sync, two with pipelined bursts (one
-        in flight) — the reference's rule on both paths, so both engines
-        admit the same requests."""
-        k = self.config.decode_steps_per_sync
-        return 2 * k if self.config.pipeline_bursts else k
+        in flight), at least one spec burst's iterations x (gamma + 1)
+        with a draft — the reference's rule on both paths, so both
+        engines admit the same requests."""
+        cfg = self.config
+        k = cfg.decode_steps_per_sync
+        la = 2 * k if cfg.pipeline_bursts else k
+        if cfg.draft_model is not None:
+            la = max(la, cfg.spec_iters_per_sync * (cfg.spec_gamma + 1))
+        return la
 
     # -- engine contract ----------------------------------------------------
 
@@ -574,10 +668,15 @@ class TorchEngine:
                 except Exception as e:
                     yield error(f"guided decoding: {e}")
                     return
-            why = _unsupported(req)
-            if why is not None:
-                yield error(f"{why} is not supported by dynamo_tpu_torch "
-                            f"yet")
+            if req.extra.get("embed"):
+                max_ctx = mcfg.page_size * mcfg.max_pages_per_seq
+                if len(req.token_ids) > max_ctx:
+                    # refused before the dense T^2 forward, which an
+                    # unbounded prompt would run under the device lock
+                    yield error(f"embed input ({len(req.token_ids)} "
+                                f"tokens) exceeds context {max_ctx}")
+                    return
+                yield await self._embed_one(req)
                 return
             lookahead = self._burst_lookahead
             max_len = mcfg.page_size * mcfg.max_pages_per_seq - lookahead
@@ -624,6 +723,28 @@ class TorchEngine:
             # once the seq is queued the active-set scan covers it too
             if guided_key is not None:
                 self._guided_unpend(guided_key)
+
+    async def _embed_one(self, req: PreprocessedRequest) -> dict:
+        """The prompt's mean-pooled embedding (`embed_batch`): a dense
+        cache-free forward of the prompt padded to a power-of-two length
+        bucket, under the device lock like every device step."""
+        ids = req.token_ids
+        t_bucket = _next_pow2(len(ids), self.config.min_prefill_bucket,
+                              1 << 30)
+        toks = np.zeros((1, t_bucket), dtype=np.int32)
+        toks[0, :len(ids)] = ids
+        lengths = np.asarray([len(ids)], dtype=np.int32)
+
+        def run():
+            with torch.inference_mode():
+                vec = embed_batch(self.model, self._dev(toks),
+                                  self._dev(lengths))
+                return vec[0].cpu().numpy()
+
+        async with self._device_lock:
+            vec = await asyncio.to_thread(run)
+        return {"embedding": [float(x) for x in vec], "token_ids": [],
+                "finish_reason": FINISH_STOP}
 
     def clear_kv_blocks(self) -> int:
         """Drop the reusable prefix cache. Returns pages freed."""
@@ -789,6 +910,18 @@ class TorchEngine:
             self._waiting.pop(0)
             self._finish(cand, FINISH_CANCELLED)
             return True
+        deadline = cand.ctx.deadline
+        if deadline is not None \
+                and asyncio.get_running_loop().time() >= deadline:
+            # its deadline passed while it was queued: drop it before any
+            # prefill, with an in-band error (the request failed; the
+            # worker did not, so nothing migrates or replays it)
+            self._waiting.pop(0)
+            cand.queue.put_nowait(EngineOutput(
+                token_ids=[], finish_reason=FINISH_ERROR,
+                extra={"error": DEADLINE_ADMIT_ERR}).to_dict())
+            self._finish(cand, FINISH_ERROR, emit=False)
+            return True
         page_size = self.model_cfg.page_size
         need_pages = (len(cand.prompt) + page_size - 1) // page_size
         # pinned pages are taken but free themselves without any sequence
@@ -842,7 +975,9 @@ class TorchEngine:
     async def _prefill_pending(self) -> bool:
         """Prefill every admitted-but-unprefilled sequence with batched
         chunk rounds (`_chunk_rounds`), then sample all their first tokens
-        in one call and one host sync."""
+        in one call and one host sync. A draft engine then prefills the
+        draft over every FULL prompt (offset 0, whatever prefix was
+        cached: prefix pages may hold target KV only)."""
         pending = [s for s in self._running if not s.prefilled]
         if not pending:
             return False
@@ -851,23 +986,38 @@ class TorchEngine:
         def prefill_all():
             with torch.inference_mode():
                 offsets = {id(s): s.cached_len for s in pending}
-                return self._first_token_packed(
-                    pending, self._chunk_rounds(pending, offsets))
+                last = self._chunk_rounds(self.model, self.k_cache,
+                                          self.v_cache, pending, offsets)
+                if self.draft is not None:
+                    self._chunk_rounds(self.draft, self.dk_cache,
+                                       self.dv_cache, pending,
+                                       {id(s): 0 for s in pending})
+                return self._first_token_packed(pending, last)
 
         async with self._device_lock:
             packed, tk = await asyncio.to_thread(prefill_all)
-        self._emit_first_tokens(pending, packed, tk)
+        self._emit_first_tokens(pending, packed, tk, draft_done=True)
         return True
 
-    def _chunk_rounds(self, seqs: list[_Seq], offsets) -> dict[int, Any]:
-        """Chunk rounds over `seqs` until every prompt is on the device;
-        returns each sequence's last-round logits by id. Device-blocking."""
+    def _chunk_rounds(self, model: LlamaModel, kc: list, vc: list,
+                      seqs: list[_Seq], offsets,
+                      tokens_of: Callable[[_Seq], list] = _prompt,
+                      target_len_of: Callable[[_Seq], int] = _prompt_len
+                      ) -> dict[int, Any]:
+        """Chunk rounds of `model` into (kc, vc) over `seqs` until every
+        offset reaches target_len_of(s) (default: the prompt's length),
+        the tokens read from tokens_of(s) (default: the prompt); returns
+        each sequence's last-round logits by id. Shared by the prompt
+        prefill of target and draft and the draft's catch-up, so their
+        buckets cannot part. Device-blocking."""
         last_logits: dict[int, Any] = {}
         while True:
-            ready = [s for s in seqs if offsets[id(s)] < len(s.prompt)]
+            ready = [s for s in seqs if offsets[id(s)] < target_len_of(s)]
             if not ready:
                 return last_logits
-            last_logits.update(self._chunk_round_once(ready, offsets))
+            last_logits.update(self._chunk_round_once(
+                model, kc, vc, ready, offsets, tokens_of=tokens_of,
+                target_len_of=target_len_of))
 
     def _prefill_width(self, n: int) -> int:
         """Prefill batch width for an n-sequence round: the next power of
@@ -894,22 +1044,31 @@ class TorchEngine:
                 n, base, lo=cfg.min_prefill_bucket, align=page)
         return base
 
-    def _chunk_round_once(self, ready: list[_Seq], offsets,
-                          caps=None) -> dict[int, Any]:
-        """ONE chunk round; advances `offsets`. `caps` ({id(s): tokens})
-        bounds each chunk below prefill_chunk (the budgeted scheduler's
-        token budget). Returns {id(s): last-token logits} for the
-        sequences whose prompt this round completed. Device-blocking.
+    def _chunk_round_once(self, model: LlamaModel, kc: list, vc: list,
+                          ready: list[_Seq], offsets, caps=None,
+                          tokens_of: Callable[[_Seq], list] = _prompt,
+                          target_len_of: Callable[[_Seq], int] = _prompt_len
+                          ) -> dict[int, Any]:
+        """ONE chunk round of `model` into (kc, vc); advances `offsets`.
+        `caps` ({id(s): tokens}) bounds each chunk below prefill_chunk
+        (the budgeted scheduler's token budget); tokens_of /
+        target_len_of as `_chunk_rounds`. Returns {id(s): last-token
+        logits} for the sequences this round brought to their target.
+        Device-blocking.
 
         Phase path: the round takes the sequences whose cursor is
         page-aligned (or, when none is, the unaligned ones), as many as
         the prefill width allows, padded to (width, token bucket), through
-        `prefill_batch` — aligned rounds store whole pages (K3). Ragged
-        path: up to max_batch_size chunks as flat rows."""
+        `prefill_batch` — aligned rounds store whole pages (K3). Its graph
+        entry is "prefill", or "prefill_draft" for rounds that write the
+        draft's caches (keyed by the caches, not the weights: a self-draft
+        shares the target's). Ragged path (target only): up to
+        max_batch_size chunks as flat rows."""
         cfg = self.config
         if self.ragged:
             active = ready[:cfg.max_batch_size]
-            chunk_lens = self._chunk_lens(active, offsets, caps)
+            chunk_lens = self._chunk_lens(active, offsets, caps,
+                                          target_len_of)
             _, logits = self._ragged_core(active, offsets, chunk_lens, [],
                                           0)
         else:
@@ -920,21 +1079,23 @@ class TorchEngine:
             active = aligned_s or ready
             bp = self._prefill_width(len(active))
             active = active[:bp]
-            chunk_lens = self._chunk_lens(active, offsets, caps)
-            chunk = self._chunk_arrays(active, offsets, chunk_lens, bp)
+            chunk_lens = self._chunk_lens(active, offsets, caps,
+                                          target_len_of)
+            chunk = self._chunk_arrays(active, offsets, chunk_lens, bp,
+                                       tokens_of)
             aligned = bool(aligned_s)
 
             def step(*a):
-                return prefill_batch(self.model, self.k_cache, self.v_cache,
-                                     *a, aligned=aligned)
+                return prefill_batch(model, kc, vc, *a, aligned=aligned)
+            entry = "prefill_draft" if kc is self.dk_cache else "prefill"
             logits = self._graphed(
-                "prefill", (bp, chunk[0].shape[1], int(aligned)), step,
+                entry, (bp, chunk[0].shape[1], int(aligned)), step,
                 chunk, hist=self.metrics.prefill_chunk)
             self.rounds += 1
         done: dict[int, Any] = {}
         for i, s in enumerate(active):
             offsets[id(s)] += chunk_lens[i]
-            if offsets[id(s)] >= len(s.prompt):
+            if offsets[id(s)] >= target_len_of(s):
                 done[id(s)] = i
         if done and not self.ragged:
             # the graph's logits are static: the next replay of this
@@ -943,18 +1104,20 @@ class TorchEngine:
             logits = logits.clone()
         return {k: logits[i] for k, i in done.items()}
 
-    def _chunk_lens(self, active: list[_Seq], offsets, caps) -> list[int]:
+    def _chunk_lens(self, active: list[_Seq], offsets, caps,
+                    target_len_of=_prompt_len) -> list[int]:
         cfg = self.config
-        return [min(len(s.prompt) - offsets[id(s)], cfg.prefill_chunk,
+        return [min(target_len_of(s) - offsets[id(s)], cfg.prefill_chunk,
                     caps[id(s)] if caps else cfg.prefill_chunk)
                 for s in active]
 
     def _chunk_arrays(self, active: list[_Seq], offsets,
-                      chunk_lens: list[int], bp: int):
+                      chunk_lens: list[int], bp: int, tokens_of=_prompt):
         """(tokens (bp, T bucket), tables (bp, max_pages), cached (bp,),
         seq_lens (bp,)) int32 host arrays of a phase chunk sub-batch, in
-        `prefill_batch`'s argument order; padding lanes have seq_len ==
-        cached_len == 0."""
+        `prefill_batch`'s argument order, the tokens from tokens_of(s)
+        (default: the prompt); padding lanes have seq_len == cached_len
+        == 0."""
         mcfg = self.model_cfg
         t_bucket = self._token_bucket(max(chunk_lens))
         toks = np.zeros((bp, t_bucket), dtype=np.int32)
@@ -963,7 +1126,7 @@ class TorchEngine:
         seq_lens = np.zeros(bp, dtype=np.int32)
         for i, s in enumerate(active):
             off, n = offsets[id(s)], chunk_lens[i]
-            toks[i, :n] = s.prompt[off:off + n]
+            toks[i, :n] = tokens_of(s)[off:off + n]
             tables[i, :len(s.pages)] = s.pages
             cached[i] = off
             seq_lens[i] = off + n
@@ -1022,9 +1185,12 @@ class TorchEngine:
         return packed.cpu().numpy(), tk
 
     def _emit_first_tokens(self, pending: list[_Seq], packed: np.ndarray,
-                           tk: int) -> None:
+                           tk: int, draft_done: bool) -> None:
         """Flip just-prefilled sequences to decodable, register their
-        complete prompt blocks and emit their first tokens."""
+        complete prompt blocks and emit their first tokens. draft_done:
+        the draft's caches hold the prompts too; False (the budgeted
+        path) leaves draft_pos at 0, and `_draft_catchup` replays the
+        prompt before the first spec burst."""
         page_size = self.model_cfg.page_size
         tokens = packed[0].astype(np.int32)
         logprobs = packed[1]
@@ -1040,6 +1206,7 @@ class TorchEngine:
                     block.local_hash, block.parent_seq_hash)
             seq.prefilled = True
             seq.prefill_pos = len(seq.prompt)
+            seq.draft_pos = len(seq.prompt) if draft_done else 0
             topk_fn = None
             if tk and seq.wants_topk:
                 def topk_fn(_k, _i=i, _s=seq):
@@ -1093,7 +1260,8 @@ class TorchEngine:
         picks = picks[:self._prefill_width(len(picks))]
         runnable = [s for s in self._running if s.prefilled]
         batch: list[_Seq] = []
-        if runnable and self._inflight is None:
+        # a draft engine's bursts are spec bursts: its round runs alone
+        if runnable and self._inflight is None and self.draft is None:
             self._prep_decode_lanes(runnable, cfg.decode_steps_per_sync)
             batch = runnable[:cfg.max_batch_size]
             # constrained lanes need their own burst: the round runs
@@ -1106,7 +1274,9 @@ class TorchEngine:
 
         def round_():
             with torch.inference_mode():
-                return self._chunk_round_once(picks, offsets, caps)
+                return self._chunk_round_once(self.model, self.k_cache,
+                                              self.v_cache, picks, offsets,
+                                              caps)
 
         async with self._device_lock:
             done_logits = await asyncio.to_thread(round_)
@@ -1180,7 +1350,7 @@ class TorchEngine:
 
         async with self._device_lock:
             packed, tk = await asyncio.to_thread(sample)
-        self._emit_first_tokens(completed, packed, tk)
+        self._emit_first_tokens(completed, packed, tk, draft_done=False)
 
     # -- decode -------------------------------------------------------------
 
@@ -1246,11 +1416,16 @@ class TorchEngine:
         runnable = [s for s in self._running if s.prefilled]
         if not runnable:
             return False
-        k = self.config.decode_steps_per_sync
+        cfg = self.config
+        # a draft engine speculates on every burst, whatever its lanes'
+        # sampling (`spec_shrink` serves plain bursts instead)
+        use_spec = self.draft is not None and not self.spec_shrink
+        k = (cfg.spec_iters_per_sync * (cfg.spec_gamma + 1) if use_spec
+             else cfg.decode_steps_per_sync)
         self._prep_decode_lanes(runnable, k)
         if not runnable:
             return False
-        batch = runnable[:self.config.max_batch_size]
+        batch = runnable[:cfg.max_batch_size]
         # register every guided lane's grammar before any lane arrays are
         # built (a re-registration may renumber the slots); a lane whose
         # grammar no longer fits fails alone
@@ -1272,6 +1447,8 @@ class TorchEngine:
             # interleaving the budgeted scheduler exists to create
             self.metrics.decode_steps_during_prefill.inc(
                 1 if self.ragged and not constrained else k)
+        if use_spec:
+            return await self._spec_burst(batch, tk)
         if constrained:
             return await self._constrained_burst(batch, k, tk)
         if self.ragged:
@@ -1333,6 +1510,7 @@ class TorchEngine:
         can_spec = ((len(self._running) >= cfg.max_batch_size
                      or (not self._waiting
                          and len(self._running) == len(batch)))
+                    and self.draft is None
                     and all(s in self._running and not s.ctx.is_cancelled()
                             and not s.needs_constrained for s in batch)
                     and any(s.max_tokens - s.generated > k for s in batch))
@@ -1439,6 +1617,141 @@ class TorchEngine:
             packed = await asyncio.to_thread(dispatch)
         self._emit_burst(batch, packed, tk)
         return True
+
+    async def _draft_catchup(self, lanes: list[_Seq]) -> None:
+        """Replay through the draft the positions its caches lack
+        (draft_pos .. pos - 1: a budgeted prefill, or bursts that did not
+        speculate), as "prefill_draft" rounds over the tokens on the
+        device."""
+        def rounds():
+            with torch.inference_mode():
+                self._chunk_rounds(
+                    self.draft, self.dk_cache, self.dv_cache, lanes,
+                    {id(s): s.draft_pos for s in lanes},
+                    tokens_of=lambda s: s.token_seq.tokens,
+                    target_len_of=lambda s: s.pos)
+
+        async with self._device_lock:
+            await asyncio.to_thread(rounds)
+        for s in lanes:
+            s.draft_pos = s.pos
+
+    async def _spec_burst(self, batch: list[_Seq], tk: int) -> bool:
+        """ONE spec burst ("spec_decode", `spec_decode_multi_step`) over
+        the fixed max_batch_size width: spec_iters_per_sync draft → verify
+        → accept iterations, one host sync. Lanes whose draft caches lag
+        catch up first. The extras are the reference's (`:1895-1921`):
+        the guided tables and lane rows, min_p, the penalty arrays; the
+        graph key names them as the reference's compile key does. The
+        packed output is copied to the host right behind its replay
+        (graphs share one pool). Emission takes each lane's emitted
+        prefix per iteration; `SpecDecodeStats` counts the iterations a
+        lane consumed, not its overshoot."""
+        cfg = self.config
+        b, gamma, iters = (cfg.max_batch_size, cfg.spec_gamma,
+                           cfg.spec_iters_per_sync)
+        stale = [s for s in batch if s.draft_pos < s.pos]
+        if stale:
+            await self._draft_catchup(stale)
+        inputs = list(self._burst_arrays(batch))
+        extras: list[str] = []
+        bucket: tuple = ()
+        layout = None
+        if any(s.guided is not None for s in batch):
+            g_ids, g_states, stop_ids = self._guided_lane_arrays(batch, b)
+            layout = self._guided_layout()
+            bucket = (layout[0],)
+            # one state axis: a lane's row, read through grammar index 0
+            rows = (layout[2][g_ids] + g_states).astype(np.int32)
+            inputs += [np.zeros(b, dtype=np.int32), rows, stop_ids]
+            extras += ["use_guided", "g_bits", "g_next", "g_eos_ok",
+                       "g_ids", "g_states", "stop_ids"]
+        use_min_p = any(s.req.sampling.min_p > 0.0 for s in batch)
+        if use_min_p:
+            inputs.append(np.asarray(
+                [s.req.sampling.min_p for s in batch]
+                + [0.0] * (b - len(batch)), dtype=np.float32))
+            extras.append("min_p")
+        use_pen = any(s.has_penalties for s in batch)
+        if use_pen:
+            inputs += list(self._penalty_arrays(batch, b))
+            extras += ["use_penalties", "rep_pen", "freq_pen", "pres_pen",
+                       "prompt_counts", "out_counts"]
+        n_guided = 3 if layout is not None else 0
+
+        def dispatch():
+            with torch.inference_mode():
+                tables = (self._guided_device_stack(layout)
+                          if layout is not None else None)
+
+                def step(*a):
+                    rest = list(a[9:])
+                    guided = None
+                    if tables is not None:
+                        guided = (*tables, *rest[:n_guided])
+                    rest = rest[n_guided:]
+                    min_p = rest.pop(0) if use_min_p else None
+                    pen = tuple(rest) if use_pen else None
+                    return spec_decode_multi_step(
+                        self.model, self.draft, self.k_cache, self.v_cache,
+                        self.dk_cache, self.dv_cache, *a[:9], gamma=gamma,
+                        num_iters=iters, topk_lp=tk, min_p=min_p,
+                        guided=guided, penalties=pen)[0]
+
+                packed = self._graphed(
+                    "spec_decode", (b, gamma, iters, tk, *sorted(extras)),
+                    step, inputs, bucket=bucket)
+                self.rounds += 1
+                self.metrics.spec_bursts.inc()
+                return packed.cpu().numpy()               # ONE host sync
+
+        async with self._device_lock:
+            packed = await asyncio.to_thread(dispatch)
+        self._emit_spec(batch, packed, tk)
+        return True
+
+    def _emit_spec(self, batch: list[_Seq], packed: np.ndarray,
+                   tk: int) -> None:
+        """Emit a spec burst: packed (3 + 2·tk, iters, gamma+1, B); each
+        lane's tokens are its emitted prefixes, iteration after
+        iteration."""
+        cfg = self.config
+        gamma, iters = cfg.spec_gamma, cfg.spec_iters_per_sync
+        toks_out = packed[0].astype(np.int32)            # (S, G1, B)
+        lps_out = packed[1]
+        counts = packed[2, :, 0, :].astype(np.int32)     # (S, B)
+        stk_ids = stk_lps = None
+        if tk:
+            stk_ids = packed[3:3 + tk].astype(np.int32)
+            stk_lps = packed[3 + tk:3 + 2 * tk]
+        slot_grid = np.arange(gamma + 1)[None, :]
+        for i, s in enumerate(batch):
+            if s.finished or s not in self._running:
+                continue
+            cnts = counts[:, i]
+            emit_mask = slot_grid < cnts[:, None]        # (S, G1)
+            topk_fn = None
+            if tk and s.wants_topk:
+                its, slots = np.nonzero(emit_mask)
+                w = min(s.req.sampling.top_logprobs, tk)
+
+                def topk_fn(k, _i=i, _w=w, _its=its, _slots=slots):
+                    return _topk_list(stk_ids[:, _its[k], _slots[k], _i],
+                                      stk_lps[:, _its[k], _slots[k], _i],
+                                      _w)
+
+            n_emitted = self._emit_lane(s, toks_out[:, :, i][emit_mask],
+                                        lps_out[:, :, i][emit_mask],
+                                        topk_fn)
+            # the iteration that finishes the lane counts; later ones are
+            # overshoot
+            consumed = 0 if n_emitted == 0 else min(
+                int(np.searchsorted(np.cumsum(cnts), n_emitted,
+                                    side="left")) + 1, iters)
+            self.metrics.spec_draft_tokens.inc(gamma * consumed)
+            self.metrics.spec_accepted_tokens.inc(
+                int((cnts[:consumed] - 1).sum()))
+            s.draft_pos = s.pos
 
     def _graphed(self, entry: str, shape: tuple, fn, inputs,
                  bucket: tuple = (), hist=None):
@@ -2189,6 +2502,7 @@ class TorchEngine:
                 kv_active_blocks=self.pool.active_pages,
                 kv_total_blocks=self.pool.capacity,
                 hbm_cache_usage=self.pool.usage()),
+            spec_decode_stats=self._spec_stats,
             scheduler_stats={
                 "prefill_chunks": perf["prefill_chunks"],
                 "decode_steps_during_prefill":

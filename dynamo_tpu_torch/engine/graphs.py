@@ -5,8 +5,8 @@ The reference never runs a step op by op: each device entry is a jitted
 program, compiled once per shape bucket (`engine/compile_tracker.py`
 records the first call of each), so a fused k-step burst is one dispatch.
 Here the engine routes its fixed-shape entries ("prefill",
-"mixed_step", "sample_first", "decode_burst", "decode_guided",
-"ragged_step") through `StepGraphs.run`, which captures
+"prefill_draft", "mixed_step", "sample_first", "decode_burst",
+"decode_guided", "spec_decode", "ragged_step") through `StepGraphs.run`, which captures
 the step into a CUDA graph the first time its key is seen and replays that
 graph after.
 
@@ -48,9 +48,11 @@ graph after.
   rewrites alike — a prefill chunk rewrites its own rows, a mixed step
   its chunk rows and its burst's decode rows, as the plain burst does),
   sampling is keyed by (seed, step) on the device ("sample_first" writes
-  nothing but its output), and the constrained burst advances copies of
-  its output counts and DFA states, never its inputs, so the warm-up and
-  the first replay give the same outputs and leave the same caches.
+  nothing but its output), and the constrained and spec bursts advance
+  copies of their output counts and DFA states, never their inputs (a
+  spec burst rewrites both cache pairs from its start position, each
+  iteration from the same accepted prefix), so the warm-up and the first
+  replay give the same outputs and leave the same caches.
 - **Launch counts.** A replay calls no kernel wrapper, so the graph
   records each kernel's launch delta at capture (`cuda_build.launch_delta`),
   takes it back (a capture runs nothing) and adds it at every replay.

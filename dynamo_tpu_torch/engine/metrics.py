@@ -14,7 +14,9 @@ series (`kv_pull*`), which the decode worker's handler observes; KVBM's
 `admission_stall` (the blocking work inside an admission: inline
 offloads, the onboard), `offload_drain` (one pipelined offload batch) and
 `kvbm_stage` (each onboard's and offload read's time by stage).
-The spec and step-profiler series wait with their subsystems. The ITL
+The speculative decoding counters carry `SpecDecodeStats`' two fields
+on the scrape (`spec_draft_tokens`, `spec_accepted_tokens`, under the
+field names), beside the spec bursts dispatched. The step-profiler series wait with their subsystem. The ITL
 histogram's edges and quantile are the part of `dynamo_tpu/llm/perf.py`
 (`:18-60`) the published metrics need.
 
@@ -145,6 +147,16 @@ class EngineMetrics:
             "dynamo_kv_pull_fallbacks_total",
             "disagg KV pulls that failed on one path (from) and went on "
             "to the next (to)")
+        # speculative decoding: SpecDecodeStats' counters on the scrape
+        self.spec_draft_tokens = c(
+            "dynamo_engine_spec_num_draft_tokens_total",
+            "tokens proposed by the draft model (consumed iterations)")
+        self.spec_accepted_tokens = c(
+            "dynamo_engine_spec_num_accepted_tokens_total",
+            "draft tokens that survived target verification")
+        self.spec_bursts = c(
+            "dynamo_engine_spec_bursts_total",
+            "speculative decoding bursts dispatched")
         self.compile = CompileTracker()
 
     def register(self, registry: MetricsRegistry) -> None:
@@ -156,6 +168,8 @@ class EngineMetrics:
                   self.mixed_steps, self.decode_steps_during_prefill,
                   self.kv_pull, self.kv_pull_bytes, self.kv_pull_bw,
                   self.kv_import, self.kv_pull_fallbacks,
+                  self.spec_draft_tokens, self.spec_accepted_tokens,
+                  self.spec_bursts,
                   *self.kvbm_stage.values()):
             registry.register(m)
         self.compile.register(registry)

@@ -5,7 +5,10 @@ Port of `dynamo_tpu/engine/sampling.py` (`_candidate_mask` `:27`,
 head — `apply_penalties` `:106`, `stop_token_mask` `:127`, `guided_allow`
 `:135`, `constrained_logits` `:154` — `chosen_logprob`,
 `stable_topk_logprobs` `:177`, `topk_logprobs` and
-`_sample_tokens_lp_traced` `:169-219`). All knobs are per-row tensors so
+`_sample_tokens_lp_traced` `:169-219`), and what speculative decoding
+draws from a filtered distribution (`categorical`, `uniform`: the
+reference's `spec.py` `_categorical` `:78` and its acceptance draw
+`jax.random.uniform(key, (gamma,))` `:273`). All knobs are per-row tensors so
 one call serves a mixed batch. Randomness comes from (seed, step) pairs,
 so replays and migrations are deterministic.
 
@@ -74,8 +77,16 @@ def random_bits(key: tuple[torch.Tensor, torch.Tensor],
     """`jax.random.bits(key, (n,), uint32)` per key row ((B,) keys →
     (B, n)): the partitionable layout, threefry over the 64-bit iota
     (hi, lo) counts, words XOR-folded."""
+    lo = torch.arange(n, dtype=torch.int64, device=key[0].device)[None, :]
+    return random_bits_at(key, lo)
+
+
+def random_bits_at(key: tuple[torch.Tensor, torch.Tensor],
+                   idx: torch.Tensor) -> torch.Tensor:
+    """Words `idx` (B, n) (any indices below 2^32) of each key row's
+    `random_bits` stream, without drawing the words before them."""
     k1, k2 = key[0][:, None], key[1][:, None]
-    lo = torch.arange(n, dtype=torch.int64, device=k1.device)[None, :]
+    lo = idx.long()
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return b1 ^ b2
 
@@ -94,6 +105,32 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
 def gumbel(key: tuple[torch.Tensor, torch.Tensor], n: int) -> torch.Tensor:
     """`jax.random.gumbel(key, (n,), float32)` (mode "low") per key row."""
     return -torch.log(-torch.log(uniform_from_bits(random_bits(key, n))))
+
+
+def uniform(key: tuple[torch.Tensor, torch.Tensor], n: int) -> torch.Tensor:
+    """`jax.random.uniform(key, (n,))` per key row: minval 0, so unlike
+    the Gumbel draw's `uniform_from_bits` there is no floor at `tiny`."""
+    fbits = ((random_bits(key, n) >> 9) | 0x3F800000).to(torch.int32)
+    return fbits.view(torch.float32) - 1.0
+
+
+def categorical(key: tuple[torch.Tensor, torch.Tensor], probs: torch.Tensor,
+                support: torch.Tensor) -> torch.Tensor:
+    """The reference's `jax.random.categorical(key, log(max(p, 1e-30)))`
+    over each (V,) row of `probs` (B, V), computed on `support` (B, C):
+    indices that hold every nonzero entry of the row. A Gumbel draw is
+    at most 15.9 and at least -4.5, so an entry at the 1e-30 floor
+    (log -69.1) never beats a supported one (some entry of C <= 64 has
+    p >= 1/64): the argmax over V is the argmax over the support, with
+    the stream's words taken at those indices and ties to the lowest
+    index, as over V."""
+    p = torch.gather(probs, 1, support)
+    g = -torch.log(-torch.log(uniform_from_bits(random_bits_at(key,
+                                                               support))))
+    val = g + torch.log(torch.clamp(p, min=1e-30))
+    best = val.max(dim=-1, keepdim=True).values
+    return torch.where(val == best, support.long(),
+                       torch.full_like(support.long(), 1 << 40)).amin(-1)
 
 
 def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -134,6 +171,16 @@ def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
     """(B, V) probabilities of the distribution a row is sampled from:
     the temperature-scaled softmax over the kept candidates (zeros
     elsewhere); temperature == 0 rows are the one-hot argmax."""
+    return filtered_probs_support(logits, temperature, top_p, top_k,
+                                  min_p)[0]
+
+
+def filtered_probs_support(logits: torch.Tensor, temperature: torch.Tensor,
+                           top_p: torch.Tensor, top_k: torch.Tensor,
+                           min_p: Optional[torch.Tensor] = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(`filtered_probs`, the (B, C) candidate indices that hold its
+    nonzero entries) — the support `categorical` draws on."""
     b, v = logits.shape
     masked, cand_idx, t = _candidate_mask(logits, temperature, top_p,
                                           top_k, min_p)
@@ -142,7 +189,7 @@ def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
                      masked.shape[-1]).to(torch.float32)
     cand_p = torch.where((temperature > 0)[:, None], cand_p, hard)
     full = torch.zeros((b, v), dtype=torch.float32, device=logits.device)
-    return full.scatter_add_(1, cand_idx, cand_p)
+    return full.scatter_add_(1, cand_idx, cand_p), cand_idx
 
 
 def sample_tokens(logits: torch.Tensor, seeds: torch.Tensor,

@@ -71,6 +71,11 @@ class Backend(Operator):
     async def forward(self, request: dict, context: Context
                       ) -> AsyncIterator[dict]:
         assert self.inner is not None
+        if (request.get("extra") or {}).get("embed"):
+            # an embedding request: no tokens to detokenize, no stops
+            async for out in self.inner.generate(request, context):
+                yield out
+            return
         req = PreprocessedRequest.from_dict(request)
         decode = DecodeStream(self.tokenizer, req.token_ids)
         jail = StopJail(req.stop.stop)

@@ -22,7 +22,8 @@ when no card is present — on the phase path, or on the ragged path when
 (`dynamo_tpu/engine/attention.py:36`). Guided decoding gets the serving
 tokenizer's token-bytes map as a lazy provider and its EOS id
 (`:508-545`). `kvbm_host_blocks` > 0 attaches a `KvbmManager` with the
-pipeline knobs (`:546-554`).
+pipeline knobs (`:546-554`). `draft_model` serves speculative decoding
+with a second checkpoint at the target's page geometry (`:497-503`).
 """
 
 from __future__ import annotations
@@ -271,7 +272,10 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                        kvbm_offload_queue: int = 0,
                        kvbm_offload_workers: int = 0,
                        kvbm_prefetch_blocks: int = 0,
-                       kvbm_offload_queue_bytes: int = 0, **model_overrides
+                       kvbm_offload_queue_bytes: int = 0,
+                       draft_model: Optional[str] = None,
+                       spec_gamma: int = 4, spec_iters_per_sync: int = 8,
+                       **model_overrides
                        ) -> tuple[TorchEngine, ModelDeploymentCard]:
     """(TorchEngine, ModelDeploymentCard) for a checkpoint dir (or an
     already-downloaded HF-cache name). `random_init=True` skips the weight
@@ -285,13 +289,27 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
     `metrics_sink` (`wire_engine_events`). `kvbm_host_blocks` > 0
     attaches KVBM's host tier of that many blocks, its pipeline set by
     the other `kvbm_*` knobs (`kvbm/manager.py` KvbmConfig; all 0 = the
-    synchronous path). `model_overrides` tune the config, e.g.
-    ``max_pages_per_seq`` or ``num_layers`` (depth cut)."""
+    synchronous path). `draft_model` (a checkpoint dir or HF-cache name)
+    serves speculative decoding: its config is read at the target's page
+    size, context and dtype, its weights loaded (a tied checkpoint, as
+    Llama-3.2-1B's, through the loader's tied lm_head) or, with
+    `random_init`, drawn from `rng_seed + 1`; `spec_gamma` draft tokens
+    per iteration, `spec_iters_per_sync` iterations per burst.
+    `model_overrides` tune the target's config, e.g. ``max_pages_per_seq``
+    or ``num_layers`` (depth cut)."""
     dev = resolve_device(device)
     path = resolve_model(model)
     cfg = config_from_hf(path, **model_overrides)
     params = None if random_init else load_llama_params(path, cfg, dev,
                                                         quantize=quantize)
+    draft_cfg = draft = None
+    if draft_model is not None:
+        dpath = resolve_model(draft_model)
+        draft_cfg = config_from_hf(
+            dpath, page_size=cfg.page_size,
+            max_pages_per_seq=cfg.max_pages_per_seq, dtype=cfg.dtype)
+        draft = None if random_init else load_llama_params(
+            dpath, draft_cfg, dev, quantize=quantize)
     has_tok = any(os.path.exists(os.path.join(path, f))
                   for f in _TOKENIZER_FILES)
     # guided decoding needs the tokenizer's id -> bytes map; the provider
@@ -317,9 +335,11 @@ def build_torch_engine(model: str, served_name: Optional[str] = None, *,
                           attention_impl=attention_impl_from_env(),
                           quantize=quantize, rng_seed=rng_seed,
                           device=str(dev), worker_id=worker_id,
-                          dp_rank=dp_rank),
+                          dp_rank=dp_rank, draft_model=draft_cfg,
+                          spec_gamma=spec_gamma,
+                          spec_iters_per_sync=spec_iters_per_sync),
         model=params, token_bytes=token_bytes, eos_token_id=eos_id,
-        event_sink=event_sink, metrics_sink=metrics_sink)
+        event_sink=event_sink, metrics_sink=metrics_sink, draft=draft)
     if kvbm_host_blocks:
         from dynamo_tpu_torch.kvbm import KvbmConfig, KvbmManager
 

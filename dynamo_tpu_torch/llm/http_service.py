@@ -8,15 +8,17 @@ streams, HTTPS through the standard `ssl` module. Routes, status codes,
 error bodies and SSE framing are the reference's:
 
   POST /v1/chat/completions, POST /v1/completions (SSE when stream=true,
-  ending in `data: [DONE]`), GET /v1/models, GET /health, GET /live,
+  ending in `data: [DONE]`), POST /v1/embeddings (unary), POST
+  /v1/responses (typed-event SSE when stream=true, else the folded
+  response object), GET /v1/models, GET /health, GET /live,
   GET /metrics, and the admin routes POST /clear_kv_blocks,
   GET /kvbm/status and POST /kvbm/reset (`_fanout_admin`: one request to
   every instance of every served model's admin endpoint, results keyed
   by model and instance id)
 
 An unknown path answers 404, a known path with another method 405. The
-reference's /v1/embeddings, /v1/responses, fleet, tenancy, serving
-class and /debug/* routes wait with their subsystems and answer 404.
+reference's fleet, tenancy, serving class and /debug/* routes wait with
+their subsystems and answer 404.
 
 Errors: a malformed request is a 400, an unknown model a 404, a model
 whose workers are all gone a 503; any other failure of the pipeline (an
@@ -27,7 +29,8 @@ cancels the request's context, which cancels the engine's work
 (service/disconnect.rs).
 
 Reference: `lib/llm/src/http/service/` — `/v1/chat/completions`
-(openai.rs:540), `/v1/completions` (:274), `/v1/models`, health routes,
+(openai.rs:540), `/v1/completions` (:274), `/v1/embeddings` (:1125),
+`/v1/responses` (:766), `/v1/models`, health routes,
 and HTTP metrics with TTFT/ITL histograms (service/metrics.rs:109-262).
 """
 
@@ -43,14 +46,21 @@ from typing import Callable, Optional
 from urllib.parse import urlsplit
 
 from dynamo_tpu_torch.llm.model_manager import ModelManager
-from dynamo_tpu_torch.llm.preprocessor import KIND_CHAT, KIND_COMPLETION
+from dynamo_tpu_torch.llm.preprocessor import (
+    KIND_CHAT,
+    KIND_COMPLETION,
+    KIND_EMBEDDING,
+    KIND_RESPONSES,
+)
 from dynamo_tpu_torch.llm.protocols_openai import (
     SSE_DONE,
     OpenAIError,
     aggregate_chat_stream,
     aggregate_completion_stream,
+    aggregate_responses_stream,
     new_request_id,
     sse_encode,
+    sse_encode_event,
 )
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.push import NoInstancesError, PushRouter
@@ -212,6 +222,8 @@ class HttpService:
         self.routes = {
             ("POST", "/v1/chat/completions"): self._chat,
             ("POST", "/v1/completions"): self._completions,
+            ("POST", "/v1/embeddings"): self._embeddings,
+            ("POST", "/v1/responses"): self._responses,
             ("GET", "/v1/models"): self._models,
             ("GET", "/health"): self._health,
             ("GET", "/live"): self._live,
@@ -517,6 +529,141 @@ class HttpService:
             ctx.cancel()
             resp.close_after = True
         return resp
+
+    def _engine_of(self, endpoint: str, request: Request):
+        """(body, engine) of a JSON request, or (None, the error
+        response): a body that is not JSON is a 400, an unknown model a
+        404."""
+        try:
+            body = request.json()
+        except ValueError:
+            return None, self._error(endpoint,
+                                     OpenAIError("invalid JSON body"))
+        model = body.get("model") if isinstance(body, dict) else None
+        engine = self.manager.engine_for(model) if model else None
+        if engine is None:
+            return None, self._error(endpoint, OpenAIError(
+                f"model {model!r} not found", status=404,
+                err_type="model_not_found"))
+        return body, engine
+
+    async def _embeddings(self, request: Request, conn: _Conn):
+        """/v1/embeddings: unary, the pipeline yields exactly one response
+        object."""
+        body, engine = self._engine_of("embeddings", request)
+        if body is None:
+            return engine
+        ctx = Context(request_id=new_request_id("embd"))
+        conn.on_disconnect = ctx.cancel
+        start = time.perf_counter()
+        self._inflight.add(1)
+        try:
+            out = None
+            async for item in engine.generate(
+                    {"_kind": KIND_EMBEDDING, "body": body}, ctx):
+                out = item
+            self._req_counter.inc(endpoint="embeddings", status="200")
+            self._duration.observe(time.perf_counter() - start)
+            return json_response(out)
+        except asyncio.CancelledError:
+            ctx.cancel()        # the client went away: stop the work
+            self._req_counter.inc(endpoint="embeddings", status="disconnect")
+            raise
+        except Exception as e:
+            return self._error("embeddings", _as_openai_error(e))
+        finally:
+            self._inflight.add(-1)
+
+    async def _responses(self, request: Request, conn: _Conn):
+        """/v1/responses: typed-event SSE, or the unary fold of the
+        completed event."""
+        body, engine = self._engine_of("responses", request)
+        if body is None:
+            return engine
+        request_id = new_request_id("resp")
+        ctx = Context(request_id=request_id)
+        conn.on_disconnect = ctx.cancel
+        events = engine.generate({"_kind": KIND_RESPONSES, "body": body,
+                                  "request_id": request_id}, ctx)
+        start = time.perf_counter()
+        self._inflight.add(1)
+        try:
+            if not body.get("stream"):
+                try:
+                    full = await aggregate_responses_stream(events)
+                except asyncio.CancelledError:
+                    ctx.cancel()
+                    self._req_counter.inc(endpoint="responses",
+                                          status="disconnect")
+                    raise
+                except Exception as e:
+                    return self._error("responses", _as_openai_error(e))
+                self._req_counter.inc(endpoint="responses", status="200")
+                self._duration.observe(time.perf_counter() - start)
+                self._observe_usage_responses(full.get("usage"))
+                return json_response(full)
+            return await self._stream_events(request, conn.writer, events,
+                                             ctx, start)
+        finally:
+            self._inflight.add(-1)
+
+    async def _stream_events(self, request: Request, writer, events,
+                             ctx: Context, start: float) -> StreamResponse:
+        """The Responses API's typed SSE frames; an error after the stream
+        started is an error event, and the stream ends."""
+        resp = StreamResponse(request, writer)
+        first_token_at: Optional[float] = None
+        last_token_at: Optional[float] = None
+        try:
+            async for ev in events:
+                if ev.get("type") == "response.output_text.delta":
+                    now = time.perf_counter()
+                    if first_token_at is None:
+                        first_token_at = now
+                        self._ttft.observe(now - start)
+                    elif last_token_at is not None:
+                        self._itl.observe(now - last_token_at)
+                    last_token_at = now
+                elif ev.get("type") == "response.completed":
+                    self._observe_usage_responses(
+                        (ev.get("response") or {}).get("usage"))
+                if not resp.prepared:
+                    await resp.prepare()
+                await resp.write(sse_encode_event(ev.get("type", "message"),
+                                                  ev))
+            self._req_counter.inc(endpoint="responses", status="200")
+        except asyncio.CancelledError:
+            ctx.cancel()
+            self._req_counter.inc(endpoint="responses", status="disconnect")
+            raise
+        except (ConnectionResetError, BrokenPipeError):
+            ctx.cancel()
+            self._req_counter.inc(endpoint="responses", status="disconnect")
+            resp.close_after = True
+            return resp
+        except Exception as e:
+            err = _as_openai_error(e)
+            if not resp.prepared:
+                return self._error("responses", err)
+            self._req_counter.inc(endpoint="responses",
+                                  status=str(err.status))
+            await resp.write(sse_encode(err.body()))
+        finally:
+            self._duration.observe(time.perf_counter() - start)
+        try:
+            await resp.write_eof()
+        except (ConnectionResetError, BrokenPipeError):
+            ctx.cancel()
+            resp.close_after = True
+        return resp
+
+    def _observe_usage_responses(self, usage: Optional[dict]) -> None:
+        if not usage:
+            return
+        if usage.get("input_tokens") is not None:
+            self._isl.observe(usage["input_tokens"])
+        if usage.get("output_tokens") is not None:
+            self._osl.observe(usage["output_tokens"])
 
     @staticmethod
     def _has_content(chunk: dict) -> bool:

@@ -1,35 +1,45 @@
 """OpenAIPreprocessor: OpenAI request → PreprocessedRequest on the way
 down, Backend output stream → OpenAI chunks on the way up.
 
-Port of the chat/completions part of `dynamo_tpu/llm/preprocessor.py`
-(the port keeps its own copy): chat templating, tokenization, sampling
-and stop options, and the postprocess stream transform with usage and
-logprobs. Not in this slice: tool-call and reasoning parsers, images,
-embeddings, the Responses API and n > 1 (llm/protocols_openai.py rejects
-the requests that ask for them).
+Port of `dynamo_tpu/llm/preprocessor.py` (the port keeps its own copy):
+chat templating, tokenization, sampling and stop options, the postprocess
+stream transform with usage and logprobs, n > 1 (one engine stream per
+choice, reseeded, interleaved with their indices, one trailing usage
+chunk; `:382-430`, `:523-526`), embeddings (one `extra.embed` engine
+request per input, bounded fan-out, `:243-305`) and the Responses API
+over the chat pipeline (typed events, `:309-352`). Not in this slice: the
+tool-call and reasoning parsers and images.
 """
 
 from __future__ import annotations
 
 import time
+import asyncio
+import copy
 from typing import AsyncIterator, Optional
 
 from dynamo_tpu_torch.llm.protocols_openai import (
     ChatCompletionRequest,
     CompletionRequest,
+    EmbeddingRequest,
     OpenAIError,
     chat_chunk,
     completion_chunk,
+    embedding_response,
     new_request_id,
+    response_object,
+    responses_input_to_messages,
     usage_dict,
 )
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
-from dynamo_tpu_torch.protocols import PreprocessedRequest
+from dynamo_tpu_torch.protocols import PreprocessedRequest, StopConditions
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import Operator
 
 KIND_CHAT = "chat"
 KIND_COMPLETION = "completion"
+KIND_EMBEDDING = "embedding"
+KIND_RESPONSES = "responses"
 
 DEFAULT_TEMPLATE_SUFFIX = "assistant:"
 
@@ -106,23 +116,220 @@ class OpenAIPreprocessor(Operator):
         assert self.inner is not None
         kind = request.get("_kind", KIND_CHAT)
         created = int(time.time())
-        if kind == KIND_CHAT:
+        if kind == KIND_EMBEDDING:
+            async for out in self._embed(request, context):
+                yield out
+        elif kind == KIND_RESPONSES:
+            async for out in self._responses(request, created, context):
+                yield out
+        elif kind == KIND_CHAT:
             oai = ChatCompletionRequest.from_dict(request["body"])
             pre = self.preprocess_chat(oai)
             request_id = request.get("request_id") or new_request_id()
-            async for chunk in self._chat_chunks(pre, oai, request_id,
-                                                 created, context):
+            streams = [self._chat_chunks(self._reseed(pre, i), oai,
+                                         request_id, created, context)
+                       for i in range(oai.n)]
+            async for chunk in self._choices(
+                    streams, request_id, oai.model, created,
+                    "chat.completion.chunk"):
                 yield chunk
         elif kind == KIND_COMPLETION:
             oai_c = CompletionRequest.from_dict(request["body"])
             pre = self.preprocess_completion(oai_c)
             request_id = request.get("request_id") or new_request_id("cmpl")
-            async for chunk in self._completion_chunks(
-                    pre, oai_c, request_id, created, context):
+            streams = [self._completion_chunks(self._reseed(pre, i), oai_c,
+                                               request_id, created, context)
+                       for i in range(oai_c.n)]
+            async for chunk in self._choices(
+                    streams, request_id, oai_c.model, created,
+                    "text_completion"):
                 yield chunk
         else:
             raise OpenAIError(f"request kind {kind!r} is not supported by "
                               f"dynamo_tpu_torch yet")
+
+    # -- n > 1 ---------------------------------------------------------------
+
+    async def _choices(self, streams: list, request_id: str, model: str,
+                       created: int, obj: str) -> AsyncIterator[dict]:
+        """One choice's stream as it is; n of them interleaved
+        (`_fanout_choices`), then one usage chunk with no choices (an
+        index-0 delta after that choice's finish would break strict
+        stream consumers)."""
+        if len(streams) == 1:
+            async for chunk in streams[0]:
+                yield chunk
+            return
+        usages: dict[int, dict] = {}
+        async for chunk in self._fanout_choices(streams, usages):
+            yield chunk
+        yield {"id": request_id, "object": obj, "created": created,
+               "model": model, "choices": [],
+               "usage": self._merge_usage(usages)}
+
+    @staticmethod
+    def _reseed(pre: PreprocessedRequest, i: int) -> PreprocessedRequest:
+        """Choice i's request: the same tokens, seed + i (a fixed user seed
+        still yields n distinct choices, deterministically); choice 0
+        keeps the request's seed. Shallow copies: only the seed changes."""
+        if i == 0 or pre.sampling.seed is None:
+            return pre
+        p2 = copy.copy(pre)
+        p2.sampling = copy.copy(pre.sampling)
+        p2.sampling.seed = pre.sampling.seed + i
+        return p2
+
+    @staticmethod
+    def _merge_usage(usages: dict[int, dict]) -> dict:
+        prompt = max((u.get("prompt_tokens", 0) for u in usages.values()),
+                     default=0)
+        completion = sum(u.get("completion_tokens", 0)
+                         for u in usages.values())
+        return usage_dict(prompt, completion)
+
+    async def _fanout_choices(self, streams,
+                              usages: dict[int, dict]
+                              ) -> AsyncIterator[dict]:
+        """Merge per-choice chunk streams: relabel their indices and take
+        their usage chunks' usage into `usages`. A bounded queue paces the
+        engine streams by the consumer as one stream is paced; a failing
+        choice cancels its siblings at once."""
+        queue: asyncio.Queue = asyncio.Queue(maxsize=4)
+
+        async def pump(i, stream):
+            try:
+                async for chunk in stream:
+                    await queue.put((i, chunk, None))
+            except asyncio.CancelledError:
+                raise
+            except BaseException as e:
+                await queue.put((i, None, e))
+                return
+            await queue.put((i, None, None))
+
+        tasks = [asyncio.get_running_loop().create_task(pump(i, st))
+                 for i, st in enumerate(streams)]
+        try:
+            done = 0
+            while done < len(streams):
+                i, chunk, err = await queue.get()
+                if chunk is None:
+                    if err is not None:
+                        raise err      # the finally cancels the siblings
+                    done += 1
+                    continue
+                for ch in chunk.get("choices", ()):
+                    ch["index"] = i
+                u = chunk.pop("usage", None)
+                if u:
+                    usages[i] = u
+                yield chunk
+        finally:
+            for t in tasks:
+                t.cancel()
+
+    # -- embeddings (/v1/embeddings) ------------------------------------------
+
+    async def _embed(self, request: dict, context: Context
+                     ) -> AsyncIterator[dict]:
+        req = EmbeddingRequest.from_dict(request["body"])
+        token_lists: list[list[int]] = []
+        for item in req.inputs:
+            ids = (list(item) if isinstance(item, list)
+                   else self.tokenizer.encode(item))
+            if self.context_length and len(ids) >= self.context_length:
+                raise OpenAIError(
+                    f"input ({len(ids)} tokens) exceeds the model context "
+                    f"length of {self.context_length}", status=400)
+            token_lists.append(ids)
+
+        sem = asyncio.Semaphore(32)    # a batch can hold 2048 items
+
+        async def one(ids: list[int]) -> list[float]:
+            pre = PreprocessedRequest(
+                token_ids=ids, model=self.model_name,
+                stop=StopConditions(max_tokens=1), extra={"embed": True})
+            async with sem:
+                async for out in self.inner.generate(pre.to_dict(),
+                                                     context):
+                    if out.get("embedding") is not None:
+                        return [float(x) for x in out["embedding"]]
+                    if out.get("finish_reason"):
+                        break
+            raise OpenAIError(
+                f"model {self.model_name!r} does not support embeddings",
+                status=400)
+
+        # independent items: bounded fan-out, order kept by position; the
+        # siblings are cancelled the moment one item fails
+        results: list = [None] * len(token_lists)
+
+        async def slot(i: int, ids: list) -> None:
+            results[i] = await one(ids)
+
+        tasks = [asyncio.ensure_future(slot(i, ids))
+                 for i, ids in enumerate(token_lists)]
+        try:
+            await asyncio.gather(*tasks)
+        except BaseException:
+            for t in tasks:
+                t.cancel()
+            settled = await asyncio.gather(*tasks, return_exceptions=True)
+            errors = [e for e in settled
+                      if isinstance(e, BaseException)
+                      and not isinstance(e, asyncio.CancelledError)]
+            for e in errors:
+                if isinstance(e, OpenAIError):
+                    raise e
+            if errors:
+                raise errors[0]
+            raise
+        yield embedding_response(req.model, results,
+                                 sum(len(t) for t in token_lists),
+                                 req.encoding_format)
+
+    # -- responses (/v1/responses) --------------------------------------------
+
+    async def _responses(self, request: dict, created: int,
+                         context: Context) -> AsyncIterator[dict]:
+        """The Responses API over the chat pipeline: typed events out
+        (`response.created`, `response.output_text.delta`,
+        `response.output_text.done`, `response.completed`); the unary
+        route folds the completed event."""
+        body = dict(request["body"])
+        messages = responses_input_to_messages(body)
+        chat_body = {"model": body.get("model"), "messages": messages}
+        if body.get("max_output_tokens") is not None:
+            chat_body["max_tokens"] = body["max_output_tokens"]
+        for k in ("temperature", "top_p"):
+            if body.get(k) is not None:
+                chat_body[k] = body[k]
+        oai = ChatCompletionRequest.from_dict(chat_body)
+        pre = self.preprocess_chat(oai)
+        resp_id = request.get("request_id") or new_request_id("resp")
+        yield {"type": "response.created",
+               "response": response_object(resp_id, oai.model, created,
+                                           "in_progress")}
+        parts: list[str] = []
+        usage = None
+        async for chunk in self._chat_chunks(pre, oai, resp_id, created,
+                                             context):
+            if chunk.get("usage"):
+                usage = chunk["usage"]
+            for choice in chunk.get("choices", ()):
+                t = choice.get("delta", {}).get("content")
+                if t:
+                    parts.append(t)
+                    yield {"type": "response.output_text.delta",
+                           "item_id": f"msg-{resp_id}", "output_index": 0,
+                           "content_index": 0, "delta": t}
+        text = "".join(parts)
+        yield {"type": "response.output_text.done",
+               "item_id": f"msg-{resp_id}", "output_index": 0,
+               "content_index": 0, "text": text}
+        yield {"type": "response.completed",
+               "response": response_object(resp_id, oai.model, created,
+                                           "completed", text, usage)}
 
     def _lp_entry(self, tid: int, lp: float, top, render) -> dict:
         """One OpenAI chat logprobs.content[] entry; `render` gives a

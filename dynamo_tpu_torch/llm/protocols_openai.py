@@ -5,9 +5,11 @@ completions pipeline needs (the port keeps its own copy): request parsing
 and validation, guided decoding's request surface (`_guided_from`:
 `response_format` json_object / json_schema and `nvext` or top-level
 guided_json / guided_regex / guided_choice), chunk builders, usage, the
-unary response builders, the stream folds (`aggregate_*_stream`) and the
-SSE codec. Not in this slice, and rejected with a 400 when a request asks
-for them: n > 1, embeddings and the Responses API.
+unary response builders, the stream folds (`aggregate_*_stream`), the
+SSE codec, n up to `MAX_N`, the embeddings request and response
+(`EmbeddingRequest`, `embedding_response`) and the Responses API
+(`responses_input_to_messages`, `response_object`, the typed SSE frames
+`sse_encode_event`, `aggregate_responses_stream`; `:516-634`).
 
 One request field the reference does not read: `return_tokens_as_token_ids`
 (vLLM's name for it). With logprobs on, each logprobs token string is
@@ -18,7 +20,9 @@ chunk of its own, so a client sees each token as it arrives.
 
 from __future__ import annotations
 
+import base64
 import json
+import struct
 import time
 import uuid
 from dataclasses import dataclass, field
@@ -40,6 +44,10 @@ class OpenAIError(ValueError):
         return {"error": {"message": str(self), "type": self.err_type,
                           "param": None, "code": None}}
 
+
+# one request fans out into n engine streams, each holding KV pages and
+# a batch slot: an uncapped n is a single-request denial of service
+MAX_N = 16
 
 # widest top-k logprob alternatives served (engine TOPK_WIDTH)
 MAX_TOP_LOGPROBS = 8
@@ -100,14 +108,14 @@ def _common(d: dict) -> dict:
     """Fields and checks shared by chat and completions."""
     _require(isinstance(d, dict), "request body must be a JSON object")
     _require(bool(d.get("model")), "'model' is required")
-    _require(_as_int(d.get("n", 1), "n") == 1,
-             "'n' > 1 is not supported by dynamo_tpu_torch yet")
+    n = _as_int(d.get("n", 1), "n")
+    _require(1 <= n <= MAX_N, f"'n' must be between 1 and {MAX_N}")
     nvext = d.get("nvext") or {}
     stop = d.get("stop") or []
     if isinstance(stop, str):
         stop = [stop]
     return dict(
-        model=d["model"], stream=bool(d.get("stream")),
+        model=d["model"], stream=bool(d.get("stream")), n=n,
         temperature=d.get("temperature"), top_p=d.get("top_p"),
         top_k=d.get("top_k", nvext.get("top_k")),
         min_p=d.get("min_p"),
@@ -139,6 +147,7 @@ class ChatCompletionRequest:
     min_tokens: Optional[int] = None
     logprobs: bool = False
     top_logprobs: int = 0
+    n: int = 1
     # guided decoding (the reference's GuidedDecodingOptions): from
     # `response_format` (json_object / json_schema) or nvext guided_json /
     # guided_regex / guided_choice
@@ -217,6 +226,7 @@ class CompletionRequest:
     min_tokens: Optional[int] = None
     echo: bool = False
     logprobs: Optional[int] = None       # OpenAI: int top-k
+    n: int = 1
     guided: Optional[dict] = None
     return_tokens_as_token_ids: bool = False
     raw: dict = field(default_factory=dict)
@@ -452,3 +462,127 @@ async def aggregate_completion_stream(chunks: AsyncIterator[dict]) -> dict:
     return {"id": request_id, "object": "text_completion",
             "created": created, "model": model, "choices": choices,
             "usage": usage}
+
+
+# ---------------------------------------------------------------------------
+# /v1/embeddings (the reference's http/service/openai.rs:1125)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class EmbeddingRequest:
+    model: str
+    inputs: list                    # each item: text or pre-tokenized ids
+    encoding_format: str = "float"
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EmbeddingRequest":
+        _require(isinstance(d, dict), "request body must be a JSON object")
+        _require(bool(d.get("model")), "'model' is required")
+        raw = d.get("input")
+        _require(raw is not None and raw != [], "'input' is required")
+        if isinstance(raw, str):
+            inputs: list = [raw]
+        elif isinstance(raw, list) and raw and all(
+                isinstance(t, int) for t in raw):
+            inputs = [raw]              # one pre-tokenized prompt
+        elif isinstance(raw, list):
+            for item in raw:
+                _require(isinstance(item, str)
+                         or (isinstance(item, list) and all(
+                             isinstance(t, int) for t in item)),
+                         "'input' items must be strings or token arrays")
+            inputs = list(raw)
+        else:
+            raise OpenAIError("'input' must be a string or array")
+        fmt = d.get("encoding_format", "float")
+        _require(fmt in ("float", "base64"),
+                 "'encoding_format' must be 'float' or 'base64'")
+        return cls(model=d["model"], inputs=inputs, encoding_format=fmt)
+
+
+def embedding_response(model: str, embeddings: list[list[float]],
+                       prompt_tokens: int,
+                       encoding_format: str = "float") -> dict:
+    data = []
+    for i, vec in enumerate(embeddings):
+        if encoding_format == "base64":
+            payload: Any = base64.b64encode(
+                struct.pack(f"<{len(vec)}f", *vec)).decode()
+        else:
+            payload = vec
+        data.append({"object": "embedding", "index": i,
+                     "embedding": payload})
+    return {"object": "list", "model": model, "data": data,
+            "usage": {"prompt_tokens": prompt_tokens,
+                      "total_tokens": prompt_tokens}}
+
+
+# ---------------------------------------------------------------------------
+# /v1/responses (the reference's http/service/openai.rs:766)
+# ---------------------------------------------------------------------------
+
+
+def responses_input_to_messages(body: dict) -> list[dict]:
+    """OpenAI Responses `input` (a string or an item array) → chat
+    messages, `instructions` first as the system message."""
+    raw = body.get("input")
+    _require(raw is not None, "'input' is required")
+    msgs: list[dict] = []
+    if instructions := body.get("instructions"):
+        msgs.append({"role": "system", "content": instructions})
+    if isinstance(raw, str):
+        msgs.append({"role": "user", "content": raw})
+        return msgs
+    _require(isinstance(raw, list), "'input' must be a string or array")
+    for item in raw:
+        _require(isinstance(item, dict) and "role" in item,
+                 "input items must have a 'role'")
+        content = item.get("content", "")
+        if isinstance(content, list):  # typed parts: text only
+            content = "".join(p.get("text", "") for p in content
+                              if isinstance(p, dict))
+        msgs.append({"role": item["role"], "content": content})
+    return msgs
+
+
+def response_object(response_id: str, model: str, created: int,
+                    status: str, text: str = "",
+                    usage: Optional[dict] = None) -> dict:
+    out: dict[str, Any] = {
+        "id": response_id, "object": "response", "created_at": created,
+        "model": model, "status": status, "output": [], "output_text": text,
+    }
+    if text or status == "completed":
+        out["output"] = [{
+            "type": "message", "id": f"msg-{response_id}", "status": status,
+            "role": "assistant",
+            "content": [{"type": "output_text", "text": text,
+                         "annotations": []}],
+        }]
+    if usage is not None:
+        out["usage"] = {
+            "input_tokens": usage.get("prompt_tokens", 0),
+            "output_tokens": usage.get("completion_tokens", 0),
+            "total_tokens": usage.get("total_tokens", 0),
+        }
+    return out
+
+
+def sse_encode_event(event: str, payload: dict) -> bytes:
+    """A Responses-API SSE frame: a typed `event:` line, then the data."""
+    return (b"event: " + event.encode() + b"\ndata: "
+            + json.dumps(payload, separators=(",", ":")).encode() + b"\n\n")
+
+
+async def aggregate_responses_stream(events: AsyncIterator[dict]) -> dict:
+    """Unary /v1/responses: the final `response.completed` event carries
+    the whole response object."""
+    last: Optional[dict] = None
+    async for ev in events:
+        if ev.get("type") in ("response.completed", "response.failed"):
+            last = ev.get("response")
+    if last is None:
+        raise OpenAIError("stream ended without response.completed",
+                          status=500, err_type="internal_error")
+    return last

@@ -10,7 +10,10 @@ with the Qwen2 bias (`:236`); the phase path — `prefill_step` (`:252`),
 `decode_multi_step_guided` (`:742`: grammar masks, min_p and the sampling
 penalties on the device), `_mixed_forward` (`:487`) and
 `mixed_prefill_decode` (`:586`); and the flat-token ragged step
-`ragged_prefill_decode` (`:656`).
+`ragged_prefill_decode` (`:656`); and the cache-free embedding forward,
+`dense_attention` (`:826`) and `embed_batch` (`:853`), which the
+reference computes in XLA outside any kernel, and so the port in plain
+PyTorch ops.
 
 Kernels per layer: the phase path writes K/V with K3
 `paged_kv_write_pages` (page-aligned prefill chunks) or K2
@@ -633,6 +636,60 @@ def mixed_prefill_decode(model: LlamaModel, k_cache: list, v_cache: list,
                     page_tables, valid, seeds, steps0, temperature, top_p,
                     top_k, num_steps, topk_lp)
     return packed, ch_logits
+
+
+# ---------------------------------------------------------------------------
+# Embeddings: a dense forward with no cache
+# ---------------------------------------------------------------------------
+
+
+def dense_attention(x: torch.Tensor, layer: LlamaLayer,
+                    positions: torch.Tensor, mask: torch.Tensor,
+                    cfg: LlamaConfig) -> torch.Tensor:
+    """One layer's attention sub-block over a dense (unpaged) sequence:
+    pre-norm, RoPE'd GQA attention under `mask` in fp32, wo projection,
+    residual add. x: (B, T, E); positions: (1, T); mask: (T, T) bool."""
+    B, T, _ = x.shape
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rms_norm(x, layer.attn_norm, cfg.rms_eps)
+    q, k, v = qkv_proj(h, layer, cfg)
+    q = rope(q.reshape(B, T, H, D), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, T, KVH, D), positions, cfg.rope_theta)
+    v = v.reshape(B, T, KVH, D)
+    if KVH != H:
+        k = k.repeat_interleave(H // KVH, dim=2)
+        v = v.repeat_interleave(H // KVH, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores / math.sqrt(D)
+    scores = torch.where(mask[None, None], scores,
+                         torch.full_like(scores, -1e30))
+    attn = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1),
+                        v.float()).to(x.dtype)
+    return x + qm(attn.reshape(B, T, H * D), layer.wo)
+
+
+@torch.inference_mode()
+def embed_batch(model: LlamaModel, tokens: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+    """Mean-pooled sentence embeddings: (B, T) padded prompts and (B,)
+    valid lengths → (B, E) L2-normalized fp32 vectors. Causal attention
+    over the whole padded row (padding rows come after the valid ones, so
+    no valid row sees them), final norm, mean over the valid positions."""
+    cfg = model.cfg
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device)[None, :]
+    valid = positions < lengths[:, None]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                 device=tokens.device))
+    x = model.embed[tokens.long()]
+    for layer in model.layers:
+        x = dense_attention(x, layer, positions, mask, cfg)
+        x = x + _swiglu(rms_norm(x, layer.mlp_norm, cfg.rms_eps), layer)
+    h = rms_norm(x, model.final_norm, cfg.rms_eps).float()
+    h = torch.where(valid[..., None], h, torch.zeros_like(h))
+    pooled = h.sum(dim=1) / torch.clamp(lengths[:, None].float(), min=1.0)
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp(norm, min=1e-12)
 
 
 # ---------------------------------------------------------------------------

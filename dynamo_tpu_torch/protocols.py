@@ -165,6 +165,11 @@ FINISH_EOS = "eos"
 FINISH_CANCELLED = "cancelled"
 FINISH_ERROR = "error"
 
+# The error of a request whose Context.deadline passed while it was
+# queued: the engine drops it at admission, before any prefill, in band
+# (a FINISH_ERROR output, not a lost stream), so no migration replays it.
+DEADLINE_ADMIT_ERR = "request deadline exceeded before admission"
+
 
 @dataclass
 class SamplingOptions:

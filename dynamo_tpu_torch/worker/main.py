@@ -19,7 +19,8 @@ push endpoint (`:297-303`, `:420-430`). `--kvbm-host-blocks` attaches
 KVBM's host tier to the engine, the other `--kvbm-*` flags (or their
 `DYN_KVBM_*` runtime-config fields) set its offload pipeline, and the
 worker serves the G4 tier (`KvbmDistributed`) and the pipeline counters on
-its scrape (`:444-455`).
+its scrape (`:444-455`). `--draft-model` (with `--spec-gamma` and
+`--spec-iters-per-sync`) serves speculative decoding (`:236-238`).
 One flag is the port's own: `--device` (default cuda; the worker raises
 without a card unless `--device cpu` asks for the CPU). The reference's
 flags for parts the port has not ported yet are parsed under their names
@@ -58,15 +59,11 @@ from dynamo_tpu_torch.cli_util import (
 logger = logging.getLogger(__name__)
 
 PROG = "python -m dynamo_tpu_torch.worker"
-SPEC = "speculative decoding (ROADMAP queue 1: engine/spec.py)"
 MULTI = "the multi-device paths (ROADMAP queue 1: TP, PP, SP)"
 MM = "multimodal serving (ROADMAP queue 1: multimodal)"
 MOCK = ("the mocker engine, which the port does not carry (--echo serves "
         "without a model)")
 WORKER_REFUSED = {
-    "--draft-model": (SPEC, "value"),
-    "--spec-gamma": (SPEC, "value"),
-    "--spec-iters-per-sync": (SPEC, "value"),
     "--sp-degree": (MULTI, "value"),
     "--sp-threshold": (MULTI, "value"),
     "--sp-layout": (MULTI, "value"),
@@ -117,6 +114,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="int8 = weight-only (W8A16); w8a8 = int8 weights "
                         "and per-row int8 activations (K5); int4 = "
                         "packed-nibble W4A8 (K6)")
+    # speculative decoding
+    p.add_argument("--draft-model", default=None,
+                   help="small checkpoint for speculative decoding")
+    p.add_argument("--spec-gamma", type=int, default=4,
+                   help="draft tokens proposed per spec iteration")
+    p.add_argument("--spec-iters-per-sync", type=int, default=8,
+                   help="fused spec iterations per host sync (scales "
+                        "burst length and the admission lookahead)")
     p.add_argument("--random-init", action="store_true",
                    help="skip weight load (synthetic benchmarking)")
     p.add_argument("--device", default="cuda",
@@ -178,6 +183,9 @@ def check_args(args: argparse.Namespace) -> None:
     if args.echo and args.kvbm_host_blocks:
         raise SystemExit(f"{PROG}: KVBM needs --model (the echo engine "
                          f"holds no KV)")
+    if args.echo and args.draft_model:
+        raise SystemExit(f"{PROG}: speculative decoding needs --model (the "
+                         f"echo engine has no target to verify)")
 
 
 def instance_id_of(args: argparse.Namespace) -> int:
@@ -220,7 +228,8 @@ def build_engine_and_card(args: argparse.Namespace):
         kvbm_offload_workers=args.kvbm_offload_workers or 0,
         kvbm_prefetch_blocks=args.kvbm_prefetch_blocks or 0,
         kvbm_offload_queue_bytes=args.kvbm_offload_queue_bytes or 0,
-        **overrides)
+        draft_model=args.draft_model, spec_gamma=args.spec_gamma,
+        spec_iters_per_sync=args.spec_iters_per_sync, **overrides)
     engine.config.prefill_chunk = args.prefill_chunk
     card.namespace = args.namespace
     card.component = component

@@ -123,12 +123,38 @@ def test_worker_on_cuda_without_a_card_raises(tmp_path):
 
 
 def test_worker_cli_exits_nonzero_on_refusal():
+    # a flag of a part still to port (--draft-model, refused here before
+    # speculative decoding was ported, is served now)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run(
         [sys.executable, "-m", "dynamo_tpu_torch.worker", "--echo",
-         "--router-mode", "round_robin", "--draft-model", "/x"],
+         "--router-mode", "round_robin", "--sp-degree", "2"],
         env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert "--draft-model" in proc.stderr
-    assert "speculative decoding" in proc.stderr
+    assert "--sp-degree" in proc.stderr
+    assert "multi-device paths" in proc.stderr
+
+
+SPEC_FLAGS = {"--draft-model": (["/d"], "draft_model", "/d"),
+              "--spec-gamma": (["3"], "spec_gamma", 3),
+              "--spec-iters-per-sync": (["2"], "spec_iters_per_sync", 2)}
+
+
+@pytest.mark.parametrize("flag", sorted(SPEC_FLAGS))
+def test_worker_serves_spec_flags(flag):
+    """Speculative decoding's flags parse under the reference's names and
+    defaults and pass the checks with a model; a draft needs a target."""
+    value, dest, want = SPEC_FLAGS[flag]
+    assert flag not in worker_main.WORKER_REFUSED
+    defaults = worker_main.parse_args(["--model", "x"])
+    assert (defaults.draft_model, defaults.spec_gamma,
+            defaults.spec_iters_per_sync) == (None, 4, 8)
+    args = worker_main.parse_args(["--model", "x", "--router-mode",
+                                   "round_robin", flag] + value)
+    worker_main.check_args(args)
+    assert getattr(args, dest) == want
+    if flag == "--draft-model":
+        with pytest.raises(SystemExit, match="needs --model"):
+            worker_main.check_args(worker_main.parse_args(
+                BASE + [flag] + value))

@@ -1996,3 +1996,237 @@ def test_kvbm_pipelined_offload_across_graph_captures(cuda_device):
     assert stats["offloaded"] > 0 and stats["onboarded"] > 0
     assert graphed.captures == len(pins) and graphed.replays > len(pins)
     assert any(n > 0 for n in pins), pins
+
+
+# --- speculative decoding's geometry and burst on the card -----------------
+
+# Llama-3.2-1B's attention geometry, the draft's: H 32, KVH 8, D 64, P 16
+DRAFT_GEOMETRY = dict(h=32, kvh=8, d=64, p=16)
+
+
+def test_draft_geometry_kernels_match_plain(cuda_device):
+    """K2 and K3 bit-exact outside page 0, K1 and K4 in bf16 within the
+    bf16 tolerance and with q = 0 at the uniform one, at the draft's
+    geometry (D 64); K1 also at a verify round's rows (8 lanes x 5 rows
+    at unaligned cursors, D 128)."""
+    h, kvh, d, p = (DRAFT_GEOMETRY[k] for k in ("h", "kvh", "d", "p"))
+    gen = torch.Generator().manual_seed(64)
+    n_pages, max_pages = 160, 16
+    dt = torch.bfloat16
+    kc = torch.randn(kvh, n_pages, p, d, generator=gen).to(cuda_device, dt)
+    vc = torch.randn(kvh, n_pages, p, d, generator=gen).to(cuda_device, dt)
+    rows = 24
+    k_rows = torch.randn(rows, kvh, d, generator=gen).to(cuda_device, dt)
+    v_rows = torch.randn(rows, kvh, d, generator=gen).to(cuda_device, dt)
+    slots = torch.randperm((n_pages - 1) * p, generator=gen)[:rows]
+    pages = (1 + slots // p).to(torch.int32)
+    offs = (slots % p).to(torch.int32)
+    pages[-3:], offs[-3:] = 0, 0
+    pages, offs = pages.to(cuda_device), offs.to(cuda_device)
+    want = (kc.clone(), vc.clone())
+    kernels.paged_kv_write_ref(*want, k_rows, v_rows, pages, offs)
+    got = (kc.clone(), vc.clone())
+    kernels.paged_kv_write(*got, k_rows, v_rows, pages, offs)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, 1:], w[:, 1:])
+    ids = (1 + torch.randperm(n_pages - 1, generator=gen)[:12]).to(
+        torch.int32)
+    ids[[2, 7]] = 0
+    ids = ids.to(cuda_device)
+    blocks = [torch.randn(12 * p, kvh, d, generator=gen).to(cuda_device, dt)
+              .view(12, p, kvh, d).permute(0, 2, 1, 3) for _ in range(2)]
+    want = (kc.clone(), vc.clone())
+    kernels.paged_kv_write_pages_ref(*want, *blocks, ids)
+    got = (kc.clone(), vc.clone())
+    kernels.paged_kv_write_pages(*got, *blocks, ids)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, 1:], w[:, 1:])
+    # K4: eight decode lanes, page edges and longer contexts
+    lens = torch.tensor([1, 15, 16, 17, 0, 100, 200, 255], dtype=torch.int32)
+    tables = (1 + torch.randperm(n_pages - 1, generator=gen)[:8 * max_pages]
+              ).reshape(8, max_pages).to(torch.int32)
+    q = torch.randn(8, h, d, generator=gen).to(cuda_device, dt)
+    args = (kc, vc, lens.to(cuda_device), tables.to(cuda_device))
+    torch.testing.assert_close(
+        attention.paged_attention_decode(q, *args).float(),
+        attention.paged_attention_decode_ref(q, *args).float(), **BF16_TOL)
+    zq = torch.zeros_like(q)
+    torch.testing.assert_close(
+        attention.paged_attention_decode(zq, *args).float(),
+        attention.paged_attention_decode_ref(
+            zq.float(), kc.float(), vc.float(), *args[2:]), **UNIFORM_TOL)
+    # K1: decode rows and a prompt chunk straddling pages, padding rows
+    qpos = [0, 15, 16, 40, 100, 254] + list(range(30, 70)) + [-1, -1]
+    lanes = [0, 1, 2, 3, 4, 5] + [6] * 40 + [0, 0]
+    qpos_t = torch.tensor(qpos, dtype=torch.int32).to(cuda_device)
+    lanes_t = torch.tensor(lanes, dtype=torch.int32).to(cuda_device)
+    tab = tables.to(cuda_device)
+    q1 = torch.randn(len(qpos), h, d, generator=gen).to(cuda_device, dt)
+    got = ragged.ragged_paged_attention(q1, kc, vc, qpos_t, lanes_t, tab)
+    want = ragged.ragged_attention_ref(q1, kc, vc, qpos_t, lanes_t, tab)
+    valid = qpos_t >= 0
+    torch.testing.assert_close(got[valid].float(), want[valid].float(),
+                               **BF16_TOL)
+    assert torch.all(got[~valid] == 0)
+    z1 = torch.zeros_like(q1)
+    got = ragged.ragged_paged_attention(z1, kc, vc, qpos_t, lanes_t, tab)
+    want = ragged.ragged_attention_ref(z1.float(), kc.float(), vc.float(),
+                                       qpos_t, lanes_t, tab)
+    torch.testing.assert_close(got[valid].float(), want[valid], **UNIFORM_TOL)
+    # K1 at a verify round (D 128): 8 lanes x 5 rows from unaligned cursors
+    d8 = 128
+    k8 = torch.randn(8, n_pages, p, d8, generator=gen).to(cuda_device, dt)
+    v8 = torch.randn(8, n_pages, p, d8, generator=gen).to(cuda_device, dt)
+    starts = [3, 17, 40, 61, 90, 130, 177, 230]
+    vq = [s + j for s in starts for j in range(5)]
+    vl = [i for i in range(8) for _ in range(5)]
+    vq_t = torch.tensor(vq, dtype=torch.int32).to(cuda_device)
+    vl_t = torch.tensor(vl, dtype=torch.int32).to(cuda_device)
+    qv = torch.randn(40, 32, d8, generator=gen).to(cuda_device, dt)
+    torch.testing.assert_close(
+        ragged.ragged_paged_attention(qv, k8, v8, vq_t, vl_t, tab).float(),
+        ragged.ragged_attention_ref(qv, k8, v8, vq_t, vl_t, tab).float(),
+        **BF16_TOL)
+
+
+def _spec_case(dev, cfg, dcfg, n_pages=96, self_draft=False):
+    """A spec burst's inputs for 8 lanes (two of them seeded stochastic,
+    one padding) on random caches of target and draft; with `self_draft`
+    the draft's caches are a copy of the target's."""
+    from dynamo_tpu_torch.models.llama import init_cache
+
+    gen = torch.Generator().manual_seed(21)
+    caches = []
+    for c in (cfg, dcfg):
+        if self_draft and caches:
+            caches += [[t.clone() for t in pair] for pair in caches]
+            break
+        kc, vc = init_cache(c, n_pages, dev)
+        for t in kc + vc:
+            t.copy_(torch.randn(t.shape, generator=gen))
+        caches += [kc, vc]
+    tables = torch.zeros(8, cfg.max_pages_per_seq, dtype=torch.int32)
+    for i in range(8):
+        tables[i, :10] = torch.arange(1 + 10 * i, 11 + 10 * i)
+    inputs = [torch.randint(0, 1000, (8,), generator=gen, dtype=torch.int32),
+              torch.tensor([5, 17, 33, 60, 2, 90, 110, 0], dtype=torch.int32),
+              tables, torch.tensor([True] * 7 + [False]),
+              torch.arange(8, dtype=torch.int64) * 13 + 1,
+              torch.arange(8, dtype=torch.int64),
+              torch.tensor([0, 0.8, 0, 0, 1.1, 0, 0, 0]),
+              torch.tensor([1, 0.9, 1, 1, 1, 1, 1, 1.0]),
+              torch.tensor([0, 0, 0, 0, 20, 0, 0, 0])]
+    return caches, [a.to(dev) for a in inputs]
+
+
+def test_spec_burst_on_card_matches_cpu(cuda_device):
+    """`spec_decode_multi_step` at 2 layers of full width in fp32 (an
+    8B-shaped target, a 1B-shaped draft, D 64) on the card through K1, K2
+    and K4 equals the same function on the CPU through the plain
+    versions: identical tokens, counts and new positions on the live
+    lanes."""
+    from dynamo_tpu_torch.engine.spec import spec_decode_multi_step
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32)
+    dcfg = LlamaConfig.llama3_8b(
+        num_layers=2, dtype=torch.float32, hidden_size=2048,
+        intermediate_size=8192, head_dim=64)
+    cpu = torch.device("cpu")
+    cpu_models = init_params(cfg, 0, cpu), init_params(dcfg, 1, cpu)
+    outs = {}
+    for dev in (cuda_device, cpu):
+        model, draft = cpu_models if dev.type == "cpu" else (
+            copy.deepcopy(m).to(dev) for m in cpu_models)
+        caches, inputs = _spec_case(dev, cfg, dcfg)
+        with torch.inference_mode():
+            packed, pos = spec_decode_multi_step(
+                model, draft, *caches, *inputs, gamma=4, num_iters=2,
+                topk_lp=2)
+        outs[dev.type] = (packed.cpu(), pos.cpu())
+        del model, draft, caches
+    (pk, ppos), (pc, cpos) = outs["cuda"], outs["cpu"]
+    # the padding lane (7) is not compared: K1 gives its rows zeros where
+    # the plain version averages, so its garbage tokens differ
+    live = inputs[3].cpu()
+    assert torch.equal(pk[2][..., live], pc[2][..., live])
+    assert torch.equal(ppos[live], cpos[live])
+    counts = pc[2, :, 0, :].long()
+    mask = (torch.arange(5)[None, :, None] < counts[:, None, :]) \
+        & live[None, None, :]
+    assert torch.equal(pk[0][mask], pc[0][mask])
+    torch.testing.assert_close(pk[1][mask], pc[1][mask], atol=1e-3, rtol=0)
+
+
+def test_spec_self_draft_on_card_matches_cpu(cuda_device):
+    """A self-draft (the target is its own draft, with caches of its own
+    that hold the target's KV) at 2 layers of full width in fp32: the
+    burst on the card through K1, K2 and K4 accepts what the same burst
+    on the CPU through the plain versions accepts (identical counts,
+    tokens and new positions on the live lanes), and that is nearly every
+    proposal, so the acceptance path itself is held: accepted prefixes,
+    the stale draft KV they leave, and the emitted tokens."""
+    from dynamo_tpu_torch.engine.spec import spec_decode_multi_step
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32)
+    cpu = torch.device("cpu")
+    cpu_model = init_params(cfg, 0, cpu)
+    outs = {}
+    for dev in (cuda_device, cpu):
+        model = cpu_model if dev.type == "cpu" else copy.deepcopy(
+            cpu_model).to(dev)
+        caches, inputs = _spec_case(dev, cfg, cfg, self_draft=True)
+        with torch.inference_mode():
+            packed, pos = spec_decode_multi_step(
+                model, model, *caches, *inputs, gamma=4, num_iters=3,
+                topk_lp=2)
+        outs[dev.type] = (packed.cpu(), pos.cpu())
+        del model, caches
+    (pk, ppos), (pc, cpos) = outs["cuda"], outs["cpu"]
+    live = inputs[3].cpu()
+    assert torch.equal(pk[2][..., live], pc[2][..., live])
+    assert torch.equal(ppos[live], cpos[live])
+    counts = pc[2, :, 0, :].long()
+    # 5 = gamma accepted + the target's extra token, every iteration
+    assert counts[:, live].float().mean() >= 4.5, counts
+    mask = (torch.arange(5)[None, :, None] < counts[:, None, :]) \
+        & live[None, None, :]
+    assert torch.equal(pk[0][mask], pc[0][mask])
+    torch.testing.assert_close(pk[1][mask], pc[1][mask], atol=1e-3, rtol=0)
+
+
+def test_spec_burst_graph_replay_bit_identical(cuda_device):
+    """A spec burst (bf16, 2 layers at full width, an 8B-shaped target and
+    a 1B-shaped draft) replayed from its CUDA graph equals the eager burst
+    on copies of both cache pairs: packed output and all four caches, bit
+    for bit."""
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+    from dynamo_tpu_torch.engine.spec import spec_decode_multi_step
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama3_8b(num_layers=2)
+    dcfg = LlamaConfig.llama3_8b(num_layers=2, hidden_size=2048,
+                                 intermediate_size=8192, head_dim=64)
+    model, draft = (init_params(c, s, cuda_device)
+                    for c, s in ((cfg, 0), (dcfg, 1)))
+    caches, inputs = _spec_case(cuda_device, cfg, dcfg)
+    eager = [[t.clone() for t in c] for c in caches]
+    graphed = [[t.clone() for t in c] for c in caches]
+    with torch.inference_mode():
+        want = spec_decode_multi_step(model, draft, *eager, *inputs,
+                                      gamma=4, num_iters=3, topk_lp=8)[0]
+        graphs = StepGraphs(cuda_device)
+
+        def step(*a):
+            return spec_decode_multi_step(model, draft, *graphed, *a,
+                                          gamma=4, num_iters=3,
+                                          topk_lp=8)[0]
+
+        got = graphs.run(("spec",), step, [a.cpu().numpy() for a in inputs])
+        torch.cuda.synchronize()
+    assert graphs.captures == 1 and graphs.replays == 1
+    assert torch.equal(got, want)
+    for e, g in zip(eager, graphed):
+        for te, tg in zip(e, g):
+            assert torch.equal(te[:, 1:], tg[:, 1:])

@@ -154,10 +154,13 @@ async def test_prefix_reuse_cancel_and_unsupported_requests():
         ctx.cancel()
         outs = [o async for o in eng.generate(req(prompt, 4), ctx)]
         assert outs[-1]["finish_reason"] == "cancelled"
-        bad = {**req(prompt), "extra": {"embed": True}}
-        outs = [o async for o in eng.generate(bad, Context())]
-        assert outs[-1]["finish_reason"] == "error"
-        assert "embeddings" in outs[-1]["extra"]["error"]
+        # an embedding request is served (it was refused before the
+        # embeddings were ported): one output with a unit vector
+        emb = {**req(prompt), "extra": {"embed": True}}
+        outs = [o async for o in eng.generate(emb, Context())]
+        assert len(outs) == 1 and outs[0]["finish_reason"] == "stop"
+        assert len(outs[0]["embedding"]) == tcfg.hidden_size
+        assert abs(np.linalg.norm(outs[0]["embedding"]) - 1.0) < 1e-5
     finally:
         await eng.close()
     assert eng.pool.active_pages == 0

@@ -319,9 +319,15 @@ def test_deployment_clis_serve_on_cpu_without_foreign_imports(ckpts,
                                                               tmp_path):
     """The port's coordinator, worker (`--device cpu`) and frontend as
     three processes, and `run in=http` as one, each answer a chat request
-    over HTTP; at exit none of them had loaded jax, any dynamo_tpu
-    module, msgpack or aiohttp."""
+    over HTTP; a second worker serves the same checkpoint with
+    `--draft-model` (a tiny checkpoint of other weights) and answers the
+    greedy chat with the same body as the worker without a draft; at
+    exit none of them had loaded jax, any dynamo_tpu module, msgpack or
+    aiohttp."""
     from dynamo_tpu_torch.runtime.distributed import free_port
+
+    draft_ckpt = write_synthetic_hf_checkpoint(str(tmp_path / "draft"),
+                                               preset="tiny", seed=7)
 
     procs = []
     try:
@@ -335,6 +341,13 @@ def test_deployment_clis_serve_on_cpu_without_foreign_imports(ckpts,
                        "--store", store, "--router-mode", "round_robin",
                        "--num-pages", "32", "--served-model-name", "tiny")
         procs.append(worker)
+        spec = _Proc(tmp_path, "spec_worker", "dynamo_tpu_torch.worker",
+                     "--model", ckpts["tiny"], "--device", "cpu",
+                     "--store", store, "--router-mode", "round_robin",
+                     "--num-pages", "32", "--served-model-name",
+                     "tiny-spec", "--draft-model", draft_ckpt,
+                     "--spec-gamma", "3", "--spec-iters-per-sync", "2")
+        procs.append(spec)
         frontend = _Proc(tmp_path, "frontend", "dynamo_tpu_torch.frontend",
                          "--store", store, "--host", "127.0.0.1",
                          "--port", str(free_port()))
@@ -346,6 +359,7 @@ def test_deployment_clis_serve_on_cpu_without_foreign_imports(ckpts,
         procs.append(run)
         assert worker.wait_line("WORKER_READY").startswith(
             "dynamo/backend/generate/")
+        spec.wait_line("WORKER_READY")
         url = frontend.wait_line("FRONTEND_READY")
         run_url = run.wait_line("RUN_READY")
         import time
@@ -358,6 +372,15 @@ def test_deployment_clis_serve_on_cpu_without_foreign_imports(ckpts,
             time.sleep(0.2)
         assert status == 200, body
         assert body["usage"]["completion_tokens"] == 4
+        deadline = time.monotonic() + 30
+        while True:
+            status, spec_body = _chat(url, "tiny-spec")
+            if status != 404 or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        assert status == 200, spec_body
+        assert spec_body["choices"] == body["choices"]
+        assert spec_body["usage"] == body["usage"]
         status, body = _chat(run_url, "tiny-run")
         assert status == 200, body
         assert body["choices"][0]["finish_reason"] == "length"
