@@ -227,6 +227,43 @@ on):
     near-ties. Printed per pass: the acceptance rate and tokens per
     burst (random weights: a bound on the path's cost, not a claim),
     tok/s and TTFT p50 (the 1B pass's steady batch beside phase 8's)
+ 8h. MoE and image chat: phase 8's 8B weights leave the card (phases
+    9-13 draw them again from seed 0, as phase 8's engine drew them), then
+    Mixtral-8x7B's published shape (MIXTRAL_CONFIG: 32 layers, hidden
+    4096, FFN 14336, 8 experts top-2, vocab 32000) in int8, random
+    weights from seed 0 drawn and quantized one expert at a time, page 16,
+    a MOE_PAGES-page KV pool; the memory before and after the load and the
+    weight bytes printed. The VQ image encoder's weights (trained at first
+    use on the CPU), its tokens on the card equal to its plain numpy
+    version on a 32x32 PNG written with the standard library. `moe_mlp`
+    held against `moe_mlp_reference` at one layer, int8 stacks (the served
+    layer) and bf16 stacks (one drawn layer), within MOE_BF16_TOL of the
+    largest output (tokens at a router near-tie, ROUTER_TIE_TOL, counted
+    apart). In process, on the phase path and then the ragged path over
+    the same weights: 6 greedy text chats (max_tokens 16, top-8 logprobs)
+    all in flight, then the same image chat twice (196 image tokens at
+    offset 30000; the second a prefix hit), then an image chat at the
+    default offset 128256 (its ids past the vocabulary read the clamped
+    embedding row: its stream equals that of its prompt clamped into the
+    vocabulary, up to a near-tie), each through the OpenAI pipeline and an
+    in-process encode router; launch counts zeroed just before and read
+    just after (phase: K1-K4 > 0; ragged: K1, K2 > 0; K5 = K6 = 0);
+    every dispatch a CUDA-graph run, 0 eager (captures, capture seconds,
+    replays, pool bytes printed); tok/s and TTFT p50 of the text batch;
+    the two paths' streams equal or parting at near-ties (MOE_TIE_TOL).
+    The bare 8-lane 8-step decode burst (`moe_burst_profile`): replayed
+    from its graph bit-identical with eager, its host wall and device
+    busy; the eager burst's device time split into the MoE FFN (expert
+    GEMMs, the int8 -> bf16 conversion of the stacks, their scales,
+    routing / gating / combine) beside attention (K2 + K4) and the rest.
+    Then the deployment: the coordinator, `.worker` on a config-only
+    Mixtral dir (int8, random init seed 0, `--encode-component
+    encoder`), `.worker --encode-worker --image-vocab-offset 30000`, a
+    second encode worker at the default offset behind a second card this
+    script publishes, and `.frontend`: the same 9 chats through HTTP, each
+    a 200 with well-formed SSE, its tokens the in-process phase path's or
+    parting at a near-tie (MOE_TIE_TOL); the worker's graphs replayed and
+    its launches K1-K4 > 0, K5 = K6 = 0 (its `_sys.stats` scrape)
  9. quantized main path: every other request of the batch (5; cut since
     8g was added) on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
@@ -261,10 +298,13 @@ on):
     events too, device ops) and the graph pool's bytes; the bare spec
     burst replayed only (eager, it issues tens of thousands of launches:
     cut since 8g was added); the phase path's
-    engine batch once more (the ragged path's: cut since 8g was added)
-    with kernel tracing only (host wall vs device busy and idle share,
-    the dispatches still eager — not run from a graph —, graph captures
-    and replays)
+    engine batch once more (the ragged path's: cut since 8g was added),
+    its steady batch with kernel tracing only (the first batch, which
+    pays the captures, untraced: cut since 8h was added) (host wall vs
+    device busy and idle share, the dispatches still eager — not run
+    from a graph —, graph captures and replays); the quantized bursts'
+    eager and graphed runs profiled QUANT_PROFILE_REPS times (cut from 2
+    and 5 since 8h was added)
 12. kernel path vs plain path at 2 layers, full width, fp32: greedy
     streams over 16 steps x 3 requests across phase-kernel, phase-plain,
     ragged-kernel and ragged-plain — identical unquantized, and under
@@ -301,6 +341,7 @@ and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import asyncio
+import base64
 import contextlib
 import itertools
 import json
@@ -816,11 +857,12 @@ def draft_geometry_checks(torch, gen, dev, kernels, attention, ragged,
     return errs
 
 
-def compare_streams(want: list, got: list, label: str) -> list:
+def compare_streams(want: list, got: list, label: str,
+                    tol: float = BF16_TIE_TOL) -> list:
     """(tokens, top-k) per request, `got` against `want`: equal, or parting
-    at a bf16 near-tie within BF16_TIE_TOL (each printed with its step
-    and gap); a length mismatch without a parting raises. Returns the
-    partings [(request, step, gap)]."""
+    at a bf16 near-tie within `tol` (BF16_TIE_TOL by default; each printed
+    with its step and gap); a length mismatch without a parting raises.
+    Returns the partings [(request, step, gap)]."""
     partings = []
     for r, ((ta, ka), (tb, kb)) in enumerate(zip(want, got)):
         n = min(len(ta), len(tb))
@@ -830,11 +872,11 @@ def compare_streams(want: list, got: list, label: str) -> list:
                                      f"tokens against {len(ta)}")
             continue
         for _, s, g in stream_partings([(ta[:n], ka[:n])],
-                                       [(tb[:n], kb[:n])], BF16_TIE_TOL):
+                                       [(tb[:n], kb[:n])], tol):
             partings.append((r, s, g))
             log(f"[{label}] request {r} parts at step {s} of {len(tb)}: "
                 f"tokens {ta[s]} vs {tb[s]}, logprob gap {g:.4f} nats (tie "
-                f"tolerance {BF16_TIE_TOL}); identical before it")
+                f"tolerance {tol}); identical before it")
     return partings
 
 
@@ -2565,9 +2607,10 @@ def _http_get(port: int, path: str) -> bytes:
 
 
 def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
-                         jobs: list, out_path: str) -> list:
+                         jobs: list, out_path: str, traced: tuple) -> list:
     """Batches once more, one after another through a fresh engine (the
-    first pays the graph captures, the next ones replay), each with CUPTI
+    first pays the graph captures, the next ones replay), those whose
+    `traced` entry is True with CUPTI
     kernel tracing only (no host-op recording, so the host runs at its
     normal pace), host clocks around the engine's device-blocking calls
     it makes on its own methods (ragged: its rounds and first-token
@@ -2605,21 +2648,24 @@ def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
 
     async def go():
         try:
-            for path in jobs:
+            for path, trace in zip(jobs, traced):
                 rounds0, captures0 = engine.rounds, engine.graphs.captures
                 runs.clear()
                 inside[0] = 0.0
                 prof = profile(activities=[ProfilerActivity.CUDA])
-                prof.start()
+                if trace:
+                    prof.start()
                 t0 = time.perf_counter()
                 await run_batch(pipeline, name, path, 32, out_path)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                prof.stop()
-                busy = sum(e.self_device_time_total
-                           for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CUDA
-                           ) / 1e6
+                busy = None
+                if trace:
+                    prof.stop()
+                    busy = sum(
+                        e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                    ) / 1e6
                 rounds = engine.rounds - rounds0
                 graphed = sum(n for e, n in runs.items()
                               if e != "sample_first")
@@ -2812,7 +2858,8 @@ def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
             host = [a.numpy() for a in args]
             eager = measure(torch, lambda: packed_of(fn(kc, vc)(
                 *(a.to(dev) for a in args))).cpu(), ProfilerActivity,
-                profile, reps=EAGER_PROFILE_REPS)
+                profile, reps=(EAGER_PROFILE_REPS if mode == "bf16"
+                               else QUANT_PROFILE_REPS))
             # 11a: the graph on one copy of the caches, eager on another
             g_caches = ([c.clone() for c in kc], [c.clone() for c in vc])
             e_caches = ([c.clone() for c in kc], [c.clone() for c in vc])
@@ -2844,7 +2891,9 @@ def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
                 return packed_of(step_graphs.run(
                     (label,), None, host)).cpu()
 
-            graphed = measure(torch, replay, ProfilerActivity, profile)
+            graphed = measure(torch, replay, ProfilerActivity, profile,
+                              reps=5 if mode == "bf16" else
+                              QUANT_PROFILE_REPS)
             ev = []
             for _ in range(10):
                 start = torch.cuda.Event(enable_timing=True)
@@ -3017,8 +3066,11 @@ def self_draft_floor(p: float, n_pos: int, n_iters: int,
 
 
 # profiled repetitions of each bare eager step in phase 11 (cut from 5
-# since phase 8c's parser run was added; the graphed steps keep 5)
+# since phase 8c's parser run was added; the bf16 graphed steps keep 5),
+# and of the quantized bursts' eager and graphed runs (cut from 2 and 5
+# since phase 8h was added)
 EAGER_PROFILE_REPS = 2
+QUANT_PROFILE_REPS = 1
 
 
 def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
@@ -3575,6 +3627,738 @@ def constrained_phase(torch, model, dev, smi, n_pages: int) -> dict:
     del g_caches, kc, vc, sg, sp, stack
     torch.cuda.empty_cache()
     return out
+
+
+# phase 8h: Mixtral-8x7B's published shape (mistralai/Mixtral-8x7B-v0.1
+# config.json; models/mixtral.py MoeConfig.mixtral_8x7b), served in int8
+MIXTRAL_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "vocab_size": 32000,
+    "rms_norm_eps": 1e-5, "rope_theta": 1e6,
+    "max_position_embeddings": 32768, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "tie_word_embeddings": False,
+}
+# the KV pool: 4096 pages of 16 tokens, 2 MiB a page (32 layers x K and V
+# x 8 heads x 16 x 128 x bf16): 8 GiB beside the ~47 GB of int8 weights
+MOE_PAGES = 4096
+# image ids 30000..31023 (codebook 1024): inside Mixtral's vocabulary
+IMAGE_OFFSET = 30000
+DEFAULT_IMAGE_OFFSET = 128256       # the encode worker's default
+MOE_TEXT_BYTES = (16, 40, 100, 200, 350, 600)
+MOE_MAX_TOKENS = 16
+# moe_mlp (bf16 activations, bf16 or int8 stacks) against the fp32
+# per-token loop: gate, up and their product round to bf16 (0.8% of the
+# output's largest value on the CPU at hidden 256); a token whose k-th and
+# (k+1)-th fp32 router logits lie within ROUTER_TIE_TOL may route
+# otherwise from the bf16 router product and is counted, not compared
+MOE_BF16_TOL = 0.02
+ROUTER_TIE_TOL = 0.05
+# Greedy bf16 Mixtral streams of one request on two paths or two prefill
+# schedules (phase vs ragged, in process vs the worker's prefill-all):
+# random weights at vocab 32000 give flat distributions, and 32 layers of
+# int8 experts carry each path's bf16 roundings to the logits. Where two
+# streams part, each run ranks the other's token within this many nats of
+# its own (partings measured at 0.0156-0.2812 nats over 11 partings on an
+# NVIDIA H100 80GB HBM3, 700 W; a wrong MoE product moves logits by O(1))
+MOE_TIE_TOL = 0.5
+
+
+def png_rgb(w: int, h: int, seed: int) -> bytes:
+    """A random 8-bit RGB PNG written with the standard library (zlib),
+    rows under filters None and Sub in turn."""
+    import struct
+    import zlib
+
+    rng = random.Random(seed)
+    raw = bytearray()
+    for y in range(h):
+        row = bytes(rng.randrange(256) for _ in range(3 * w))
+        if y % 2:
+            raw.append(1)
+            raw.extend((row[i] - (row[i - 3] if i >= 3 else 0)) % 256
+                       for i in range(len(row)))
+        else:
+            raw.append(0)
+            raw.extend(row)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(raw)))
+            + chunk(b"IEND", b""))
+
+
+def moe_requests(name: str, url: str) -> tuple[list, list, dict]:
+    """Phase 8h's chats: 6 greedy text chats of 16..600 bytes, the same
+    image chat twice, one image chat for the default-offset card; each
+    max_tokens 16 with top-8 logprobs (GREEDY_FIELDS)."""
+    rng = random.Random(5)
+    texts = ["".join(rng.choice("abcdefghij klmnop qrstuv wxyz.,")
+                     for _ in range(n)) for n in MOE_TEXT_BYTES]
+
+    def chat(content, model=name):
+        return {"model": model, "stream": True, "max_tokens": MOE_MAX_TOKENS,
+                **GREEDY_FIELDS,
+                "messages": [{"role": "user", "content": content}]}
+
+    image = [{"type": "text", "text": "what is in this picture?"},
+             {"type": "image_url", "image_url": {"url": url}}]
+    return ([chat(t) for t in texts], [chat(image), chat(image)],
+            chat(image, name + "-default-offset"))
+
+
+async def chat_in_process(pipeline, body: dict) -> dict:
+    """One chat through an in-process pipeline, read as
+    `http_chat_stream` reads an HTTP stream."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    t0 = time.perf_counter()
+    entries, first, finish, usage = [], None, None, None
+    async for chunk in pipeline.generate({"_kind": "chat", "body": body},
+                                         Context()):
+        for ch in chunk.get("choices", ()):
+            got = (ch.get("logprobs") or {}).get("content") or []
+            if got and first is None:
+                first = time.perf_counter() - t0
+            entries.extend(got)
+            finish = ch.get("finish_reason") or finish
+        usage = chunk.get("usage") or usage
+    toks, tops = token_ids_of(entries)
+    if finish is None or usage is None or first is None \
+            or usage["completion_tokens"] != len(toks):
+        raise AssertionError(f"in-process chat ended badly: {finish}, "
+                             f"{usage}, {len(toks)} tokens")
+    return {"tokens": toks, "tops": tops, "finish": finish,
+            "ttft_s": first, "elapsed_s": time.perf_counter() - t0,
+            "t0": t0, "prompt_tokens": usage["prompt_tokens"]}
+
+
+def moe_mlp_check(torch, mixtral, layer, cfg, dev, label: str) -> str:
+    """`moe_mlp` at one layer on the card against `moe_mlp_reference` (the
+    fp32 per-token loop, int8 stacks read dequantized) on 32 tokens of
+    bf16 activations: within MOE_BF16_TOL of the output's largest value,
+    tokens at a router near-tie (ROUTER_TIE_TOL) counted apart."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h = torch.randn((32, cfg.hidden_size), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = mixtral.moe_mlp(h, layer, cfg).float()
+        want = mixtral.moe_mlp_reference(h, layer, cfg)
+        logits = h.float() @ layer.router.float()
+    if not torch.isfinite(got).all() or got.shape != h.shape:
+        raise AssertionError(f"{label}: moe_mlp output is not finite")
+    top = logits.sort(dim=-1, descending=True).values
+    k = cfg.experts_per_token
+    clear = (top[:, k - 1] - top[:, k]) >= ROUTER_TIE_TOL
+    if clear.sum() < 16:
+        raise AssertionError(f"{label}: {int((~clear).sum())} of 32 tokens "
+                             f"at a router near-tie")
+    err = (got - want).abs().amax(dim=-1)[clear].max().item()
+    scale = want.abs().max().item()
+    if not err <= MOE_BF16_TOL * scale:
+        raise AssertionError(f"{label}: moe_mlp differs from the reference "
+                             f"loop by {err} (largest output {scale})")
+    return (f"{label}: max |moe_mlp - moe_mlp_reference| {err:.5f} over "
+            f"{int(clear.sum())} of 32 tokens (largest output {scale:.4f}, "
+            f"tolerance {MOE_BF16_TOL} x it; "
+            f"{int((~clear).sum())} at a router near-tie below "
+            f"{ROUTER_TIE_TOL})")
+
+
+def moe_burst_profile(torch, llama, mixtral, graphs, model, dev,
+                      smi: str) -> dict:
+    """One bare 8-lane, 8-step decode burst of the served Mixtral model
+    (contexts 44..1033, top-8 logprobs): eager, then captured in a CUDA
+    graph and replayed (bit-identical with the eager burst on a copy of
+    the caches). Prints the replay's host wall (with its one sync), its
+    device busy time, and the eager burst's device time split into the
+    MoE FFN (expert GEMMs, the int8 → bf16 conversion of the stacks,
+    their scales, and routing / gating / combine) beside attention
+    (K2 + K4) and the rest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cfg = model.cfg
+    bmax, k = 8, 8
+    ctx = [44, 73, 133, 233, 383, 653, 853, 1033]
+    kc, vc = llama.init_cache(cfg, 1 + 72 * bmax, dev)
+    for cache in kc + vc:
+        cache.normal_()
+    tables = torch.zeros(bmax, cfg.max_pages_per_seq, dtype=torch.int32)
+    for i in range(bmax):
+        tables[i, :72] = torch.arange(1 + 72 * i, 73 + 72 * i)
+    z = torch.zeros(bmax, dtype=torch.int64)
+    args = [torch.randint(0, cfg.vocab_size, (bmax,), dtype=torch.int32),
+            torch.tensor(ctx, dtype=torch.int32) - 1, tables,
+            torch.ones(bmax, dtype=torch.bool), z, z, torch.zeros(bmax),
+            torch.ones(bmax), z]
+    host = [a.numpy() for a in args]
+
+    def burst(k_cache, v_cache):
+        return lambda *a: llama.decode_multi_step(
+            model, k_cache, v_cache, *a, num_steps=k, topk_lp=8)
+
+    out = {}
+    with torch.inference_mode():
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            burst(kc, vc)(*(a.to(dev) for a in args)).cpu()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        out["eager_wall_ms"] = min(walls)
+        # the eager burst under the profiler, each MoE FFN and each expert
+        # product in a range of its own (this script's wrappers only)
+        names = ("moe_mlp", "_qe_in", "_qe_out")
+        orig = {n: getattr(mixtral, n) for n in names}
+
+        def ranged(label, fn):
+            def run(*a, **kw):
+                with record_function(label):
+                    return fn(*a, **kw)
+            return run
+
+        for n in names:
+            setattr(mixtral, n, ranged("moe:" + n, orig[n]))
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                burst(kc, vc)(*(a.to(dev) for a in args)).cpu()
+        finally:
+            for n in names:
+                setattr(mixtral, n, orig[n])
+
+        def kernels_of(evt):
+            ks = list(evt.kernels)
+            for ch in evt.cpu_children:
+                ks += kernels_of(ch)
+            return ks
+
+        # every device kernel (the hand-written ones launch outside any
+        # aten op, so only the device events see them; the ranges' own
+        # device spans left out), then the MoE ranges' kernels through the
+        # op tree
+        dev_events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("moe:")]
+        total = sum(e.self_device_time_total for e in dev_events)
+        events = prof.events()
+        moe = [kn for e in events if e.name == "moe:moe_mlp"
+               for kn in kernels_of(e)]
+        expert = [kn for e in events
+                  if e.name in ("moe:_qe_in", "moe:_qe_out")
+                  for kn in kernels_of(e)]
+        split = {"expert GEMMs": 0.0, "int8 -> bf16 conversion": 0.0,
+                 "scales": 0.0}
+        for kn in expert:
+            cls = kernel_class(kn.name)
+            key = ("expert GEMMs" if cls == "matmul (cuBLAS)" else
+                   "int8 -> bf16 conversion" if "copy" in kn.name.lower()
+                   else "scales")
+            split[key] += kn.duration
+        moe_us = sum(kn.duration for kn in moe)
+        split["routing, gating, combine"] = moe_us - sum(split.values())
+        attn_us = sum(e.self_device_time_total for e in dev_events
+                      if kernel_class(e.key).startswith(("K2", "K4")))
+        out.update(total_ms=total / 1e3, moe_ms=moe_us / 1e3,
+                   attn_ms=attn_us / 1e3,
+                   other_ms=(total - moe_us - attn_us) / 1e3,
+                   split={key: v / 1e3 for key, v in split.items()},
+                   launches=sum(e.count for e in dev_events))
+        if not moe_us > 0 or not total > moe_us:
+            raise AssertionError(f"the profiler saw no MoE kernel: {out}")
+        # the graphed burst: bit-identical with the eager one, then timed
+        step_graphs = graphs.StepGraphs(dev)
+        g_caches = ([c.clone() for c in kc], [c.clone() for c in vc])
+        eager_caches = ([c.clone() for c in kc], [c.clone() for c in vc])
+        want = burst(*eager_caches)(*(a.to(dev) for a in args)).cpu()
+        t0 = time.perf_counter()
+        got = step_graphs.run(("burst",), burst(*g_caches), host).cpu()
+        out["capture_s"] = time.perf_counter() - t0
+        if not torch.equal(got, want):
+            raise AssertionError("the graphed MoE burst differs from the "
+                                 "eager burst")
+        for a, b in zip(g_caches[0] + g_caches[1],
+                        eager_caches[0] + eager_caches[1]):
+            if not torch.equal(a[:, 1:], b[:, 1:]):
+                raise AssertionError("the graphed MoE burst left other "
+                                     "caches than the eager burst")
+        del eager_caches
+
+        def replay():
+            return step_graphs.run(("burst",), None, host).cpu()
+
+        walls, ev = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            replay()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step_graphs.run(("burst",), None, host)
+            end.record()
+            end.synchronize()
+            ev.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            replay()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out.update(graph_wall_ms=statistics.median(walls),
+                   graph_event_ms=statistics.median(ev),
+                   graph_busy_ms=busy or None,
+                   pool=step_graphs.pool_bytes())
+        del step_graphs, g_caches, got
+    del kc, vc
+    torch.cuda.empty_cache()
+    sp = out["split"]
+    busy = out["graph_busy_ms"]
+    busy_txt = ("device busy not measured (the profiler saw no kernel in "
+                "the replay)" if not busy else
+                f"{busy:.2f} ms device busy (idle share "
+                f"{1 - busy / out['graph_wall_ms']:.3f})"
+                if busy < out["graph_wall_ms"] else
+                f"{busy:.2f} ms device busy under the profiler, above the "
+                f"unprofiled wall: no idle time measurable")
+    log(f"[moe] bare 8-lane 8-step decode burst of Mixtral-8x7B int8 "
+        f"(contexts 44..1033, top-8 logprobs): graph captured in "
+        f"{out['capture_s']:.2f} s (warm-up + capture + first replay), the "
+        f"replay bit-identical with the eager burst; replayed: host wall "
+        f"{out['graph_wall_ms']:.2f} ms with its one sync, "
+        f"{out['graph_event_ms']:.2f} ms by CUDA events, {busy_txt}, pool "
+        f"{out['pool'] / 2**30:.2f} GiB; eager: host wall "
+        f"{out['eager_wall_ms']:.2f} ms; on {smi}")
+    log(f"[moe] device time of the eager burst, {out['total_ms']:.2f} ms in "
+        f"{out['launches']} kernels ({out['total_ms'] / k:.2f} ms a step): "
+        f"MoE FFN {out['moe_ms']:.2f} ms = share "
+        f"{out['moe_ms'] / out['total_ms']:.3f} (expert GEMMs "
+        f"{sp['expert GEMMs']:.2f} ms, int8 -> bf16 conversion of the "
+        f"stacks {sp['int8 -> bf16 conversion']:.2f} ms, scales "
+        f"{sp['scales']:.2f} ms, routing / gating / combine "
+        f"{sp['routing, gating, combine']:.2f} ms); attention K2 + K4 "
+        f"{out['attn_ms']:.2f} ms; other (attention projections, norms, "
+        f"lm_head, sampling) {out['other_ms']:.2f} ms; on {smi}")
+    return out
+
+
+def moe_phase(torch, smi: str, work: str) -> dict:
+    """Phase 8h: Mixtral-8x7B at full width and depth in int8 (random
+    weights, seed 0), with image chat. In process: the VQ encoder's
+    weights (trained at first use on the CPU) and its tokens on the card
+    against the plain numpy version; `moe_mlp` against
+    `moe_mlp_reference` at one layer (int8 stacks and bf16 stacks); the
+    phase path and the ragged path over the same weights, each serving
+    the chats of `moe_requests` through the OpenAI pipeline and an
+    in-process encode router, launch counts zeroed just before and read
+    just after, every dispatch a CUDA-graph run (0 eager); the bare burst
+    of `moe_burst_profile`. Then the deployment: the coordinator, a
+    `.worker` on a config-only Mixtral dir (random init seed 0, int8,
+    `--encode-component encoder`), `.worker --encode-worker
+    --image-vocab-offset 30000`, a second encode worker at the default
+    offset (component encoder_default, behind a second card this script
+    publishes) and `.frontend`: the same chats through HTTP, each a 200
+    whose tokens are the in-process phase path's or part at a near-tie
+    (MOE_TIE_TOL)."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine import cuda_build, graphs, quant
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.llm.entrypoint import build_torch_engine
+    from dynamo_tpu_torch.models import llama, mixtral
+    from dynamo_tpu_torch.multimodal import encoder as enc
+    from dynamo_tpu_torch.multimodal.worker import EncodeWorkerHandler
+    from dynamo_tpu_torch.run.main import build_pipeline_for
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import free_port
+    from dynamo_tpu_torch.runtime.engine import FnEngine
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"[moe] before Mixtral loads: {held / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB free")
+    if held > 8 * 2**30:
+        raise AssertionError(f"{held / 2**30:.1f} GiB still allocated: phase "
+                             f"8's model was not freed")
+    ckpt = os.path.join(work, "mixtral-8x7b")
+    os.makedirs(ckpt)
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(MIXTRAL_CONFIG, f)
+    name = "mixtral-8x7b"
+
+    # the encoder: trained weights (first use trains them on the CPU)
+    t0 = time.perf_counter()
+    existed = os.path.exists(enc.WEIGHTS_FILE)
+    ecfg = enc.ImageEncoderConfig(vocab_offset=IMAGE_OFFSET)
+    params = enc.load_trained_encoder(ecfg, dev)
+    if params is None:
+        raise AssertionError("no trained encoder weights")
+    log(f"[moe] VQ encoder weights {'loaded' if existed else 'trained on '
+        'the CPU (first use) and loaded'} in {time.perf_counter() - t0:.1f}"
+        f" s")
+    png = png_rgb(32, 32, seed=3)
+    url = "data:image/png;base64," + base64.b64encode(png).decode()
+    img = enc.load_image(url, ecfg)
+    on_card = enc.encode_image_tokens(params, torch.from_numpy(img).to(dev),
+                                      ecfg)
+    n = ecfg.image_size // ecfg.patch_size
+    x = img.reshape(n, ecfg.patch_size, n, ecfg.patch_size, 3) \
+        .transpose(0, 2, 1, 3, 4).reshape(-1, ecfg.patch_dim) \
+        .astype("float64")
+    x -= x.mean(axis=-1, keepdims=True)
+    cb = params["codebook"].double().cpu().numpy()
+    d = (cb ** 2).sum(-1)[None] - 2 * (x @ params["proj"].double().cpu()
+                                       .numpy()) @ cb.T
+    plain = (d.argmin(-1) + IMAGE_OFFSET).tolist()
+    if on_card.tolist() != plain or len(plain) != 196:
+        raise AssertionError("encode_image_tokens on the card differs from "
+                             "its plain numpy version")
+    image_ids = on_card.tolist()
+    log(f"[moe] encode_image_tokens on the card (fp32) == its plain numpy "
+        f"version (fp64) on the 32x32 PNG resized to 224: 196 tokens, "
+        f"{len(set(image_ids))} distinct codes, ids "
+        f"{min(image_ids)}..{max(image_ids)}")
+
+    # the in-process deployment of the weights the worker will draw
+    t0 = time.perf_counter()
+    os.environ.pop("DYN_ATTENTION_IMPL", None)
+    engine, card = build_torch_engine(
+        ckpt, name, num_pages=MOE_PAGES, max_batch_size=8,
+        prefill_chunk_budget=512, decode_steps_per_sync=8,
+        pipeline_bursts=True, random_init=True, rng_seed=0,
+        quantize="int8", device="cuda")
+    torch.cuda.synchronize()
+    model, cfg = engine.model, engine.model.cfg
+    if not isinstance(cfg, mixtral.MoeConfig) or engine.ragged:
+        raise AssertionError(f"not an MoE engine on the phase path: {cfg}")
+    wbytes = quant.weight_bytes(model)
+    stack_bytes = sum(getattr(layer, kk).nbytes for layer in model.layers
+                      for kk in ("w_gate", "w_up", "w_down"))
+    log(f"[moe] Mixtral-8x7B ({cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, "
+        f"{cfg.num_experts} experts top-{cfg.experts_per_token}, vocab "
+        f"{cfg.vocab_size}) random init (seed 0) quantized int8 as drawn, "
+        f"+ {MOE_PAGES}-page KV pool, in {time.perf_counter() - t0:.1f} s: "
+        f"weight bytes {wbytes} ({wbytes / 1e9:.2f} GB; int8 expert stacks "
+        f"{stack_bytes / 1e9:.2f} GB); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved, {torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB free; "
+        f"on {smi}")
+    if not isinstance(model.layers[0].w_gate, quant.QStack):
+        raise AssertionError("the expert stacks are not int8")
+
+    # moe_mlp against the per-token loop: int8 stacks (the served layer 0)
+    # and bf16 stacks (one layer drawn in bf16)
+    log("[moe] " + moe_mlp_check(torch, mixtral, model.layers[0], cfg, dev,
+                                 "int8 stacks (served layer 0)"))
+    bf16_layer = mixtral.MoeLayer(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.inference_mode():
+        bf16_layer.router.copy_(torch.randn(bf16_layer.router.shape,
+                                            generator=gen, device=dev)
+                                / math.sqrt(cfg.hidden_size))
+        for key, fan in (("w_gate", cfg.hidden_size),
+                         ("w_up", cfg.hidden_size),
+                         ("w_down", cfg.intermediate_size)):
+            w = getattr(bf16_layer, key)
+            for e in range(cfg.num_experts):
+                w[e].copy_(torch.randn(w.shape[1:], generator=gen,
+                                       device=dev) / math.sqrt(fan))
+    log("[moe] " + moe_mlp_check(torch, mixtral, bf16_layer, cfg, dev,
+                                 "bf16 stacks (one layer drawn in bf16)"))
+    del bf16_layer
+    torch.cuda.empty_cache()
+
+    args = type("Args", (), {"tokenizer": "auto", "context_length": None,
+                             "max_tokens": MOE_MAX_TOKENS})()
+    texts, images, oor = moe_requests(name, url)
+    handlers = {off: EncodeWorkerHandler(
+        enc.ImageEncoderConfig(vocab_offset=off), device="cuda",
+        params=params) for off in (IMAGE_OFFSET, DEFAULT_IMAGE_OFFSET)}
+
+    def serve_in_process(eng, label, must_launch, must_not_launch):
+        """The chats through `eng` (closed at the end), launch counts
+        zeroed just before and read just after; every dispatch counted
+        as a graph run or eager."""
+        seen, cached, runs = [], [], {}
+        gen_orig, admit = eng.generate, eng._alloc_admission
+        graph_run = eng.graphs.run
+
+        def tapped(request, context):
+            seen.append(list(request["token_ids"]))
+            return gen_orig(request, context)
+
+        def spy(*a):
+            got = admit(*a)
+            if got is not None:
+                cached.append(got[1])
+            return got
+
+        def counted(key, fn, inputs):
+            runs[key[0]] = runs.get(key[0], 0) + 1
+            return graph_run(key, fn, inputs)
+
+        eng.generate, eng._alloc_admission = tapped, spy
+        eng.graphs.run = counted
+        pipe = build_pipeline_for(card, eng, args, FnEngine(
+            handlers[IMAGE_OFFSET].generate))
+        pipe_oor = build_pipeline_for(card, eng, args, FnEngine(
+            handlers[DEFAULT_IMAGE_OFFSET].generate))
+
+        async def go():
+            try:
+                cuda_build.reset_launch_counts()
+                t0 = time.perf_counter()
+                text = await asyncio.gather(*(chat_in_process(pipe, b)
+                                              for b in texts))
+                wall = time.perf_counter() - t0
+                n_text = len(cached)
+                image = [await chat_in_process(pipe, b) for b in images]
+                image_cached = cached[n_text:]
+                far = await chat_in_process(pipe_oor, dict(
+                    oor, model=name))
+                torch.cuda.synchronize()
+                launches = cuda_build.launch_counts()
+                # the default-offset prompt with every id past the
+                # vocabulary replaced by the last row the gather clamps to
+                clamped = [min(t, cfg.vocab_size - 1) for t in seen[-1]]
+                toks, tops = [], []
+                async for o in eng.generate(
+                        {"token_ids": clamped,
+                         "sampling": {"temperature": 0.0, "top_logprobs": 8},
+                         "stop": {"max_tokens": MOE_MAX_TOKENS}}, Context()):
+                    toks.extend(o.get("token_ids", ()))
+                    tops.extend(o.get("top_logprobs") or ())
+                return (text, wall, image, image_cached, far, launches,
+                        (toks, tops), list(eng.ttft_s[:len(texts)]))
+            finally:
+                await eng.close()
+
+        (text, wall, image, image_cached, far, launches, clamped_run,
+         ttft) = asyncio.run(go())
+        # the engine's own methods again (no reference cycle keeps it)
+        del eng.generate, eng._alloc_admission, eng.graphs.run
+        stats = graph_stats(eng)
+        graphed = sum(v for e, v in runs.items() if e != "sample_first")
+        eager = eng.rounds - graphed
+        for kname in must_launch:
+            if launches[kname] == 0:
+                raise AssertionError(f"{kname} never launched on the MoE "
+                                     f"{label} path")
+        for kname in must_not_launch:
+            if launches[kname] != 0:
+                raise AssertionError(f"{kname} launched on the MoE {label} "
+                                     f"path")
+        if eager != 0 or not stats["replays"] > stats["captures"] > 0:
+            raise AssertionError(f"MoE {label} path: {eager} eager "
+                                 f"dispatches, graphs {stats}")
+        for r in text + image + [far]:
+            if r["finish"] not in ("length", "stop") or not r["tokens"]:
+                raise AssertionError(f"an MoE {label} chat ended badly: {r}")
+        img_prompt = seen[len(texts)]
+        run = [t for t in img_prompt if t >= IMAGE_OFFSET]
+        if run != image_ids or seen[len(texts) + 1] != img_prompt:
+            raise AssertionError(f"MoE {label}: the image chat's prompt "
+                                 f"does not carry the image's 196 tokens "
+                                 f"(twice)")
+        if not image_cached[1] >= image_cached[0] + 192:
+            raise AssertionError(f"MoE {label}: the repeated image chat hit "
+                                 f"no prefix ({image_cached})")
+        far_ids = [t for t in seen[len(texts) + 2]
+                   if t >= DEFAULT_IMAGE_OFFSET]
+        if len(far_ids) != 196:
+            raise AssertionError(f"MoE {label}: the default-offset chat's "
+                                 f"prompt holds {len(far_ids)} image ids")
+        # raises unless equal or parting at a near-tie
+        clamp_parts = stream_partings([(far["tokens"], far["tops"])],
+                                      [clamped_run], MOE_TIE_TOL)
+        n_out = sum(len(r["tokens"]) for r in text)
+        log(f"[moe] {label} path, in process: 6 text chats all in flight, "
+            f"{n_out} output tokens in {wall:.2f} s ({n_out / wall:.1f} "
+            f"tok/s, TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, the "
+            f"graphs' captures inside), then the image chat twice "
+            f"({image[0]['prompt_tokens']} prompt tokens, 196 image ids "
+            f"{IMAGE_OFFSET}+; the second found {image_cached[1]} prompt "
+            f"tokens cached, TTFT {image[0]['ttft_s'] * 1e3:.1f} -> "
+            f"{image[1]['ttft_s'] * 1e3:.1f} ms), then the default-offset "
+            f"image chat (196 ids >= {DEFAULT_IMAGE_OFFSET} > vocab "
+            f"{cfg.vocab_size}: the embedding clamps them to row "
+            f"{cfg.vocab_size - 1}, as the JAX package's gather; its "
+            f"{len(far['tokens'])} tokens against the clamped prompt's: "
+            f"{'identical' if not clamp_parts else clamp_parts}); "
+            f"launches {launches}; {eng.rounds} dispatches, {graphed} "
+            f"through CUDA graphs ({dict(sorted(runs.items()))}), {eager} "
+            f"eager; {graph_summary(eng)}; on {smi}")
+        return {"text": text, "image": image, "far": far, "wall": wall,
+                "ttft": ttft, "launches": launches, "graphs": stats}
+
+    phase = serve_in_process(
+        engine, "phase", ("paged_kv_write", "paged_kv_write_pages",
+                          "paged_attention_decode", "ragged_paged_attention"),
+        ("w8a8_matmul", "int4_matmul"))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ragged_eng = TorchEngine(TorchEngineConfig(
+        model=cfg, num_pages=MOE_PAGES, max_batch_size=8,
+        prefill_chunk_budget=512, attention_impl="ragged", device="cuda"),
+        model=model)
+    ragged_run = serve_in_process(
+        ragged_eng, "ragged", ("ragged_paged_attention", "paged_kv_write"),
+        ("paged_kv_write_pages", "paged_attention_decode", "w8a8_matmul",
+         "int4_matmul"))
+    del ragged_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def streams(run):
+        return [(r["tokens"], r["tops"]) for r in
+                run["text"] + run["image"] + [run["far"]]]
+
+    parts = compare_streams(streams(phase), streams(ragged_run),
+                            "moe phase vs ragged", MOE_TIE_TOL)
+    log(f"[moe] phase vs ragged path (bf16 activations, int8 experts): "
+        f"{9 - len(parts)} of 9 streams token-identical, {len(parts)} "
+        f"parted at near-ties (MOE_TIE_TOL {MOE_TIE_TOL})")
+    profile = moe_burst_profile(torch, llama, mixtral, graphs, model, dev,
+                                smi)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the deployment: worker, two encode workers, frontend
+    services = []
+    try:
+        coord = Service(work, "coordinator", "--port", str(free_port()))
+        services.append(coord)
+        store = coord.wait_line("COORDINATOR_READY", 120)
+        t0 = time.perf_counter()
+        worker = Service(work, "worker", "--model", ckpt, "--random-init",
+                         "--quantize", "int8", "--served-model-name", name,
+                         "--router-mode", "round_robin", "--num-pages",
+                         str(MOE_PAGES), "--max-batch-size", "8",
+                         "--prefill-chunk", "512", "--store", store,
+                         "--device", "cuda", "--encode-component", "encoder")
+        services.append(worker)
+        encoder = Service(work, "worker", "--encode-worker",
+                          "--image-vocab-offset", str(IMAGE_OFFSET),
+                          "--store", store, label="encoder")
+        services.append(encoder)
+        encoder_default = Service(work, "worker", "--encode-worker",
+                                  "--component", "encoder_default",
+                                  "--store", store, label="encoder_default")
+        services.append(encoder_default)
+        port = free_port()
+        frontend = Service(work, "frontend", "--store", store, "--host",
+                           "127.0.0.1", "--port", str(port),
+                           "--router-mode", "round_robin")
+        services.append(frontend)
+        frontend.wait_line("FRONTEND_READY", 120)
+        encoder.wait_line("WORKER_READY", 300)
+        encoder_default.wait_line("WORKER_READY", 300)
+        ready = worker.wait_line("WORKER_READY", 900)
+        built = [ln for ln in worker.stderr_tail(100000).splitlines()
+                 if "engine built in" in ln]
+        log(f"[moe] worker {ready} ready {time.perf_counter() - t0:.1f} s "
+            f"after its start ({built[-1].split(': ', 1)[-1] if built else ''}"
+            f"); with it up: {torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB "
+            f"free on the card")
+        streams_http = asyncio.run(moe_http(store, port, name, texts,
+                                            images, oor))
+        for p in services:
+            if p.proc.poll() is not None:
+                raise AssertionError(f"{p.name} exited: {p.stderr_tail()}")
+        scrapes = asyncio.run(worker_scrape(store))
+        wk = next(t for t in scrapes.values()
+                  if "dynamo_engine_cuda_graphs" in t)
+    finally:
+        for p in reversed(services):
+            p.stop()
+    text_h, image_h, far_h, wall_h = streams_http
+    got = [(s["tokens"], s["tops"]) for s in text_h + image_h + [far_h]]
+    parts_h = compare_streams(streams(phase), got, "moe http", MOE_TIE_TOL)
+    g = worker_graphs(wk)
+    wl = {k.split('"')[1]: int(v) for k, v in series_values(
+        wk, "dynamo_engine_kernel_launches").items()}
+    if not g["replays"] > g["captures"] > 0:
+        raise AssertionError(f"the Mixtral worker replayed no graph: {g}")
+    if not all(wl.get(kk, 0) > 0 for kk in (
+            "paged_kv_write", "paged_kv_write_pages",
+            "paged_attention_decode", "ragged_paged_attention")) \
+            or wl.get("w8a8_matmul", 0) or wl.get("int4_matmul", 0):
+        raise AssertionError(f"the Mixtral worker's launches: {wl}")
+    rows = [{"ttft_s": s["ttft_s"], "elapsed_s": s["elapsed_s"],
+             "n": len(s["tokens"])} for s in text_h]
+    log(f"[moe] through HTTP (coordinator, Mixtral worker, two encode "
+        f"workers, frontend; 5 processes): 9 chats, all 200 with "
+        f"well-formed SSE; {9 - len(parts_h)} token-identical with the "
+        f"in-process phase path, {len(parts_h)} parted at near-ties; the "
+        f"image chat's prompt {image_h[0]['prompt_tokens']} tokens both "
+        f"times, TTFT {image_h[0]['ttft_s'] * 1e3:.1f} -> "
+        f"{image_h[1]['ttft_s'] * 1e3:.1f} ms (prefix hit); text chats: "
+        f"{latency_summary(rows, wall_h)}; the worker's graphs: "
+        f"{g['captures']:.0f} captures, {g['replays']:.0f} replays, pool "
+        f"{g['pool_bytes'] / 2**30:.2f} GiB; its launches {wl}; on {smi}")
+    return {"phase": phase, "ragged": ragged_run, "profile": profile,
+            "weight_bytes": wbytes}
+
+
+async def moe_http(store: str, port: int, name: str, texts: list,
+                   images: list, oor: dict):
+    """Phase 8h's chats through the frontend: a second card (the worker's,
+    under another name, its image parts sent to the default-offset encode
+    workers) published from this script's runtime for the default-offset
+    chat; the text chats all in flight, then the image chats one after
+    another."""
+    from dynamo_tpu_torch.llm.model_card import (
+        MDC_PREFIX,
+        ModelDeploymentCard,
+        register_llm,
+    )
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    rt = await DistributedRuntime.create(RuntimeConfig(store_url=store))
+    try:
+        end = time.perf_counter() + 60
+        card = None
+        while card is None:
+            for kv in await rt.store.get_prefix(MDC_PREFIX):
+                c = ModelDeploymentCard.from_json(kv.value)
+                if c.name == name:
+                    card = c
+            if card is None:
+                if time.perf_counter() > end:
+                    raise AssertionError("the worker's card never appeared")
+                await asyncio.sleep(0.2)
+        if card.encode_component != "encoder":
+            raise AssertionError(f"the worker's card: {card}")
+        card.name = oor["model"]
+        card.encode_component = "encoder_default"
+        await register_llm(rt, card)
+        for model in (name, oor["model"]):
+            while f'"{model}"'.encode() not in await asyncio.to_thread(
+                    _http_get, port, "/v1/models"):
+                if time.perf_counter() > end:
+                    raise AssertionError(f"the frontend never listed {model}")
+                await asyncio.sleep(0.2)
+        t0 = time.perf_counter()
+        text = await asyncio.gather(*(asyncio.to_thread(
+            http_chat_stream, port, b) for b in texts))
+        wall = max(s["t0"] + s["elapsed_s"] for s in text) - t0
+        image = [await asyncio.to_thread(http_chat_stream, port, b)
+                 for b in images]
+        far = await asyncio.to_thread(http_chat_stream, port, oor)
+        return text, image, far, wall
+    finally:
+        await rt.close()
 
 
 def main() -> int:
@@ -4326,6 +5110,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("8g speculative decoding")
 
+    # 8h. Mixtral-8x7B in int8, and image chat -------------------------------
+    # the 8B weights and the 1B draft leave the card (47 GB of int8 Mixtral
+    # and its pool do not fit beside them); phases 9-13 draw them again
+    # from seeds 0 and 1, as phase 8's engine and phase 8g drew them
+    del model, draft
+    moe_phase(torch, smi, work)
+    model = llama.init_params(cfg, 0, dev)
+    draft = llama.init_params(dcfg, 1, dev)
+    lap("8h moe and multimodal")
+
     # 9. quantized main path -------------------------------------------------
 
     def bare_decode_launches(mdl):
@@ -4610,14 +5404,18 @@ def main() -> int:
             card.name,
             [write_jobs(os.path.join(work, f"jobs_{label}_{seed}.jsonl"),
                         seed=seed) for seed in (1, 3)],
-            os.path.join(work, f"out_{label}.jsonl"))
+            os.path.join(work, f"out_{label}.jsonl"),
+            traced=(False, True))
         for which, (b_wall, b_busy, b_rounds, b_inside, b_eager, b_runs,
                     b_caps) in zip(("first", "steady"), traced):
-            busy_txt = "not measured" if b_busy is None else (
+            busy_txt = "not traced (the first batch: cut since 8h was " \
+                "added)" if b_busy is None else (
                 f"{b_busy:.3f} s, idle "
                 f"{100 * max(0.0, 1 - b_busy / b_wall):.1f}%")
             log(f"[profile] engine batch, {label} path, {which} batch "
-                f"(fresh prompts, kernels traced): wall {b_wall:.3f} s, "
+                f"(fresh prompts, "
+                f"{'untraced' if b_busy is None else 'kernels traced'}): "
+                f"wall {b_wall:.3f} s, "
                 f"{b_rounds} dispatches, {b_eager} of them eager (graph runs "
                 f"by entry {b_runs}), {b_caps} graph captures, "
                 f"{b_inside:.3f} s inside the engine's own device calls "

@@ -119,6 +119,12 @@ power-of-two bucket, refused above the context length before it runs. A
 queued request whose `Context.deadline` has passed is dropped at
 admission with `DEADLINE_ADMIT_ERR` and no prefill (`:1203-1215`).
 
+MoE models (a `models/mixtral.py` `MoeConfig`) serve through the same
+paths: every forward reaches its FFN through `models/llama.py` `_mlp`.
+As in the reference on one device (`:379-408`), they take quantize None
+or "int8" (weight-only expert stacks) and refuse w8a8 and int4; the
+target of a spec engine may be MoE beside a dense draft.
+
 Pipeline/sequence parallelism and the profilers are later slices
 (ROADMAP.md).
 """
@@ -144,6 +150,7 @@ from dynamo_tpu_torch.engine.graphs import StepGraphs
 from dynamo_tpu_torch.engine.metrics import EngineMetrics, itl_percentile
 from dynamo_tpu_torch.engine.pages import EventSink, PagePool
 from dynamo_tpu_torch.engine.quant import (
+    MOE_QUANT_ERROR,
     QUANTIZE_MODES,
     is_quantized,
     quantize_params,
@@ -417,25 +424,31 @@ class TorchEngine:
         if cfg.quantize and cfg.quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
         self.model_cfg = cfg.model
+        if getattr(self.model_cfg, "num_experts", 0) and cfg.quantize \
+                and cfg.quantize != "int8":
+            # the reference's MoE guard (`:379-408`) on one device
+            raise ValueError(MOE_QUANT_ERROR)
         self.device = resolve_device(cfg.device)
-        # quantization may replace weights in place only in a model the
-        # engine created: a caller's model may serve other engines
-        owned = model is None
         if model is None:
-            model = init_params(self.model_cfg, cfg.rng_seed, self.device)
+            # a model the engine creates is quantized as it is drawn (an
+            # MoE model one expert at a time: Mixtral-8x7B's bf16 experts
+            # would not fit the card)
+            model = init_params(self.model_cfg, cfg.rng_seed, self.device,
+                                quantize=cfg.quantize)
         elif model.cfg != self.model_cfg or model.device != self.device:
             raise ValueError(
                 f"model ({model.device}) does not match the engine's config "
                 f"and device ({self.device})")
-        if cfg.quantize:
-            # a pre-quantized model skips the pass; under w8a8 its 8-bit
-            # layer weights are re-marked A8, or the mode would silently
-            # serve W8A16 (the reference's remark_act_bits)
+        elif cfg.quantize:
+            # a caller's model may serve other engines: quantized into a
+            # new model sharing its other tensors. A pre-quantized model
+            # skips the pass; under w8a8 its 8-bit layer weights are
+            # re-marked A8, or the mode would silently serve W8A16 (the
+            # reference's remark_act_bits)
             if not is_quantized(model):
-                model = quantize_params(model, mode=cfg.quantize,
-                                        inplace=owned)
+                model = quantize_params(model, mode=cfg.quantize)
             elif cfg.quantize == "w8a8":
-                model = remark_act_bits(model, inplace=owned)
+                model = remark_act_bits(model)
         self.model = model
         self.k_cache, self.v_cache = init_cache(self.model_cfg,
                                                 cfg.num_pages, self.device)

@@ -30,6 +30,13 @@ The kernel gate is the reference's (`_qm8a8`/`_qm4`): a 2-D weight with
 `x.shape[-1] % 128 == 0` and a packed row count (the reference's
 `q.shape[-1]`) `% 128 == 0` goes to K5/K6; any other shape computes
 W8A16 / W4A16, as the TPU does there — on the CPU and on the card alike.
+
+MoE expert stacks (`models/mixtral.py`) quantize to `QStack`, int8 only:
+q (X, in, out) in the reference's layout and s (X, 1, out), per output
+channel of each expert over its contraction dim, as the reference's
+`quantize` gives for a 3-D weight. No kernel reads them: `mixtral._qe_in`
+and `_qe_out` convert a stack, multiply, then scale (W8A16). w8a8 and int4 are
+refused for them, with the reference's message (`MOE_QUANT_ERROR`).
 """
 
 from __future__ import annotations
@@ -101,20 +108,84 @@ def _unpack4(p: torch.Tensor) -> torch.Tensor:
                                                  p.shape[-1] * 2)
 
 
+def _symmetric(w: torch.Tensor, bits: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q int8, s fp32) of the reference's `quantize` over axis -2, in
+    the weight's own layout: s = absmax · f32(1/qmax), q = round(w / s)
+    clipped to ±qmax."""
+    wf = w.float()
+    qmax = (1 << (bits - 1)) - 1
+    s = wf.abs().amax(dim=-2, keepdim=True).clamp_min(1e-12) \
+        * int4_mm.recip32(qmax)
+    return torch.clamp(torch.round(wf / s), -qmax, qmax).to(torch.int8), s
+
+
 def quantize(w: torch.Tensor, bits: int = 8, act_bits: int = 16) -> QTensor:
     """Per-output-channel symmetric quantization of a logical (K, N)
     weight over K, as the reference's `quantize`, stored K-major."""
     assert bits in (8, 4), bits
     assert bits == 8 or act_bits == 16, (bits, act_bits)
     assert w.ndim == 2, w.shape
-    wf = w.float()
-    qmax = (1 << (bits - 1)) - 1
-    s = wf.abs().amax(dim=-2, keepdim=True).clamp_min(1e-12) \
-        * int4_mm.recip32(qmax)
-    q = torch.clamp(torch.round(wf / s), -qmax, qmax).to(torch.int8)
+    q, s = _symmetric(w, bits)
     if bits == 4:
         q = pack4(q)
     return QTensor(q.T.contiguous(), s, bits=bits, act_bits=act_bits)
+
+
+MOE_QUANT_ERROR = ("MoE expert stacks support weight-only int8 "
+                   "(mixtral._qe); w8a8/int4 expert kernels don't exist yet")
+
+
+class QStack(nn.Module):
+    """An int8 MoE expert stack: q (X, in, out) int8 in the reference's
+    layout, s (X, 1, out) fp32. Weight-only (W8A16): `mixtral._qe_in` /
+    `_qe_out` multiply by the converted stack and scale the product."""
+
+    bits = 8
+    act_bits = 16
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor) -> None:
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+
+    @classmethod
+    def empty(cls, shape: tuple, device: torch.device) -> "QStack":
+        """An unfilled stack of logical shape (X, in, out); `fill` writes
+        it one expert at a time."""
+        X, _, N = shape
+        return cls(torch.empty(shape, dtype=torch.int8, device=device),
+                   torch.empty((X, 1, N), dtype=torch.float32,
+                               device=device))
+
+    def fill(self, x: int, w: torch.Tensor) -> None:
+        """Quantize expert `x`'s logical (in, out) weight into its slot:
+        the same q and s as quantizing the whole stack, with one expert's
+        transients alive."""
+        q, s = _symmetric(w, 8)
+        self.q[x].copy_(q)
+        self.s[x].copy_(s)
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.q.shape)
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.nbytes + self.s.nbytes
+
+    def extra_repr(self) -> str:
+        return f"shape={self.shape}, bits=8"
+
+
+def quantize_stack(w: torch.Tensor) -> QStack:
+    """Int8 quantization of an (X, in, out) expert stack, one expert at a
+    time (at Mixtral-8x7B one bf16 stack is 0.94 GB; its fp32 copy would
+    double that)."""
+    out = QStack.empty(tuple(w.shape), w.device)
+    for x in range(w.shape[0]):
+        out.fill(x, w[x])
+    return out
 
 
 def _kernel_gate(x: torch.Tensor, w: QTensor) -> bool:
@@ -227,7 +298,7 @@ def _shared_copy(model: nn.Module) -> nn.Module:
 
 def is_quantized(model: nn.Module) -> bool:
     return isinstance(model.lm_head, QTensor) or any(
-        isinstance(getattr(layer, k), QTensor)
+        isinstance(getattr(layer, k), (QTensor, QStack))
         for layer in model.layers for k in QUANT_KEYS)
 
 
@@ -235,17 +306,22 @@ def is_quantized(model: nn.Module) -> bool:
 def quantize_params(model: nn.Module, mode: str = "int8",
                     inplace: bool = False) -> nn.Module:
     """Quantize a `LlamaModel`'s projections (and its lm_head, under the
-    vocab rule) for `mode`. Idempotent: QTensors pass through. In place
+    vocab rule) for `mode`; an MoE model's expert stacks become `QStack`s
+    (int8 only). Idempotent: QTensors and QStacks pass through. In place
     only when asked (each bf16 weight is freed as its QTensor replaces
     it); otherwise the result shares every other tensor with `model`,
     which is left as it was."""
     bits, act_bits = _bits_of(mode), _act_bits_of(mode)
+    if getattr(model.cfg, "num_experts", 0) and mode != "int8":
+        raise ValueError(MOE_QUANT_ERROR)
     out = model if inplace else _shared_copy(model)
     for layer in out.layers:
         for key in QUANT_KEYS:
             w = getattr(layer, key)
-            if not isinstance(w, QTensor):
-                set_weight(layer, key, quantize(w, bits, act_bits))
+            if isinstance(w, (QTensor, QStack)):
+                continue
+            set_weight(layer, key, quantize_stack(w) if w.ndim == 3
+                       else quantize(w, bits, act_bits))
     if not isinstance(out.lm_head, QTensor) \
             and _lm_head_quant_ok(out.lm_head):
         # lm_head stays int8 even under int4: its rounding error lands

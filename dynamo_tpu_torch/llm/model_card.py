@@ -4,9 +4,10 @@ Port of `dynamo_tpu/llm/model_card.py` (the port keeps its own copy of the
 card): published to the KV store under ``v1/mdc/...`` with a checksum,
 attached to the worker's lease, watched by frontends. The card carries
 the reference's tool-call and reasoning-parser names, which the frontend's
-preprocessor serves (`dynamo_tpu_torch/parsers`); the multimodal field
-waits with that part, and a card from the reference that carries it
-loads without it (`from_dict` keeps the known fields).
+preprocessor serves (`dynamo_tpu_torch/parsers`), and its
+`encode_component`: the component of the encode workers that turn the
+model's image parts into tokens (`dynamo_tpu_torch/multimodal`). A card
+from the reference loads with its known fields (`from_dict`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ class ModelDeploymentCard:
     router_mode: str = "kv"         # kv | round_robin | random
     tool_call_parser: str = ""      # see dynamo_tpu_torch.parsers (hermes, ...)
     reasoning_parser: str = ""      # basic | deepseek_r1 | granite | ...
+    encode_component: str = ""      # multimodal encode-worker component
     runtime_config: ModelRuntimeConfig = field(
         default_factory=ModelRuntimeConfig)
 

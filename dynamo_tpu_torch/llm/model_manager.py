@@ -7,8 +7,9 @@ vanishes, tear it down. The port routes `kv` through a `KvPushRouter`
 over the card's endpoint (its block size always the card's
 `kv_block_size`, the granularity the engine hashes its KV events at), and
 round-robin and random through `runtime/push.py`. The card's tool-call
-and reasoning parsers go to the preprocessor (`:122-124`). The
-reference's multimodal encode routing waits with that part.
+and reasoning parsers go to the preprocessor (`:122-124`), and a card with
+an `encode_component` gives it a round-robin `PushRouter` over that
+component's encode workers (`:111-131`), stopped with the model.
 
 Reference: `lib/llm/src/discovery/{watcher.rs:49,model_manager.rs:38}` and
 the pipeline assembly in `entrypoint/input/common.rs:261-325`
@@ -48,17 +49,21 @@ def check_router_mode(mode: str) -> None:
 
 class ModelEntry:
     def __init__(self, card: ModelDeploymentCard, engine: AsyncEngine,
-                 kv_router: Optional[KvPushRouter], client) -> None:
+                 kv_router: Optional[KvPushRouter], client,
+                 encode_client=None) -> None:
         self.card = card
         self.engine = engine
         self.kv_router = kv_router
         self.client = client
+        self.encode_client = encode_client
         self.card_keys: set[str] = set()
 
     async def stop_clients(self) -> None:
         if self.kv_router is not None:
             await self.kv_router.stop()
         await self.client.stop()
+        if self.encode_client is not None:
+            await self.encode_client.stop()
 
 
 class ModelManager:
@@ -116,15 +121,27 @@ class ModelManager:
         else:
             router_engine = PushRouter(client, mode=router_mode)
         tokenizer = make_tokenizer(card.tokenizer_kind, card.tokenizer_path)
+        encode_router = None
+        if card.encode_component:
+            from dynamo_tpu_torch.multimodal.worker import ENCODE_ENDPOINT
+
+            enc_client = await (rt.namespace(card.namespace)
+                                .component(card.encode_component)
+                                .endpoint(ENCODE_ENDPOINT).client())
+            await enc_client.start()
+            encode_router = PushRouter(enc_client)
         engine = build_pipeline(
             OpenAIPreprocessor(tokenizer, card.name, card.context_length,
                                tool_call_parser=card.tool_call_parser,
-                               reasoning_parser=card.reasoning_parser),
+                               reasoning_parser=card.reasoning_parser,
+                               encode_router=encode_router),
             Backend(tokenizer),
             Migration(card.migration_limit),
             sink=router_engine,
         )
-        entry = ModelEntry(card, engine, kv_router, client)
+        entry = ModelEntry(card, engine, kv_router, client,
+                           encode_client=encode_router.client
+                           if encode_router is not None else None)
         entry.card_keys.add(card_key)
         self._models[card.name] = entry
         logger.info("model added: %s (router=%s)", card.name, router_mode)

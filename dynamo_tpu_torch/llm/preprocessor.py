@@ -11,7 +11,12 @@ over the chat pipeline (typed events, `:309-352`). The card's tool-call
 and reasoning parsers wrap each chat choice's stream in a fresh
 `JailedStream` (`_chat_parsers`, `:354-380`), on chat, on n > 1 and on
 `/v1/responses`; a tokenizer with a chat template (the HF tokenizer)
-renders the prompt with it. Not in this slice: images.
+renders the prompt with it. Image parts of a chat (`_resolve_images`,
+`:121-178`): each `data:` URL goes to the card's encode workers (remote
+URLs are refused: there is no egress to fetch them), a marker takes the
+part's place in the rendered prompt, and the image's token run is
+spliced in at the marker (`:93-116`); a model whose card names no encode
+component refuses image parts.
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ class OpenAIPreprocessor(Operator):
                  context_length: int = 0,
                  default_max_tokens: int = 1024,
                  tool_call_parser: str = "",
-                 reasoning_parser: str = "") -> None:
+                 reasoning_parser: str = "",
+                 encode_router=None) -> None:
         super().__init__()
         self.tokenizer = tokenizer
         self.model_name = model_name
@@ -83,6 +89,9 @@ class OpenAIPreprocessor(Operator):
         self.default_max_tokens = default_max_tokens
         self.tool_call_parser = tool_call_parser
         self.reasoning_parser = reasoning_parser
+        # an AsyncEngine routing to the encode workers: image parts become
+        # discrete tokens spliced into the prompt (dynamo_tpu_torch.multimodal)
+        self.encode_router = encode_router
 
     def _token_text(self, tid: int) -> str:
         """Display text of ONE token id (logprobs entries)."""
@@ -93,12 +102,85 @@ class OpenAIPreprocessor(Operator):
         """A logprobs token under `return_tokens_as_token_ids`."""
         return f"token_id:{tid}"
 
-    def preprocess_chat(self, req: ChatCompletionRequest
+    def preprocess_chat(self, req: ChatCompletionRequest,
+                        image_tokens: Optional[dict] = None
                         ) -> PreprocessedRequest:
-        ids = self.tokenizer.encode(render_chat_template(self.tokenizer,
-                                                         req.messages))
+        prompt = render_chat_template(self.tokenizer, req.messages)
+        if image_tokens:
+            # the markers `_resolve_images` put in: the text between them
+            # tokenizes as usual, each image's token run goes in verbatim
+            ids: list[int] = []
+            rest = prompt
+            for marker, toks in image_tokens.items():
+                before, sep, rest = rest.partition(marker)
+                if not sep:
+                    # a template that escapes list content would otherwise
+                    # put the image tokens after the generation suffix
+                    raise OpenAIError(
+                        "the model's chat template dropped the image "
+                        "placeholder; this template does not support "
+                        "multimodal content parts")
+                ids.extend(self.tokenizer.encode(before) if before else [])
+                ids.extend(toks)
+            if rest:
+                ids.extend(self.tokenizer.encode(rest))
+        else:
+            ids = self.tokenizer.encode(prompt)
         return self._finish_preprocess(ids, req.sampling_options(),
                                        req.stop_conditions())
+
+    async def _resolve_images(self, messages: list[dict], context: Context
+                              ) -> tuple[list[dict], dict]:
+        """Replace image parts with unique markers and encode each image
+        on the encode workers, all at once. Returns (the rewritten
+        messages, {marker: image token ids}), empty without images."""
+        image_tokens: dict[str, list[int]] = {}
+        out_messages: list[dict] = []
+        jobs: list[tuple[str, str]] = []     # (marker, url)
+        for m in messages:
+            content = m.get("content")
+            if not isinstance(content, list):
+                out_messages.append(m)
+                continue
+            parts = []
+            for part in content:
+                if not (isinstance(part, dict)
+                        and part.get("type") == "image_url"):
+                    parts.append(part)
+                    continue
+                url = (part.get("image_url") or {}).get("url", "")
+                if self.encode_router is None:
+                    raise OpenAIError(
+                        "this deployment has no encode workers: image "
+                        "inputs are not supported for "
+                        f"{self.model_name!r}")
+                if not url.startswith("data:"):
+                    raise OpenAIError(
+                        "only data: image URLs are supported "
+                        "(no egress to fetch remote images)")
+                marker = f"\x00dyn_image_{len(jobs)}\x00"
+                jobs.append((marker, url))
+                parts.append({"type": "text", "text": marker})
+            out_messages.append({**m, "content": parts})
+
+        async def encode_one(url: str) -> list[int]:
+            toks = None
+            async for resp in self.encode_router.generate({"image": url},
+                                                          context):
+                if resp.get("error"):
+                    raise OpenAIError(
+                        f"image encode failed: {resp['error']}")
+                if resp.get("image_tokens") is not None:
+                    toks = [int(t) for t in resp["image_tokens"]]
+            if toks is None:
+                raise OpenAIError("encode worker returned no tokens")
+            return toks
+
+        results = await asyncio.gather(*(encode_one(url)
+                                         for _, url in jobs))
+        for (marker, _), toks in zip(jobs, results):
+            image_tokens[marker] = toks
+        return out_messages, image_tokens
 
     def preprocess_completion(self, req: CompletionRequest
                               ) -> PreprocessedRequest:
@@ -138,7 +220,12 @@ class OpenAIPreprocessor(Operator):
                 yield out
         elif kind == KIND_CHAT:
             oai = ChatCompletionRequest.from_dict(request["body"])
-            pre = self.preprocess_chat(oai)
+            image_tokens: dict = {}
+            if any(isinstance(m.get("content"), list)
+                   for m in oai.messages):
+                oai.messages, image_tokens = await self._resolve_images(
+                    oai.messages, context)
+            pre = self.preprocess_chat(oai, image_tokens)
             request_id = request.get("request_id") or new_request_id()
             streams = [self._one_chat_stream(self._reseed(pre, i), oai,
                                              request_id, created, context)

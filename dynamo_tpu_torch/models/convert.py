@@ -11,6 +11,12 @@ A quantized tree (the reference's `quantize_params`, or
 reference `QTensor`s (`jax.tree.map(np.asarray, ...)` keeps them, with
 numpy q and s): each becomes the port's `QTensor` with q, s, bits and
 act_bits exact, q transposed once to the port's K-major layout.
+
+An MoE tree (`dynamo_tpu/models/mixtral.py` `init_moe_params`, or the
+reference loader's for a Mixtral checkpoint) adds `router` (L, E, X) and
+stacks `w_gate` / `w_up` / `w_down` as (L, X, in, out); a quantized stack
+(q (L, X, in, out), s (L, X, 1, out)) becomes one `QStack` per layer,
+q and s as they are (the port keeps the reference's expert layout).
 """
 
 from __future__ import annotations
@@ -18,11 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.engine.quant import QTensor, set_weight
+from dynamo_tpu_torch.engine.quant import QStack, QTensor, set_weight
 from dynamo_tpu_torch.models.llama import LlamaConfig, LlamaModel
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
                "w_up", "w_down")
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -54,7 +61,8 @@ def params_from_jax(tree: dict, cfg: LlamaConfig,
     """Build the port's module from a JAX param pytree of numpy arrays.
     Each tensor is copied into the parameter of the same name (cast to the
     parameter's dtype when the tree holds another); a quantized leaf
-    replaces its parameter with a `QTensor`."""
+    replaces its parameter with a `QTensor` (a `QStack` for an expert
+    stack)."""
     dev = torch.device(device)
     model = LlamaModel(cfg, dev)
     model.embed.copy_(tensor_from_numpy(tree["embed"]))
@@ -65,7 +73,9 @@ def params_from_jax(tree: dict, cfg: LlamaConfig,
                                               lm.act_bits, dev))
     else:
         model.lm_head.copy_(tensor_from_numpy(lm))
-    keys = _LAYER_KEYS + (("bq", "bk", "bv") if cfg.attention_bias else ())
+    moe = bool(getattr(cfg, "num_experts", 0))
+    keys = _LAYER_KEYS + (("bq", "bk", "bv") if cfg.attention_bias else ()) \
+        + (("router",) if moe else ())
     for key in keys:
         stack = tree["layers"][key]
         quantized = _is_qtensor(stack)
@@ -74,7 +84,11 @@ def params_from_jax(tree: dict, cfg: LlamaConfig,
             raise ValueError(f"params_from_jax: {key} has {n} layers, "
                              f"config has {cfg.num_layers}")
         for l, layer in enumerate(model.layers):
-            if quantized:
+            if quantized and moe and key in _EXPERT_KEYS:
+                set_weight(layer, key, QStack(
+                    tensor_from_numpy(stack.q[l]).to(dev),
+                    tensor_from_numpy(stack.s[l]).to(dev)))
+            elif quantized:
                 set_weight(layer, key, _qtensor(
                     stack.q[l], stack.s[l], stack.bits, stack.act_bits, dev))
             else:

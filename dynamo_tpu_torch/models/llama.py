@@ -13,7 +13,15 @@ penalties on the device), `_mixed_forward` (`:487`) and
 `ragged_prefill_decode` (`:656`); and the cache-free embedding forward,
 `dense_attention` (`:826`) and `embed_batch` (`:853`), which the
 reference computes in XLA outside any kernel, and so the port in plain
-PyTorch ops.
+PyTorch ops. Every forward reaches its FFN through one dispatch, `_mlp`
+(`:211`): SwiGLU for dense configs, `models/mixtral.py` `moe_mlp` for an
+MoE config (`num_experts`), whose layers are `mixtral.MoeLayer`s.
+
+Prompt ids at or above the vocabulary (image tokens at the encode
+worker's default offset) read the embedding as the reference's jitted
+gather does: a negative id counts from the end, then the index clamps
+into the table (`embed_rows`). A CUDA gather with such an index would
+raise a device-side assert instead.
 
 Kernels per layer: the phase path writes K/V with K3
 `paged_kv_write_pages` (page-aligned prefill chunks) or K2
@@ -49,7 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dynamo_tpu_torch.engine import attention, kernels, sampling
-from dynamo_tpu_torch.engine.quant import qm, qm_group
+from dynamo_tpu_torch.engine.quant import qm, qm_group, quantize_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,13 +119,26 @@ class LlamaLayer(nn.Module):
         self.wv = _param((E, KD), dt, device)
         self.wo = _param((HD, E), dt, device)
         self.mlp_norm = _param((E,), torch.float32, device)
-        self.w_gate = _param((E, Fd), dt, device)
-        self.w_up = _param((E, Fd), dt, device)
-        self.w_down = _param((Fd, E), dt, device)
+        self._init_mlp(cfg, device)
         if cfg.attention_bias:
             self.bq = _param((HD,), dt, device)
             self.bk = _param((KD,), dt, device)
             self.bv = _param((KD,), dt, device)
+
+    def _init_mlp(self, cfg: LlamaConfig, device: torch.device) -> None:
+        E, Fd, dt = cfg.hidden_size, cfg.intermediate_size, cfg.dtype
+        self.w_gate = _param((E, Fd), dt, device)
+        self.w_up = _param((E, Fd), dt, device)
+        self.w_down = _param((Fd, E), dt, device)
+
+
+def _layer_cls(cfg: LlamaConfig) -> type:
+    """`LlamaLayer`, or `mixtral.MoeLayer` for an MoE config."""
+    if getattr(cfg, "num_experts", 0):
+        from dynamo_tpu_torch.models.mixtral import MoeLayer
+
+        return MoeLayer
+    return LlamaLayer
 
 
 class LlamaModel(nn.Module):
@@ -130,8 +151,9 @@ class LlamaModel(nn.Module):
         self.cfg = cfg
         E, V = cfg.hidden_size, cfg.vocab_size
         self.embed = _param((V, E), cfg.dtype, device)
+        layer = _layer_cls(cfg)
         self.layers = nn.ModuleList(
-            LlamaLayer(cfg, device) for _ in range(cfg.num_layers))
+            layer(cfg, device) for _ in range(cfg.num_layers))
         self.final_norm = _param((E,), torch.float32, device)
         self.lm_head = _param((E, V), cfg.dtype, device)
 
@@ -141,13 +163,22 @@ class LlamaModel(nn.Module):
 
 
 @torch.inference_mode()
-def init_params(cfg: LlamaConfig, seed: int,
-                device: torch.device) -> LlamaModel:
+def init_params(cfg: LlamaConfig, seed: int, device: torch.device,
+                quantize: "str | None" = None) -> LlamaModel:
     """Random-init weights from a seeded `torch.Generator` on `device`:
     dense weights N(0, 1/fan_in) in cfg.dtype, norm gains 1, Qwen2 biases
     nonzero (so a dropped bias cannot pass a test). The draws differ from
     the reference's `jax.random` ones; tests carry JAX weights across with
-    models/convert.py instead."""
+    models/convert.py instead. An MoE config draws its expert-stacked
+    layout (`mixtral.init_moe_params`), as the reference's `init_params`
+    dispatches. `quantize` ("int8" | "w8a8" | "int4") returns the model
+    `engine/quant.py` `quantize_params` makes of these weights; an MoE
+    model quantizes each expert as it is drawn, so no bf16 expert stack
+    is ever whole on the device (Mixtral-8x7B's are 90 GB)."""
+    if getattr(cfg, "num_experts", 0):
+        from dynamo_tpu_torch.models.mixtral import init_moe_params
+
+        return init_moe_params(cfg, seed, device, quantize=quantize)
     model = LlamaModel(cfg, device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -170,6 +201,8 @@ def init_params(cfg: LlamaConfig, seed: int,
                 dense(getattr(layer, name), E)
     model.final_norm.fill_(1.0)
     dense(model.lm_head, E)
+    if quantize:
+        model = quantize_params(model, mode=quantize, inplace=True)
     return model
 
 
@@ -255,6 +288,29 @@ def _swiglu(h: torch.Tensor, layer: LlamaLayer) -> torch.Tensor:
     int4 (`qm_group`), the same function as two."""
     gate, up = qm_group(h, [layer.w_gate, layer.w_up])
     return qm(F.silu(gate) * up, layer.w_down)
+
+
+def _mlp(h: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig
+         ) -> torch.Tensor:
+    """THE per-layer FFN dispatch (the reference's `_mlp`): SwiGLU for
+    dense configs, the top-k routed experts (`mixtral.moe_mlp`) for MoE
+    configs. Every forward flavour calls it, so an MoE model serves
+    through the same engine, scheduler, spec and guided machinery."""
+    if getattr(cfg, "num_experts", 0):
+        from dynamo_tpu_torch.models import mixtral
+
+        return mixtral.moe_mlp(h, layer, cfg)
+    return _swiglu(h, layer)
+
+
+def embed_rows(model: LlamaModel, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of `tokens`, indexed as the reference's jitted
+    gather indexes: a negative id counts from the end of the table, then
+    every index clamps into [0, V - 1]."""
+    V = model.embed.shape[0]
+    t = tokens.long()
+    t = torch.where(t < 0, t + V, t).clamp_(0, V - 1)
+    return model.embed[t]
 
 
 def qkv_proj(hn: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig
@@ -352,7 +408,7 @@ def paged_forward(model: LlamaModel, k_cache: list, v_cache: list,
     cfg = model.cfg
     Bp, T = tokens.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    x = model.embed[tokens.long()]                         # (Bp, T, E)
+    x = embed_rows(model, tokens)                          # (Bp, T, E)
     positions = cached_lens[:, None] + torch.arange(
         T, dtype=cached_lens.dtype, device=tokens.device)[None, :]
     write = _chunk_kv_writer(cfg, page_tables, positions, seq_lens, aligned)
@@ -370,7 +426,7 @@ def paged_forward(model: LlamaModel, k_cache: list, v_cache: list,
                                            kv_pages, row_tags)
         x = x + qm(attn.reshape(Bp, T, H * D), layer.wo)
         hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
-        x = x + _swiglu(hn, layer)
+        x = x + _mlp(hn, layer, cfg)
     return rms_norm(x, model.final_norm, cfg.rms_eps)
 
 
@@ -421,7 +477,7 @@ def _decode_once(model: LlamaModel, k_cache: list, v_cache: list,
     cfg = model.cfg
     B = tokens.shape[0]
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    x = model.embed[tokens.long()]                         # (B, E)
+    x = embed_rows(model, tokens)                          # (B, E)
     pages, offsets = _kv_targets(
         _page_ids(page_tables, positions[:, None], cfg.page_size)[:, 0],
         positions % cfg.page_size, valid)
@@ -439,7 +495,7 @@ def _decode_once(model: LlamaModel, k_cache: list, v_cache: list,
             q.contiguous(), k_cache[l], v_cache[l], lengths, page_tables)
         x = x + qm(attn.reshape(B, H * D), layer.wo)
         hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
-        x = x + _swiglu(hn, layer)
+        x = x + _mlp(hn, layer, cfg)
     x = rms_norm(x, model.final_norm, cfg.rms_eps)
     return qm(x, model.lm_head).float()
 
@@ -569,7 +625,7 @@ def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
     Bp, T = ch_tokens.shape
     B = d_tokens.shape[0]
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    xc = model.embed[ch_tokens.long()]                     # (Bp, T, E)
+    xc = embed_rows(model, ch_tokens)                      # (Bp, T, E)
     c_positions = ch_cached[:, None] + torch.arange(
         T, dtype=ch_cached.dtype, device=ch_tokens.device)[None, :]
     write = _chunk_kv_writer(cfg, ch_tables, c_positions, ch_seq_lens,
@@ -577,7 +633,7 @@ def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
     kv_pages, row_tags = _chunk_attention_args(cfg, ch_tables, c_positions,
                                                ch_seq_lens)
     c_cos, c_sin = rope_tables(c_positions, D, cfg.rope_theta)
-    xd = model.embed[d_tokens.long()]                      # (B, E)
+    xd = embed_rows(model, d_tokens)                       # (B, E)
     d_pages, d_offsets = _kv_targets(
         _page_ids(d_tables, d_positions[:, None], cfg.page_size)[:, 0],
         d_positions % cfg.page_size, d_valid)
@@ -601,9 +657,11 @@ def _mixed_forward(model: LlamaModel, k_cache: list, v_cache: list,
             qd.contiguous(), q, kc, vc, d_lengths, d_tables, ch_tables,
             c_positions, ch_seq_lens, kv_pages, row_tags)
         xc = xc + qm(attn_c.reshape(Bp, T, H * D), layer.wo)
-        xc = xc + _swiglu(rms_norm(xc, layer.mlp_norm, cfg.rms_eps), layer)
+        xc = xc + _mlp(rms_norm(xc, layer.mlp_norm, cfg.rms_eps), layer,
+                       cfg)
         xd = xd + qm(attn_d.reshape(B, H * D), layer.wo)
-        xd = xd + _swiglu(rms_norm(xd, layer.mlp_norm, cfg.rms_eps), layer)
+        xd = xd + _mlp(rms_norm(xd, layer.mlp_norm, cfg.rms_eps), layer,
+                       cfg)
     return (rms_norm(xc, model.final_norm, cfg.rms_eps),
             rms_norm(xd, model.final_norm, cfg.rms_eps))
 
@@ -681,10 +739,10 @@ def embed_batch(model: LlamaModel, tokens: torch.Tensor,
     valid = positions < lengths[:, None]
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
                                  device=tokens.device))
-    x = model.embed[tokens.long()]
+    x = embed_rows(model, tokens)
     for layer in model.layers:
         x = dense_attention(x, layer, positions, mask, cfg)
-        x = x + _swiglu(rms_norm(x, layer.mlp_norm, cfg.rms_eps), layer)
+        x = x + _mlp(rms_norm(x, layer.mlp_norm, cfg.rms_eps), layer, cfg)
     h = rms_norm(x, model.final_norm, cfg.rms_eps).float()
     h = torch.where(valid[..., None], h, torch.zeros_like(h))
     pooled = h.sum(dim=1) / torch.clamp(lengths[:, None].float(), min=1.0)
@@ -723,7 +781,7 @@ def ragged_prefill_decode(model: LlamaModel, k_cache: list, v_cache: list,
     cfg = model.cfg
     Tb = tokens.shape[0]
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    x = model.embed[tokens.long()]                         # (Tb, E)
+    x = embed_rows(model, tokens)                          # (Tb, E)
     qpos = torch.where(valid, positions,
                        torch.full_like(positions, -1)).to(torch.int32)
     pages, offs = _kv_targets(page_ids, offsets, valid)
@@ -740,7 +798,7 @@ def ragged_prefill_decode(model: LlamaModel, k_cache: list, v_cache: list,
             lane_tables, page_size=cfg.page_size)          # (Tb, H, D)
         x = x + qm(attn.reshape(Tb, H * D), layer.wo)
         hn = rms_norm(x, layer.mlp_norm, cfg.rms_eps)
-        x = x + _swiglu(hn, layer)
+        x = x + _mlp(hn, layer, cfg)
     x = rms_norm(x, model.final_norm, cfg.rms_eps)
     ch_logits = qm(x[ch_rows.long()], model.lm_head).float()
     d_logits = qm(x[d_rows.long()], model.lm_head).float()

@@ -10,8 +10,12 @@ data, read with `torch.frombuffer` from a memory map.
 Layout mapping (HF `LlamaForCausalLM` → the reference's names, applied as
 `x @ w`): `*_proj.weight` (out, in) is transposed to (in, out); norms load
 as fp32; `lm_head.weight` (V, E) → (E, V), tied to `embed`ᵀ when absent.
-Qwen2 checkpoints add q/k/v biases. Mixtral (MoE) checkpoints are not
-served by this slice and raise.
+Qwen2 checkpoints add q/k/v biases. Mixtral checkpoints (any config with
+`num_local_experts`) load as `models/mixtral.py` `MoeConfig` (reference
+`:103-113`): `block_sparse_moe.gate` is the router and
+`block_sparse_moe.experts.{e}.w1/w3/w2` the gate/up/down expert stacks,
+each expert written into its stack slot as it is read (reference
+`:195-217`), in the reference device loader's read order (`:366-390`).
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from typing import Any, Optional
 import torch
 
 from dynamo_tpu_torch.engine.quant import (
+    MOE_QUANT_ERROR,
     QUANT_KEYS,
+    QStack,
     _act_bits_of,
     _bits_of,
     _lm_head_quant_ok,
@@ -34,6 +40,7 @@ from dynamo_tpu_torch.engine.quant import (
     set_weight,
 )
 from dynamo_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from dynamo_tpu_torch.models.mixtral import MOE_FFN, MoeConfig
 
 logger = logging.getLogger(__name__)
 
@@ -67,14 +74,13 @@ def resolve_model(name_or_path: str) -> str:
 
 
 def config_from_hf(path: str, **overrides: Any) -> LlamaConfig:
-    """LlamaConfig from a checkpoint dir's config.json."""
+    """LlamaConfig (MoeConfig for a Mixtral-family config) from a
+    checkpoint dir's config.json."""
     with open(os.path.join(path, "config.json")) as f:
         hf = json.load(f)
     arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
-    if "mixtral" in arch.lower() or hf.get("num_local_experts"):
-        raise ValueError(f"{arch}: MoE checkpoints are not served by "
-                         f"dynamo_tpu_torch yet")
-    if not any(f in arch.lower() for f in ("llama", "mistral", "qwen2")):
+    if not any(f in arch.lower()
+               for f in ("llama", "mistral", "mixtral", "qwen2")):
         logger.warning("loading %s with the llama-family loader", arch)
     hidden = hf["hidden_size"]
     heads = hf["num_attention_heads"]
@@ -93,8 +99,18 @@ def config_from_hf(path: str, **overrides: Any) -> LlamaConfig:
         attention_bias=bool(hf.get("attention_bias",
                                    "qwen2" in arch.lower())),
     )
+    cls = LlamaConfig
+    if "mixtral" in arch.lower() or hf.get("num_local_experts"):
+        n_exp = hf.get("num_local_experts")
+        if not n_exp:
+            raise ValueError(
+                f"{arch} checkpoint at {path} has no num_local_experts "
+                f"in config.json — cannot size the expert stacks")
+        cls = MoeConfig
+        cfg["num_experts"] = int(n_exp)
+        cfg["experts_per_token"] = int(hf.get("num_experts_per_tok", 2))
     cfg.update(overrides)
-    return LlamaConfig(**cfg)
+    return cls(**cfg)
 
 
 class SafetensorsFile:
@@ -171,20 +187,33 @@ def load_llama_params(path: str, cfg: LlamaConfig,
                       quantize: Optional[str] = None) -> LlamaModel:
     """`LlamaModel` on `device` from a checkpoint dir. Each tensor is read,
     moved to the device, then transposed and cast there into its
-    parameter, one tensor at a time (host memory holds one tensor).
+    parameter, one tensor at a time (host memory holds one tensor), in
+    the reference device loader's order: the attention projections layer
+    by layer, the routers and every expert (MoE), the norms, the biases,
+    the embedding, the final norm, the lm_head.
 
     `quantize` ("int8" | "w8a8" | "int4"): each projection is quantized as
     it lands on the device, as the reference's
     `load_llama_params_device(quantize=...)` quantizes before it stacks,
-    and the lm_head under the vocab rule (int8, act_bits 16). The model is
-    built on the meta device and every tensor is placed as it is loaded,
-    so device memory peaks at the quantized model plus one tensor being
-    quantized. The result is bit-identical to quantizing after load."""
+    and the lm_head under the vocab rule (int8, act_bits 16). An MoE
+    model's experts take int8 only (w8a8 and int4 raise, as in the
+    reference), each quantized into its `QStack` slot as it is read. The
+    model is built on the meta device and every tensor is placed as it is
+    loaded, so device memory peaks at the quantized model plus one tensor
+    being quantized. The result is bit-identical to quantizing after
+    load."""
     dev = torch.device(device)
+    moe = bool(getattr(cfg, "num_experts", 0))
+    if moe and quantize and quantize != "int8":
+        raise ValueError(MOE_QUANT_ERROR)
     bits, act_bits = _bits_of(quantize), _act_bits_of(quantize)
     model = LlamaModel(cfg, torch.device("meta"))
     idx = _TensorIndex(path)
     try:
+        def read(name: str, transpose: bool = False) -> torch.Tensor:
+            t = idx.get(name).to(dev)
+            return t.T if transpose else t
+
         def place(owner: torch.nn.Module, key: str, t: torch.Tensor) -> None:
             dtype = getattr(owner, key).dtype
             if quantize and key in QUANT_KEYS:
@@ -195,31 +224,41 @@ def load_llama_params(path: str, cfg: LlamaConfig,
 
         def put(owner: torch.nn.Module, key: str, name: str,
                 transpose: bool = False) -> None:
-            t = idx.get(name).to(dev)
-            place(owner, key, t.T if transpose else t)
+            place(owner, key, read(name, transpose))
 
         p = "model.layers.{}."
-        for i, layer in enumerate(model.layers):
-            put(layer, "attn_norm", p.format(i) + "input_layernorm.weight")
-            put(layer, "mlp_norm",
-                p.format(i) + "post_attention_layernorm.weight")
-            for key, hf_name in (("wq", "self_attn.q_proj"),
-                                 ("wk", "self_attn.k_proj"),
-                                 ("wv", "self_attn.v_proj"),
-                                 ("wo", "self_attn.o_proj"),
-                                 ("w_gate", "mlp.gate_proj"),
-                                 ("w_up", "mlp.up_proj"),
-                                 ("w_down", "mlp.down_proj")):
+        attn = [("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj")]
+        if not moe:
+            attn += [("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                     ("w_down", "mlp.down_proj")]
+        for key, hf_name in attn:
+            for i, layer in enumerate(model.layers):
                 put(layer, key, p.format(i) + hf_name + ".weight",
                     transpose=True)
-            if cfg.attention_bias:
-                for key, hf_name in (("bq", "q_proj"), ("bk", "k_proj"),
-                                     ("bv", "v_proj")):
+        if moe:
+            bs = p + "block_sparse_moe."
+            for i, layer in enumerate(model.layers):
+                put(layer, "router", bs.format(i) + "gate.weight",
+                    transpose=True)
+            for key, w in MOE_FFN:
+                for i, layer in enumerate(model.layers):
+                    _load_stack(layer, key, read, dev, quantize,
+                                bs.format(i) + "experts.{}." + w + ".weight")
+        for i, layer in enumerate(model.layers):
+            put(layer, "attn_norm", p.format(i) + "input_layernorm.weight")
+        for i, layer in enumerate(model.layers):
+            put(layer, "mlp_norm",
+                p.format(i) + "post_attention_layernorm.weight")
+        if cfg.attention_bias:
+            for key, hf_name in (("bq", "q_proj"), ("bk", "k_proj"),
+                                 ("bv", "v_proj")):
+                for i, layer in enumerate(model.layers):
                     put(layer, key, p.format(i) + f"self_attn.{hf_name}.bias")
         put(model, "embed", "model.embed_tokens.weight")
         put(model, "final_norm", "model.norm.weight")
         if "lm_head.weight" in idx:
-            lm = idx.get("lm_head.weight").to(dev).T
+            lm = read("lm_head.weight", transpose=True)
         else:  # tie_word_embeddings
             lm = model.embed.T
         if quantize and _lm_head_quant_ok(lm):
@@ -235,3 +274,22 @@ def load_llama_params(path: str, cfg: LlamaConfig,
     if left:
         raise ValueError(f"load_llama_params: {path} lacks {left[:4]}")
     return model
+
+
+def _load_stack(layer: torch.nn.Module, key: str, read, dev: torch.device,
+                quantize: Optional[str], fmt: str) -> None:
+    """One (X, in, out) expert stack from its X per-expert (out, in)
+    tensors: each is transposed and cast (and under "int8" quantized)
+    into its slot as it is read."""
+    meta = getattr(layer, key)
+    shape = tuple(meta.shape)
+    if quantize:
+        stack = QStack.empty(shape, dev)
+        for e in range(shape[0]):
+            stack.fill(e, read(fmt.format(e), True).to(meta.dtype))
+        set_weight(layer, key, stack)
+        return
+    t = torch.empty(shape, dtype=meta.dtype, device=dev)
+    for e in range(shape[0]):
+        t[e].copy_(read(fmt.format(e), True))
+    set_weight(layer, key, torch.nn.Parameter(t, requires_grad=False))

@@ -97,9 +97,10 @@ def parse_args(rest: list[str]) -> argparse.Namespace:
     return p.parse_args(rest)
 
 
-def build_pipeline_for(card, sink_engine, args):
+def build_pipeline_for(card, sink_engine, args, encode_router=None):
     """OpenAIPreprocessor → Backend → `sink_engine`, with the card's
-    tokenizer unless `args.tokenizer` overrides it."""
+    tokenizer unless `args.tokenizer` overrides it; `encode_router` (an
+    AsyncEngine over encode workers) serves image parts."""
     from dynamo_tpu_torch.llm.backend import Backend
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.llm.tokenizer import make_tokenizer
@@ -114,7 +115,8 @@ def build_pipeline_for(card, sink_engine, args):
         context_length=args.context_length or card.context_length,
         default_max_tokens=args.max_tokens,
         tool_call_parser=card.tool_call_parser,
-        reasoning_parser=card.reasoning_parser)
+        reasoning_parser=card.reasoning_parser,
+        encode_router=encode_router)
     return build_pipeline(pre, Backend(tok), sink=sink_engine)
 
 

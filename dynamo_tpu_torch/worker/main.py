@@ -27,6 +27,13 @@ served; persistent canary failure exits the process with rc 43 so the
 lease drops (`:434-443`). `DYN_WATCHDOG_STALL_S` arms the dispatch
 watchdog, whose trip quarantines the worker — deregister, abort streams
 into `Migration`, flush KVBM — and exits rc 44 (`:458-481`).
+`--encode-worker` serves the multimodal image-encode endpoint instead of
+a model (component `encoder` unless `--component` names another; image
+tokens start at `--image-vocab-offset`), and `--encode-component` puts
+that component on an LM worker's card so the frontend sends its image
+parts there (`:170`, `:251-254`, `:382-405`). A Mixtral checkpoint or
+config serves like any other; `--expert-parallel-size` is accepted at 1,
+the reference's default (`:113`), and refused above it.
 One flag is the port's own: `--device` (default cuda; the worker raises
 without a card unless `--device cpu` asks for the CPU). The reference's
 flags for parts the port has not ported yet are parsed under their names
@@ -67,7 +74,6 @@ logger = logging.getLogger(__name__)
 
 PROG = "python -m dynamo_tpu_torch.worker"
 MULTI = "the multi-device paths (ROADMAP queue 1: TP, PP, SP)"
-MM = "multimodal serving (ROADMAP queue 1: multimodal)"
 MOCK = ("the mocker engine, which the port does not carry (--echo serves "
         "without a model)")
 WORKER_REFUSED = {
@@ -76,7 +82,7 @@ WORKER_REFUSED = {
     "--sp-layout": (MULTI, "value"),
     "--tensor-parallel-size": (MULTI, "int>1"),
     "--expert-parallel-size": (
-        "MoE and the multi-device paths (ROADMAP queue 1)", "int>1"),
+        "the multi-device paths (ROADMAP queue 1: EP)", "int>1"),
     "--pipeline-parallel-size": (MULTI, "int>1"),
     "--pp-microbatches": (MULTI, "value"),
     "--num-nodes": (MULTI, "int>1"),
@@ -86,9 +92,6 @@ WORKER_REFUSED = {
     "--mock-speedup": (MOCK, "value"),
     "--mock-decode-ms": (MOCK, "value"),
     "--mock-total-blocks": (MOCK, "value"),
-    "--encode-worker": (MM, "store_true"),
-    "--encode-component": (MM, "value"),
-    "--image-vocab-offset": (MM, "value"),
 }
 
 
@@ -101,6 +104,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                      help="checkpoint dir or cached HF name (TorchEngine)")
     eng.add_argument("--echo", action="store_true",
                      help="serve the token-echo engine")
+    eng.add_argument("--encode-worker", action="store_true",
+                     help="serve the multimodal image-encode endpoint "
+                          "(no LM)")
+    p.add_argument("--image-vocab-offset", type=int, default=128256,
+                   help="encode worker: image tokens start here")
+    p.add_argument("--encode-component", default="",
+                   help="LM workers: enable image inputs via this "
+                        "encode-worker component")
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--component", default="backend")
     p.add_argument("--endpoint", default="generate")
@@ -182,8 +193,9 @@ def check_args(args: argparse.Namespace) -> None:
         watchdog_from_env(None)     # DYN_WATCHDOG_* read before the build
     except ValueError as e:
         raise SystemExit(f"{PROG}: {e}") from None
-    if not args.model and not args.echo:
-        raise SystemExit(f"{PROG}: one of --model / --echo is required")
+    if not args.model and not args.echo and not args.encode_worker:
+        raise SystemExit(f"{PROG}: one of --model / --echo / "
+                         f"--encode-worker is required")
     if args.is_prefill_worker and args.enable_disagg:
         raise SystemExit(f"{PROG}: --is-prefill-worker and --enable-disagg "
                          f"name the two sides; give one")
@@ -246,6 +258,7 @@ def build_engine_and_card(args: argparse.Namespace):
     card.endpoint = args.endpoint
     card.migration_limit = args.migration_limit
     card.router_mode = args.router_mode
+    card.encode_component = args.encode_component
     return engine, card
 
 
@@ -306,6 +319,8 @@ async def start_worker(args: argparse.Namespace):
     from dynamo_tpu_torch.worker.monitor import EngineDeathMonitor
 
     cfg = runtime_config_from_args(args)
+    if args.encode_worker:
+        return await _start_encode_worker(args, cfg)
     apply_kvbm_defaults(args, cfg)
     t0 = time.perf_counter()
     engine, card = build_engine_and_card(args)
@@ -390,6 +405,45 @@ async def start_worker(args: argparse.Namespace):
     print(f"WORKER_READY {card.namespace}/{card.component}/"
           f"{card.endpoint}/{instance_id:x}", flush=True)
     return rt, engine, handle, monitor, stops
+
+
+class _EncodeHandle:
+    """The encode endpoint under the worker's handle protocol."""
+
+    def __init__(self, served) -> None:
+        self.served = served
+
+    async def stop(self) -> None:
+        await self.served.shutdown()
+
+
+class _NoMonitor:
+    def stop(self) -> None:
+        pass
+
+
+async def _start_encode_worker(args: argparse.Namespace, cfg):
+    """The encode worker: its encoder (trained weights, on `--device`)
+    is ready before the runtime takes its lease."""
+    from dynamo_tpu_torch.multimodal import (
+        EncodeWorkerHandler,
+        ImageEncoderConfig,
+        serve_encode_worker,
+    )
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    handler = EncodeWorkerHandler(
+        ImageEncoderConfig(vocab_offset=args.image_vocab_offset),
+        device=args.device)
+    rt = await DistributedRuntime.create(cfg)
+    # the default component is the LM's; an encode worker defaults to its own
+    comp = "encoder" if args.component == "backend" else args.component
+    served = await serve_encode_worker(rt, args.namespace, comp,
+                                       instance_id=args.instance_id,
+                                       handler=handler)
+    print(f"WORKER_READY {args.namespace}/{comp}/encode/"
+          f"{served.instance.instance_id:x}", flush=True)
+    return rt, None, _EncodeHandle(served), _NoMonitor(), []
 
 
 async def stop_worker(objs) -> None:

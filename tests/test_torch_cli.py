@@ -86,7 +86,8 @@ def test_frontend_refuses_unported_flag(flag, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value", [("--tensor-parallel-size", "1"),
-                                        ("--num-nodes", "1")])
+                                        ("--num-nodes", "1"),
+                                        ("--expert-parallel-size", "1")])
 def test_worker_accepts_single_device_defaults(flag, value):
     worker_main.check_args(worker_main.parse_args(BASE + [flag, value]))
 

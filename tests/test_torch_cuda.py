@@ -34,7 +34,13 @@ with the pipelined offload running across graph captures, fp32 streams
 equal the eager engine's bit for bit. The dispatch watchdog trips once on
 a real device stall (`torch.cuda._sleep` inside one dispatch) and the
 worker's quarantine completes; idle canaries run through the card's
-engine.
+engine. MoE: `moe_mlp` (cuBLAS expert products) against the fp32
+per-token loop, fp32 at FP32_TOL and bf16 / int8 stacks within
+MOE_BF16_TOL of the largest output (tokens at a router near-tie,
+ROUTER_TIE_TOL, set apart); top-k ties take the lowest expert; an MoE
+burst's graph replay bit-identical with eager; int8 MoE streams equal
+on the card and the CPU. The image encoder's tokens on the card equal
+its fp64 numpy version and the CPU's.
 """
 
 import asyncio
@@ -1028,17 +1034,18 @@ def test_phase_engine_on_card_matches_engine_on_cpu(cuda_device):
 
 
 def _serve_tiny_on_card_and_cpu(cuda_device, impl: str, geometry=None,
-                                quantize=None) -> int:
+                                quantize=None, moe=False) -> int:
     """Serve three greedy requests on the card and on the CPU through a
-    tiny fp32 model (`geometry` overrides, `quantize` mode) on path
-    `impl`; assert identical streams; return the K1 launches the card run
-    made."""
+    tiny fp32 model (`geometry` overrides, `quantize` mode; with `moe`,
+    a Mixtral-style MoE model) on path `impl`; assert identical streams;
+    return the K1 launches the card run made."""
     from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
     from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+    from dynamo_tpu_torch.models.mixtral import MoeConfig
     from dynamo_tpu_torch.runtime.context import Context
 
-    mcfg = LlamaConfig.tiny(dtype=torch.float32, **(
-        geometry or dict(head_dim=32, page_size=8)))
+    mcfg = (MoeConfig if moe else LlamaConfig).tiny(
+        dtype=torch.float32, **(geometry or dict(head_dim=32, page_size=8)))
     cpu_model = init_params(mcfg, 0, torch.device("cpu"))
 
     async def serve(device):
@@ -2398,3 +2405,123 @@ def test_canary_runs_through_the_card_engine(cuda_device):
     assert all(c is True and len(t) == 1 for c, t in seen)
     assert len({tuple(t) for _, t in seen}) == 1     # greedy, same prompt
     assert advanced >= len(seen)
+
+
+# --- MoE (Mixtral) and the image encoder on the card ---------------------------
+
+MOE_MODEL = dict(A8_MODEL, num_experts=8, experts_per_token=2)
+# bf16 moe_mlp against the fp32 per-token loop: gate, up and their product
+# round to bf16 (measured on the CPU at 0.8% of the output's largest
+# value); a token whose k-th and (k+1)-th fp32 router logits lie within
+# ROUTER_TIE_TOL may route otherwise from the bf16 router product (its
+# output rounded to bf16, 2^-8 relative at |logit| <= 6) and is counted,
+# not compared
+MOE_BF16_TOL = 0.02
+ROUTER_TIE_TOL = 0.05
+
+
+def _moe_model(dev, dtype, quantize=None):
+    from dynamo_tpu_torch.models.llama import init_params
+    from dynamo_tpu_torch.models.mixtral import MoeConfig
+
+    cfg = MoeConfig.tiny(dtype=dtype, **MOE_MODEL)
+    return cfg, init_params(cfg, 0, dev, quantize=quantize)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+def test_moe_mlp_on_card_matches_reference_loop(cuda_device, mode):
+    """`moe_mlp` (dense dispatch, cuBLAS products) on the card against
+    `moe_mlp_reference`, the per-token fp32 loop (int8 stacks read
+    dequantized): fp32 at FP32_TOL, bf16 and int8 within MOE_BF16_TOL of
+    the output's largest value, tokens at a router near-tie apart."""
+    from dynamo_tpu_torch.models.mixtral import (
+        moe_mlp,
+        moe_mlp_reference,
+        top_k,
+    )
+
+    dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+    cfg, model = _moe_model(cuda_device, dtype,
+                            "int8" if mode == "int8" else None)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    h = torch.randn((3, 7, cfg.hidden_size), generator=gen,
+                    device=cuda_device).to(dtype)
+    layer = model.layers[1]
+    with torch.inference_mode():
+        got = moe_mlp(h, layer, cfg).float()
+        want = moe_mlp_reference(h, layer, cfg)
+        logits = h.float() @ layer.router.float()
+    assert got.shape == h.shape and torch.isfinite(got).all()
+    if mode == "fp32":
+        torch.testing.assert_close(got, want, **FP32_TOL)
+        return
+    top = logits.sort(dim=-1, descending=True).values
+    clear = (top[..., 1] - top[..., 2]) >= ROUTER_TIE_TOL
+    assert clear.float().mean() >= 0.5, clear
+    err = (got - want).abs().amax(dim=-1)[clear].max().item()
+    assert err <= MOE_BF16_TOL * want.abs().max().item(), err
+    # the same routing as on the CPU, ties included
+    _, on_card = top_k(logits, 2)
+    _, on_cpu = top_k(logits.cpu(), 2)
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
+def test_moe_top_k_ties_on_card_take_the_lowest_index(cuda_device):
+    from dynamo_tpu_torch.models.mixtral import top_k
+
+    logits = torch.zeros(64, 8, device=cuda_device)
+    logits[:, 3] = 1.0
+    logits[:32, 6] = 1.0
+    v, i = top_k(logits, 3)
+    assert i[:32].tolist() == [[3, 6, 0]] * 32
+    assert i[32:].tolist() == [[3, 0, 1]] * 32
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_moe_burst_graph_replays_bit_identical_to_eager(cuda_device, mode):
+    """An MoE decode burst (dense dispatch: static shapes, no host read)
+    captured in a CUDA graph and replayed equals the eager burst: packed
+    output and both caches, bit for bit; K2 and K4 launched."""
+    cfg, model = _moe_model(cuda_device, torch.bfloat16,
+                            "int8" if mode == "int8" else None)
+    with torch.inference_mode():
+        _graph_vs_eager(cuda_device, cfg, _burst_step(model, 8),
+                        [_burst_inputs(cfg), _burst_inputs(cfg, shift=9)])
+
+
+@pytest.mark.parametrize("impl", ["phase", "ragged"])
+def test_moe_engine_on_card_matches_engine_on_cpu(cuda_device, impl):
+    """Greedy fp32 streams of a tiny int8 MoE model are identical on the
+    card and on the CPU, on both paths."""
+    assert _serve_tiny_on_card_and_cpu(
+        cuda_device, impl, dict(MOE_MODEL), quantize="int8", moe=True) > 0
+
+
+def test_encode_image_tokens_on_card(cuda_device):
+    """The encoder on the card (fp32 products) gives the tokens of its
+    plain numpy version and of the CPU on the same weights."""
+    from dynamo_tpu_torch.multimodal.encoder import (
+        ImageEncoderConfig,
+        encode_image_tokens,
+        init_encoder_params,
+    )
+
+    cfg = ImageEncoderConfig(vocab_offset=30000)
+    params = init_encoder_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+        img = rng.rand(cfg.image_size, cfg.image_size, 3).astype(np.float32)
+        on_card = encode_image_tokens(
+            {k: v.to(cuda_device) for k, v in params.items()},
+            torch.from_numpy(img).to(cuda_device), cfg)
+        on_cpu = encode_image_tokens(params, torch.from_numpy(img), cfg)
+        n = cfg.image_size // cfg.patch_size
+        x = img.reshape(n, 16, n, 16, 3).transpose(0, 2, 1, 3, 4) \
+            .reshape(-1, cfg.patch_dim).astype(np.float64)
+        x -= x.mean(axis=-1, keepdims=True)
+        emb = x @ params["proj"].double().numpy()
+        cb = params["codebook"].double().numpy()
+        plain = ((cb ** 2).sum(-1)[None] - 2 * emb @ cb.T).argmin(-1) \
+            + cfg.vocab_offset
+        assert on_card.device.type == "cuda"
+        assert on_card.tolist() == on_cpu.tolist() == plain.tolist()

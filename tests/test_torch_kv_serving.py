@@ -83,14 +83,19 @@ def _weights():
 
 
 class PromptTap(Tap):
-    """Tap, also recording each request's prompt token ids."""
+    """Tap, also recording each request's prompt token ids. While `hold`
+    is an unset event, a request that arrives waits for it before the
+    engine sees it, so the router keeps it booked as active."""
 
     def __init__(self, inner) -> None:
         super().__init__(inner)
         self.prompts: list[list[int]] = []
+        self.hold: asyncio.Event | None = None
 
     async def generate(self, request, context):
         self.prompts.append(list(request["token_ids"]))
+        if self.hold is not None:
+            await self.hold.wait()
         async for out in super().generate(request, context):
             yield out
 
@@ -178,10 +183,26 @@ async def _settled(router, taps) -> None:
 async def _kv_round(port, model, taps, router) -> tuple:
     """Prefixes A and B at once (the second decision sees the first's
     blocks booked as active load, so they part), then A + a suffix
-    (A's worker holds its prefix): (bodies, the worker of each)."""
-    both = await asyncio.gather(*(
+    (A's worker holds its prefix): (bodies, the worker of each).
+
+    A and B are held in the taps until both have been routed: however
+    slow the host, the first cannot finish (and give up its booked load)
+    before the second decision is made."""
+    hold = asyncio.Event()
+    arrived = sum(len(t.prompts) for t in taps)
+    for t in taps:
+        t.hold = hold
+    both_f = asyncio.gather(*(
         call(port, "POST", "/v1/chat/completions", _chat(model, text))
         for text in (PREFIX, OTHER)))
+    try:
+        while sum(len(t.prompts) for t in taps) < arrived + 2:
+            await asyncio.sleep(0.005)
+    finally:
+        hold.set()
+        for t in taps:
+            t.hold = None
+    both = await both_f
     who = [_who(taps, PREFIX), _who(taps, OTHER)]
     await _settled(router, taps)
     third = await call(port, "POST", "/v1/chat/completions",
@@ -231,8 +252,9 @@ def test_kv_fleet_affinity_and_bodies_match_reference(default_impl):  # noqa: F8
     (g_bodies, g_who), (w_bodies, w_who) = got, want
     same_bodies(g_bodies, w_bodies)
     assert [st for st, _, _ in g_bodies] == [200] * 3
-    # A and B on different workers (the second decision sees A's load
-    # gone but A's blocks held), A + suffix on A's worker
+    # A and B on different workers (the second decision sees A booked as
+    # active load: the taps hold both until both are routed), A + suffix
+    # on A's worker
     for who in (g_who, w_who):
         assert who[0] != who[1] and who[2] == who[0]
     assert saved >= BS * 8                  # the shared prefix's blocks

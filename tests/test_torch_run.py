@@ -30,7 +30,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def ckpts(tmp_path_factory):
     root = tmp_path_factory.mktemp("ckpt")
     return {p: write_synthetic_hf_checkpoint(str(root / p), preset=p)
-            for p in ("tiny", "qwen2-tiny")}
+            for p in ("tiny", "qwen2-tiny", "mixtral-tiny")}
 
 
 @pytest.mark.parametrize("preset", ["tiny", "qwen2-tiny"])
@@ -78,12 +78,18 @@ def test_safetensors_reader_matches_package(tmp_path):
 
 
 def test_mixtral_checkpoint_is_refused(tmp_path):
+    """Mixtral checkpoints are served since MoE was ported
+    (tests/test_torch_moe.py); one whose config cannot size its expert
+    stacks (no num_local_experts) is refused, as the reference refuses
+    it."""
     (tmp_path / "config.json").write_text(json.dumps({
         "architectures": ["MixtralForCausalLM"], "hidden_size": 8,
         "num_attention_heads": 2, "intermediate_size": 8,
-        "num_hidden_layers": 1, "vocab_size": 8, "num_local_experts": 2}))
-    with pytest.raises(ValueError, match="MoE"):
+        "num_hidden_layers": 1, "vocab_size": 8}))
+    with pytest.raises(ValueError, match="num_local_experts"):
         tloader.config_from_hf(str(tmp_path))
+    with pytest.raises(ValueError, match="num_local_experts"):
+        jloader.config_from_hf(str(tmp_path))
 
 
 def test_cli_serves_on_cpu_without_jax(ckpts):
@@ -94,7 +100,9 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
     serves a request, its compile tracker holding its entries; then a
     guided chat request (nvext guided_choice, with a presence penalty)
     goes through the OpenAI pipeline to a fresh engine and its text is one
-    of the choices; and at the end, with the compiled-step modules
+    of the choices; then the worker CLI's start path serves a Mixtral
+    checkpoint (int8 experts) that answers a request, and an encode
+    worker that encodes a PNG; and at the end, with the compiled-step modules
     (graphs, compile tracker, bucket ladder, metrics) and the guided ones
     (grammar compiler, compute pool) loaded too, no jax and no dynamo_tpu
     module was ever imported."""
@@ -159,6 +167,43 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
         "    return ''.join(parts)\n"
         "print('GUIDED', repr(asyncio.run(guided())), sorted({k[0] for k "
         "in g_eng.compile_tracker._seen}))\n"
+        "from dynamo_tpu_torch.worker import main as wm\n"
+        "import struct, zlib\n"
+        "def png(w, h):\n"
+        "    def chunk(k, b):\n"
+        "        return (struct.pack('>I', len(b)) + k + b + "
+        "struct.pack('>I', zlib.crc32(k + b)))\n"
+        "    rows = b''.join(b'\\x00' + bytes((x * 7 + y * 3 + c) % 256 "
+        "for x in range(w) for c in range(3)) for y in range(h))\n"
+        "    return (b'\\x89PNG\\r\\n\\x1a\\n' + chunk(b'IHDR', "
+        "struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0)) + chunk(b'IDAT', "
+        "zlib.compress(rows)) + chunk(b'IEND', b''))\n"
+        "async def workers():\n"
+        "    got = []\n"
+        f"    for argv in (['--model', {ckpts['mixtral-tiny']!r}, "
+        "'--random-init', '--quantize', 'int8', '--num-pages', '32', "
+        "'--device', 'cpu', '--store', 'memory', '--encode-component', "
+        "'encoder'], ['--encode-worker', '--device', 'cpu', '--store', "
+        "'memory', '--image-vocab-offset', '300']):\n"
+        "        args = wm.parse_args(argv)\n"
+        "        wm.check_args(args)\n"
+        "        objs = await wm.start_worker(args)\n"
+        "        try:\n"
+        "            if objs[1] is not None:\n"
+        "                got.append(type(objs[1].model.layers[0]).__name__)\n"
+        "                async for o in objs[1].generate({'token_ids': "
+        "[5, 6, 7, 310], 'sampling': {'temperature': 0.0}, 'stop': "
+        "{'max_tokens': 3}}, Context()):\n"
+        "                    got += o.get('token_ids', [])\n"
+        "            else:\n"
+        "                h = objs[2].served.engine\n"
+        "                async for o in h.generate({'image': png(40, 24)}, "
+        "Context()):\n"
+        "                    got.append(len(o['image_tokens']))\n"
+        "        finally:\n"
+        "            await wm.stop_worker(objs)\n"
+        "    return got\n"
+        "print('WORKERS', asyncio.run(workers()))\n"
         "import dynamo_tpu_torch.engine.bucketing\n"
         "import dynamo_tpu_torch.engine.compile_tracker\n"
         "import dynamo_tpu_torch.engine.graphs\n"
@@ -171,10 +216,19 @@ def test_cli_serves_on_cpu_without_jax(ckpts):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "DYN_ATTENTION_IMPL")}
     env["PYTHONPATH"] = REPO
+    # the encode worker's random init (no first-use training here)
+    env["DYN_TRAIN_ENCODER"] = "0"
     proc = subprocess.run([sys.executable, "-c", probe], env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
+    # a Mixtral worker (int8 experts) answered, and an encode worker gave
+    # 196 image tokens
+    workers = next(line for line in proc.stdout.splitlines()
+                   if line.startswith("WORKERS "))
+    assert workers.startswith("WORKERS ['MoeLayer', ") and \
+        workers.endswith(", 196]"), workers
+    assert len(eval(workers[len("WORKERS "):])) == 5, workers
     assert "CALLS ['decode_multi_step', 'prefill_batch']" in proc.stdout, \
         proc.stdout
     assert "INT4 3" in proc.stdout, proc.stdout
