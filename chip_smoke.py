@@ -109,7 +109,23 @@ on):
     `--system-port --health-check --health-check-interval 1` and
     DYN_WATCHDOG_STALL_S (WATCHDOG_STALL_S), the frontend with
     `--system-port --stream-idle-adaptive-margin` (ADAPTIVE_IDLE_MARGIN).
-    Before traffic: the worker's /live 200, its first idle canary through
+    The observability layer is armed on both: DYN_TRACE with a trace file
+    each, DYN_AUDIT (JSONL sink), `--telemetry-interval 1`; the frontend
+    also `--slo-ttft 0.001 --slo-itl 60 --slo-check-interval 1` (an
+    objective no request meets and one none misses); the worker logs
+    JSONL. Right after the 10 streams: each is one trace (the frontend's
+    `http chat_completions` span, the worker's serve span, `engine.request`
+    under it and its queue_wait, >= 1 prefill.chunk, prefill and decode
+    stages; every parent resolved), /debug/requests lists the 10 with
+    status 200 and those trace ids, per-request and median queue wait,
+    prefill and decode ms printed beside the HTTP TTFT with the TTFT share
+    inside chunk dispatches that captured a graph; /fleet/status holds
+    the worker's and the frontend's snapshots, the worker's TTFT p50
+    within one bucket of its scrape, SLO states ttft breach and itl ok,
+    `dynamo_slo_burn_rate` on the frontend's /metrics and
+    `dynamo_trace_dropped_total` 0 on both; the audit file has one record
+    per stream with its text and usage. After the deployment stops,
+    every worker stderr line parses as JSON. Before traffic: the worker's /live 200, its first idle canary through
     the cold engine (its wall printed: one token, its TTFT), /health 200
     healthy. After the extras: a guided wave (ITL_WAVE streams of 128
     letters) so the frontend holds >= 100 HTTP ITL samples, then idle
@@ -149,7 +165,10 @@ on):
     all in flight (TTFT, ITL, tok/s and decisions per worker printed).
     Both workers replayed their "decode_burst" graphs; wave 1's TTFT
     beside wave 2's, the router's events by stream and its KV-event gaps
-    (which must be 0) printed; every subprocess stopped at the end
+    (which must be 0) printed; the frontend runs with DYN_TRACE and
+    DYN_ROUTER_LOG: each of the 18 requests has one `router.decide` span
+    under its http span naming the worker the decision log records for
+    it; every subprocess stopped at the end
  8e. disaggregated serving, after 8d has stopped its workers: the
     coordinator, a `.worker --is-prefill-worker` (served as
     llama3-8b-prefill), a `.worker --enable-disagg
@@ -200,7 +219,13 @@ on):
     finishes with 8 tokens and no refusal or error (a failed gather, K3
     launch or pinned allocation fails its request); every revisit / wave / G3 / G4
     stream equals its cold stream or parts at a near-tie (BF16_TIE_TOL,
-    printed); KV event ids with no gap in every engine
+    printed); KV event ids with no gap in every engine. Each pass runs
+    under a process tracer of its own: the `kvbm.onboard` spans' blocks
+    (and the request roots' `kvbm.onboard` events) add up to the pass's
+    onboarded blocks, the pipelined pass's `kvbm.offload` spans to its
+    offloaded blocks (the sync path's inline offloads run under no span,
+    as the reference's), G4's remote onboard spans to B's remote-onboarded
+    blocks
  8g. speculative decoding, in process, on phase 8's 8B weights and a
     random Llama-3.2-1B-shaped draft (DRAFT_1B_CONFIG, bf16, seed 1; its
     config read through the loader at the target's page geometry), on
@@ -268,7 +293,9 @@ on):
     `engine/memory.py`) at Llama-3-8B bf16, on phase 8's weights drawn
     again: on the phase path and then the ragged path (batch 8, 2048
     pages, prefill all), an unarmed engine and one with DYN_STEP_PROFILE
-    and DYN_MEM_LEDGER armed serve the same 4 seeded greedy chats
+    and DYN_MEM_LEDGER armed (and DYN_TRACE and DYN_AUDIT: each request
+    one trace with its four engine stages, one audit record per HTTP
+    chat) serve the same 4 seeded greedy chats
     (RECORDER_PROMPT_LENS tokens, 16 out) all in flight: streams identical
     token for token, the same graph captures, replays, rounds and kernel
     launches (K1-K4 phase, K1 K2 ragged, counts zeroed before each run),
@@ -323,7 +350,9 @@ on):
     added), device time by kernel
     class and device ops per step; beside each, the same step replayed
     from its graph (host wall, device busy, the replay timed with CUDA
-    events too, device ops) and the graph pool's bytes; the bare spec
+    events too, device ops; the bf16 graphed steps profiled
+    GRAPH_PROFILE_REPS times: cut from 5 since 8c, 8d, 8f and 8i check
+    the request tracer) and the graph pool's bytes; the bare spec
     burst replayed only (eager, it issues tens of thousands of launches:
     cut since 8g was added); the phase path's
     engine batch once more (the ragged path's: cut since 8g was added),
@@ -1021,6 +1050,7 @@ def http_chat_stream(port: int, body: dict) -> dict:
                                  f"{r.getheader('Content-Type')}: "
                                  f"{r.read()[:500]!r}")
         entries, first, done, finish, usage = [], None, None, None, None
+        rid, text = None, []
         while True:
             line = r.readline()
             if not line:
@@ -1036,11 +1066,13 @@ def http_chat_stream(port: int, body: dict) -> dict:
             chunk = json.loads(line[6:])
             if "error" in chunk:
                 raise AssertionError(f"SSE error event: {chunk}")
+            rid = chunk.get("id", rid)
             for ch in chunk["choices"]:
                 got = (ch.get("logprobs") or {}).get("content") or []
                 if got and first is None:
                     first = time.perf_counter() - t0
                 entries.extend(got)
+                text.append((ch.get("delta") or {}).get("content") or "")
                 finish = ch.get("finish_reason") or finish
             usage = chunk.get("usage") or usage
     finally:
@@ -1053,7 +1085,8 @@ def http_chat_stream(port: int, body: dict) -> dict:
         raise AssertionError(f"{usage} for {len(toks)} tokens")
     return {"tokens": toks, "tops": tops, "finish": finish,
             "ttft_s": first, "elapsed_s": done, "t0": t0,
-            "prompt_tokens": usage["prompt_tokens"]}
+            "prompt_tokens": usage["prompt_tokens"], "id": rid,
+            "text": "".join(text), "usage": usage}
 
 
 def latency_summary(rows: list, wall: float) -> str:
@@ -1165,6 +1198,16 @@ HEALTH_INTERVAL_S = 1.0
 WATCHDOG_STALL_S = 60.0
 ADAPTIVE_IDLE_MARGIN = 10.0
 ITL_WAVE = 10
+# phase 8c's observability layer: both processes publish a snapshot each
+# second; the frontend's SLO monitor holds a TTFT objective no request
+# meets and an ITL objective none misses, so their states are known
+TELEMETRY_INTERVAL_S = 1.0
+SLO_TTFT_S = 0.001
+SLO_ITL_S = 60.0
+SLO_CHECK_INTERVAL_S = 1.0
+# the engine stages of one traced request (runtime/tracing.py)
+ENGINE_STAGES = ("engine.queue_wait", "engine.prefill.chunk",
+                 "engine.prefill", "engine.decode")
 
 
 def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
@@ -1190,6 +1233,14 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
         lines = [json.loads(line) for line in f if line.strip()]
     services = []
     sys_port, fe_sys = free_port(), free_port()
+    # the observability layer armed on both processes: the tracer (a file
+    # each), the audit bus, the telemetry publishers; the SLO monitor on
+    # the frontend; JSONL logs on the worker
+    wk_trace = os.path.join(work, "trace_worker.jsonl")
+    fe_trace = os.path.join(work, "trace_frontend.jsonl")
+    audit = os.path.join(work, "audit.jsonl")
+    armed = {"DYN_TRACE": "1", "DYN_AUDIT": "1", "DYN_AUDIT_SINKS": "jsonl",
+             "DYN_AUDIT_PATH": audit}
     try:
         coord = Service(work, "coordinator", "--port", str(free_port()))
         services.append(coord)
@@ -1201,16 +1252,24 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
                          "512", "--store", store, "--device", "cuda",
                          "--system-port", str(sys_port), "--health-check",
                          "--health-check-interval",
-                         f"{HEALTH_INTERVAL_S:g}",
+                         f"{HEALTH_INTERVAL_S:g}", "--telemetry-interval",
+                         f"{TELEMETRY_INTERVAL_S:g}",
                          env={"DYN_WATCHDOG_STALL_S": f"{WATCHDOG_STALL_S:g}",
-                              "DYN_SMOKE_API_TOKEN": "chip-smoke-secret"})
+                              "DYN_SMOKE_API_TOKEN": "chip-smoke-secret",
+                              "DYN_TRACE_PATH": wk_trace,
+                              "DYN_LOG_FORMAT": "jsonl", **armed})
         services.append(worker)
         port = free_port()
         frontend = Service(work, "frontend", "--store", store, "--host",
                            "127.0.0.1", "--port", str(port),
                            "--router-mode", "round_robin", "--system-port",
                            str(fe_sys), "--stream-idle-adaptive-margin",
-                           f"{ADAPTIVE_IDLE_MARGIN:g}")
+                           f"{ADAPTIVE_IDLE_MARGIN:g}", "--telemetry-interval",
+                           f"{TELEMETRY_INTERVAL_S:g}", "--slo-ttft",
+                           f"{SLO_TTFT_S:g}", "--slo-itl", f"{SLO_ITL_S:g}",
+                           "--slo-check-interval",
+                           f"{SLO_CHECK_INTERVAL_S:g}",
+                           env={"DYN_TRACE_PATH": fe_trace, **armed})
         services.append(frontend)
         frontend.wait_line("FRONTEND_READY", 120)
         ready = worker.wait_line("WORKER_READY", 900)
@@ -1238,19 +1297,18 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
             time.sleep(0.2)
         if st != 200 or json.loads(health)["status"] != "healthy":
             raise AssertionError(f"/health before traffic: {st} {health!r}")
-        probe_lines = [ln.split(": ", 1)[-1] for ln in
-                       worker.stderr_tail(200000).splitlines()
-                       if "canary" in ln]
+        probe_lines = [m for m in log_messages(worker.stderr_tail(200000))
+                       if "canary" in m]
         log(f"[status] before traffic: worker /live 200, /health 200 "
             f"{json.loads(health)} ({ready} under canary watch, interval "
             f"{HEALTH_INTERVAL_S:g} s, probe timeout 3 s); the first canary "
             f"through the cold 8B engine took {first_canary:.3f} s (one "
             f"token: its TTFT; its graph captures inside); canary log "
             f"lines: {probe_lines or 'none'}; on {smi}")
-        built = [ln for ln in worker.stderr_tail(100000).splitlines()
-                 if "engine built in" in ln]
+        built = [m for m in log_messages(worker.stderr_tail(100000))
+                 if "engine built in" in m]
         log(f"[serve] worker {ready} ready {time.perf_counter() - t0:.1f} s "
-            f"after its start; {built[-1].split(': ', 1)[-1] if built else ''}")
+            f"after its start; {built[-1] if built else ''}")
         end = time.perf_counter() + 60
         while b'"llama3-8b"' not in _http_get(port, "/v1/models"):
             if time.perf_counter() > end:
@@ -1270,6 +1328,8 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
             if p.proc.poll() is not None:
                 raise AssertionError(f"{p.name} exited: "
                                      f"{p.stderr_tail()}")
+        traced = request_traces(port, fe_trace, wk_trace, streams, smi)
+        audit_records(audit, streams)
         fe_metrics = _http_get(port, "/metrics").decode()
         with torch.inference_mode():
             serving_extras(torch, port, model, llama)
@@ -1290,6 +1350,10 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
             raise AssertionError("an ITL-wave stream broke its grammar")
         log(f"[status] a guided wave of {ITL_WAVE} x 128 letters through "
             f"the frontend in {time.perf_counter() - t0:.2f} s")
+        # the SLO monitor's samples are the HTTP layer's TTFT / ITL, taken
+        # at text-bearing chunks: the wave's letters, not the batch's
+        # random tokens (which decode to no text)
+        fleet_and_slo(port, sys_port, smi)
         # requests through the engine: the batch, the n = 2 chat's two
         # choices, the /v1/responses request (an embedding has no TTFT)
         # and the wave
@@ -1299,6 +1363,23 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
     finally:
         for p in reversed(services):
             p.stop()
+    # the worker's stderr under DYN_LOG_FORMAT=jsonl: every line JSON
+    with open(worker.err_path) as f:
+        err_lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    for ln in err_lines:
+        try:
+            row = json.loads(ln)
+        except ValueError:
+            raise AssertionError(f"8c: a worker stderr line is not JSON "
+                                 f"under DYN_LOG_FORMAT=jsonl: {ln[:300]!r}")
+        if not {"ts", "level", "target", "message"} <= set(row):
+            raise AssertionError(f"8c: a worker log line lacks its keys: "
+                                 f"{ln[:300]!r}")
+    spans = read_spans(fe_trace, wk_trace)
+    log(f"[trace] after the deployment stopped: {len(err_lines)} worker "
+        f"stderr lines, all JSON; {len(spans)} spans exported in all "
+        f"(frontend {len(read_spans(fe_trace))}, worker "
+        f"{len(read_spans(wk_trace))}), {traced} of them the 10 requests'")
     # tokens against the in-process phase-path batch
     want = [token_ids_of(r["logprobs"]) for r in in_proc["results"]]
     got = [(s["tokens"], s["tops"]) for s in streams]
@@ -1328,6 +1409,238 @@ def serving_phase(torch, smi: str, work: str, ckpt: str, jobs: str,
         f"captures {graphs['captures']:.0f}, replays "
         f"{graphs['replays']:.0f}, pool {graphs['pool_bytes'] / 2**20:.1f} "
         f"MiB; on {smi}")
+
+
+def log_messages(text: str) -> list:
+    """The messages of log lines, JSONL (DYN_LOG_FORMAT=jsonl) or text."""
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith("{"):
+            try:
+                out.append(json.loads(ln)["message"])
+                continue
+            except (ValueError, KeyError):
+                pass
+        out.append(ln.split(": ", 1)[-1])
+    return out
+
+
+def read_spans(*paths: str) -> list:
+    """The OTLP span records of trace files (a missing file reads as
+    none)."""
+    from dynamo_tpu_torch.runtime.recorder import Recorder
+
+    rows = []
+    for p in paths:
+        if os.path.exists(p):
+            rows.extend(ev for _, ev in Recorder.iter_events(p))
+    return rows
+
+
+def span_attr(span: dict, key: str):
+    for a in span["attributes"]:
+        if a["key"] == key:
+            return a["value"]["stringValue"]
+    return None
+
+
+def span_ms(span: dict) -> float:
+    return (span["endTimeUnixNano"] - span["startTimeUnixNano"]) / 1e6
+
+
+def request_traces(port: int, fe_trace: str, wk_trace: str, streams: list,
+                   smi: str) -> int:
+    """Phase 8c: each streamed request is one trace. /debug/requests lists
+    them with status 200 and their trace ids; the frontend's file holds
+    each one's `http chat_completions` span, the worker's its serve span,
+    `engine.request` under it and under that `engine.queue_wait`, >= 1
+    `engine.prefill.chunk`, `engine.prefill` and `engine.decode`; every
+    parent id resolves. Prints per request (and as medians) the queue
+    wait, prefill and decode ms from the spans beside the HTTP TTFT, and
+    the share of each TTFT inside chunk dispatches that paid a graph
+    capture. Returns the spans the requests hold."""
+    n = len(streams)
+    st, raw = _http_status(port, f"/debug/requests?limit={n}")
+    dbg = json.loads(raw)
+    recent = dbg["recent"]
+    by_rid = {r["request_id"]: r for r in recent}
+    if st != 200 or dbg["in_flight"] or len(recent) != n or any(
+            r["status"] != "200" or not r["trace_id"] for r in recent) or \
+            set(by_rid) != {s["id"] for s in streams}:
+        rows = [(r["request_id"], r["status"], r["trace_id"])
+                for r in recent]
+        raise AssertionError(f"8c /debug/requests: HTTP {st}, {rows}")
+    want = {by_rid[s["id"]]["trace_id"] for s in streams}
+    if len(want) != n:
+        raise AssertionError("8c: two requests share a trace id")
+
+    def complete(spans) -> bool:
+        names = [x["name"] for x in spans]
+        return (names.count("http chat_completions") == 1
+                and sum(x.startswith("serve ") for x in names) == 1
+                and names.count("engine.request") == 1
+                and all(stage in names for stage in ENGINE_STAGES))
+
+    end = time.perf_counter() + 30
+    while True:
+        fe_rows, wk_rows = read_spans(fe_trace), read_spans(wk_trace)
+        by: dict = {}
+        for r in fe_rows + wk_rows:
+            by.setdefault(r["traceId"], []).append(r)
+        missing = [t for t in want if not complete(by.get(t, []))]
+        if not missing:
+            break
+        if time.perf_counter() > end:
+            names = [sorted(x["name"] for x in by.get(t, []))
+                     for t in missing[:2]]
+            raise AssertionError(f"8c: {len(missing)} of {n} traces "
+                                 f"incomplete: {names}")
+        time.sleep(0.5)
+    fe_ids = {r["spanId"] for r in fe_rows}
+    rows, held = [], 0
+    for s in sorted(streams, key=lambda x: x["t0"]):
+        tid = by_rid[s["id"]]["trace_id"]
+        spans = by[tid]
+        held += len(spans)
+        ids = {x["spanId"] for x in spans}
+        one = {x["name"]: x for x in spans}
+        http = one["http chat_completions"]
+        serve = next(x for x in spans if x["name"].startswith("serve "))
+        root = one["engine.request"]
+        if any(x["parentSpanId"] and x["parentSpanId"] not in ids
+               for x in spans) or http["parentSpanId"] or \
+                http["spanId"] not in fe_ids or \
+                serve["parentSpanId"] != http["spanId"] or \
+                root["parentSpanId"] != serve["spanId"] or any(
+                    x["parentSpanId"] != root["spanId"] for x in spans
+                    if x["name"] in ENGINE_STAGES) or \
+                root["status"]["code"] != "OK":
+            tree = [(x["name"], x["spanId"], x["parentSpanId"])
+                    for x in spans]
+            raise AssertionError(f"8c: trace {tid} is not one tree: {tree}")
+        chunks = [x for x in spans if x["name"] == "engine.prefill.chunk"]
+        compiled = sum(span_ms(x) for x in chunks
+                       if span_attr(x, "compiled") == "True")
+        ttft = s["ttft_s"] * 1e3
+        rows.append({"ttft": ttft, "queue": span_ms(one["engine.queue_wait"]),
+                     "prefill": span_ms(one["engine.prefill"]),
+                     "decode": span_ms(one["engine.decode"]),
+                     "chunks": len(chunks), "compiled": compiled,
+                     "events": sorted({e["name"] for e in root["events"]})})
+    for i, r in enumerate(rows):
+        log(f"[trace] request {i} (by send time): HTTP TTFT "
+            f"{r['ttft']:.1f} ms; engine.queue_wait {r['queue']:.2f} ms, "
+            f"engine.prefill {r['prefill']:.1f} ms ({r['chunks']} chunk "
+            f"span(s), {r['compiled']:.1f} ms of them in dispatches that "
+            f"captured a graph: {100 * r['compiled'] / r['ttft']:.1f}% of "
+            f"the TTFT), engine.decode {r['decode']:.1f} ms; root events "
+            f"{r['events']}; on {smi}")
+
+    def med(k):
+        return statistics.median(r[k] for r in rows)
+
+    share = [r["compiled"] / r["ttft"] for r in rows]
+    log(f"[trace] 10 requests, one trace each (http -> serve -> "
+        f"engine.request -> queue_wait / prefill.chunk / prefill / decode, "
+        f"every parent resolved, /debug/requests 200 with the trace ids): "
+        f"medians queue wait {med('queue'):.2f} ms, prefill "
+        f"{med('prefill'):.1f} ms, decode {med('decode'):.1f} ms beside "
+        f"HTTP TTFT {med('ttft'):.1f} ms; TTFT share in capturing chunk "
+        f"dispatches: median {100 * statistics.median(share):.1f}%, first "
+        f"request {100 * share[0]:.1f}%; on {smi}")
+    return held
+
+
+def fleet_and_slo(port: int, sys_port: int, smi: str) -> None:
+    """Phase 8c, after the guided wave: /fleet/status holds the worker's
+    snapshot, its TTFT p50 within one bucket of a scrape of the worker's
+    `dynamo_engine_ttft_seconds`; the SLO monitor reads `ttft` breach and
+    `itl` ok and its burn rates render on the frontend's /metrics; the
+    tracer dropped nothing in either process."""
+    end = time.perf_counter() + 30
+    while True:
+        st, raw = _http_status(port, "/fleet/status")
+        fleet = json.loads(raw)
+        wk_text = _http_status(sys_port, "/metrics")[1].decode()
+        n_scr, p50_scr = scrape_hist_quantile(
+            wk_text, "dynamo_engine_ttft_seconds", 0.5)
+        workers = [c for c in fleet.get("components", ())
+                   if c["role"] == "worker"]
+        lat = workers[0]["latency"].get("ttft", {}) if workers else {}
+        slo = fleet.get("slo", {})
+        if st == 200 and lat.get("count") == n_scr and \
+                slo.get("ttft", {}).get("state") == "breach":
+            break
+        if time.perf_counter() > end:
+            break
+        time.sleep(0.5)
+    roles = sorted(c["role"] for c in fleet.get("components", ()))
+    if st != 200 or roles != ["frontend", "worker"] or not lat:
+        raise AssertionError(f"8c /fleet/status: HTTP {st}, components "
+                             f"{roles}, worker latency {lat}")
+    edges = [float(ln.split('"')[1]) for ln in wk_text.splitlines()
+             if ln.startswith("dynamo_engine_ttft_seconds_bucket{le=")
+             and "+Inf" not in ln]
+    pos = [min(range(len(edges)), key=lambda i: abs(edges[i] - v))
+           for v in (lat["p50"], p50_scr)]
+    if abs(pos[0] - pos[1]) > 1 or lat["source"] != \
+            "dynamo_engine_ttft_seconds":
+        raise AssertionError(f"8c: fleet TTFT p50 {lat} vs the worker's "
+                             f"scrape ({n_scr} samples, p50 {p50_scr})")
+    if slo.get("ttft", {}).get("state") != "breach" or \
+            slo.get("itl", {}).get("state") != "ok":
+        raise AssertionError(f"8c SLO states: {slo}")
+    fe_text = _http_get(port, "/metrics").decode()
+    burn = series_values(fe_text, "dynamo_slo_burn_rate")
+    dropped = (prometheus_value(fe_text, "dynamo_trace_dropped_total"),
+               prometheus_value(wk_text, "dynamo_trace_dropped_total"))
+    exported = (prometheus_value(fe_text, "dynamo_trace_exported_total"),
+                prometheus_value(wk_text, "dynamo_trace_exported_total"))
+    if len(burn) != 4 or dropped != (0.0, 0.0):
+        raise AssertionError(f"8c: burn-rate gauges {burn}, trace drops "
+                             f"(frontend, worker) {dropped}")
+    log(f"[fleet] /fleet/status: components {roles}, the worker's TTFT "
+        f"p50 {lat['p50'] * 1e3:.0f} ms over {lat['count']} samples (its "
+        f"scrape: {p50_scr * 1e3:.0f} ms over {n_scr}; bucket upper "
+        f"edges), fleet-merged TTFT p50 "
+        f"{fleet['fleet']['latency']['ttft']['p50'] * 1e3:.0f} ms; SLO ttft "
+        f"{slo['ttft']['state']} (fast burn {slo['ttft']['fast_burn']}, "
+        f"{slo['ttft']['samples']} samples, objective {SLO_TTFT_S:g} s), "
+        f"itl {slo['itl']['state']} (fast burn {slo['itl']['fast_burn']}, "
+        f"{slo['itl']['samples']} samples, objective {SLO_ITL_S:g} s); "
+        f"dynamo_slo_burn_rate {burn}; spans exported (frontend, worker) "
+        f"{exported}, dropped {dropped}; on {smi}")
+
+
+def audit_records(path: str, streams: list) -> None:
+    """Phase 8c: the frontend's audit file (DYN_AUDIT_SINKS=jsonl) has one
+    record per streamed request, its text the stream's and its usage the
+    final chunk's."""
+    from dynamo_tpu_torch.runtime.recorder import Recorder
+
+    end = time.perf_counter() + 30
+    while True:
+        recs = [ev for _, ev in Recorder.iter_events(path)] \
+            if os.path.exists(path) else []
+        if len(recs) >= len(streams) or time.perf_counter() > end:
+            break
+        time.sleep(0.5)
+    by = {r["request_id"]: r for r in recs}
+    if len(recs) != len(streams) or set(by) != {s["id"] for s in streams}:
+        raise AssertionError(f"8c audit: {len(recs)} records for "
+                             f"{len(streams)} streams")
+    for s in streams:
+        r = by[s["id"]]
+        if r["response_text"] != s["text"] or r["usage"] != s["usage"] or \
+                r["endpoint"] != "chat_completions" or r["error"]:
+            raise AssertionError(f"8c audit record {s['id']}: text "
+                                 f"{r['response_text']!r} vs {s['text']!r}, "
+                                 f"usage {r['usage']} vs {s['usage']}")
+    log(f"[audit] {len(recs)} records, one per stream, each with the "
+        f"stream's text ({sum(len(s['text']) for s in streams)} characters "
+        f"in all: random weights emit few byte tokens) and its usage "
+        f"({sum(s['usage']['completion_tokens'] for s in streams)} "
+        f"completion tokens in all)")
 
 
 def _http_status(port: int, path: str) -> tuple[int, bytes]:
@@ -1790,9 +2103,14 @@ def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
             workers.append(w)
             services.append(w)
         port = free_port()
+        # the tracer and the decision log armed: each decision's
+        # router.decide span against the log's record of it
+        kv_trace = os.path.join(work, "trace_kv_frontend.jsonl")
         frontend = Service(work, "frontend", "--store", store, "--host",
                            "127.0.0.1", "--port", str(port),
-                           "--router-mode", "kv")
+                           "--router-mode", "kv",
+                           env={"DYN_TRACE": "1", "DYN_TRACE_PATH": kv_trace,
+                                "DYN_ROUTER_LOG": "1"})
         services.append(frontend)
         frontend.wait_line("FRONTEND_READY", 120)
         for w in workers:
@@ -1871,6 +2189,7 @@ def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
         for p in services:
             if p.proc.poll() is not None:
                 raise AssertionError(f"{p.name} exited: {p.stderr_tail()}")
+        decide_spans(port, kv_trace, 2 + 2 * len(wave2), smi)
     finally:
         for p in reversed(services):
             p.stop()
@@ -1926,6 +2245,43 @@ def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
     log(f"[kv] wave 3 (the 8 again, all in flight): "
         f"{latency_summary(rows3, wall3)}; decisions per worker {per3}; "
         f"on {smi}")
+
+
+def decide_spans(port: int, path: str, n: int, smi: str) -> None:
+    """Phase 8d: every request routed through the kv frontend has one
+    `router.decide` span (under its http span) whose `router.worker` is
+    the worker the decision log (/debug/router) records for it."""
+    st, raw = _http_status(port, f"/debug/router?limit={4 * n}")
+    records = json.loads(raw)["models"][0]["records"] if st == 200 else []
+    end = time.perf_counter() + 30
+    while True:
+        rows = read_spans(path)
+        decide = [r for r in rows if r["name"] == "router.decide"]
+        http = {r["spanId"] for r in rows if r["name"].startswith("http ")}
+        if (len(decide) >= n and len(http) >= n) or \
+                time.perf_counter() > end:
+            break
+        time.sleep(0.5)
+    logged = {r["request_id"]: r for r in records}
+    bad = [(span_attr(d, "request.id"), span_attr(d, "router.worker"),
+            logged.get(span_attr(d, "request.id"), {}).get("worker"))
+           for d in decide
+           if span_attr(d, "router.worker") != logged.get(
+               span_attr(d, "request.id"), {}).get("worker")
+           or d["parentSpanId"] not in http]
+    if len(decide) != n or len(records) != n or bad:
+        raise AssertionError(f"8d: {len(decide)} router.decide spans, "
+                             f"{len(records)} logged decisions for {n} "
+                             f"requests; mismatched {bad[:3]}")
+    by_worker: dict = {}
+    for d in decide:
+        w = span_attr(d, "router.worker")
+        by_worker[w] = by_worker.get(w, 0) + 1
+    overlap = sorted(int(span_attr(d, "router.overlap_blocks"))
+                     for d in decide)
+    log(f"[kv] {n} router.decide spans, each under its request's http span "
+        f"and naming the worker the decision log records for it: by worker "
+        f"{by_worker}; overlap blocks {overlap}; on {smi}")
 
 
 # phase 8e: prompts longer than this many uncached tokens are prefilled by
@@ -2346,6 +2702,40 @@ def kvbm_phase(torch, smi: str, model) -> dict:
     def p50(xs):
         return statistics.median(xs) if xs else float("nan")
 
+    # each pass runs under a fresh process tracer (DYN_TRACE's, with a
+    # file of its own): its kvbm.* spans are held to the pass's stats
+    from dynamo_tpu_torch.runtime import tracing
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    spans_of: dict = {}
+
+    def traced(label, coro_fn):
+        path = os.path.join(trace_dir, f"{label}.jsonl")
+        tr = tracing.Tracer(enabled=True, path=path)
+        tracing.set_tracer(tr)
+        try:
+            res = asyncio.run(coro_fn())
+        finally:
+            tracing.set_tracer(None)
+            asyncio.run(tr.close())
+        if tr.dropped:
+            raise AssertionError(f"8f {label}: the tracer dropped "
+                                 f"{tr.dropped} spans")
+        spans_of[label] = read_spans(path)
+        return res
+
+    def kvbm_blocks(label, name, source=None) -> int:
+        return sum(int(span_attr(r, "kvbm.blocks"))
+                   for r in spans_of[label] if r["name"] == name
+                   and (source is None
+                        or span_attr(r, "kvbm.source") == source))
+
+    def onboard_events(label) -> int:
+        return sum(int(next(a["value"]["stringValue"]
+                            for a in e["attributes"] if a["key"] == "blocks"))
+                   for r in spans_of[label] if r["name"] == "engine.request"
+                   for e in r["events"] if e["name"] == "kvbm.onboard")
+
     # sync pass: every knob 0 ----------------------------------------------
     async def sync_pass():
         eng, mgr, events = make(host_blocks=KVBM_HOST_BLOCKS)
@@ -2375,7 +2765,7 @@ def kvbm_phase(torch, smi: str, model) -> dict:
         finally:
             await eng.close()
 
-    s = asyncio.run(sync_pass())
+    s = traced("sync", sync_pass)
     if not (s["launches"]["paged_kv_gather"] > 0
             and s["launches"]["paged_kv_write_pages"] > 0):
         raise AssertionError(f"8f sync pass: the gather or K3 never "
@@ -2477,7 +2867,7 @@ def kvbm_phase(torch, smi: str, model) -> dict:
             done[0] = True
             await eng.close()
 
-    pl = asyncio.run(pipelined_pass())
+    pl = traced("pipelined", pipelined_pass)
     if pl["pending"] != 0 or pl["pins"] == 0:
         raise AssertionError(f"8f pipelined pass: {pl['pending']} pages "
                              f"still pinned at the end, {pl['pins']} seen")
@@ -2542,7 +2932,7 @@ def kvbm_phase(torch, smi: str, model) -> dict:
 
     disk_dir = tempfile.mkdtemp(prefix="chip_smoke_kvbm_")
     try:
-        g3 = asyncio.run(disk_pass(disk_dir))
+        g3 = traced("g3", lambda: disk_pass(disk_dir))
     finally:
         shutil.rmtree(disk_dir, ignore_errors=True)
     from_disk = [t for tier, t, _, _ in g3["rows"] if tier == "g3"]
@@ -2610,7 +3000,42 @@ def kvbm_phase(torch, smi: str, model) -> dict:
             for x in (dist_a, dist_b, a, b, rt):
                 await x.close()
 
-    g4 = asyncio.run(remote_pass())
+    g4 = traced("g4", remote_pass)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    # the spans against the stats of the same passes: the sync path's
+    # inline offloads run under no span (as the reference's), the
+    # pipelined worker's batches each under one
+    span_rows = {
+        "sync": (kvbm_blocks("sync", "kvbm.onboard", "local"),
+                 s["stats"]["onboarded"], kvbm_blocks("sync", "kvbm.offload"),
+                 0, onboard_events("sync")),
+        "pipelined": (kvbm_blocks("pipelined", "kvbm.onboard", "local"),
+                      pl["stats"]["onboarded"],
+                      kvbm_blocks("pipelined", "kvbm.offload"),
+                      pl["stats"]["offloaded"], onboard_events("pipelined")),
+        "g3": (kvbm_blocks("g3", "kvbm.onboard", "local"),
+               g3["stats"]["onboarded"], kvbm_blocks("g3", "kvbm.offload"), 0,
+               onboard_events("g3")),
+    }
+    remote = (kvbm_blocks("g4", "kvbm.onboard", "remote"),
+              sum(r[0] for r in g4["rows"]))
+    bad = {k: v for k, v in span_rows.items()
+           if v[0] != v[1] or v[2] != v[3] or v[4] != v[1]}
+    if bad or remote[0] != remote[1] or not (span_rows["pipelined"][2]
+                                             and remote[0]):
+        raise AssertionError(f"8f kvbm spans vs stats (onboard spans, "
+                             f"onboarded, offload spans, worker offloads, "
+                             f"onboard events): {span_rows}; remote "
+                             f"{remote}")
+    n_spans = {name: sum(1 for r in spans_of["pipelined"]
+                         if r["name"] == name)
+               for name in ("kvbm.offload", "kvbm.prefetch")}
+    table = {k: {"kvbm.onboard blocks": v[0], "onboarded": v[1],
+                 "kvbm.offload blocks": v[2]} for k, v in span_rows.items()}
+    log(f"[kvbm] traced passes, spans against the manager's stats: "
+        f"{table}; the request roots' kvbm.onboard events add up to the "
+        f"same; pipelined pass spans {n_spans}; G4 remote kvbm.onboard "
+        f"blocks {remote[0]} = remote-onboarded {remote[1]}; on {smi}")
     if g4["held"] != KVBM_PROMPTS or sum(r[0] for r in g4["rows"]) == 0:
         raise AssertionError(f"8f G4 pass: engine A's tiers held "
                              f"{g4['held']} of {KVBM_PROMPTS} prompts, engine "
@@ -2937,8 +3362,8 @@ def profile_rounds(torch, llama, graphs, model, dev, n_pad_mixed: int,
                     (label,), None, host)).cpu()
 
             graphed = measure(torch, replay, ProfilerActivity, profile,
-                              reps=5 if mode == "bf16" else
-                              QUANT_PROFILE_REPS)
+                              reps=GRAPH_PROFILE_REPS if mode == "bf16"
+                              else QUANT_PROFILE_REPS)
             ev = []
             for _ in range(10):
                 start = torch.cuda.Event(enable_timing=True)
@@ -3111,10 +3536,12 @@ def self_draft_floor(p: float, n_pos: int, n_iters: int,
 
 
 # profiled repetitions of each bare eager step in phase 11 (cut from 5
-# since phase 8c's parser run was added; the bf16 graphed steps keep 5),
-# and of the quantized bursts' eager and graphed runs (cut from 2 and 5
-# since phase 8h was added)
+# since phase 8c's parser run was added), of the bf16 graphed steps (cut
+# from 5 since 8c, 8d, 8f and 8i check the request tracer), and of the
+# quantized bursts' eager and graphed runs (cut from 2 and 5 since phase
+# 8h was added)
 EAGER_PROFILE_REPS = 2
+GRAPH_PROFILE_REPS = 2
 QUANT_PROFILE_REPS = 1
 
 
@@ -4536,6 +4963,7 @@ def recorders_phase(torch, smi: str, work: str, card, model) -> dict:
     )
     from dynamo_tpu_torch.models.loader import params_footprint
     from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime import tracing
     from dynamo_tpu_torch.runtime.context import Context
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
@@ -4684,9 +5112,29 @@ def recorders_phase(torch, smi: str, work: str, card, model) -> dict:
             finally:
                 await eng.close()
 
+        # armed, the request tracer and the audit bus too (DYN_TRACE and
+        # DYN_AUDIT, read at their first use: the process tracer is made
+        # afresh from the environment)
+        trace = os.path.join(work, f"8i_trace_{impl}.jsonl")
+        audit = os.path.join(work, f"8i_audit_{impl}.jsonl")
+        tracing.set_tracer(None)
         try:
-            return asyncio.run(go())
+            with env_set(DYN_TRACE=on, DYN_TRACE_PATH=trace, DYN_AUDIT=on,
+                         DYN_AUDIT_SINKS="jsonl" if armed else None,
+                         DYN_AUDIT_PATH=audit):
+                res = asyncio.run(go())
+                tr = tracing.tracer()
+                asyncio.run(tr.close())
+            if tr.enabled != armed:
+                raise AssertionError(f"8i {impl}: the tracer is not "
+                                     f"{'armed' if armed else 'off'}")
+            if armed:
+                res["tracer"] = (tr.exported, tr.dropped)
+                res["spans"] = read_spans(trace)
+                res["audit"] = read_spans(audit)
+            return res
         finally:
+            tracing.set_tracer(None)
             # the deployment's runtime and the engine reference each other
             del eng
             gc.collect()
@@ -4719,6 +5167,32 @@ def recorders_phase(torch, smi: str, work: str, card, model) -> dict:
         for k in must[impl]:
             if armed["launches"][k] == 0:
                 raise AssertionError(f"8i {impl}: {k} never launched armed")
+        # every request of the armed run one trace: the chats, and on the
+        # phase path the deployment's chats (one audit record each)
+        roots = [r for r in armed["spans"] if r["name"] == "engine.request"]
+        n_req = len(prompts) + (armed["http"]["chats"] if impl == "phase"
+                                else 0)
+        n_audit = armed["http"]["chats"] if impl == "phase" else 0
+        complete = sum(1 for root in roots if root["status"]["code"] == "OK"
+                       and {r["name"] for r in armed["spans"]
+                            if r["traceId"] == root["traceId"]}
+                       >= set(ENGINE_STAGES))
+        if complete != n_req or len(roots) != n_req or \
+                armed["tracer"][1] or \
+                armed["tracer"][0] != len(armed["spans"]) or \
+                len(armed["audit"]) != n_audit:
+            raise AssertionError(
+                f"8i {impl}: {len(roots)} engine.request roots "
+                f"({complete} complete) for {n_req} requests; tracer "
+                f"exported/dropped {armed['tracer']} for "
+                f"{len(armed['spans'])} spans; {len(armed['audit'])} audit "
+                f"records for {n_audit} chats")
+        log(f"[recorders] {impl} path armed with DYN_TRACE and DYN_AUDIT "
+            f"too: {len(roots)} requests, each one trace with its "
+            f"queue_wait / prefill.chunk / prefill / decode spans "
+            f"({len(armed['spans'])} spans, 0 dropped); "
+            f"{len(armed['audit'])} audit records; streams, captures, "
+            f"replays and launches equal to the unarmed run's; on {smi}")
         graphed = [r for r in armed["records"] if r["entry"] != "burst_sync"]
         if len(graphed) != armed["replays"] or sum(
                 r["compiled"] for r in graphed) != armed["captures"]:

@@ -19,13 +19,10 @@ import signal
 
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 
-# what a refused flag waits for (ROADMAP.md, queue 1): item 2 is the
-# observability remainder, item 3 the router and fault-injection
-# remainder, item 4 the tools and control layer
-OBSERVABILITY = "ROADMAP queue 1 item 2: observability"
+# what a refused flag waits for (ROADMAP.md, queue 1): item 3 is the
+# router and fault-injection remainder, item 4 the tools and control
+# layer
 OPS = "ROADMAP queue 1 item 4: tools and control"
-TELEMETRY = (f"the fleet telemetry plane (runtime/telemetry.py, "
-             f"{OBSERVABILITY})")
 FAULTS = ("the fault injector's transport and store hooks (the port's "
           "injector acts on KVBM's offloads and the engine's dispatch "
           "only; ROADMAP queue 1 item 3)")
@@ -33,7 +30,6 @@ FAULTS = ("the fault injector's transport and store hooks (the port's "
 # the reference's runtime flags whose subsystems the port has not ported:
 # flag -> (what it waits for, kind), see add_refused
 RUNTIME_REFUSED = {
-    "--telemetry-interval": (TELEMETRY, "value"),
     "--faults": (FAULTS, "value"),
     "--faults-seed": (FAULTS, "value"),
 }
@@ -66,6 +62,10 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "enough samples exist; the static timeout stays "
                         "the floor (0 = off; "
                         "DYN_STREAM_IDLE_ADAPTIVE_MARGIN)")
+    p.add_argument("--telemetry-interval", type=float, default=None,
+                   help="seconds between MetricsSnapshot publishes on "
+                        "the telemetry event subject (0 = off; "
+                        "DYN_TELEMETRY_INTERVAL)")
     p.add_argument("--log-level", default="info",
                    choices=["debug", "info", "warning", "error"])
     add_refused(p, RUNTIME_REFUSED)
@@ -120,13 +120,24 @@ def runtime_config_from_args(args: argparse.Namespace) -> RuntimeConfig:
         cfg.stream_idle_timeout = args.stream_idle_timeout
     if getattr(args, "stream_idle_adaptive_margin", None) is not None:
         cfg.stream_idle_adaptive_margin = args.stream_idle_adaptive_margin
+    if getattr(args, "telemetry_interval", None) is not None:
+        cfg.telemetry_interval = args.telemetry_interval
+    for slo_flag in ("slo_ttft", "slo_itl", "slo_target_ratio",
+                     "slo_fast_window", "slo_slow_window",
+                     "slo_fast_burn", "slo_slow_burn",
+                     "slo_check_interval"):
+        v = getattr(args, slo_flag, None)
+        if v is not None:
+            setattr(cfg, slo_flag, v)
     return cfg
 
 
 def setup_logging(level: str) -> None:
-    logging.basicConfig(
-        level=level.upper(),
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    """The log format `DYN_LOG_FORMAT` names (jsonl or text) at `level`,
+    or at the per-module levels of `DYN_LOG` (`runtime/logging_util.py`)."""
+    from dynamo_tpu_torch.runtime.logging_util import init_logging
+
+    init_logging(level.upper())
 
 
 def run_until_signal(main_coro_factory, *, shutdown=None) -> None:
@@ -148,5 +159,9 @@ def run_until_signal(main_coro_factory, *, shutdown=None) -> None:
             logging.getLogger(__name__).info("shutting down")
             if shutdown is not None:
                 await shutdown(objs)
+            # the spans still queued reach the trace file before exit
+            from dynamo_tpu_torch.runtime.tracing import tracer
+
+            await tracer().close()
 
     asyncio.run(runner())

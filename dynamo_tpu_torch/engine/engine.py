@@ -138,6 +138,20 @@ forensics (`record_oom`) before the in-flight requests fail. Both are
 None unless armed. The fault injector's `on_dispatch` (`DYN_FAULTS`
 kind=oom / dispatch_wedge) is consulted once per scheduler iteration.
 
+Request tracing, as the reference's engine emits it (`:917-938`,
+`:1277-1283`, `:1695-1701`, `:2215`, `:3102-3176`): with the process
+tracer on (`runtime/tracing.py`, `DYN_TRACE`), `generate` begins an
+`engine.request` root in the request's own task (so the transport's
+serve span is its parent), and the scheduler, which runs outside that
+task, emits its stages with explicit host timestamps: `engine.queue_wait`
+at admission, one `engine.prefill.chunk` per dispatch that carried the
+request's chunk (its duration is the dispatch's host seconds from the
+compile tracker), `engine.prefill` to the first token and
+`engine.decode` to the finish, with the `enqueued`, `admitted`,
+`compile`, `first_token` and `preempted` events on the root. Off, each
+sequence's `trace` is None and every site is one `is not None` test.
+No span waits on the card, reads a tensor or holds one.
+
 Pipeline/sequence parallelism is a later slice (ROADMAP.md).
 """
 
@@ -165,7 +179,7 @@ from dynamo_tpu_torch.engine.memory import (
     ledger_from_env,
     record_oom,
 )
-from dynamo_tpu_torch.engine.metrics import EngineMetrics, itl_percentile
+from dynamo_tpu_torch.engine.metrics import EngineMetrics
 from dynamo_tpu_torch.engine.pages import EventSink, PagePool
 from dynamo_tpu_torch.engine.profiler import (
     recorder_from_env as step_recorder_from_env,
@@ -181,6 +195,7 @@ from dynamo_tpu_torch.engine.sampling import apply_penalties, sample_tokens_lp
 from dynamo_tpu_torch.engine.spec import spec_decode_multi_step
 from dynamo_tpu_torch.kvbm.lifecycle import KvbmMetrics, recorder_from_env
 from dynamo_tpu_torch.llm.guided import compile_guided
+from dynamo_tpu_torch.llm.perf import itl_percentile
 from dynamo_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaModel,
@@ -210,6 +225,7 @@ from dynamo_tpu_torch.protocols import (
 from dynamo_tpu_torch.runtime.compute import run_cpu
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.faults import OOM_ERROR, FaultInjector
+from dynamo_tpu_torch.runtime.tracing import RequestTrace
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger(__name__)
@@ -361,6 +377,14 @@ class _Seq:
     seed: int = 0
     arrival: int = 0
     t_enqueue: float = 0.0
+    # span boundaries (time_ns) and the request's trace handle: `trace`
+    # is None unless DYN_TRACE is on, and every scheduler touch is `if
+    # seq.trace is not None`, so untraced serving allocates nothing
+    t_enqueue_ns: int = 0
+    t_admit_ns: int = 0
+    t_first_ns: int = 0
+    trace: Optional[RequestTrace] = None
+    decode_compiled: bool = False         # a decode dispatch compiled
     guided: Optional[Any] = None          # GuidedTables when constrained
     guided_state: int = 0                 # authoritative DFA state (host)
     out_counter: dict = field(default_factory=dict)  # token -> emit count
@@ -503,6 +527,9 @@ class TorchEngine:
         # scheduler forward-progress token, read by the canary and the
         # dispatch watchdog from other threads without any lock
         self._progress = 0
+        # the compile tracker of each thread's last dispatch (`_tracked`),
+        # which the trace sites right behind it read
+        self._dispatch = threading.local()
         self._arrivals = 0
         self._loop_task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
@@ -761,6 +788,13 @@ class TorchEngine:
                     # a malformed import fails this request only
                     yield error(import_kv)
                     return
+            # trace root parented to the transport's serve span (or the
+            # caller task's current span in process; the traceparent
+            # header otherwise); None when DYN_TRACE is off
+            trace = RequestTrace.begin(
+                "engine.request", getattr(context, "headers", None),
+                {"request.id": context.request_id,
+                 "engine.worker_id": self.config.worker_id})
             seq = _Seq(
                 req=req, ctx=context, queue=asyncio.Queue(),
                 token_seq=TokenBlockSequence(mcfg.page_size),
@@ -772,8 +806,14 @@ class TorchEngine:
                       else int(self._rng.randint(0, 2**31 - 1))),
                 arrival=self._arrivals,
                 t_enqueue=time.perf_counter(),
+                t_enqueue_ns=time.time_ns(),
+                trace=trace,
                 import_kv=import_kv,
             )
+            if trace is not None:
+                trace.event("enqueued", waiting=len(self._waiting),
+                            running=len(self._running),
+                            prompt_tokens=len(req.token_ids))
             self._arrivals += 1
             self._ensure_loop()
             self._waiting.append(seq)
@@ -839,6 +879,8 @@ class TorchEngine:
             await self.kvbm.close()
         self._settle_onboard()
         for s in self._running + self._waiting:
+            if s.trace is not None:
+                s.trace.end(status="ERROR", finish_reason=FINISH_CANCELLED)
             s.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=FINISH_CANCELLED).to_dict())
             s.queue.put_nowait(None)
@@ -964,6 +1006,8 @@ class TorchEngine:
     def _fail_all(self) -> None:
         self._drain_inflight_sync()
         for s in self._running + self._waiting:
+            if s.trace is not None:
+                s.trace.end(status="ERROR", finish_reason=FINISH_ERROR)
             s.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=FINISH_ERROR,
                 extra={"error": "engine step failed"}).to_dict())
@@ -1058,6 +1102,13 @@ class TorchEngine:
             # the wait between them, which is queue wait
             self.metrics.admission_stall.observe(
                 cand.stall_s + time.perf_counter() - t_adm)
+        if cand.trace is not None:
+            now_ns = time.time_ns()
+            cand.trace.stage(
+                "engine.queue_wait", cand.t_enqueue_ns, now_ns,
+                cached_len=cand.cached_len, prompt_tokens=len(cand.prompt))
+            cand.trace.event("admitted", running=len(self._running) + 1)
+            cand.t_admit_ns = now_ns
         cand.prefill_pos = cand.cached_len
         self._waiting.pop(0)
         self._running.append(cand)
@@ -1193,6 +1244,8 @@ class TorchEngine:
                 (sum(chunk_lens), bp * t_bucket, len(active), bp, 0),
                 hist=self.metrics.prefill_chunk)
             self.rounds += 1
+            if entry == "prefill":
+                self._trace_chunk(active, chunk_lens)
         done: dict[int, Any] = {}
         for i, s in enumerate(active):
             offsets[id(s)] += chunk_lens[i]
@@ -1433,6 +1486,8 @@ class TorchEngine:
                          bp + b, len(batch) * k),
                         hist=self.metrics.prefill_chunk, land=land)
                     self.rounds += 1
+                    self._trace_chunk(picks, chunk_lens, mixed=True)
+                    self._mark_decode_compile(batch)
                     return out
 
         async with self._device_lock:
@@ -1579,10 +1634,13 @@ class TorchEngine:
         def dispatch():
             with torch.inference_mode():
                 if pipelined:
-                    return self._pipelined_burst(k, tk, arrays, len(batch))
+                    out = self._pipelined_burst(k, tk, arrays, len(batch))
+                    self._mark_decode_compile(batch)
+                    return out
                 packed = self._burst(k, tk, arrays, len(batch),
                                      land=_host)          # ONE host sync
                 self.rounds += 1
+                self._mark_decode_compile(batch)
                 return packed
 
         async with self._device_lock:
@@ -1654,9 +1712,11 @@ class TorchEngine:
 
                 def dispatch2():
                     with torch.inference_mode():
-                        return self._pipelined_burst(
+                        out = self._pipelined_burst(
                             k, tk, (inf["next_tokens"], *arrays[1:]),
                             len(batch))
+                        self._mark_decode_compile(batch)
+                        return out
 
                 async with self._device_lock:
                     tokens2, handle2 = await asyncio.to_thread(dispatch2)
@@ -1738,6 +1798,7 @@ class TorchEngine:
                                        bucket=(bucket,),
                                        land=_host)        # ONE host sync
                 self.rounds += 1
+                self._mark_decode_compile(batch)
                 return packed
 
         async with self._device_lock:
@@ -1835,6 +1896,7 @@ class TorchEngine:
                     land=_host)                           # ONE host sync
                 self.rounds += 1
                 self.metrics.spec_bursts.inc()
+                self._mark_decode_compile(batch)
                 return packed
 
         async with self._device_lock:
@@ -1909,6 +1971,7 @@ class TorchEngine:
         result is returned, and the record is `synced`. `hist` observes
         the dispatch's seconds."""
         trk = self.compile_tracker.track(entry, shape)
+        self._dispatch.trk = trk
         led = self.memory_ledger
         if led is not None:
             led.on_dispatch(entry, trk.shape, compiled=trk.compiled)
@@ -1926,6 +1989,45 @@ class TorchEngine:
                        tokens=tokens, compiled=trk.compiled,
                        synced=land is not None)
         return out
+
+    def _trace_chunk(self, picks: list[_Seq], chunk_lens: list[int],
+                     mixed: bool = False) -> None:
+        """Per-traced-pick `engine.prefill.chunk` stage of this thread's
+        last dispatch, spanning its host seconds (and its `compile` event
+        when the dispatch was a first call). With tracing off every
+        pick's trace is None: the scan allocates nothing."""
+        if all(s.trace is None for s in picks):
+            return
+        trk = self._dispatch.trk
+        end_ns = time.time_ns()
+        start_ns = end_ns - int(trk.elapsed_s * 1e9)
+        for i, s in enumerate(picks):
+            if s.trace is not None:
+                s.trace.stage(
+                    "engine.prefill.chunk", start_ns, end_ns,
+                    tokens=int(chunk_lens[i]), entry=trk.entry,
+                    mixed=mixed, compiled=trk.compiled)
+                if trk.compiled:
+                    self._compile_event(s, trk)
+
+    def _mark_decode_compile(self, batch: list[_Seq]) -> None:
+        """Flag the lanes of this thread's last dispatch when it was a
+        first call (graph capture included): their `engine.decode` span
+        gets `compiled=true` and each traced lane a `compile` event, so
+        the ITL outlier is attributable."""
+        trk = self._dispatch.trk
+        if not trk.compiled:
+            return
+        for s in batch:
+            s.decode_compiled = True
+            if s.trace is not None:
+                self._compile_event(s, trk)
+
+    @staticmethod
+    def _compile_event(s: _Seq, trk) -> None:
+        s.trace.event("compile", entry=trk.entry,
+                      shape="x".join(str(x) for x in trk.shape),
+                      seconds=round(trk.elapsed_s, 4))
 
     def _ragged_bucket(self, n: int) -> int:
         """Total-token bucket of a round: pow2 below min_prefill_bucket,
@@ -2022,6 +2124,8 @@ class TorchEngine:
              len(batch), len(batch)),
             hist=self.metrics.prefill_chunk if picks else None, land=land)
         self.rounds += 1
+        self._trace_chunk(picks, chunk_lens, mixed=bool(batch))
+        self._mark_decode_compile(batch)
         return out
 
     # -- guided decoding ----------------------------------------------------
@@ -2299,6 +2403,14 @@ class TorchEngine:
             ttft = max(time.perf_counter() - seq.t_enqueue, 0.0)
             self.ttft_s.append(ttft)
             self.metrics.ttft.observe(ttft)
+            if seq.trace is not None:
+                seq.t_first_ns = time.time_ns()
+                if seq.t_admit_ns:
+                    seq.trace.stage("engine.prefill", seq.t_admit_ns,
+                                    seq.t_first_ns,
+                                    prompt_tokens=len(seq.prompt),
+                                    cached_len=seq.cached_len)
+                seq.trace.event("first_token")
         seq.last_emit_t = now
         emit_toks = [int(t) for t in toks[:n_emit]]
         guided = seq.guided
@@ -2344,6 +2456,16 @@ class TorchEngine:
 
     def _finish(self, seq: _Seq, reason: str, emit: bool = True,
                 release_pages: bool = True) -> None:
+        if seq.trace is not None:
+            end_ns = time.time_ns()
+            if seq.t_first_ns:
+                seq.trace.stage("engine.decode", seq.t_first_ns, end_ns,
+                                tokens=seq.generated,
+                                compiled=seq.decode_compiled)
+            seq.trace.end(
+                status="OK" if reason in (FINISH_STOP, FINISH_LENGTH)
+                else "ERROR",
+                finish_reason=reason, tokens=seq.generated)
         seq.finished = True
         if seq in self._running:
             self._running.remove(seq)
@@ -2712,6 +2834,8 @@ class TorchEngine:
     def _preempt(self, seq: _Seq) -> None:
         """Release pages, fold generated tokens into the prompt, requeue
         at the head (re-prefilled later)."""
+        if seq.trace is not None:
+            seq.trace.event("preempted", generated=seq.generated)
         if seq in self._running:
             self._running.remove(seq)
         self.pool.release_sequence(seq.pages)

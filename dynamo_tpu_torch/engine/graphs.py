@@ -56,10 +56,20 @@ graph after.
 - **Launch counts.** A replay calls no kernel wrapper, so the graph
   records each kernel's launch delta at capture (`cuda_build.launch_delta`),
   takes it back (a capture runs nothing) and adds it at every replay.
+- **No garbage collection inside a capture.** The step's Python code
+  allocates, so a cyclic collection can start on the capturing thread;
+  one that destroys an unreachable engine's graphs there
+  (`cudaGraphExecDestroy` is not permitted while the thread captures)
+  invalidates the capture. Seen on the card once request tracing's
+  allocations moved the collector's timing. `gc_paused` holds the
+  collector off for the capture (process-wide, counted across threads).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
@@ -67,6 +77,31 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.engine import cuda_build
+
+
+_GC_LOCK = threading.Lock()
+_gc_holds = 0
+_gc_was_enabled = True
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """The cyclic garbage collector off for the block (nested and
+    concurrent holds counted; the first one's state restored by the
+    last)."""
+    global _gc_holds, _gc_was_enabled
+    with _GC_LOCK:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 def _tensor(a) -> torch.Tensor:
@@ -143,9 +178,9 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         before = cuda_build.launch_counts()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream,
-                                  capture_error_mode="thread_local"):
+            with gc_paused(), torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._stream,
+                    capture_error_mode="thread_local"):
                 outputs = fn(*static)
         finally:
             launches = cuda_build.launch_delta(before,

@@ -20,8 +20,8 @@ field names), beside the spec bursts dispatched. The step recorder's
 series (`engine/profiler.py`, fed only while `DYN_STEP_PROFILE` arms it):
 goodput and padded tokens by entry and the host gap between dispatches.
 The ITL
-histogram's edges and quantile are the part of `dynamo_tpu/llm/perf.py`
-(`:18-60`) the published metrics need.
+histogram's edges and quantile come from `llm/perf.py`, as the
+reference's do (`dynamo_tpu/engine/metrics.py:25`).
 
 Metric names are fixed (`dynamo_engine_*`), not registry-prefixed: the
 engine exists before (and without) any runtime.
@@ -30,6 +30,7 @@ engine exists before (and without) any runtime.
 from __future__ import annotations
 
 from dynamo_tpu_torch.engine.compile_tracker import CompileTracker
+from dynamo_tpu_torch.llm.perf import ITL_BUCKET_EDGES_MS
 from dynamo_tpu_torch.runtime.metrics import (
     Counter,
     Histogram,
@@ -39,32 +40,6 @@ from dynamo_tpu_torch.runtime.metrics import (
 # the engine's ITL histogram, which the runtime's adaptive idle timeout
 # reads (runtime/distributed.py `_adaptive_idle_timeout`)
 ITL_HISTOGRAM = "dynamo_engine_itl_ms"
-
-# Log-spaced upper edges in ms; the last bucket is open-ended. Fixed so
-# engine counters, published snapshots and offline analysis agree on
-# bucket meaning without shipping edges on the wire.
-ITL_BUCKET_EDGES_MS: tuple[float, ...] = (
-    1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0,
-    1000.0, 2000.0, 5000.0, float("inf"))
-
-
-def itl_percentile(hist: list[int], q: float) -> float | None:
-    """Approximate q-quantile (0..1) from a bucket histogram (one count
-    per edge): the upper edge of the bucket holding the q-th observation,
-    None when empty; the open last bucket reports its lower edge."""
-    total = sum(hist)
-    if total == 0:
-        return None
-    rank = q * total
-    seen = 0
-    for i, n in enumerate(hist):
-        seen += n
-        if seen >= rank and n:
-            edge = ITL_BUCKET_EDGES_MS[i]
-            if edge == float("inf"):
-                return ITL_BUCKET_EDGES_MS[i - 1]
-            return edge
-    return ITL_BUCKET_EDGES_MS[-2]
 
 
 # second-scale stage latencies: sub-ms steps up to multi-second cold

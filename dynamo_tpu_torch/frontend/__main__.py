@@ -4,10 +4,12 @@ Port of `dynamo_tpu/frontend/__main__.py`: router mode (`kv`,
 `round_robin`, `random`), the KV router's knobs
 (`--kv-overlap-score-weight`, `--router-temperature`, `--no-kv-events`,
 `--router-replica-sync`), port, namespace, request template and TLS, and
-the runtime's status server (`--system-port`) and adaptive idle timeout
-(`--stream-idle-adaptive-margin`). The SLO monitor's flags (`--slo-*`)
-and `--grpc-port` are parsed under their names and refused, naming what
-they wait for.
+the runtime's status server (`--system-port`), adaptive idle timeout
+(`--stream-idle-adaptive-margin`) and fleet telemetry publisher
+(`--telemetry-interval`), and the SLO burn-rate monitor's objectives
+and windows (`--slo-*`, `runtime/slo.py`). What still waits:
+`--grpc-port` (the KServe gRPC frontend) is parsed under its name and
+refused, naming what it waits for.
 
 Reference: `components/src/dynamo/frontend/main.py:4-16,342`.
 """
@@ -19,7 +21,6 @@ import json
 import logging
 
 from dynamo_tpu_torch.cli_util import (
-    OBSERVABILITY,
     OPS,
     RUNTIME_REFUSED,
     add_refused,
@@ -33,14 +34,9 @@ from dynamo_tpu_torch.cli_util import (
 logger = logging.getLogger(__name__)
 
 PROG = "python -m dynamo_tpu_torch.frontend"
-SLO = f"the SLO burn-rate monitor (runtime/slo.py, {OBSERVABILITY})"
 FRONTEND_REFUSED = {
     "--grpc-port": (f"the KServe gRPC frontend (grpc_frontend/, {OPS}, "
                     f"last)", "value"),
-    **{f"--slo-{name}": (SLO, "value")
-       for name in ("ttft", "itl", "target-ratio", "fast-window",
-                    "slow-window", "fast-burn", "slow-burn",
-                    "check-interval")},
 }
 
 
@@ -66,6 +62,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--request-template", default=None,
                    help="JSON file of request defaults (model, "
                         "temperature, max_completion_tokens)")
+    # SLO burn-rate monitor (runtime/slo.py): objectives default off, so
+    # no monitor and no change in behavior
+    p.add_argument("--slo-ttft", type=float, default=None,
+                   help="TTFT objective threshold seconds (0 = off)")
+    p.add_argument("--slo-itl", type=float, default=None,
+                   help="ITL objective threshold seconds (0 = off)")
+    p.add_argument("--slo-target-ratio", type=float, default=None,
+                   help="fraction of requests that must beat the "
+                        "threshold (default 0.99)")
+    p.add_argument("--slo-fast-window", type=float, default=None)
+    p.add_argument("--slo-slow-window", type=float, default=None)
+    p.add_argument("--slo-fast-burn", type=float, default=None,
+                   help="fast-window burn-rate alert threshold (14.4)")
+    p.add_argument("--slo-slow-burn", type=float, default=None,
+                   help="slow-window burn-rate alert threshold (6)")
+    p.add_argument("--slo-check-interval", type=float, default=None)
     add_refused(p, FRONTEND_REFUSED)
     return p.parse_args(argv)
 

@@ -14,10 +14,14 @@ Where the reference's offload worker and remote onboard log a failure
 of this device work and go on as on a cache miss, the port raises it
 into the scheduler's iteration, which fails its requests: a tier or
 network failure is a miss, a failed launch or pinned allocation is not.
-The reference's tracing spans and `seq.trace` events wait for the port's
-`runtime/tracing.py` (comments mark where each would go); its memory
-ledger providers (`kvbm_pinned`, `kvbm_staged`) register on an armed
-`engine/memory.py` ledger.
+With the process tracer on (`runtime/tracing.py`), a pipelined offload
+batch, a prefetch and each onboard run under the reference's
+`kvbm.offload`, `kvbm.prefetch` and `kvbm.onboard` spans (block counts
+and source as attributes), and a traced request's root span gets the
+`kvbm.prefetch_hit`, `kvbm.onboard` and `kvbm.onboard_remote` events;
+host clocks only, no device wait. The memory ledger providers
+(`kvbm_pinned`, `kvbm_staged`) register on an armed `engine/memory.py`
+ledger.
 
 Reference: `lib/llm/src/block_manager/offload.rs:86` (OffloadManager:
 G1→G2→G3 offload + onboard pipeline) and the vLLM connector
@@ -63,6 +67,7 @@ import torch
 
 from dynamo_tpu_torch.kvbm.tiers import TieredStore
 from dynamo_tpu_torch.runtime.faults import FaultInjector
+from dynamo_tpu_torch.runtime.tracing import tracer
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger(__name__)
@@ -369,21 +374,28 @@ class KvbmManager:
                         # backpressure into the inline path
                         await asyncio.Event().wait()
                 t0 = time.perf_counter()
-                # the "kvbm.offload" span (kvbm.blocks) waits for
-                # runtime/tracing.py
-                async with self.engine._device_lock:
-                    try:
-                        blocks = await asyncio.to_thread(
-                            self.engine._read_kv_pages_sync, page_ids)
-                    except Exception as e:
-                        self.device_error = e
-                        raise
+                tr = tracer()
+                span = tr.start_span(
+                    "kvbm.offload",
+                    attributes={"kvbm.blocks": len(pairs)}) \
+                    if tr.enabled else None
+                try:
+                    async with self.engine._device_lock:
+                        try:
+                            blocks = await asyncio.to_thread(
+                                self.engine._read_kv_pages_sync, page_ids)
+                        except Exception as e:
+                            self.device_error = e
+                            raise
 
-                def demote() -> None:
-                    for (_, seq_hash), block in zip(pairs, blocks):
-                        self.store.put(seq_hash, block)
+                    def demote() -> None:
+                        for (_, seq_hash), block in zip(pairs, blocks):
+                            self.store.put(seq_hash, block)
 
-                await self._run_io(demote)
+                    await self._run_io(demote)
+                finally:
+                    if span is not None:
+                        span.end()
                 self.stats.offloaded += len(pairs)
                 em = getattr(self.engine, "metrics", None)
                 if em is not None:
@@ -479,7 +491,8 @@ class KvbmManager:
                              "read the tiers directly")
 
     async def _prefetch_seq(self, seq) -> None:
-        # the "kvbm.prefetch" span waits for runtime/tracing.py
+        tr = tracer()
+        span = tr.start_span("kvbm.prefetch") if tr.enabled else None
         try:
             ps = self.engine.model_cfg.page_size
             hashes = seq.prompt_hashes
@@ -508,6 +521,9 @@ class KvbmManager:
         except Exception:
             logger.exception("kvbm prefetch failed; admission will read "
                              "the tiers directly")
+        finally:
+            if span is not None:
+                span.end()
 
     def _read_chain(self, hashes: list[int]) -> list[tuple]:
         """(thread) leading run of tier reads; staged blocks count as
@@ -572,10 +588,12 @@ class KvbmManager:
         self.stats.onboard_queries += 1
         start = i
         hits = []
+        staged_hits = 0
         while i < min(len(hashes), max_blocks):
             data = self._take_staged(hashes[i])
             if data is not None:
                 self.stats.prefetch_hits += 1
+                staged_hits += 1
             else:
                 data = self.store.get(hashes[i])
             if data is None:
@@ -584,13 +602,27 @@ class KvbmManager:
             i += 1
         if not hits:
             return seq.cached_len
-        # the "kvbm.onboard" span (kvbm.blocks, kvbm.source "local") and
-        # the request trace's kvbm.prefetch_hit / kvbm.onboard events
-        # (staged_hits) wait for runtime/tracing.py
-        self._write_and_register(seq, start, hits)
+        t0 = time.perf_counter()
+        tr = tracer()
+        span = tr.start_span(
+            "kvbm.onboard",
+            attributes={"kvbm.blocks": len(hits),
+                        "kvbm.source": "local"}) if tr.enabled else None
+        try:
+            self._write_and_register(seq, start, hits)
+        finally:
+            if span is not None:
+                span.end()
         self.stats.onboarded += len(hits)
         if self.lifecycle is not None:
             self.lifecycle.on_onboard(hashes[start:i], "local", ps)
+        trace = getattr(seq, "trace", None)
+        if trace is not None:
+            if staged_hits:
+                trace.event("kvbm.prefetch_hit", blocks=staged_hits)
+            trace.event("kvbm.onboard", blocks=len(hits),
+                        staged_hits=staged_hits,
+                        ms=round((time.perf_counter() - t0) * 1e3, 3))
         return i * ps
 
     def _write_and_register(self, seq, start: int, blocks_data) -> None:
@@ -651,15 +683,25 @@ class KvbmManager:
                              "the %d staged block(s)", len(blocks_data))
         if not blocks_data:
             return seq.cached_len
-        # the "kvbm.onboard" span (kvbm.source "remote") and the request
-        # trace's kvbm.onboard_remote event wait for runtime/tracing.py
-        async with self.engine._device_lock:
-            self._write_and_register(seq, start, blocks_data)
+        tr = tracer()
+        span = tr.start_span(
+            "kvbm.onboard",
+            attributes={"kvbm.blocks": len(blocks_data),
+                        "kvbm.source": "remote"}) if tr.enabled else None
+        try:
+            async with self.engine._device_lock:
+                self._write_and_register(seq, start, blocks_data)
+        finally:
+            if span is not None:
+                span.end()
         self.stats.remote_onboarded += len(blocks_data)
         if self.lifecycle is not None:
             self.lifecycle.on_onboard(
                 hashes[start:start + len(blocks_data)], "remote", ps)
         seq.cached_len = (start + len(blocks_data)) * ps
+        trace = getattr(seq, "trace", None)
+        if trace is not None:
+            trace.event("kvbm.onboard_remote", blocks=len(blocks_data))
         logger.info("kvbm: onboarded %d remote blocks (cached_len=%d)",
                     len(blocks_data), seq.cached_len)
         return seq.cached_len

@@ -2,17 +2,22 @@
 
 Port of `dynamo_tpu/llm/entrypoint.py`:
 - `start_frontend` (`:65`): model discovery (`ModelWatcher`, with the KV
-  router's config for `kv` cards) + the OpenAI HTTP service. The
-  reference's gRPC frontend, breaker-event counter, telemetry, SLO,
-  serving-class and flight-control planes wait with their subsystems.
+  router's config for `kv` cards) + the OpenAI HTTP service, the fleet
+  telemetry collector behind `/fleet/status` (always on) with this
+  process's own snapshot publisher when `telemetry_interval` > 0, and the
+  SLO monitor fed by the HTTP service's TTFT/ITL samples when an
+  objective is set (`:120-240`). The reference's gRPC frontend,
+  breaker-event counter, serving-class and flight-control planes wait
+  with their subsystems.
 - `serve_engine` (`:263`) / `WorkerHandle` (`:245`): serve an engine on
   its card's endpoint, join the engine's metrics (`EngineMetrics` and its
   CUDA-graph counts) to the process's registry, serve the admin endpoints
   `clear_kv_blocks` and (with KVBM) `kvbm_controller` (`:335-369`),
   publish the card, and opt the generate endpoint into canary probes
   with a one-token greedy payload (`:325-334`; probed only when the
-  runtime's health manager is on). The memory, mesh and tenancy surfaces
-  wait.
+  runtime's health manager is on), and with `telemetry_interval` > 0
+  publish the worker's MetricsSnapshot on the telemetry subject
+  (`:371-383`). The mesh and tenancy surfaces wait.
 - `wire_engine_events` (`:388`): the sinks that publish an engine's KV
   events and ForwardPassMetrics on the runtime's event bus, under the
   subjects the card's KV router consumes.
@@ -68,6 +73,16 @@ from dynamo_tpu_torch.models.loader import (
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
 from dynamo_tpu_torch.runtime.events import LocalEventBus
+from dynamo_tpu_torch.runtime.slo import (
+    SLO_EVENTS_SUBJECT,
+    SloMonitor,
+    SloObjective,
+)
+from dynamo_tpu_torch.runtime.telemetry import (
+    TelemetryCollector,
+    TelemetryPublisher,
+    _publish_best_effort,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -81,12 +96,22 @@ class Frontend:
     manager: ModelManager
     watcher: ModelWatcher
     http: HttpService
+    collector: object = None     # TelemetryCollector (fleet view)
+    publisher: object = None     # TelemetryPublisher when interval > 0
+    slo: object = None           # SloMonitor when objectives configured
+    _slo_task: object = None
 
     @property
     def url(self) -> str:
         return f"{self.http.scheme}://{self.http.host}:{self.http.port}"
 
     async def stop(self) -> None:
+        if self._slo_task is not None:
+            self._slo_task.cancel()
+        if self.publisher is not None:
+            await self.publisher.stop()
+        if self.collector is not None:
+            await self.collector.stop()
         await self.http.stop()
         await self.watcher.stop()
         await self.manager.close()
@@ -127,7 +152,49 @@ async def start_frontend(runtime: DistributedRuntime,
     # frontend; a frontend-only process lists none)
     http.profile_engines = \
         lambda: list(getattr(runtime, "profile_engines", []))
-    return Frontend(runtime, manager, watcher, http)
+    # Fleet telemetry plane: the frontend always runs the collector (a
+    # passive event-plane subscription serving /fleet/status); publishing
+    # its own snapshot and the SLO monitor are opt-in via config
+    cfg = runtime.config
+    collector = TelemetryCollector(runtime.events)
+    await collector.start()
+    slo = slo_task = None
+    objectives = []
+    if cfg.slo_ttft > 0:
+        objectives.append(SloObjective(
+            "ttft", cfg.slo_ttft, cfg.slo_target_ratio))
+    if cfg.slo_itl > 0:
+        objectives.append(SloObjective(
+            "itl", cfg.slo_itl, cfg.slo_target_ratio))
+    if objectives:
+        slo = SloMonitor(objectives,
+                         fast_window=cfg.slo_fast_window,
+                         slow_window=cfg.slo_slow_window,
+                         fast_burn=cfg.slo_fast_burn,
+                         slow_burn=cfg.slo_slow_burn)
+        slo.register(runtime.metrics)
+        http.slo = slo
+
+        async def _slo_loop() -> None:
+            while True:
+                await asyncio.sleep(cfg.slo_check_interval)
+                for ev in slo.evaluate():
+                    _publish_best_effort(runtime.events,
+                                         SLO_EVENTS_SUBJECT, ev)
+
+        slo_task = asyncio.get_running_loop().create_task(_slo_loop())
+    # the unported control and brownout planes are absent: fleet_status's
+    # defaults (None), as the reference's when they are not armed
+    http.fleet_status_provider = lambda: collector.fleet_status(slo=slo)
+    publisher = None
+    if cfg.telemetry_interval > 0:
+        publisher = TelemetryPublisher(
+            runtime.events, runtime.metrics, component="frontend",
+            instance=f"{http.host}:{http.port}", role="frontend",
+            interval=cfg.telemetry_interval)
+        publisher.start()
+    return Frontend(runtime, manager, watcher, http, collector, publisher,
+                    slo, slo_task)
 
 
 @dataclass
@@ -136,8 +203,11 @@ class WorkerHandle:
     card: ModelDeploymentCard
     served: object
     admin: list = field(default_factory=list)   # the admin endpoints
+    publisher: object = None     # TelemetryPublisher when interval > 0
 
     async def stop(self) -> None:
+        if self.publisher is not None:
+            await self.publisher.stop()
         for served in self.admin:
             await served.shutdown()
         await self.served.shutdown()
@@ -244,7 +314,18 @@ async def serve_engine(runtime: DistributedRuntime, engine: AsyncEngine,
         admin.append(await comp.endpoint("kvbm_controller").serve(
             controller_handler, instance_id=served.instance.instance_id))
     await register_llm(runtime, card)
-    return WorkerHandle(runtime, card, served, admin)
+    # telemetry plane: publish this worker's MetricsSnapshot (its engine
+    # histograms joined runtime.metrics above) on the event bus, so the
+    # frontend's collector sees it without an HTTP scrape
+    publisher = None
+    if runtime.config.telemetry_interval > 0:
+        publisher = TelemetryPublisher(
+            runtime.events, runtime.metrics,
+            component=f"{card.namespace}/{card.component}",
+            instance=f"{served.instance.instance_id:x}", role="worker",
+            interval=runtime.config.telemetry_interval)
+        publisher.start()
+    return WorkerHandle(runtime, card, served, admin, publisher)
 
 
 def wire_engine_events(runtime: DistributedRuntime,

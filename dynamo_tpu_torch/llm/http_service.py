@@ -15,19 +15,28 @@ error bodies and SSE framing are the reference's:
   GET /kvbm/status and POST /kvbm/reset (`_fanout_admin`: one request to
   every instance of every served model's admin endpoint, results keyed
   by model and instance id)
+  GET /fleet/status (the telemetry collector's merged fleet view with
+  the SLO monitor's states; 503 when no collector runs),
   GET /debug (the index of the debug surfaces this process has),
-  /debug/profile (`?limit`, `?format=chrome`, `?capture_s=N`),
-  /debug/memory, /debug/kv and /debug/router: the engines' flight
-  recorders (`engine/profiler.py`, `engine/memory.py`,
-  `kvbm/lifecycle.py`) and the KV router's decision log. The engine
-  routes read `profile_engines`, which an in-process deployment wires to
-  its engines (`llm/entrypoint.py`); without it they answer 503, as
-  /debug/router does with no kv-mode model
+  /debug/requests (`?limit`: in-flight and recent requests with their
+  timings, status, usage and trace id), /debug/profile (`?limit`,
+  `?format=chrome`, `?capture_s=N`), /debug/memory, /debug/kv and
+  /debug/router: the engines' flight recorders (`engine/profiler.py`,
+  `engine/memory.py`, `kvbm/lifecycle.py`) and the KV router's decision
+  log. The engine routes read `profile_engines`, which an in-process
+  deployment wires to its engines (`llm/entrypoint.py`); without it they
+  answer 503, as /debug/router does with no kv-mode model
+
+Each chat or completion request runs under an `http <endpoint>` span
+(`runtime/tracing.py`; an incoming `traceparent` header is its parent),
+which the transport carries to the worker; its TTFT and ITL samples also
+feed the SLO monitor when one is wired; with `DYN_AUDIT` its stream is
+recorded on the audit bus (`llm/audit.py`) when it ends.
 
 An unknown path answers 404, a known path with another method 405. The
-reference's fleet, tenancy, serving class routes and its other /debug
-routes (requests, mesh, control, tenants, classes, prefixes) wait with
-their subsystems and answer 404.
+reference's tenancy and serving class routes and its other /debug
+routes (mesh, control, tenants, classes, prefixes) wait with their
+subsystems and answer 404.
 
 Errors: a malformed request is a 400, an unknown model a 404, a model
 whose workers are all gone a 503; any other failure of the pipeline (an
@@ -49,11 +58,14 @@ import asyncio
 import http
 import json
 import logging
+import math
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Optional
 from urllib.parse import parse_qs, urlsplit
 
+from dynamo_tpu_torch.llm.audit import AuditRecord, audit_bus_from_env
 from dynamo_tpu_torch.llm.model_manager import ModelManager
 from dynamo_tpu_torch.llm.preprocessor import (
     KIND_CHAT,
@@ -73,8 +85,48 @@ from dynamo_tpu_torch.llm.protocols_openai import (
 )
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.push import NoInstancesError, PushRouter
+from dynamo_tpu_torch.runtime.tracing import TRACEPARENT, tracer
 
 logger = logging.getLogger(__name__)
+
+
+class _AuditTap:
+    """Engine wrapper that accumulates the response into an AuditRecord
+    and publishes it at stream end (audit/stream.rs analog). Items pass
+    through untouched; publish() is non-blocking."""
+
+    def __init__(self, inner, rec, bus) -> None:
+        self.inner = inner
+        self.rec = rec
+        self.bus = bus
+
+    async def generate(self, request, context):
+        try:
+            async for item in self.inner.generate(request, context):
+                for ch in item.get("choices", ()):
+                    delta = ch.get("delta", {})
+                    if delta.get("content"):
+                        self.rec.response_text += delta["content"]
+                    elif ch.get("text"):
+                        self.rec.response_text += ch["text"]
+                    # tool calls are the most audit-sensitive output
+                    # (model-initiated actions): never drop them
+                    if delta.get("tool_calls"):
+                        self.rec.tool_calls.extend(delta["tool_calls"])
+                    if delta.get("reasoning_content"):
+                        self.rec.reasoning_text += \
+                            delta["reasoning_content"]
+                    if ch.get("finish_reason"):
+                        self.rec.finish_reason = ch["finish_reason"]
+                if item.get("usage"):
+                    self.rec.usage = item["usage"]
+                yield item
+        except BaseException as e:
+            self.rec.error = repr(e)
+            raise
+        finally:
+            self.rec.finished_at = time.time()
+            self.bus.publish(self.rec)
 
 MAX_HEADER_BYTES = 64 * 1024
 MAX_BODY_BYTES = 64 * 1024 * 1024
@@ -235,6 +287,8 @@ class HttpService:
         # defaults applied to requests that omit them (request_template.rs:
         # model, temperature, max_completion_tokens)
         self.request_template = request_template or {}
+        # the audit bus DYN_AUDIT arms (None unless set)
+        self.audit = audit_bus_from_env()
         if bool(tls_cert) != bool(tls_key):
             # half-configured TLS must not silently serve plaintext
             raise ValueError("tls_cert and tls_key must be set together")
@@ -252,7 +306,9 @@ class HttpService:
             ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
             ("GET", "/kvbm/status"): self._kvbm_status,
             ("POST", "/kvbm/reset"): self._kvbm_reset,
+            ("GET", "/fleet/status"): self._fleet_status,
             ("GET", "/debug"): self._debug_index,
+            ("GET", "/debug/requests"): self._debug_requests,
             ("GET", "/debug/profile"): self._debug_profile,
             ("GET", "/debug/memory"): self._debug_memory,
             ("GET", "/debug/kv"): self._debug_kv,
@@ -263,6 +319,16 @@ class HttpService:
         # (`llm/entrypoint.py` start_frontend); None on a frontend-only
         # process
         self.profile_engines: Optional[Callable[[], list]] = None
+        # start_frontend wires the telemetry collector's fleet_status and,
+        # with an objective configured, the SLO monitor that the TTFT/ITL
+        # observation points feed
+        self.fleet_status_provider: Optional[Callable[[], dict]] = None
+        self.slo = None                    # SloMonitor | None
+        # request-lifecycle debug view: in-flight dicts keyed by request
+        # id plus a bounded ring of finished ones, served verbatim by
+        # /debug/requests (timings, status, trace id)
+        self._dbg_inflight: dict[str, dict] = {}
+        self._dbg_recent: deque = deque(maxlen=128)
         self._paths = {path for _, path in self.routes}
         self._server: Optional[asyncio.base_events.Server] = None
         self._conns: set[asyncio.StreamWriter] = set()
@@ -288,6 +354,13 @@ class HttpService:
         self._osl = m.histogram(
             "request_output_tokens", "completion tokens per request",
             buckets=(1, 4, 16, 64, 128, 256, 512, 1024, 2048, 4096))
+
+    def _observe_latency(self, kind: str, seconds: float) -> None:
+        """One TTFT/ITL sample into both the histogram and (when
+        configured) the SLO monitor's rolling windows."""
+        (self._ttft if kind == "ttft" else self._itl).observe(seconds)
+        if self.slo is not None:
+            self.slo.observe(kind, seconds)
 
     def _observe_usage(self, usage: Optional[dict]) -> None:
         if not usage:
@@ -345,6 +418,16 @@ class HttpService:
                 await asyncio.wait_for(self._server.wait_closed(), 2.0)
             except asyncio.TimeoutError:
                 pass
+        # handlers first (their _AuditTap finallys publish), THEN the bus
+        if self.audit is not None:
+            await self.audit.close()
+
+    def _audit_begin(self, request_id: str, endpoint: str, body):
+        if self.audit is None:
+            return None
+        return AuditRecord(request_id=request_id, endpoint=endpoint,
+                           model=(body or {}).get("model", ""),
+                           request=body)
 
     # -- connections --------------------------------------------------------
 
@@ -482,13 +565,35 @@ class HttpService:
         conn.on_disconnect = ctx.cancel
         pipeline_request = {"_kind": kind, "body": body,
                             "request_id": request_id}
+        audit_rec = self._audit_begin(request_id, endpoint, body)
+        if audit_rec is not None:
+            # capture deltas without perturbing the stream; the record is
+            # published (off the hot path) when the stream finishes
+            engine = _AuditTap(engine, audit_rec, self.audit)
         start = time.perf_counter()
         self._inflight.add(1)
+        # request span (make_request_span analog): an incoming W3C
+        # traceparent is its parent; it is current for this handler task,
+        # so the transport hops downstream carry the trace; entered right
+        # at the try so no exception path can leave it current
+        span = tracer().start_span(
+            f"http {endpoint}",
+            traceparent=request.headers.get(TRACEPARENT),
+            attributes={"http.target": request.path,
+                        "request.id": request_id, "model": model})
+        span.__enter__()
+        rec = {"request_id": request_id, "endpoint": endpoint,
+               "model": model, "stream": stream, "tenant": None,
+               "received_at": time.time(),
+               "trace_id": span.trace_id if tracer().enabled else None,
+               "status": "in_flight", "first_token_s": None,
+               "last_token_s": None, "duration_s": None, "usage": None}
+        self._dbg_inflight[request_id] = rec
         try:
             chunks = engine.generate(pipeline_request, ctx)
             if stream:
                 return await self._stream_sse(request, conn.writer, endpoint,
-                                              chunks, ctx, start)
+                                              chunks, ctx, start, rec)
             # unary: aggregate the stream
             try:
                 full = await (aggregate_chat_stream(chunks)
@@ -497,20 +602,36 @@ class HttpService:
             except asyncio.CancelledError:
                 # client disconnected mid-aggregation: stop downstream work
                 ctx.cancel()
+                rec["status"] = "disconnect"
                 self._req_counter.inc(endpoint=endpoint, status="disconnect")
                 raise
             except Exception as e:
-                return self._error(endpoint, _as_openai_error(e))
+                err = _as_openai_error(e)
+                rec["status"] = f"error:{err.status}"
+                return self._error(endpoint, err)
             self._req_counter.inc(endpoint=endpoint, status="200")
             self._duration.observe(time.perf_counter() - start)
             self._observe_usage(full.get("usage"))
+            rec["status"] = "200"
+            rec["usage"] = full.get("usage")
             return json_response(full)
+        except BaseException as e:
+            span.record_error(e)
+            if rec["status"] == "in_flight":
+                rec["status"] = "error"
+            raise
         finally:
+            span.end(_reset=True)
             self._inflight.add(-1)
+            rec["duration_s"] = round(time.perf_counter() - start, 6)
+            self._dbg_inflight.pop(request_id, None)
+            self._dbg_recent.append(rec)
 
     async def _stream_sse(self, request: Request, writer, endpoint: str,
-                          chunks, ctx: Context, start: float
-                          ) -> StreamResponse:
+                          chunks, ctx: Context, start: float,
+                          rec: dict) -> StreamResponse:
+        """The SSE stream of a chat or completion; `rec` is the request's
+        /debug/requests entry, its timings and status filled in here."""
         resp = StreamResponse(request, writer)
         error_event = b""
         first_token_at: Optional[float] = None
@@ -521,11 +642,15 @@ class HttpService:
                     now = time.perf_counter()
                     if first_token_at is None:
                         first_token_at = now
-                        self._ttft.observe(now - start)
+                        self._observe_latency("ttft", now - start)
+                        rec["first_token_s"] = round(now - start, 6)
                     elif last_token_at is not None:
-                        self._itl.observe(now - last_token_at)
+                        self._observe_latency("itl", now - last_token_at)
                     last_token_at = now
+                    rec["last_token_s"] = round(now - start, 6)
                 self._observe_usage(chunk.get("usage"))
+                if chunk.get("usage"):
+                    rec["usage"] = chunk["usage"]
                 if not resp.prepared:
                     await resp.prepare()
                 await resp.write(sse_encode(chunk))
@@ -533,19 +658,23 @@ class HttpService:
                 await resp.prepare()
             await resp.write(SSE_DONE)
             self._req_counter.inc(endpoint=endpoint, status="200")
+            rec["status"] = "200"
         except asyncio.CancelledError:
             # client went away: cancel downstream work (disconnect.rs)
             ctx.cancel()
+            rec["status"] = "disconnect"
             self._req_counter.inc(endpoint=endpoint, status="disconnect")
             raise
         except (ConnectionResetError, BrokenPipeError):
             # same, but seen by a write on the dead transport
             ctx.cancel()
+            rec["status"] = "disconnect"
             self._req_counter.inc(endpoint=endpoint, status="disconnect")
             resp.close_after = True
             return resp
         except Exception as e:
             err = _as_openai_error(e)
+            rec["status"] = f"error:{err.status}"
             if not resp.prepared:
                 return self._error(endpoint, err)
             # mid-stream: an error event ends the stream (no [DONE])
@@ -652,9 +781,9 @@ class HttpService:
                     now = time.perf_counter()
                     if first_token_at is None:
                         first_token_at = now
-                        self._ttft.observe(now - start)
+                        self._observe_latency("ttft", now - start)
                     elif last_token_at is not None:
-                        self._itl.observe(now - last_token_at)
+                        self._observe_latency("itl", now - last_token_at)
                     last_token_at = now
                 elif ev.get("type") == "response.completed":
                     self._observe_usage_responses(
@@ -732,6 +861,30 @@ class HttpService:
     async def _metrics(self, request: Request, conn) -> Response:
         return Response(self.manager.runtime.metrics.render().encode(),
                         content_type="text/plain; charset=utf-8")
+
+    async def _fleet_status(self, request: Request, conn) -> Response:
+        """The fleet-merged telemetry view: per-component and merged
+        TTFT/ITL percentiles from the event-plane MetricsSnapshots, plus
+        the SLO monitor's live burn rates when one is configured. 503
+        until a collector is wired (a frontend started without the
+        telemetry plane)."""
+        if self.fleet_status_provider is None:
+            return json_response(
+                {"status": "unavailable",
+                 "reason": "telemetry collector not running"}, status=503)
+        # histogram edges can be +Inf, which standard JSON cannot spell:
+        # non-finite floats become strings
+
+        def _clean(o):
+            if isinstance(o, float) and not math.isfinite(o):
+                return str(o)
+            if isinstance(o, dict):
+                return {k: _clean(v) for k, v in o.items()}
+            if isinstance(o, (list, tuple)):
+                return [_clean(v) for v in o]
+            return o
+
+        return json_response(_clean(self.fleet_status_provider()))
 
 
     async def _fanout_admin(self, endpoint: str, payload: dict) -> dict:
@@ -814,6 +967,12 @@ class HttpService:
 
         routers = self.manager.kv_routers()
         surfaces = {
+            "/debug/requests": {
+                "what": "in-flight + recent request lifecycle timings",
+                "arm": None,                 # always on, bounded ring
+                "armed": True,
+                "available": True,
+            },
             "/debug/profile": {
                 "what": "engine step flight recorder "
                         "(goodput/padding, ?format=chrome, ?capture_s)",
@@ -847,6 +1006,20 @@ class HttpService:
             },
         }
         return json_response({"surfaces": surfaces})
+
+    async def _debug_requests(self, request: Request, conn) -> Response:
+        """Request-lifecycle debug view: every in-flight request plus a
+        ring of recently finished ones, with their timings (first and
+        last token offsets from receipt, total duration), final status,
+        usage, and the trace id to look up in DYN_TRACE's file.
+        `?limit=N` bounds the recent list (newest first)."""
+        limit = request.int_arg("limit", 50)
+        recent = list(self._dbg_recent)[-max(limit, 0):]
+        recent.reverse()
+        return json_response({
+            "in_flight": list(self._dbg_inflight.values()),
+            "recent": recent,
+        })
 
     async def _debug_profile(self, request: Request, conn) -> Response:
         """The step recorders: each engine's ring snapshot and goodput /

@@ -7,8 +7,9 @@ coordinator's over `StoreClient`), discovery and the push transport. Left
 out until their subsystems are ported, and refused by name when asked
 for: the KV-event recorder (`kv_record_path` / `DYN_KV_RECORD`,
 `router/recorder.py`) and the prefix-heat plane (`DYN_PREFIX_HEAT`,
-`router/prefix_plane.py`). The `router.decide` tracing span waits with
-tracing (ROADMAP queue 1).
+`router/prefix_plane.py`). With the process tracer on, each decision
+runs under a `router.decide` span (`runtime/tracing.py`) carrying the
+chosen worker, its overlap and the margin, as the reference's does.
 
 Reference: `lib/llm/src/kv_router/kv_router.rs` — `KvRouter.find_best_match`
 (:203-320), `KvPushRouter` AsyncEngine (:479); event consumption
@@ -60,6 +61,7 @@ from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.events import EventBus
 from dynamo_tpu_torch.runtime.push import PushRouter
 from dynamo_tpu_torch.runtime.store import DELETE
+from dynamo_tpu_torch.runtime.tracing import tracer
 from dynamo_tpu_torch.tokens import compute_seq_hashes
 
 logger = logging.getLogger(__name__)
@@ -549,13 +551,33 @@ class KvPushRouter:
             uuid.uuid4().hex, token_ids, update_states=False)
         return r.worker[0], r.worker[1], r.overlap_blocks, r.margin
 
+    def _select(self, request_id: str,
+                token_ids: list[int]) -> SelectionResult:
+        """find_best_match under a `router.decide` span so end-to-end
+        traces explain placement. The disabled-tracer path calls the
+        router directly: no span allocation on the hot path."""
+        tr = tracer()
+        if not tr.enabled:
+            return self.router.find_best_match(request_id, token_ids)
+        with tr.start_span("router.decide",
+                           attributes={"request.id": request_id}) as span:
+            sel = self.router.find_best_match(request_id, token_ids)
+            span.set_attribute("router.worker", worker_label(sel.worker))
+            span.set_attribute("router.overlap_blocks", sel.overlap_blocks)
+            span.set_attribute(
+                "router.prefix_hit_ratio",
+                round(sel.overlap_blocks / max(sel.total_blocks, 1), 4))
+            span.set_attribute("router.logit_margin", round(sel.margin, 4))
+            span.set_attribute("router.prefill_tokens", sel.prefill_tokens)
+            span.set_attribute("router.candidates", len(sel.logits))
+            return sel
+
     async def generate(self, request: dict, context: Optional[Context] = None
                        ) -> AsyncIterator[dict]:
         ctx = context or Context()
         token_ids = list(request.get("token_ids", ()))
         request_id = ctx.request_id
-        sel: SelectionResult = self.router.find_best_match(request_id,
-                                                          token_ids)
+        sel = self._select(request_id, token_ids)
         worker_id, dp_rank = sel.worker
         await self._publish_sync({
             "op": "add", "request_id": request_id,

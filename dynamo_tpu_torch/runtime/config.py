@@ -3,8 +3,8 @@
 Port of `dynamo_tpu/runtime/config.py`: the fields of the runtime the
 port serves (control-plane store, transport, leases, the system status
 server, health canaries, request deadlines and the adaptive idle timeout,
-dial retries, the circuit breaker, the KVBM pipeline knobs). The
-telemetry and SLO fields wait with their subsystems.
+dial retries, the circuit breaker, the KVBM pipeline knobs, the fleet
+telemetry plane's publish interval and the SLO monitor's objectives).
 
 Reference: `lib/runtime/src/config.rs` (figment: defaults < file < DYN_* env).
 Here: dataclass defaults < optional JSON file < ``DYN_*`` environment.
@@ -74,6 +74,20 @@ class RuntimeConfig:
     kvbm_offload_workers: int = 0
     kvbm_prefetch_blocks: int = 0
     kvbm_offload_queue_bytes: int = 0
+    # Fleet telemetry plane (runtime/telemetry.py). Seconds between
+    # MetricsSnapshot publishes on the `telemetry` event subject; 0 = off
+    # (no publisher task).
+    telemetry_interval: float = 0.0
+    # SLO burn-rate monitor (runtime/slo.py). Objective thresholds in
+    # seconds; 0 = objective disabled (no monitor when both are 0).
+    slo_ttft: float = 0.0
+    slo_itl: float = 0.0
+    slo_target_ratio: float = 0.99
+    slo_fast_window: float = 60.0
+    slo_slow_window: float = 600.0
+    slo_fast_burn: float = 14.4
+    slo_slow_burn: float = 6.0
+    slo_check_interval: float = 5.0
 
     @classmethod
     def from_env(cls, path: Optional[str] = None) -> "RuntimeConfig":

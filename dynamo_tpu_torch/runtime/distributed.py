@@ -43,6 +43,7 @@ from dynamo_tpu_torch.runtime.store import (
     MemoryStore,
     connect_store,
 )
+from dynamo_tpu_torch.runtime.tracing import tracer
 from dynamo_tpu_torch.runtime.transport import TransportClient, TransportServer
 
 logger = logging.getLogger(__name__)
@@ -78,6 +79,9 @@ class DistributedRuntime:
             self._lease_task = asyncio.get_running_loop().create_task(
                 self._keep_lease_alive())
         self.metrics = MetricsRegistry("dynamo")
+        # the process tracer's export/drop counters render on /metrics
+        # like everything else (they are plain registry Counters)
+        tracer().register_metrics(self.metrics)
         # surface retry/timeout/breaker counters on both observability
         # planes: the `_sys.stats` scrape and the Prometheus registry
         self._kvbm_manager = None   # wire_kvbm

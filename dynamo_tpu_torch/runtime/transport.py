@@ -2,8 +2,12 @@
 
 Port of `dynamo_tpu/runtime/transport.py` over the port's own MessagePack
 codec; its frames are byte-identical with the reference's, so the two
-packages' clients and servers interoperate. The reference's fault
-injector and tracing hooks are left out.
+packages' clients and servers interoperate. A request's W3C
+`traceparent` rides its frame's headers under the reference's key
+(`runtime/tracing.py`): the client puts the caller's current span there,
+and the server's `serve <subject>` span continues that trace, so a port
+frontend in front of a JAX-package worker, or the reverse, gives one
+trace. The reference's fault injector hooks are left out.
 
 Reference analog: NATS service request + TCP response stream with prologue /
 sentinel framing (`lib/runtime/src/pipeline/network/{egress,ingress}/`,
@@ -32,6 +36,7 @@ from typing import Any, AsyncIterator, Callable, Optional
 from dynamo_tpu_torch.runtime import codec
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
+from dynamo_tpu_torch.runtime.tracing import TRACEPARENT, inject_headers, tracer
 
 logger = logging.getLogger(__name__)
 
@@ -210,11 +215,20 @@ class TransportServer:
                 timer = asyncio.get_running_loop().call_later(
                     float(deadline_s) + 0.05, _expire)
             try:
-                n = 0
-                async for item in engine.generate(payload, ctx):
-                    await send({"t": "data", "rid": rid, "payload": item})
-                    n += 1
-                stat["items"] += n
+                # server span: the request's trace continues across the
+                # wire via the traceparent header
+                with tracer().start_span(
+                        f"serve {subject}",
+                        traceparent=headers.get(TRACEPARENT),
+                        attributes={"rpc.subject": subject,
+                                    "request.id": rid}) as span:
+                    n = 0
+                    async for item in engine.generate(payload, ctx):
+                        await send({"t": "data", "rid": rid,
+                                    "payload": item})
+                        n += 1
+                    span.set_attribute("response.items", n)
+                    stat["items"] += n
                 await send({"t": "end", "rid": rid})
             except asyncio.CancelledError:
                 if not ctx.is_cancelled():  # server shutdown, not user cancel
@@ -520,7 +534,7 @@ class TransportClient:
         cancel_task = None
         try:
             q = conn.open_stream(rid)
-            headers = dict(ctx.headers)
+            headers = inject_headers(dict(ctx.headers))
             if expires is not None:
                 # stamp the REMAINING time, not the configured total: the
                 # server-side abort timer must share this request's budget

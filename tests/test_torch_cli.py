@@ -3,8 +3,10 @@ reference flag whose subsystem is not ported yet, set, exits with a
 message that names what it waits for (none is ignored); the `kv` router
 mode and the frontend's KV-router flags are accepted; the status server,
 health-check and adaptive-idle flags parse and reach the runtime's
-config on both CLIs; the worker on `--device cuda` without a card raises
-instead of serving on the CPU."""
+config on both CLIs; `--telemetry-interval` (worker and frontend) and
+the frontend's eight `--slo-*` flags parse into the runtime's config and
+reach the telemetry publisher and the SLO monitor; the worker on
+`--device cuda` without a card raises instead of serving on the CPU."""
 
 import os
 import subprocess
@@ -198,3 +200,88 @@ def test_status_and_health_flags_are_served(flag, monkeypatch):
     assert len(started) == 1
     fargs = frontend_main.parse_args([flag] + value)
     assert getattr(runtime_config_from_args(fargs), field) == want
+
+
+# the observability flags served since the SLO monitor and the telemetry
+# plane were ported: (CLI, flag) -> (argv value, config field, value it
+# takes)
+OBSERVABILITY_FLAGS = {
+    ("worker", "--telemetry-interval"): ("0.5", "telemetry_interval", 0.5),
+    ("frontend", "--telemetry-interval"): ("0.5", "telemetry_interval",
+                                           0.5),
+    ("frontend", "--slo-ttft"): ("0.25", "slo_ttft", 0.25),
+    ("frontend", "--slo-itl"): ("0.04", "slo_itl", 0.04),
+    ("frontend", "--slo-target-ratio"): ("0.95", "slo_target_ratio", 0.95),
+    ("frontend", "--slo-fast-window"): ("30", "slo_fast_window", 30.0),
+    ("frontend", "--slo-slow-window"): ("300", "slo_slow_window", 300.0),
+    ("frontend", "--slo-fast-burn"): ("10", "slo_fast_burn", 10.0),
+    ("frontend", "--slo-slow-burn"): ("3", "slo_slow_burn", 3.0),
+    ("frontend", "--slo-check-interval"): ("0.5", "slo_check_interval",
+                                           0.5),
+}
+
+
+@pytest.mark.parametrize("cli,flag", sorted(OBSERVABILITY_FLAGS))
+def test_observability_flags_are_served(cli, flag, monkeypatch):
+    """Each flag parses, passes the CLI's checks, sets its RuntimeConfig
+    field, and reaches its subsystem: the worker's or the frontend's
+    TelemetryPublisher runs at the interval; the frontend's SloMonitor
+    holds the objective (an objective flag alone arms it; a window, burn
+    or ratio flag is read beside a TTFT objective) and its loop runs at
+    the check interval."""
+    import asyncio
+
+    from dynamo_tpu_torch.cli_util import runtime_config_from_args
+    from dynamo_tpu_torch.engines import EchoEngine
+    from dynamo_tpu_torch.llm import entrypoint as t_entry
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    value, field, want = OBSERVABILITY_FLAGS[(cli, flag)]
+    assert flag not in RUNTIME_REFUSED
+    assert flag not in frontend_main.FRONTEND_REFUSED
+    if cli == "worker":
+        args = worker_main.parse_args(BASE + [flag, value])
+        worker_main.check_args(args)
+    else:
+        started = []
+        monkeypatch.setattr(frontend_main, "run_until_signal",
+                            lambda *a, **k: started.append(a))
+        frontend_main.main([flag, value])
+        assert len(started) == 1
+        extra = ([] if field in ("slo_ttft", "slo_itl", "telemetry_interval")
+                 else ["--slo-ttft", "0.1"])
+        args = frontend_main.parse_args([flag, value] + extra)
+    cfg = runtime_config_from_args(args)
+    assert getattr(cfg, field) == want
+
+    async def main():
+        rt = await DistributedRuntime.create(cfg)
+        try:
+            if cli == "worker":
+                card = ModelDeploymentCard(name="echo",
+                                           router_mode="round_robin")
+                h = await t_entry.serve_engine(rt, EchoEngine(), card)
+                got = h.publisher.interval
+                await h.stop()
+                return got
+            fe = await t_entry.start_frontend(rt, port=0)
+            try:
+                if field == "telemetry_interval":
+                    return fe.publisher.interval
+                mon, (obj,) = fe.slo, fe.slo._tracks.values()
+                return {"slo_ttft": obj.objective.threshold,
+                        "slo_itl": obj.objective.threshold,
+                        "slo_target_ratio": obj.objective.target_ratio,
+                        "slo_fast_window": mon.fast_window,
+                        "slo_slow_window": mon.slow_window,
+                        "slo_fast_burn": mon.fast_threshold,
+                        "slo_slow_burn": mon.slow_threshold,
+                        "slo_check_interval": cfg.slo_check_interval
+                        if fe._slo_task is not None else None}[field]
+            finally:
+                await fe.stop()
+        finally:
+            await rt.close()
+
+    assert asyncio.run(asyncio.wait_for(main(), 30)) == want

@@ -44,7 +44,10 @@ its fp64 numpy version and the CPU's. The flight recorders: the memory
 ledger's device figures are the caching allocator's (allocated bytes
 exact), a real allocator OOM is `is_resource_exhausted`, and an engine
 with both recorders armed gives the unarmed engine's streams bit for bit
-with the same captures, replays and launches.
+with the same captures, replays and launches. Request tracing: an engine
+under an enabled tracer gives the untraced engine's streams, captures,
+replays and launches, and every span it hands the drain carries host
+values only (ints, strings, bools, floats; never a tensor).
 """
 
 import asyncio
@@ -1286,9 +1289,10 @@ def test_ragged_round_chunk_logits_outlive_the_next_replay(cuda_device):
     eng = TorchEngine(TorchEngineConfig(
         model=cfg, num_pages=64, max_batch_size=4, attention_impl="ragged",
         device="cuda"), model=model)
+    # what the core reads of a sequence: its pages, prompt and trace
     picks = [types.SimpleNamespace(pages=list(range(1 + 4 * i, 5 + 4 * i)),
                                    prompt=[(7 * j + 50 * i) % 256
-                                           for j in range(20)])
+                                           for j in range(20)], trace=None)
              for i in range(2)]
     with torch.inference_mode():
         _, ch1 = eng._ragged_core(picks[:1], {id(picks[0]): 0}, [20], [], 0)
@@ -2633,3 +2637,81 @@ def test_armed_recorders_replay_like_unarmed(cuda_device, monkeypatch, impl):
     recs = eng.step_recorder.snapshot()
     graphed = [r for r in recs if r["entry"] != "burst_sync"]
     assert sum(r["compiled"] for r in graphed) == eng.graphs.captures
+
+
+# --- request tracing on the card (runtime/tracing.py) ------------------------
+
+@pytest.mark.parametrize("impl", ["phase", "ragged"])
+def test_armed_tracing_replays_like_unarmed(cuda_device, tmp_path, impl):
+    """A tiny bf16 engine on the card under an enabled tracer gives the
+    untraced engine's greedy streams bit for bit, with the same graph
+    captures, replays and kernel launches; each request is one trace of
+    engine.request with its queue wait, chunk, prefill and decode stages,
+    and every span handed to the drain has host-only attributes."""
+    from dynamo_tpu_torch.engine import cuda_build
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.runtime import tracing
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.recorder import Recorder
+
+    cfg, model = _graph_model(cuda_device, "bf16")
+    path = tmp_path / "trace.jsonl"
+    handed: list = []
+
+    async def serve(tr):
+        tracing.set_tracer(tr)
+        eng = TorchEngine(TorchEngineConfig(
+            model=cfg, num_pages=64, max_batch_size=4, prefill_chunk=32,
+            min_prefill_bucket=8, prefill_chunk_budget=12,
+            attention_impl=impl, device="cuda"), model=model)
+
+        async def one(prompt, n):
+            toks = []
+            async for o in eng.generate(
+                    {"token_ids": prompt, "sampling": {"temperature": 0.0},
+                     "stop": {"max_tokens": n}}, Context()):
+                toks.extend(o.get("token_ids", ()))
+            return toks
+
+        before = cuda_build.launch_counts()
+        try:
+            out = await asyncio.gather(
+                one(list(range(1, 30)), 10), one(list(range(40, 45)), 12),
+                one(list(range(7, 60)), 6))
+        finally:
+            await eng.close()
+            tracing.set_tracer(None)
+        torch.cuda.synchronize()
+        await tr.close()
+        return eng, out, cuda_build.launch_delta(
+            before, cuda_build.launch_counts())
+
+    plain, want, want_launches = asyncio.run(
+        serve(tracing.Tracer(enabled=False)))
+    tr = tracing.Tracer(enabled=True, path=str(path))
+    emit = tr._emit
+
+    def spy(span):
+        handed.append({k: type(v) for k, v in span.attributes.items()})
+        emit(span)
+
+    tr._emit = spy
+    eng, got, launches = asyncio.run(serve(tr))
+    assert got == want
+    assert (eng.graphs.captures, eng.graphs.replays) == \
+        (plain.graphs.captures, plain.graphs.replays)
+    assert launches == want_launches
+    assert handed and all(t in (int, str, bool, float)
+                          for attrs in handed for t in attrs.values())
+    rows = [e for _, e in Recorder.iter_events(path)]
+    assert len(rows) == len(handed) == tr.exported and tr.dropped == 0
+    roots = [r for r in rows if r["name"] == "engine.request"]
+    assert len(roots) == 3
+    for root in roots:
+        names = {r["name"] for r in rows if r["traceId"] == root["traceId"]}
+        assert {"engine.queue_wait", "engine.prefill.chunk",
+                "engine.prefill", "engine.decode"} <= names
+        assert root["status"]["code"] == "OK"
+    # the first dispatches captured graphs: their compile events ride the
+    # roots of the lanes they carried
+    assert any(e["name"] == "compile" for r in roots for e in r["events"])

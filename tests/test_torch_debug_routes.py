@@ -18,12 +18,14 @@ held against the JAX package's frontend (`dynamo_tpu/llm/http_service.py`
   the rings; `?capture_s=0.2` runs a `torch.profiler` window on the CPU
   and writes its trace while a chat streams; a bad `capture_s` is a 400.
 - Without `profile_engines` (an `HttpService` no deployment wired) the
-  engine routes answer 503, as the reference's; the reference's routes
-  the port does not serve (`/debug/requests`, mesh, control, tenants,
-  classes, prefixes) are 404.
-- In a fresh interpreter with both recorders armed, `run in=text` serves
-  and an in-process deployment answers `/debug/profile` and
-  `/debug/memory`, with no jax and no `dynamo_tpu` module loaded.
+  engine routes answer 503, as the reference's, while `/debug/requests`
+  (always on) stays available; the reference's routes the port does not
+  serve (mesh, control, tenants, classes, prefixes) are 404.
+- In a fresh interpreter with both recorders, the tracer, the audit bus,
+  the SLO monitor and the telemetry publisher armed, `run in=text`
+  serves and an in-process deployment answers `/debug/profile`,
+  `/debug/memory`, `/debug/requests` and `/fleet/status`, writes its
+  trace and audit files, with no jax and no `dynamo_tpu` module loaded.
 """
 
 import asyncio
@@ -49,10 +51,10 @@ from dynamo_tpu_torch.runtime import distributed as t_dist
 from tests.test_torch_serving import _engines, _renew_lease, call
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_ROUTES = {"/debug/profile", "/debug/router", "/debug/kv",
-               "/debug/memory"}
-UNSERVED = ("/debug/requests", "/debug/mesh", "/debug/control",
-            "/debug/tenants", "/debug/classes", "/debug/prefixes")
+PORT_ROUTES = {"/debug/requests", "/debug/profile", "/debug/router",
+               "/debug/kv", "/debug/memory"}
+UNSERVED = ("/debug/mesh", "/debug/control", "/debug/tenants",
+            "/debug/classes", "/debug/prefixes")
 PROMPTS = ["profile me please", "a much longer prompt that spans pages",
            "hi"]
 
@@ -241,7 +243,9 @@ def test_engine_routes_are_503_without_profile_engines():
     got = asyncio.run(asyncio.wait_for(main(), 30))
     assert got["/debug"][0] == 200
     idx = got["/debug"][1]["surfaces"]
-    assert not any(row["available"] or row["armed"] for row in idx.values())
+    assert not any(row["available"] or row["armed"]
+                   for p, row in idx.items() if p != "/debug/requests")
+    assert idx["/debug/requests"]["available"]
     for p in ("/debug/profile", "/debug/memory", "/debug/kv",
               "/debug/router"):
         assert got[p][0] == 503 and got[p][1]["status"] == "unavailable"
@@ -251,47 +255,79 @@ def test_engine_routes_are_503_without_profile_engines():
 def test_armed_serving_loads_no_jax(tmp_path):
     ckpt = write_synthetic_hf_checkpoint(str(tmp_path / "tiny"),
                                          preset="tiny")
+    trace, audit = tmp_path / "trace.jsonl", tmp_path / "audit.jsonl"
     probe = (
-        "import asyncio, json, runpy, sys, urllib.request\n"
+        "import asyncio, json, runpy, sys, time, urllib.request\n"
         "sys.argv = ['dynamo_tpu_torch.run', 'in=text:hi', "
         f"'out=torch:{ckpt}', '--device', 'cpu', '--max-tokens', '4']\n"
         "runpy.run_module('dynamo_tpu_torch.run', run_name='__main__')\n"
+        "import dynamo_tpu_torch.llm.perf, dynamo_tpu_torch.llm.audit\n"
+        "import dynamo_tpu_torch.runtime.logging_util\n"
         "from dynamo_tpu_torch.llm import entrypoint as e\n"
         "from dynamo_tpu_torch.runtime.config import RuntimeConfig\n"
         "from dynamo_tpu_torch.runtime.distributed import "
         "DistributedRuntime\n"
+        "from dynamo_tpu_torch.runtime.recorder import Recorder\n"
+        "from dynamo_tpu_torch.runtime.tracing import tracer\n"
         "async def main():\n"
-        "    rt = await DistributedRuntime.create(RuntimeConfig())\n"
+        "    rt = await DistributedRuntime.create(RuntimeConfig.from_env())\n"
         f"    eng, card = e.build_torch_engine({ckpt!r}, 'tiny', "
         "num_pages=16, device='cpu')\n"
         "    assert eng.step_recorder is not None\n"
         "    assert eng.memory_ledger is not None\n"
         "    h = await e.serve_engine(rt, eng, card, instance_id=1)\n"
         "    fe = await e.start_frontend(rt, port=0)\n"
+        "    assert h.publisher is not None and fe.slo is not None\n"
         "    def get(p):\n"
         "        with urllib.request.urlopen(fe.url + p) as r:\n"
         "            return json.loads(r.read())\n"
+        "    def chat():\n"
+        "        body = json.dumps({'model': 'tiny', 'max_tokens': 4, "
+        "'stream': True, 'messages': [{'role': 'user', 'content': 'hi'}]}"
+        ").encode()\n"
+        "        r = urllib.request.Request(fe.url + '/v1/chat/completions',"
+        " body, {'Content-Type': 'application/json'})\n"
+        "        with urllib.request.urlopen(r) as resp:\n"
+        "            return resp.read()\n"
         "    try:\n"
         "        prof = await asyncio.to_thread(get, "
         "'/debug/profile?capture_s=0.1')\n"
         "        mem = await asyncio.to_thread(get, '/debug/memory')\n"
+        "        await asyncio.to_thread(chat)\n"
+        "        reqs = await asyncio.to_thread(get, '/debug/requests')\n"
+        "        await asyncio.sleep(0.5)\n"
+        "        fleet = await asyncio.to_thread(get, '/fleet/status')\n"
         "    finally:\n"
         "        await fe.stop(); await h.stop(); await eng.close()\n"
-        "        await rt.close()\n"
-        "    return prof, mem\n"
-        "prof, mem = asyncio.run(main())\n"
+        "        await rt.close(); await tracer().close()\n"
+        "    return prof, mem, reqs, fleet\n"
+        "prof, mem, reqs, fleet = asyncio.run(main())\n"
         "print('CAPTURE', prof['capture']['bytes'] > 0)\n"
         "print('WEIGHTS', mem['engines'][0]['summary']['last']['classes']"
         "['weights'] > 0)\n"
+        "(rec,) = reqs['recent']\n"
+        f"spans = [ev for _, ev in Recorder.iter_events({str(trace)!r})]\n"
+        "names = {s['name'] for s in spans "
+        "if s['traceId'] == rec['trace_id']}\n"
+        "print('TRACE', {'http chat_completions', 'engine.request', "
+        "'engine.decode'} <= names)\n"
+        f"print('AUDIT', len(list(Recorder.iter_events({str(audit)!r}))))\n"
+        "print('SLO', fleet['slo']['ttft']['state'])\n"
+        "print('FLEET', sorted(c['role'] for c in fleet['components']))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dynamo_tpu'))\n"
         "print('LOADED', bad)\n")
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "DYN_ATTENTION_IMPL")}
     env.update(PYTHONPATH=REPO, DYN_STEP_PROFILE="1", DYN_MEM_LEDGER="1",
-               TMPDIR=str(tmp_path))
+               TMPDIR=str(tmp_path), DYN_TRACE="1", DYN_TRACE_PATH=str(trace),
+               DYN_AUDIT="1", DYN_AUDIT_SINKS="jsonl",
+               DYN_AUDIT_PATH=str(audit), DYN_TELEMETRY_INTERVAL="0.1",
+               DYN_SLO_TTFT="0.000001", DYN_SLO_CHECK_INTERVAL="0.1",
+               DYN_LOG_FORMAT="jsonl")
     proc = subprocess.run([sys.executable, "-c", probe], env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
-    for line in ("CAPTURE True", "WEIGHTS True", "LOADED []"):
+    for line in ("CAPTURE True", "WEIGHTS True", "TRACE True", "AUDIT 1",
+                 "SLO breach", "FLEET ['frontend', 'worker']", "LOADED []"):
         assert line in proc.stdout, proc.stdout

@@ -365,3 +365,66 @@ def test_engine_on_the_cpu_tracks_entries_without_graphs():
     assert ("decode_burst", (2, 2, 0)) in seen
     assert any(k[0] == "prefill" for k in seen)
     assert any(k[0] == "sample_first" for k in seen)
+
+
+def test_gc_paused_holds_the_collector_across_threads():
+    """`graphs.gc_paused` (around every capture) keeps the cyclic
+    collector off while any hold is open, on any thread, and restores
+    the state the first hold found."""
+    import gc
+    import threading
+
+    from dynamo_tpu_torch.engine.graphs import gc_paused
+
+    assert gc.isenabled()
+    inner_open, release = threading.Event(), threading.Event()
+
+    def other():
+        with gc_paused():
+            inner_open.set()
+            release.wait(10)
+
+    t = threading.Thread(target=other)
+    with gc_paused():
+        assert not gc.isenabled()
+        t.start()
+        assert inner_open.wait(10)
+    # the other thread's hold is still open
+    assert not gc.isenabled()
+    release.set()
+    t.join(10)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with gc_paused():
+            pass
+        assert not gc.isenabled()       # it was off: it stays off
+    finally:
+        gc.enable()
+    # under contention: more threads than cores, a short switch interval;
+    # a lost update of the hold count would leave the collector off (or
+    # turn it on inside another thread's hold)
+    import os
+    import sys
+
+    errors: list = []
+
+    def churn():
+        for _ in range(300):
+            with gc_paused():
+                if gc.isenabled():
+                    errors.append("collector on inside a hold")
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=churn)
+                   for _ in range(2 * (os.cpu_count() or 4))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(30)
+    finally:
+        sys.setswitchinterval(prev)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == [] and gc.isenabled()

@@ -256,16 +256,19 @@ def test_engine_metrics_names_match_reference():
     view, ref_view = ours.perf_view(), ref.perf_view()
     assert set(view) <= set(ref_view)
     assert {k: v for k, v in ref_view.items() if k in view} == view
-    # the ITL histogram's edges and quantile (the reference's llm/perf.py)
+    # the ITL histogram's edges and quantile (llm/perf.py in both
+    # packages; the engine's metrics read the edges from there)
     from dynamo_tpu.llm import perf as ref_perf
     from dynamo_tpu_torch.engine import metrics as tmetrics
+    from dynamo_tpu_torch.llm import perf as tperf
 
-    assert tmetrics.ITL_BUCKET_EDGES_MS == ref_perf.ITL_BUCKET_EDGES_MS
+    assert tmetrics.ITL_BUCKET_EDGES_MS == tperf.ITL_BUCKET_EDGES_MS == \
+        ref_perf.ITL_BUCKET_EDGES_MS
     rng = random.Random(3)
     for _ in range(200):
         hist = [rng.choice([0, 0, 1, 5]) for _ in ref_perf.ITL_BUCKET_EDGES_MS]
         for q in (0.0, 0.5, 0.9, 0.99, 1.0):
-            assert tmetrics.itl_percentile(hist, q) == \
+            assert tperf.itl_percentile(hist, q) == \
                 ref_perf.itl_percentile(hist, q)
 
 
