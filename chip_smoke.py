@@ -168,7 +168,23 @@ on):
     (which must be 0) printed; the frontend runs with DYN_TRACE and
     DYN_ROUTER_LOG: each of the 18 requests has one `router.decide` span
     under its http span naming the worker the decision log records for
-    it; every subprocess stopped at the end
+    it. The frontend also runs with DYN_KV_RECORD (its KV-event capture),
+    DYN_PREFIX_HEAT=1 and `--telemetry-interval 1`; the prefix plane moves
+    no placement, so the checks above stand. Its index is the native C++
+    radix tree (its log line printed beside phase 2's build seconds).
+    After wave 3 the capture is replayed into a fresh native and a fresh
+    Python `KvIndexer`: at each of the 18 recorded decisions both score
+    every candidate as the live router did, and after the last event both
+    hold the live index's blocks per worker (`/debug/router`, as the
+    scrape's `dynamo_router_index_blocks`); `/debug/prefixes` answers 200
+    with 18 decisions (shadow divergences and tier-blind counts printed)
+    and duplicate blocks equal to the replayed index's, (k-1) blocks of 2
+    MiB (32 layers x 2 x 8 KV heads x 128 x 16 tokens x 2 bytes) for
+    every block on k workers, by depth bucket; `/fleet/status` carries the
+    prefix block; a MockEngine of block size 16 given wave 1's prompts as
+    token ids stores exactly the seq-hash chain (hashes and parents) the
+    real workers' captured `stored` events carry for their full blocks.
+    Every subprocess stopped at the end
  8e. disaggregated serving, after 8d has stopped its workers: the
     coordinator, a `.worker --is-prefill-worker` (served as
     llama3-8b-prefill), a `.worker --enable-disagg
@@ -190,6 +206,33 @@ on):
     stream token-identical with phase 8's in-process batch or parting at
     a near-tie (BF16_TIE_TOL, printed as 8c prints them); the prefill
     worker launched the KV gather (its `_sys.stats` scrape)
+ 8j. the mock fleet and the wire faults, after 8e, no 8B worker running:
+    the coordinator, four `.worker --mock --mock-total-blocks 1024
+    --migration-limit 2` (instance ids 11-14) and `.frontend --router-mode
+    kv` under DYN_KV_RECORD, DYN_PREFIX_HEAT=1 and DYN_ROUTER_LOG=1. No
+    mock pid is among the card's compute processes and the card's used
+    memory does not grow when they start (nvidia-smi). Wave 1: 16
+    distinct prefixes of 256 words (16 full blocks behind the chat
+    template), one request each; wave 2: 64 requests, 4 per prefix with
+    its own suffix, max_tokens 16, one after another: each on its
+    prefix's worker (the decision log) and
+    `dynamo_router_prefill_tokens_saved_total` >= 64 x 15 x 16; wave 3:
+    the 64 again, all in flight, all 200 (TTFT p50 and the router's
+    decisions per second printed: host figures of the card's machine).
+    0 KV-event gaps; the capture replays as in 8d (144 decisions);
+    /debug/prefixes as in 8d at 1 MiB a block. At fleet size, in process:
+    32 workers x 4096 blocks from a seeded event stream; the native and
+    the Python tree agree on 1000 queries (microseconds per call
+    printed). The fault pass: the frontend restarted with `--faults
+    "kind=connect_refused,times=1;kind=disconnect,after=5,times=1"` and
+    DYN_CONNECT_RETRIES=0: the first dial is refused and the router
+    retries another instance; the stream is cut after 5 tokens and
+    migrates, its tokens those of the undisturbed runs (the first 5, then
+    the replay of the prompt and those 5: the mock's tokens are
+    deterministic); 8 more requests all 200. In process, a runtime whose
+    transport refuses one dial to worker 11 routes around it, and
+    `ServiceClient.collect_services` shows its breaker's failure for that
+    instance
  8f. KVBM, in process, on phase 8's weights: a phase-path engine (batch
     8, chunk budget 512, 320 pages + scratch, 0.63 GiB of KV) with a
     KvbmManager (host tier 1024 blocks of 2 MiB); 12 greedy requests, each
@@ -347,19 +390,18 @@ on):
     (bf16, w8a8, int4 and int8: W8A16, cuBLAS over weights converted to
     bf16 on every call, not a main-path cell; each eager step profiled
     EAGER_PROFILE_REPS times: cut from 5 since 8c's parser run was
-    added), device time by kernel
-    class and device ops per step; beside each, the same step replayed
+    added, and not at all since 8j was added: eager walls only), device
+    time by kernel class and device ops per step; beside each, the same
+    step replayed
     from its graph (host wall, device busy, the replay timed with CUDA
     events too, device ops; the bf16 graphed steps profiled
     GRAPH_PROFILE_REPS times: cut from 5 since 8c, 8d, 8f and 8i check
     the request tracer) and the graph pool's bytes; the bare spec
     burst replayed only (eager, it issues tens of thousands of launches:
-    cut since 8g was added); the phase path's
-    engine batch once more (the ragged path's: cut since 8g was added),
-    its steady batch with kernel tracing only (the first batch, which
-    pays the captures, untraced: cut since 8h was added) (host wall vs
-    device busy and idle share, the dispatches still eager — not run
-    from a graph —, graph captures and replays); the quantized bursts'
+    cut since 8g was added); each path's phase-7 batch's milliseconds
+    per dispatch (the engine batches traced once more: cut since 8j was
+    added; the ragged path's since 8g, the phase path's first batch since
+    8h); the quantized bursts'
     eager and graphed runs profiled QUANT_PROFILE_REPS times (cut from 2
     and 5 since 8h was added)
 12. kernel path vs plain path at 2 layers, full width, fp32: greedy
@@ -2106,11 +2148,17 @@ def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
         # the tracer and the decision log armed: each decision's
         # router.decide span against the log's record of it
         kv_trace = os.path.join(work, "trace_kv_frontend.jsonl")
+        # the router's recorders too: its KV-event capture and the
+        # prefix-heat plane (which moves no placement)
+        capture = os.path.join(work, "kv_capture_8b.jsonl")
         frontend = Service(work, "frontend", "--store", store, "--host",
                            "127.0.0.1", "--port", str(port),
-                           "--router-mode", "kv",
+                           "--router-mode", "kv", "--telemetry-interval",
+                           "1",
                            env={"DYN_TRACE": "1", "DYN_TRACE_PATH": kv_trace,
-                                "DYN_ROUTER_LOG": "1"})
+                                "DYN_ROUTER_LOG": "1",
+                                "DYN_KV_RECORD": capture,
+                                "DYN_PREFIX_HEAT": "1"})
         services.append(frontend)
         frontend.wait_line("FRONTEND_READY", 120)
         for w in workers:
@@ -2161,6 +2209,8 @@ def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
             time.sleep(0.1)
         log(f"[kv] wave 1: two 1024-byte prefixes at once -> one per "
             f"worker {after1}; router index blocks {blocks}")
+        log(f"[kv] frontend index: {radix_log_line(frontend)} (library "
+            f"built in {RADIX_BUILD['seconds']:.2f} s in phase 2)")
         # wave 2: one after another, so the overlap decides each
         saved0 = prometheus_value(fe, "dynamo_router_prefill_tokens_saved_total")
         w2 = [http_chat_stream(port, body(text, 32)) for _, text in wave2]
@@ -2190,6 +2240,7 @@ def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
             if p.proc.poll() is not None:
                 raise AssertionError(f"{p.name} exited: {p.stderr_tail()}")
         decide_spans(port, kv_trace, 2 + 2 * len(wave2), smi)
+        router_recorders(port, card, prefixes, [t for _, t in wave2])
     finally:
         for p in reversed(services):
             p.stop()
@@ -2245,6 +2296,29 @@ def kv_router_phase(torch, smi: str, work: str, ckpt: str, model, card,
     log(f"[kv] wave 3 (the 8 again, all in flight): "
         f"{latency_summary(rows3, wall3)}; decisions per worker {per3}; "
         f"on {smi}")
+
+
+def router_recorders(port: int, card, prefixes: list, wave2: list) -> None:
+    """Phase 8d after wave 3: the capture replayed against the live
+    router, /debug/prefixes, the fleet's prefix block and the mocker's
+    stored chain (see the module docstring)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.tokenizer import make_tokenizer
+
+    pre = OpenAIPreprocessor(
+        make_tokenizer(card.tokenizer_kind, card.tokenizer_path), card.name)
+    wave1 = [chat_ids(pre, t) for t in prefixes]
+    prompts = wave1 + [chat_ids(pre, t) for t in wave2] * 2
+    dbg = settle_router(port)
+    nat, _ = replay_check("kv", dbg, prompts, KV_PAGE, len(prompts))
+    n = mock_chain_check(capture_rows(dbg["kv_record"]["path"]), wave1,
+                         KV_PAGE)
+    log(f"[kv] a MockEngine of block size {KV_PAGE} given wave 1's prompts "
+        f"stores the seq-hash chain of the real workers' captured stored "
+        f"events, {n} full blocks, hashes and parents alike")
+    prefix_duplication(port, nat, KV_PAGE, KV_BLOCK_NBYTES_8B, len(prompts),
+                       "kv")
+    fleet_prefix_block(port, "kv")
 
 
 def decide_spans(port: int, path: str, n: int, smi: str) -> None:
@@ -3076,79 +3150,6 @@ def _http_get(port: int, path: str) -> bytes:
     return _http_status(port, path)[1]
 
 
-def profile_engine_batch(torch, engine, pipeline, run_batch, name: str,
-                         jobs: list, out_path: str, traced: tuple) -> list:
-    """Batches once more, one after another through a fresh engine (the
-    first pays the graph captures, the next ones replay), those whose
-    `traced` entry is True with CUPTI
-    kernel tracing only (no host-op recording, so the host runs at its
-    normal pace), host clocks around the engine's device-blocking calls
-    it makes on its own methods (ragged: its rounds and first-token
-    sampling; phase: first-token sampling only — its chunk rounds,
-    bursts and mixed steps run inside closures), and a count of the
-    engine's graph runs by entry. Returns per batch (wall_s,
-    device_busy_s or None, rounds, seconds inside the clocked calls,
-    eager dispatches, {entry: graph runs}, captures): a dispatch (chunk
-    round, burst, mixed step, ragged round) not run from a graph is
-    eager."""
-    from torch.profiler import ProfilerActivity, profile
-
-    inside = [0.0]
-    runs: dict = {}
-    graph_run = engine.graphs.run
-
-    def counted(key, fn, inputs):
-        runs[key[0]] = runs.get(key[0], 0) + 1
-        return graph_run(key, fn, inputs)
-
-    engine.graphs.run = counted
-
-    def clocked(fn):
-        def run(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                inside[0] += time.perf_counter() - t0
-        return run
-
-    engine._ragged_core = clocked(engine._ragged_core)
-    engine._first_token_packed = clocked(engine._first_token_packed)
-    out = []
-
-    async def go():
-        try:
-            for path, trace in zip(jobs, traced):
-                rounds0, captures0 = engine.rounds, engine.graphs.captures
-                runs.clear()
-                inside[0] = 0.0
-                prof = profile(activities=[ProfilerActivity.CUDA])
-                if trace:
-                    prof.start()
-                t0 = time.perf_counter()
-                await run_batch(pipeline, name, path, 32, out_path)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                busy = None
-                if trace:
-                    prof.stop()
-                    busy = sum(
-                        e.self_device_time_total for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                    ) / 1e6
-                rounds = engine.rounds - rounds0
-                graphed = sum(n for e, n in runs.items()
-                              if e != "sample_first")
-                out.append((wall, busy or None, rounds, inside[0],
-                            rounds - graphed, dict(runs),
-                            engine.graphs.captures - captures0))
-        finally:
-            await engine.close()
-
-    asyncio.run(go())
-    return out
-
-
 def graph_stats(eng) -> dict:
     """An engine's CUDA graphs so far (`engine/graphs.py`): the entries and
     shapes captured, the captures' seconds from the compile tracker (each
@@ -3535,20 +3536,21 @@ def self_draft_floor(p: float, n_pos: int, n_iters: int,
             sum(k / gamma * w for k, w in enumerate(law(p))))
 
 
-# profiled repetitions of each bare eager step in phase 11 (cut from 5
-# since phase 8c's parser run was added), of the bf16 graphed steps (cut
-# from 5 since 8c, 8d, 8f and 8i check the request tracer), and of the
-# quantized bursts' eager and graphed runs (cut from 2 and 5 since phase
-# 8h was added)
-EAGER_PROFILE_REPS = 2
+# profiled repetitions of each bare eager bf16 step in phase 11 (cut from
+# 5 since phase 8c's parser run was added, to 2, and to none since 8d's
+# recorders and 8j were added: the eager walls stay), of the bf16 graphed
+# steps (cut from 5 since 8c, 8d, 8f and 8i check the request tracer),
+# and of the quantized bursts' eager and graphed runs (cut from 2 and 5
+# since phase 8h was added)
+EAGER_PROFILE_REPS = 0
 GRAPH_PROFILE_REPS = 2
 QUANT_PROFILE_REPS = 1
 
 
 def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
     """Host wall (median of 10) of `step` (which ends in its one sync),
-    then `reps` more under torch.profiler: (wall_ms, busy_ms or None,
-    device ops per step, {class: ms}, top 5 [(ms, kernel)])."""
+    then `reps` more under torch.profiler (none when 0): (wall_ms, busy_ms
+    or None, device ops per step, {class: ms}, top 5 [(ms, kernel)])."""
     for _ in range(3):
         step()
     walls = []
@@ -3556,6 +3558,8 @@ def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
         t0 = time.perf_counter()
         step()
         walls.append(1e3 * (time.perf_counter() - t0))
+    if not reps:
+        return statistics.median(walls), None, None, {}, []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -5336,6 +5340,637 @@ def recorders_phase(torch, smi: str, work: str, card, model) -> dict:
                   "attribution": format_oom_attribution(report)}
     return out
 
+# -- the router's recorders and the mock fleet (phases 8d, 8j) ----------------
+
+RADIX_BUILD = {}          # phase 2: {"seconds": g++ seconds, "path": library}
+MOCK_IDS = (11, 12, 13, 14)
+MOCK_PREFIXES, MOCK_PER_PREFIX, MOCK_PREFIX_WORDS = 16, 4, 256
+FLEET_WORKERS, FLEET_BLOCKS, FLEET_QUERIES = 32, 4096, 1000
+KV_BLOCK_NBYTES_8B = 32 * 2 * 8 * 128 * 16 * 2      # one 8B bf16 KV block
+
+
+def build_native_radix() -> None:
+    """Phase 2: the router's C++ radix index (host code) built from the
+    checkout with g++, as its first use in a process would build it."""
+    from dynamo_tpu_torch import native
+    from dynamo_tpu_torch.native import radix
+
+    t0 = time.perf_counter()
+    if not radix.native_radix_available():
+        raise AssertionError("the native radix index did not build")
+    RADIX_BUILD.update(
+        seconds=native.build_seconds.get("radix",
+                                         time.perf_counter() - t0),
+        path=str(native.library_path("radix")))
+    log(f"[build] native radix index {RADIX_BUILD['path']} in "
+        f"{RADIX_BUILD['seconds']:.2f} s (g++ -O3, host code)")
+
+
+def chat_ids(pre, text: str) -> list:
+    """The prompt token ids a frontend's preprocessor gives a one-message
+    chat (`pre`: an OpenAIPreprocessor with the card's tokenizer)."""
+    from dynamo_tpu_torch.llm.protocols_openai import ChatCompletionRequest
+
+    return pre.preprocess_chat(ChatCompletionRequest.from_dict(
+        {"model": pre.model_name,
+         "messages": [{"role": "user", "content": text}]})).token_ids
+
+
+def settle_router(port: int, timeout: float = 30.0) -> dict:
+    """Until the frontend's router has consumed every KV event it will
+    see (its kv event count stable for a second) and its capture has
+    written them all: its /debug/router body."""
+    end = time.perf_counter() + timeout
+    last, since = None, time.perf_counter()
+    while True:
+        dbg = json.loads(_http_get(port, "/debug/router?limit=1024"))
+        m = dbg["models"][0]
+        n = m["counters"]["events"].get("kv", 0)
+        rec = m.get("kv_record") or {}
+        if n != last:
+            last, since = n, time.perf_counter()
+        elif (time.perf_counter() - since >= 1.0
+              and rec.get("events") == n
+              and len(capture_rows(rec["path"])) == n):
+            return m
+        if time.perf_counter() > end:
+            raise AssertionError(f"the router never settled: {n} events, "
+                                 f"capture {rec}")
+        time.sleep(0.2)
+
+
+def capture_rows(path: str) -> list:
+    from dynamo_tpu_torch.runtime.recorder import Recorder
+
+    if not os.path.exists(path):
+        return []
+    return list(Recorder.iter_events(path))
+
+
+def replay_check(label: str, dbg: dict, prompts: list, bs: int,
+                 n_decisions: int) -> tuple:
+    """The frontend's KV-event capture (`dbg`: its settled /debug/router
+    body) replayed into a fresh native and a fresh Python `KvIndexer`:
+    at each recorded decision, both give the overlap the live router
+    scored for every candidate (events recorded before the decision
+    applied; the prompt found by its token count among `prompts`); after
+    the last event, both hold the live index's blocks per worker and
+    agree on every prompt. Returns (native indexer, Python indexer)."""
+    from dynamo_tpu_torch.protocols import KvCacheEvent
+    from dynamo_tpu_torch.router.decision_log import worker_label
+    from dynamo_tpu_torch.router.indexer import KvIndexer
+
+    rows = capture_rows(dbg["kv_record"]["path"])
+    if dbg["index"].get("tree") != "native":
+        raise AssertionError(f"{label}: the frontend's index is "
+                             f"{dbg['index'].get('tree')}, not native")
+    records = sorted((r for r in dbg["records"] if r["mode"] == "route"),
+                     key=lambda r: r["at"])
+    if len(records) != n_decisions:
+        raise AssertionError(f"{label}: {len(records)} decisions recorded, "
+                             f"want {n_decisions}")
+    by_len: dict = {}
+    for p in prompts:
+        by_len.setdefault(len(p), []).append(p)
+    nat, py = KvIndexer(bs), KvIndexer(bs, use_native=False)
+    if nat.tree.kind != "native":
+        raise AssertionError(f"{label}: no native tree in this process")
+
+    def scores(idx, p) -> dict:
+        return {worker_label(w): s for w, s in
+                idx.find_matches_for_tokens(p).scores.items()}
+
+    i = 0
+    for rec in records:
+        while i < len(rows) and rows[i][0] <= rec["at"]:
+            ev = KvCacheEvent.from_dict(rows[i][1])
+            nat.apply_event(ev)
+            py.apply_event(ev)
+            i += 1
+        want = {c["worker"]: c["overlap_blocks"]
+                for c in rec["candidates"] if c["overlap_blocks"]}
+        if not any(scores(nat, p) == scores(py, p) == want
+                   for p in by_len.get(rec["n_tokens"], ())):
+            raise AssertionError(f"{label}: replay disagrees with the live "
+                                 f"decision {rec['request_id']} "
+                                 f"({rec['n_tokens']} tokens): {want}")
+    for _, ev in rows[i:]:
+        ev = KvCacheEvent.from_dict(ev)
+        nat.apply_event(ev)
+        py.apply_event(ev)
+    live = {k: v for k, v in dbg["index"]["index_blocks"].items() if v}
+    for idx in (nat, py):
+        got = {worker_label(w): idx.tree.block_count(w)
+               for w in idx.tree.workers()}
+        got = {k: v for k, v in got.items() if v}
+        if got != live:
+            raise AssertionError(f"{label}: replayed blocks per worker "
+                                 f"{got}, live index {live}")
+    for p in prompts:
+        if scores(nat, p) != scores(py, p):
+            raise AssertionError(f"{label}: native and Python replays "
+                                 f"part on a prompt")
+    log(f"[{label}] capture {len(rows)} KV events replayed into a native "
+        f"and a Python indexer: {len(records)} live decisions' candidate "
+        f"overlaps reproduced, blocks per worker {live} equal to the live "
+        f"index, {len(prompts)} prompts scored alike")
+    return nat, py
+
+
+def stored_chain(events) -> dict:
+    """{seq hash: parent} over `stored` events (dicts or KvCacheEvents),
+    each block's parent the one before it in its event."""
+    out = {}
+    for ev in events:
+        d = ev if isinstance(ev, dict) else ev.to_dict()
+        if d["kind"] != "stored":
+            continue
+        parent = d.get("parent_seq_hash")
+        for seq, _local in d["blocks"]:
+            out.setdefault(seq, parent)
+            parent = seq
+    return out
+
+
+def mock_chain_check(rows: list, prompts: list, bs: int) -> int:
+    """A MockEngine of block size `bs` given `prompts` (token ids): its
+    `stored` events carry, block for block, the seq hashes and parents
+    the real workers' captured `stored` events carry for the prompts'
+    full blocks. Returns the blocks compared."""
+    from dynamo_tpu_torch.mocker import MockEngine, MockEngineConfig
+    from dynamo_tpu_torch.runtime.context import Context
+
+    events: list = []
+    eng = MockEngine(MockEngineConfig(block_size=bs, speedup=1000.0),
+                     event_sink=events.append)
+
+    async def go():
+        for p in prompts:
+            async for _ in eng.generate({"token_ids": p,
+                                         "stop": {"max_tokens": 1}},
+                                        Context()):
+                pass
+        await eng.close()
+
+    asyncio.run(go())
+    mock = stored_chain(events)
+    real = stored_chain(e for _, e in rows)
+    n = 0
+    for p in prompts:
+        from dynamo_tpu_torch.tokens import compute_seq_hashes
+
+        for seq in compute_seq_hashes(p, bs):
+            if seq not in mock or seq not in real or mock[seq] != real[seq]:
+                raise AssertionError("the mocker's stored chain differs "
+                                     "from the real workers'")
+            n += 1
+    return n
+
+
+def prefix_duplication(port: int, nat, bs: int, nbytes: int,
+                       n_decisions: int, label: str) -> dict:
+    """GET /debug/prefixes: 200, `n_decisions` recorded, and duplication
+    equal to what the replayed index implies: (k-1) blocks for every
+    block resident on k workers, by depth bucket. The live plane is armed
+    as the reference's router arms it, with no block size, so its buckets
+    read 0 bytes: it is held to the block total and the bucket names. The
+    port's plane over the replayed index, given `nbytes` a block, is held
+    to the bytes of each bucket."""
+    from dynamo_tpu_torch.router.prefix_plane import (
+        PrefixHeatRecorder,
+        depth_bucket,
+    )
+
+    st, raw = _http_status(port, "/debug/prefixes")
+    if st != 200:
+        raise AssertionError(f"{label}: /debug/prefixes HTTP {st}")
+    body = json.loads(raw)["models"][0]
+    s = body["summary"]
+    if not body["enabled"] or s["decisions"] != n_decisions:
+        raise AssertionError(f"{label}: /debug/prefixes enabled "
+                             f"{body['enabled']}, {s['decisions']} "
+                             f"decisions, want {n_decisions}")
+    # the replayed index's own count: each block's depth down its parent
+    # chain, and (k-1) blocks in that depth's bucket for k holders
+    parent: dict = {}
+    holders: dict = {}
+    for ev in nat.tree.dump_events():
+        p = ev.parent_seq_hash
+        for b in ev.blocks:
+            parent[b.seq_hash] = p
+            holders.setdefault(b.seq_hash, set()).add(ev.worker_id)
+            p = b.seq_hash
+
+    def depth(h):
+        d = 0
+        while h in parent:
+            h, d = parent[h], d + 1
+        return d
+
+    want: dict = {}
+    for h, w in holders.items():
+        if len(w) > 1:
+            b = depth_bucket(depth(h))
+            want[b] = want.get(b, 0) + len(w) - 1
+    want_blocks = sum(want.values())
+    rec = PrefixHeatRecorder(block_size=bs, block_nbytes=nbytes)
+    rec.observe_index(nat)
+    dup = rec.duplication()
+    live = s["duplication"]
+    if (live["duplicate_blocks"] != want_blocks
+            or live["by_depth_bucket"] != {b: 0 for b in want}
+            or dup["duplicate_blocks"] != want_blocks
+            or dup["by_depth_bucket"] !=
+            {b: n * nbytes for b, n in want.items()}):
+        raise AssertionError(f"{label}: duplication live {live}, replayed "
+                             f"{dup}, want blocks by depth bucket {want}")
+    log(f"[{label}] /debug/prefixes: {s['decisions']} decisions, shadow "
+        f"divergences {s['shadow_divergence']}, tier-blind "
+        f"{s['tier_blind_total']}, shadow tokens saved "
+        f"{s['shadow_tokens_saved_total']}; duplicate blocks "
+        f"{live['duplicate_blocks']} (live) = {want_blocks} (replayed), "
+        f"blocks by depth bucket {dict(sorted(want.items()))} (live bucket "
+        f"names alike); the port's plane over the replayed index at "
+        f"{nbytes / 2**20:.0f} MiB a block: bytes {dup['by_depth_bucket']}")
+    return dup
+
+
+def fleet_prefix_block(port: int, label: str) -> dict:
+    """/fleet/status's frontend component carries the prefix block."""
+    end = time.perf_counter() + 20
+    while True:
+        st, raw = _http_status(port, "/fleet/status")
+        comps = json.loads(raw).get("components", ()) if st == 200 else ()
+        blocks = [c["prefix"] for c in comps if c.get("prefix")]
+        if blocks:
+            log(f"[{label}] /fleet/status prefix block {blocks[0]}")
+            return blocks[0]
+        if time.perf_counter() > end:
+            raise AssertionError(f"{label}: /fleet/status has no prefix "
+                                 f"block (HTTP {st})")
+        time.sleep(0.5)
+
+
+def radix_log_line(svc) -> str:
+    lines = [ln for ln in open(svc.err_path).read().splitlines()
+             if "radix index:" in ln]
+    if not lines or "native" not in lines[-1]:
+        raise AssertionError(f"{svc.name} did not serve the native radix "
+                             f"index: {lines}")
+    return lines[-1].split("radix index: ", 1)[1]
+
+
+def gpu_used_mib() -> int:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.split()
+    return int(out[0])
+
+
+def compute_pids() -> set:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.split()
+    return {int(x) for x in out if x.strip().isdigit()}
+
+
+def mock_chat(port: int, text: str, stream: bool, max_tokens: int = 16
+              ) -> dict:
+    """One chat to the mock fleet: status, content, and for a stream the
+    seconds to its first content delta."""
+    import http.client
+
+    body = {"model": "mock-model", "max_tokens": max_tokens,
+            "stream": stream,
+            "messages": [{"role": "user", "content": text}]}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if not stream:
+            raw = r.read()
+            out = json.loads(raw) if r.status == 200 else {}
+            content = (out.get("choices") or [{}])[0].get(
+                "message", {}).get("content")
+            return {"status": r.status, "content": content,
+                    "elapsed_s": time.perf_counter() - t0}
+        first, parts = None, []
+        for line in r:
+            if line.startswith(b"data: {"):
+                for ch in json.loads(line[6:])["choices"]:
+                    delta = (ch.get("delta") or {}).get("content")
+                    if delta and first is None:
+                        first = time.perf_counter() - t0
+                    parts.append(delta or "")
+        return {"status": r.status, "content": "".join(parts),
+                "ttft_s": first, "elapsed_s": time.perf_counter() - t0,
+                "t0": t0}
+    finally:
+        conn.close()
+
+
+def fleet_scale_radix(smi: str) -> None:
+    """32 workers x 4096 blocks from a seeded event stream (chains over a
+    shared prefix pool, as a fleet's system prompts and conversations
+    share them), the native and the Python tree: the same scores and
+    matched blocks on 1000 queries; host microseconds per find_matches."""
+    from dynamo_tpu_torch.native.radix import CRadixTree
+    from dynamo_tpu_torch.protocols import KvCacheEvent, StoredBlock
+    from dynamo_tpu_torch.router.indexer import RadixTree
+    from dynamo_tpu_torch.tokens import SEED_HASH, chain_hash
+
+    rng = random.Random(19)
+    pool = [[rng.randrange(1 << 30) for _ in range(64)] for _ in range(48)]
+    nat, py = CRadixTree(), RadixTree()
+    for w in range(1, FLEET_WORKERS + 1):
+        while (held := nat.block_count((w, 0))) < FLEET_BLOCKS:
+            chain = rng.choice(pool)[:rng.randint(8, 64)] + [
+                rng.randrange(1 << 30) for _ in range(rng.randint(1, 32))]
+            chain = chain[:FLEET_BLOCKS - held]
+            seq, blocks = SEED_HASH, []
+            for lh in chain:
+                seq = chain_hash(seq, lh)
+                blocks.append(StoredBlock(seq, lh))
+            ev = KvCacheEvent(kind="stored", worker_id=w, blocks=blocks)
+            nat.apply_event(ev)
+            py.apply_event(ev)
+    queries = [rng.choice(pool)[:rng.randint(1, 64)] + [
+        rng.randrange(1 << 30) for _ in range(rng.randint(0, 8))]
+        for _ in range(FLEET_QUERIES)]
+    times = {}
+    for name, tree in (("native", nat), ("python", py)):
+        t0 = time.perf_counter()
+        got = [tree.find_matches(q) for q in queries]
+        times[name] = (time.perf_counter() - t0) / len(queries) * 1e6
+        if name == "native":
+            first = got
+        elif any(a.scores != b.scores or a.matched_blocks != b.matched_blocks
+                 for a, b in zip(first, got)):
+            raise AssertionError("8j: native and Python trees part at "
+                                 "fleet size")
+    blocks = sum(nat.block_count(w) for w in nat.workers())
+    log(f"[mock] fleet-size index: {len(nat.workers())} workers, {blocks} "
+        f"blocks, {FLEET_QUERIES} queries scored alike; find_matches "
+        f"{times['native']:.1f} us native vs {times['python']:.1f} us "
+        f"Python per call ({times['python'] / times['native']:.1f}x; host "
+        f"CPU of the card's machine beside {smi})")
+
+
+def mock_fleet_phase(smi: str, work: str) -> dict:
+    """Phase 8j: four mock workers behind the KV router on the card's
+    machine (see the module docstring). Raises on any failed check."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.tokenizer import WordTokenizer
+    from dynamo_tpu_torch.runtime.distributed import free_port
+
+    rng = random.Random(10)
+    words = [f"w{i}" for i in range(4000)]
+    prefixes = [" ".join(rng.choice(words) for _ in range(MOCK_PREFIX_WORDS))
+                for _ in range(MOCK_PREFIXES)]
+    wave_b = [(k % MOCK_PREFIXES, prefixes[k % MOCK_PREFIXES] + " " + " ".join(
+        rng.choice(words) for _ in range(12)))
+        for k in range(MOCK_PREFIXES * MOCK_PER_PREFIX)]
+    services = []
+    out = {}
+    try:
+        coord = Service(work, "coordinator", "--port", str(free_port()))
+        services.append(coord)
+        store = coord.wait_line("COORDINATOR_READY", 120)
+        used0, pids0 = gpu_used_mib(), compute_pids()
+        mocks = []
+        for wid in MOCK_IDS:
+            m = Service(work, "worker", "--mock", "--mock-total-blocks",
+                        "1024", "--migration-limit", "2", "--store", store,
+                        "--instance-id", str(wid), label=f"mock{wid}")
+            mocks.append(m)
+            services.append(m)
+        for m in mocks:
+            m.wait_line("WORKER_READY", 120)
+        time.sleep(1.0)
+        used1, pids1 = gpu_used_mib(), compute_pids()
+        on_card = {m.proc.pid for m in mocks} & pids1
+        if on_card or used1 > used0:
+            raise AssertionError(f"8j: mock workers touched the card: pids "
+                                 f"{on_card} among {pids1}, used "
+                                 f"{used0} -> {used1} MiB")
+        log(f"[mock] 4 mock workers up: none among the card's compute "
+            f"processes {sorted(pids1)} (pids as nvidia-smi sees them); "
+            f"card memory used {used0} -> {used1} MiB ({smi})")
+
+        def frontend(tag: str, mode: str = "kv", extra: tuple = (),
+                     env: dict | None = None):
+            port = free_port()
+            cap = os.path.join(work, f"kv_capture_{tag}.jsonl")
+            fe = Service(work, "frontend", "--store", store, "--host",
+                         "127.0.0.1", "--port", str(port), "--router-mode",
+                         mode, *extra, label=f"frontend_{tag}",
+                         env={"DYN_KV_RECORD": cap, "DYN_PREFIX_HEAT": "1",
+                              "DYN_ROUTER_LOG": "1", **(env or {})})
+            services.append(fe)
+            fe.wait_line("FRONTEND_READY", 120)
+            end = time.perf_counter() + 60
+            while b'"mock-model"' not in _http_get(port, "/v1/models"):
+                if time.perf_counter() > end:
+                    raise AssertionError("8j: the frontend never found "
+                                         "the mock card")
+                time.sleep(0.2)
+            while mode == "kv" and json.loads(_http_get(
+                    port, "/debug/router"))["models"][0]["index"][
+                    "workers"] < len(MOCK_IDS):
+                time.sleep(0.1)
+            time.sleep(1.0)     # the push router's watch sees all four
+            return fe, port
+
+        fe, port = frontend("fleet")
+        log(f"[mock] frontend index: {radix_log_line(fe)} (library built "
+            f"in {RADIX_BUILD['seconds']:.2f} s in phase 2)")
+        # the frontend's word tokenizer numbers words as it first sees
+        # them: a preprocessor fed the same texts in the same order
+        # gives the same token ids
+        pre = OpenAIPreprocessor(WordTokenizer(), "mock-model")
+        ids = {}
+        t0 = time.perf_counter()
+        for text in prefixes:
+            ids[text] = chat_ids(pre, text)
+            r = mock_chat(port, text, False)
+            if r["status"] != 200:
+                raise AssertionError(f"8j wave 1: HTTP {r['status']}")
+        fe_m = _http_get(port, "/metrics").decode()
+        saved0 = prometheus_value(fe_m,
+                                  "dynamo_router_prefill_tokens_saved_total")
+        for _, text in wave_b:
+            ids[text] = chat_ids(pre, text)
+            r = mock_chat(port, text, False)
+            if r["status"] != 200:
+                raise AssertionError(f"8j wave 2: HTTP {r['status']}")
+        wall_ab = time.perf_counter() - t0
+        fe_m = _http_get(port, "/metrics").decode()
+        saved = prometheus_value(
+            fe_m, "dynamo_router_prefill_tokens_saved_total") - saved0
+        dbg = json.loads(_http_get(port, "/debug/router?limit=1024"))[
+            "models"][0]
+        recs = [r for r in dbg["records"] if r["mode"] == "route"]
+        home = [recs[i]["worker"] for i in range(MOCK_PREFIXES)]
+        wrong = [k for k, (p, _) in enumerate(wave_b)
+                 if recs[MOCK_PREFIXES + k]["worker"] != home[p]]
+        need = len(wave_b) * 15 * 16
+        if wrong or saved < need:
+            raise AssertionError(f"8j wave 2: {len(wrong)} requests off "
+                                 f"their prefix's worker, prefill tokens "
+                                 f"saved {saved} (want >= {need})")
+        log(f"[mock] waves 1-2: {MOCK_PREFIXES} prefixes of "
+            f"{MOCK_PREFIX_WORDS} words over workers "
+            f"{sorted(set(home))}, then {len(wave_b)} requests one after "
+            f"another, each on its prefix's worker; prefill tokens saved "
+            f"{saved:.0f} (>= {need}) in {wall_ab:.1f} s")
+        with ThreadPoolExecutor(len(wave_b)) as ex:
+            w3 = list(ex.map(lambda t: mock_chat(port, t[1], True), wave_b))
+        if any(r["status"] != 200 or r["ttft_s"] is None for r in w3):
+            raise AssertionError("8j wave 3: a request failed")
+        wall3 = max(r["t0"] + r["elapsed_s"] for r in w3) - \
+            min(r["t0"] for r in w3)
+        ttft = sorted(r["ttft_s"] * 1e3 for r in w3)
+        out["decisions_per_s"] = len(w3) / wall3
+        log(f"[mock] wave 3: the {len(w3)} again, all in flight: all 200; "
+            f"TTFT p50 {statistics.median(ttft):.1f} ms, max "
+            f"{ttft[-1]:.1f} ms; {out['decisions_per_s']:.1f} router "
+            f"decisions/s over {wall3:.2f} s (host figures of the card's "
+            f"machine, mock decode 4 ms a step; {smi})")
+        dbg = settle_router(port)
+        gaps = series_values(_http_get(port, "/metrics").decode(),
+                             "dynamo_router_kv_event_gaps_total")
+        if any(gaps.values()):
+            raise AssertionError(f"8j: KV-event gaps {gaps}")
+        prompts = [ids[t] for t in prefixes] + [ids[t] for _, t in wave_b]
+        n_dec = MOCK_PREFIXES + 2 * len(wave_b)
+        nat, _ = replay_check("mock", dbg, prompts, 16, n_dec)
+        prefix_duplication(port, nat, 16, 1 << 20, n_dec, "mock")
+        fleet_scale_radix(smi)
+        fe.stop()
+        services.remove(fe)
+
+        # the fault pass: one refused dial, one mid-stream disconnect. A
+        # KV decision names one instance, which a refused dial cannot
+        # leave; round-robin routing walks the candidates, so the refused
+        # dial goes to another instance
+        spec = "kind=connect_refused,times=1;kind=disconnect,after=5,times=1"
+        fe, port = frontend("faults", "round_robin", ("--faults", spec),
+                            {"DYN_CONNECT_RETRIES": "0"})
+        pre = OpenAIPreprocessor(WordTokenizer(), "mock-model")
+        text = " ".join(rng.choice(words) for _ in range(40))
+        prompt = chat_ids(pre, text)
+        before = {w: requests_served(t)
+                  for w, t in asyncio.run(worker_scrape(store)).items()}
+        r = mock_chat(port, text, False)
+        after = {w: requests_served(t)
+                 for w, t in asyncio.run(worker_scrape(store)).items()}
+        served = {w: after[w] - before.get(w, 0) for w in after}
+        words_of = [pre.tokenizer.decode(
+            prompt[:k] + (prompt + prompt[:k])[:16 - k]).split()
+            for k in range(1, 16)]
+        cut = [k + 1 for k, w in enumerate(words_of)
+               if r["content"] is not None and r["content"].split() == w]
+        fe_m = _http_get(port, "/metrics").decode()
+        events = series_values(fe_m, "dynamo_transport_client_events")
+        migrations = sum("migrating" in ln for ln in
+                         open(fe.err_path).read().splitlines())
+        refused = events.get('{kind="connect_failures"}', 0)
+        retried = events.get('{kind="route_retries"}', 0)
+        if (r["status"] != 200 or cut != [5] or refused != 1
+                or retried != 1 or migrations != 1
+                or sum(served.values()) != 2):
+            raise AssertionError(f"8j faults: HTTP {r['status']}, content "
+                                 f"{r['content']!r} (cut at {cut}), connect "
+                                 f"failures {refused}, route retries "
+                                 f"{retried}, migrations {migrations}, "
+                                 f"served {served}")
+        rest = [mock_chat(port, " ".join(rng.choice(words)
+                                         for _ in range(30)), False)
+                for _ in range(8)]
+        if any(x["status"] != 200 for x in rest):
+            raise AssertionError("8j faults: a request after the faults "
+                                 "failed")
+        log(f"[mock] faults ({spec}; DYN_CONNECT_RETRIES=0, round-robin "
+            f"routing): the first dial was refused (connect failures "
+            f"{refused:.0f}) and the router retried another instance "
+            f"(route retries {retried:.0f}); the stream was cut after "
+            f"{cut[0]} tokens and migrated (migrations {migrations}): its "
+            f"tokens equal the undisturbed runs of the request's first "
+            f"{cut[0]} tokens and of its replay (the prompt and those "
+            f"tokens); requests served per worker {served}; 8 more "
+            f"requests all 200; the injector fired 1 and 1")
+        breaker_in_service_stats(store, MOCK_IDS[0])
+    finally:
+        for p in reversed(services):
+            p.stop()
+    return out
+
+
+def breaker_in_service_stats(store: str, refused_id: int) -> None:
+    """In process: a runtime whose transport refuses one dial to a mock
+    worker routes around it; `ServiceClient.collect_services` over the
+    runtime's own probe component shows the breaker's failure for that
+    instance."""
+    from dynamo_tpu_torch.protocols import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.faults import FaultInjector
+    from dynamo_tpu_torch.runtime.push import PushRouter
+    from dynamo_tpu_torch.runtime.service_stats import ServiceClient
+
+    async def go():
+        cfg = RuntimeConfig.from_env()
+        cfg.store_url, cfg.connect_retries = store, 0
+        rt = await DistributedRuntime.create(cfg)
+        try:
+            async def probe(request, context):
+                yield {"ok": 1}
+
+            await rt.namespace("dynamo").component("faultprobe").endpoint(
+                "generate").serve(probe)
+            client = await rt.namespace("dynamo").component(
+                "backend").endpoint("generate").client()
+            await client.start()
+            await client.wait_ready()
+            addr = next(i.address for i in client.instances()
+                        if i.instance_id == refused_id)
+            rt.transport_client.fault_injector = FaultInjector.from_spec(
+                f"kind=connect_refused,addr={addr}")
+            router = PushRouter(client)
+            req = PreprocessedRequest(token_ids=[1, 2, 3], model="m")
+            req.stop.max_tokens = 2
+            inj = rt.transport_client.fault_injector
+            for _ in range(len(MOCK_IDS)):
+                async for _ in router.generate(req.to_dict(), Context()):
+                    pass
+                if inj.fired:
+                    break       # a later success would reset the count
+            stats = await ServiceClient(rt).collect_services(
+                "dynamo", "faultprobe")
+            await client.stop()
+            return (rt.transport_client.fault_injector.fired, stats)
+        finally:
+            await rt.close()
+
+    fired, stats = asyncio.run(go())
+    (extras,) = stats.client_stats.values()
+    failed = {k: v for k, v in extras["breaker"]["instances"].items()
+              if v.get("failures")}
+    if fired != {"connect_refused": 1} or list(failed) != [
+            f"dynamo.backend.generate-{refused_id:x}"]:
+        raise AssertionError(f"8j: breaker failures {failed} after "
+                             f"{fired}")
+    log(f"[mock] ServiceClient.collect_services: the probe runtime's "
+        f"breaker holds {failed} for the instance whose dial was refused "
+        f"({refused_id}); transport {extras['transport']}")
+
+
 def main() -> int:
     import torch
 
@@ -5392,6 +6027,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {kname}: {line.strip()}")
 
+    build_native_radix()
     lap("1-2 device and build")
     gen = torch.Generator().manual_seed(0)
     KVH, D, P, H = 8, 128, 16, 32
@@ -5917,6 +6553,12 @@ def main() -> int:
     log(f"[disagg] phase 8e in {time.perf_counter() - t0:.1f} s")
     lap("8e disagg")
 
+    # 8j. the mock fleet and the wire faults ------------------------------
+    t0 = time.perf_counter()
+    mock_fleet_phase(smi, work)
+    log(f"[mock] phase 8j in {time.perf_counter() - t0:.1f} s")
+    lap("8j mock fleet")
+
     # 8f. KVBM ------------------------------------------------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6349,62 +6991,34 @@ def main() -> int:
             if measured is None:
                 continue        # the spec burst: replayed only
             wall_ms, busy, n_k, by_class, top = measured
-            per_step = {"burst": f" ({n_k / 8:.0f} per step)",
-                        "spec": f" ({n_k / SPEC_ITERS:.0f} per iteration)"
-                        }.get(label, "")
             extra = (f"; the replay by CUDA events {event_ms:.2f} ms; graph "
                      f"pool {pool} bytes" if how == "graphed" else "")
             if busy is None:
+                why = ("not profiled: cut since 8j was added" if n_k is None
+                       else "the profiler saw no device activity")
                 log(f"[profile] {what}, {how}: wall {wall_ms:.2f} ms; device "
-                    f"busy not measured (the profiler saw no device "
-                    f"activity){extra}, on {smi}")
+                    f"busy not measured ({why}){extra}, on {smi}")
                 continue
+            per_step = {"burst": f" ({n_k / 8:.0f} per step)",
+                        "spec": f" ({n_k / SPEC_ITERS:.0f} per iteration)"
+                        }.get(label, "")
             log(f"[profile] {what}, {how} (8B, bare): wall {wall_ms:.2f} ms "
                 f"(median of 10), device busy {busy:.2f} ms, idle "
                 f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%, {n_k:.0f} "
                 f"device ops{per_step}{extra}, on {smi}")
-            if how == "graphed" and eager is not None:
+            if how == "graphed" and eager is not None \
+                    and eager[1] is not None:
                 continue
             for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
                 log(f"[profile]   {cls}: {ms:.3f} ms ({100 * ms / busy:.1f}% "
                     f"of busy)")
             for ms, kname in top:
                 log(f"[profile]   top kernel {ms:.3f} ms: {kname[:90]}")
-    for label, run, impl in (("phase", phase, "phase"),
-                             ("ragged", ragged_run, "ragged")):
+    for label, run in (("phase", phase), ("ragged", ragged_run)):
         log(f"[profile] engine (phase 7, {label}): "
             f"{1e3 * run['wall'] / run['rounds']:.2f} ms per dispatch on "
             f"average over the batch's {run['rounds']} dispatches")
-        if impl == "ragged":
-            continue    # its traced batches: cut since 8g was added
-        eng2 = TorchEngine(TorchEngineConfig(
-            model=cfg, num_pages=N_PAGES, max_batch_size=8,
-            prefill_chunk_budget=512, attention_impl=impl, device="cuda"),
-            model=model)
-        traced = profile_engine_batch(
-            torch, eng2, build_pipeline_for(card, eng2, args), run_batch,
-            card.name,
-            [write_jobs(os.path.join(work, f"jobs_{label}_{seed}.jsonl"),
-                        seed=seed) for seed in (1, 3)],
-            os.path.join(work, f"out_{label}.jsonl"),
-            traced=(False, True))
-        for which, (b_wall, b_busy, b_rounds, b_inside, b_eager, b_runs,
-                    b_caps) in zip(("first", "steady"), traced):
-            busy_txt = "not traced (the first batch: cut since 8h was " \
-                "added)" if b_busy is None else (
-                f"{b_busy:.3f} s, idle "
-                f"{100 * max(0.0, 1 - b_busy / b_wall):.1f}%")
-            log(f"[profile] engine batch, {label} path, {which} batch "
-                f"(fresh prompts, "
-                f"{'untraced' if b_busy is None else 'kernels traced'}): "
-                f"wall {b_wall:.3f} s, "
-                f"{b_rounds} dispatches, {b_eager} of them eager (graph runs "
-                f"by entry {b_runs}), {b_caps} graph captures, "
-                f"{b_inside:.3f} s inside the engine's own device calls "
-                f"({'rounds + ' if impl == 'ragged' else ''}first-token "
-                f"sampling), device busy {busy_txt}; on {smi}")
-        del eng2
-    lap("11 engine batches traced")
+    lap("11 engine batch lines")
     shutil.rmtree(work)
     del model, q_models
     torch.cuda.empty_cache()

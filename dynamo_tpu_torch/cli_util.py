@@ -4,6 +4,10 @@ Port of `dynamo_tpu/cli_util.py`: every component is an argparse CLI whose
 flags layer over `RuntimeConfig` env (`DYN_*`) the way figment does in
 `lib/runtime/src/config.rs:214-226`. The reference's XLA compile cache
 (`enable_compile_cache`) belongs to JAX and has no counterpart here.
+`--faults` / `--faults-seed` are exported as `DYN_FAULTS` /
+`DYN_FAULTS_SEED` before any fault injector is built
+(`export_faults`), so every injector of the process (transport, store,
+engine, KVBM) and every child it starts reads the same spec.
 
 Flags of the reference that name a subsystem the port does not have yet
 are parsed under their names and refused when set (`refuse_unported`):
@@ -15,24 +19,14 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import signal
 
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 
-# what a refused flag waits for (ROADMAP.md, queue 1): item 3 is the
-# router and fault-injection remainder, item 4 the tools and control
-# layer
+# what a refused flag waits for (ROADMAP.md, queue 1): item 4 is the
+# tools and control layer
 OPS = "ROADMAP queue 1 item 4: tools and control"
-FAULTS = ("the fault injector's transport and store hooks (the port's "
-          "injector acts on KVBM's offloads and the engine's dispatch "
-          "only; ROADMAP queue 1 item 3)")
-
-# the reference's runtime flags whose subsystems the port has not ported:
-# flag -> (what it waits for, kind), see add_refused
-RUNTIME_REFUSED = {
-    "--faults": (FAULTS, "value"),
-    "--faults-seed": (FAULTS, "value"),
-}
 
 
 def add_runtime_args(p: argparse.ArgumentParser) -> None:
@@ -62,13 +56,39 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "enough samples exist; the static timeout stays "
                         "the floor (0 = off; "
                         "DYN_STREAM_IDLE_ADAPTIVE_MARGIN)")
+    add_fault_args(p)
     p.add_argument("--telemetry-interval", type=float, default=None,
                    help="seconds between MetricsSnapshot publishes on "
                         "the telemetry event subject (0 = off; "
                         "DYN_TELEMETRY_INTERVAL)")
     p.add_argument("--log-level", default="info",
                    choices=["debug", "info", "warning", "error"])
-    add_refused(p, RUNTIME_REFUSED)
+
+
+def add_fault_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--faults", default=None, metavar="SPEC",
+                   help="deterministic fault-injection spec "
+                        "(runtime/faults.py grammar); exported as "
+                        "DYN_FAULTS so every injector in the process — "
+                        "transport, store, engine, KVBM offload worker — "
+                        "picks it up")
+    p.add_argument("--faults-seed", type=int, default=None,
+                   help="seed for probabilistic fault rules "
+                        "(DYN_FAULTS_SEED; default 0)")
+
+
+def export_faults(args: argparse.Namespace) -> None:
+    """Publish `--faults` / `--faults-seed` through the environment, not
+    the config: `FaultInjector.from_env()` is read independently by the
+    transport, the store, the engine and KVBM, and child processes must
+    inherit the spec."""
+    if getattr(args, "faults", None) is None:
+        return
+    from dynamo_tpu_torch.runtime.faults import ENV_SEED, ENV_SPEC
+
+    os.environ[ENV_SPEC] = args.faults
+    if getattr(args, "faults_seed", None) is not None:
+        os.environ[ENV_SEED] = str(args.faults_seed)
 
 
 def add_refused(p: argparse.ArgumentParser, flags: dict) -> None:
@@ -129,6 +149,7 @@ def runtime_config_from_args(args: argparse.Namespace) -> RuntimeConfig:
         v = getattr(args, slo_flag, None)
         if v is not None:
             setattr(cfg, slo_flag, v)
+    export_faults(args)
     return cfg
 
 

@@ -137,6 +137,9 @@ device delta; an out-of-memory error in a scheduler iteration dumps its
 forensics (`record_oom`) before the in-flight requests fail. Both are
 None unless armed. The fault injector's `on_dispatch` (`DYN_FAULTS`
 kind=oom / dispatch_wedge) is consulted once per scheduler iteration.
+The reference's other environment planes (`DYN_TENANCY`, `DYN_CLASSES`,
+`DYN_MESH_RECORDER`) are refused at construction
+(`runtime/planes.py`).
 
 Request tracing, as the reference's engine emits it (`:917-938`,
 `:1277-1283`, `:1695-1701`, `:2215`, `:3102-3176`): with the process
@@ -225,6 +228,7 @@ from dynamo_tpu_torch.protocols import (
 from dynamo_tpu_torch.runtime.compute import run_cpu
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.faults import OOM_ERROR, FaultInjector
+from dynamo_tpu_torch.runtime.planes import refuse_unported_planes
 from dynamo_tpu_torch.runtime.tracing import RequestTrace
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
@@ -469,6 +473,7 @@ class TorchEngine:
         `draft`: the draft model's weights when `config.draft_model` is
         set (None draws them from `rng_seed + 1`); it may be `model`
         itself (a self-draft), and keeps caches of its own either way."""
+        refuse_unported_planes("TorchEngine")
         self.config = config or TorchEngineConfig()
         cfg = self.config
         if cfg.attention_impl not in ATTENTION_IMPLS:
@@ -1102,6 +1107,7 @@ class TorchEngine:
             # the wait between them, which is queue wait
             self.metrics.admission_stall.observe(
                 cand.stall_s + time.perf_counter() - t_adm)
+        self.metrics.queue_wait.observe(time.perf_counter() - cand.t_enqueue)
         if cand.trace is not None:
             now_ns = time.time_ns()
             cand.trace.stage(

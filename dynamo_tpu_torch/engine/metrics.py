@@ -2,8 +2,8 @@
 path.
 
 Port of `dynamo_tpu/engine/metrics.py` `EngineMetrics` (`:58`), cut to
-what the port's engine counts and what `ForwardPassMetrics` carries: the
-TTFT, ITL and prefill-chunk histograms, the emitted-token, pipelined-
+what the port's engines count and what `ForwardPassMetrics` carries: the
+queue-wait, TTFT, ITL and prefill-chunk histograms, the emitted-token, pipelined-
 burst, mixed-step and decode-during-prefill counters, and the compile
 tracker (`engine/compile_tracker.py`, as `metrics.compile`). The engine
 observes into these objects and every consumer reads them: `/metrics`
@@ -65,6 +65,9 @@ class EngineMetrics:
 
     def __init__(self) -> None:
         h, c = Histogram, Counter
+        self.queue_wait = h(
+            "dynamo_engine_queue_wait_seconds",
+            "enqueue -> admission wait per request", _STAGE_BUCKETS)
         self.admission_stall = h(
             "dynamo_engine_admission_stall_seconds",
             "blocking work (kvbm onboard/offload-drain) inside _admit",
@@ -159,7 +162,8 @@ class EngineMetrics:
     def register(self, registry: MetricsRegistry) -> None:
         """Adopt every metric into a runtime registry so one scrape
         renders them (idempotent; the first engine wins a name)."""
-        for m in (self.admission_stall, self.offload_drain,
+        for m in (self.queue_wait, self.admission_stall,
+                  self.offload_drain,
                   self.prefill_chunk, self.ttft, self.itl,
                   self.tokens_emitted, self.pipelined_bursts,
                   self.mixed_steps, self.decode_steps_during_prefill,

@@ -22,7 +22,6 @@ import logging
 
 from dynamo_tpu_torch.cli_util import (
     OPS,
-    RUNTIME_REFUSED,
     add_refused,
     add_runtime_args,
     refuse_unported,
@@ -96,7 +95,7 @@ def main(argv=None) -> None:
     from dynamo_tpu_torch.llm.model_manager import check_router_mode
 
     args = parse_args(argv)
-    refuse_unported(args, {**RUNTIME_REFUSED, **FRONTEND_REFUSED}, PROG)
+    refuse_unported(args, FRONTEND_REFUSED, PROG)
     if args.router_mode is not None:
         try:
             check_router_mode(args.router_mode)

@@ -20,12 +20,14 @@ error bodies and SSE framing are the reference's:
   GET /debug (the index of the debug surfaces this process has),
   /debug/requests (`?limit`: in-flight and recent requests with their
   timings, status, usage and trace id), /debug/profile (`?limit`,
-  `?format=chrome`, `?capture_s=N`), /debug/memory, /debug/kv and
-  /debug/router: the engines' flight recorders (`engine/profiler.py`,
-  `engine/memory.py`, `kvbm/lifecycle.py`) and the KV router's decision
-  log. The engine routes read `profile_engines`, which an in-process
-  deployment wires to its engines (`llm/entrypoint.py`); without it they
-  answer 503, as /debug/router does with no kv-mode model
+  `?format=chrome`, `?capture_s=N`), /debug/memory, /debug/kv,
+  /debug/router and /debug/prefixes: the engines' flight recorders
+  (`engine/profiler.py`, `engine/memory.py`, `kvbm/lifecycle.py`), the
+  KV router's decision log and its prefix-heat plane
+  (`router/prefix_plane.py`, `DYN_PREFIX_HEAT`). The engine routes read
+  `profile_engines`, which an in-process deployment wires to its engines
+  (`llm/entrypoint.py`); without it they answer 503, as /debug/router
+  and /debug/prefixes do with no kv-mode model
 
 Each chat or completion request runs under an `http <endpoint>` span
 (`runtime/tracing.py`; an incoming `traceparent` header is its parent),
@@ -35,8 +37,9 @@ recorded on the audit bus (`llm/audit.py`) when it ends.
 
 An unknown path answers 404, a known path with another method 405. The
 reference's tenancy and serving class routes and its other /debug
-routes (mesh, control, tenants, classes, prefixes) wait with their
-subsystems and answer 404.
+routes (mesh, control, tenants, classes) wait with their subsystems and
+answer 404; their arming variables (`DYN_TENANCY`, `DYN_CLASSES`) make
+the service refuse to start (`runtime/planes.py`).
 
 Errors: a malformed request is a 400, an unknown model a 404, a model
 whose workers are all gone a 503; any other failure of the pipeline (an
@@ -84,6 +87,7 @@ from dynamo_tpu_torch.llm.protocols_openai import (
     sse_encode_event,
 )
 from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.planes import refuse_unported_planes
 from dynamo_tpu_torch.runtime.push import NoInstancesError, PushRouter
 from dynamo_tpu_torch.runtime.tracing import TRACEPARENT, tracer
 
@@ -281,6 +285,9 @@ class HttpService:
                  port: int = 0, tls_cert: Optional[str] = None,
                  tls_key: Optional[str] = None,
                  request_template: Optional[dict] = None) -> None:
+        # the reference's tenancy and serving-class admission planes
+        # (DYN_TENANCY, DYN_CLASSES) are refused, not ignored
+        refuse_unported_planes("HttpService")
         self.manager = manager
         self.host = host
         self.port = port
@@ -313,6 +320,7 @@ class HttpService:
             ("GET", "/debug/memory"): self._debug_memory,
             ("GET", "/debug/kv"): self._debug_kv,
             ("GET", "/debug/router"): self._debug_router,
+            ("GET", "/debug/prefixes"): self._debug_prefixes,
         }
         # the engines whose flight recorders the /debug routes read: an
         # in-process deployment wires a callable returning them
@@ -1004,6 +1012,17 @@ class HttpService:
                 "armed": armed("memory_ledger"),
                 "available": engines is not None,
             },
+            "/debug/prefixes": {
+                "what": "fleet prefix heatmap: cross-worker duplication, "
+                        "tier-blind misses, shadow routing "
+                        "counterfactual (tokens a tier-aware index "
+                        "would have saved)",
+                "arm": "DYN_PREFIX_HEAT=1",
+                "armed": any(getattr(getattr(r, "router", r),
+                                     "prefix_heat", None) is not None
+                             for r in routers.values()),
+                "available": bool(routers),
+            },
         }
         return json_response({"surfaces": surfaces})
 
@@ -1095,6 +1114,22 @@ class HttpService:
         model."""
         from dynamo_tpu_torch.router.decision_log import router_payload
 
+        return self._per_kv_model(request, router_payload)
+
+    async def _debug_prefixes(self, request: Request, conn) -> Response:
+        """The prefix-heat planes, per kv-mode model: duplication bytes
+        by depth bucket, tier-blind misses, the hottest shared prefixes
+        and the shadow-routing counterfactual ring, when
+        `DYN_PREFIX_HEAT` arms them. `?limit=N` bounds each ring; 503
+        with no kv-mode model (round-robin/random routing makes no
+        placement decisions to shadow)."""
+        from dynamo_tpu_torch.router.prefix_plane import prefix_payload
+
+        return self._per_kv_model(request, prefix_payload)
+
+    def _per_kv_model(self, request: Request, payload) -> Response:
+        """`payload(router, limit)` of each kv-mode model's router, or a
+        503 when this frontend serves none."""
         routers = self.manager.kv_routers()
         if not routers:
             return json_response(
@@ -1102,7 +1137,7 @@ class HttpService:
                  "reason": "no kv-mode model served by this frontend"},
                 status=503)
         limit = request.int_arg("limit", 256)
-        models = [{"model": name, **router_payload(r, limit)}
+        models = [{"model": name, **payload(r, limit)}
                   for name, r in routers.items()]
         return json_response({
             "enabled": any(m.get("enabled") for m in models),

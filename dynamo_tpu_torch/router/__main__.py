@@ -2,8 +2,10 @@
 
 Port of `dynamo_tpu/router/__main__.py`: a route-and-forward `generate`
 endpoint and a query-only `best_worker_id` endpoint over the runtime,
-targeting an existing worker component. `--kv-record` (the KV-event
-recorder) is parsed under its name and refused until it is ported.
+targeting an existing worker component. `--kv-record PATH` (or
+`DYN_KV_RECORD`) captures the KV-event stream the router consumes to
+JSONL (`router/recorder.py`), replayable into any indexer of either
+package.
 
 Reference: `components/src/dynamo/router/__main__.py:30-143`.
 """
@@ -12,12 +14,10 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from dynamo_tpu_torch.cli_util import (
-    RUNTIME_REFUSED,
-    add_refused,
     add_runtime_args,
-    refuse_unported,
     run_until_signal,
     runtime_config_from_args,
     setup_logging,
@@ -26,10 +26,6 @@ from dynamo_tpu_torch.cli_util import (
 logger = logging.getLogger(__name__)
 
 PROG = "python -m dynamo_tpu_torch.router"
-ROUTER_REFUSED = {
-    "--kv-record": ("the KV-event recorder (ROADMAP queue 1: the KV "
-                    "router, what waits)", "value"),
-}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -46,13 +42,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--router-temperature", type=float, default=0.0)
     p.add_argument("--no-kv-events", action="store_true")
     p.add_argument("--router-replica-sync", action="store_true")
-    add_refused(p, ROUTER_REFUSED)
+    p.add_argument("--kv-record", default=os.environ.get("DYN_KV_RECORD"),
+                   metavar="PATH",
+                   help="capture the consumed KV-event stream to this "
+                        "JSONL file (replayable into any KvIndexer); "
+                        "DYN_KV_RECORD is the env equivalent")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported(args, {**RUNTIME_REFUSED, **ROUTER_REFUSED}, PROG)
     setup_logging(args.log_level)
 
     async def start():
@@ -72,7 +71,8 @@ def main(argv=None) -> None:
             overlap_weight=args.kv_overlap_score_weight,
             temperature=args.router_temperature,
             use_kv_events=not args.no_kv_events,
-            replica_sync=args.router_replica_sync)).start()
+            replica_sync=args.router_replica_sync,
+            kv_record_path=args.kv_record)).start()
 
         async def best_worker_id(request: dict, context):
             wid, dp, overlap, margin = await router.best_worker_id(

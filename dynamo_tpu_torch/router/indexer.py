@@ -2,9 +2,11 @@
 
 Port of `dynamo_tpu/router/indexer.py` (the port keeps its own copy): the
 pure-Python `RadixTree`, `KvIndexer` with its event-id gap count, and
-`ApproxKvIndexer`. The reference's native C++ tree (`native/radix.cpp`,
-picked in `KvIndexer.__init__`, `:200`) is host code with the same
-semantics; it waits (ROADMAP queue 1).
+`ApproxKvIndexer`. `KvIndexer` takes the native C++ tree
+(`native/radix.cpp` through `native/radix.py` make_radix_tree) by default,
+as the reference does; where it cannot be built, or with `DYN_NATIVE=0`,
+the Python tree serves with the same results. Each tree names its
+`kind` ("native" or "python"), which the router's index stats report.
 
 Reference: `lib/llm/src/kv_router/indexer.rs` — `RadixTree` (:222) over
 (worker × block-hash) with `find_matches` (:274) returning per-worker overlap
@@ -74,6 +76,8 @@ class _Node:
 
 class RadixTree:
     """Prefix tree over KV blocks across all workers (indexer.rs:222)."""
+
+    kind = "python"
 
     def __init__(self) -> None:
         self.root = _Node(0, SEED_HASH, None)
@@ -205,9 +209,15 @@ class KvIndexer:
     (kv_router.py) — so the hot query path has no task hops.
     """
 
-    def __init__(self, block_size: int) -> None:
+    def __init__(self, block_size: int,
+                 use_native: Optional[bool] = None) -> None:
+        from dynamo_tpu_torch.native.radix import make_radix_tree
+
         self.block_size = block_size
-        self.tree = RadixTree()
+        # native C++ tree when built (DYN_NATIVE=0 disables); identical
+        # semantics enforced by the differential tests
+        self.tree = RadixTree() if use_native is False \
+            else make_radix_tree()
         self.events_applied = 0
         # per-worker event_id continuity: engines stamp stored/removed
         # events from a monotone counter, so a jump means the bus

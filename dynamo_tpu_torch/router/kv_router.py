@@ -3,11 +3,11 @@ wraps it as an AsyncEngine over a worker endpoint.
 
 Port of `dynamo_tpu/router/kv_router.py` (the port keeps its own copy),
 on the port's own runtime: the event bus (`runtime/events.py`, or the
-coordinator's over `StoreClient`), discovery and the push transport. Left
-out until their subsystems are ported, and refused by name when asked
-for: the KV-event recorder (`kv_record_path` / `DYN_KV_RECORD`,
-`router/recorder.py`) and the prefix-heat plane (`DYN_PREFIX_HEAT`,
-`router/prefix_plane.py`). With the process tracer on, each decision
+coordinator's over `StoreClient`), discovery and the push transport.
+`kv_record_path` (or `DYN_KV_RECORD`) captures the consumed KV-event
+stream to JSONL (`router/recorder.py`), row for row the reference's, and
+`DYN_PREFIX_HEAT` arms the prefix-heat plane (`router/prefix_plane.py`),
+whose shadow re-score never moves a placement. With the process tracer on, each decision
 runs under a `router.decide` span (`runtime/tracing.py`) carrying the
 chosen worker, its overlap and the margin, as the reference's does.
 
@@ -49,6 +49,11 @@ from dynamo_tpu_torch.router.indexer import (
     KvIndexer,
     WorkerKey,
 )
+from dynamo_tpu_torch.router.prefix_plane import (
+    PrefixHeatRecorder,
+    prefix_heat_from_env,
+)
+from dynamo_tpu_torch.router.recorder import KvRecorder
 from dynamo_tpu_torch.router.scheduler import (
     DefaultWorkerSelector,
     MultiWorkerSequences,
@@ -72,24 +77,6 @@ SNAPSHOT_KEY_PREFIX = "v1/router_snapshot/"
 # restores the last snapshot and replays the retained tail, so the gap
 # between snapshots must always fit in the retained buffer.
 SNAPSHOT_THRESHOLD = 2048
-_TRUTHY = {"1", "true", "yes", "on"}
-
-
-class RouterOptionUnavailable(ValueError):
-    """A router option whose subsystem the port has not ported yet."""
-
-
-def refuse_unported_options(config: "KvRouterConfig") -> None:
-    """Raise, naming it, for a router option the port cannot serve: the
-    KV-event recorder and the prefix-heat plane (ROADMAP queue 1)."""
-    if config.kv_record_path or os.environ.get("DYN_KV_RECORD"):
-        raise RouterOptionUnavailable(
-            "kv_record_path / DYN_KV_RECORD (the KV-event recorder, "
-            "router/recorder.py) is not supported by dynamo_tpu_torch yet")
-    if str(os.environ.get("DYN_PREFIX_HEAT", "")).lower() in _TRUTHY:
-        raise RouterOptionUnavailable(
-            "DYN_PREFIX_HEAT (the prefix-heat plane, router/prefix_plane.py)"
-            " is not supported by dynamo_tpu_torch yet")
 
 
 def kv_events_subject(ns: str, component: str) -> str:
@@ -113,8 +100,9 @@ class KvRouterConfig:
     replica_sync: bool = False
     snapshot_threshold: int = SNAPSHOT_THRESHOLD
     ttl_secs: float = 120.0           # approx-indexer TTL
-    # the reference's JSONL capture of the consumed KV-event stream
-    # (router/recorder.py, or DYN_KV_RECORD): refused until ported
+    # JSONL capture of the consumed KV-event stream (router/recorder.py)
+    # for offline replay; the DYN_KV_RECORD env applies when unset here
+    # (KvPushRouter.start).
     kv_record_path: Optional[str] = None
     # Escalate KV-event gaps from counting to repair: drop the gapped
     # worker's blocks and rebuild its index slice by replaying the event
@@ -126,7 +114,6 @@ class KvRouter:
     """find_best_match + request lifecycle tracking (kv_router.rs:203)."""
 
     def __init__(self, config: KvRouterConfig) -> None:
-        refuse_unported_options(config)
         self.config = config
         self.router_id = uuid.uuid4().hex[:8]
         if config.use_kv_events:
@@ -147,6 +134,12 @@ class KvRouter:
         # per-decision ring is armed only by DYN_ROUTER_LOG.
         self.metrics = RouterMetrics()
         self.recorder: Optional[DecisionRecorder] = recorder_from_env()
+        # Fleet prefix heatmap + shadow-routing counterfactual
+        # (router/prefix_plane.py), armed only by DYN_PREFIX_HEAT: the
+        # unarmed hot path costs one `is not None` check and routing
+        # stays byte-identical (shadow scoring owns a private RNG).
+        self.prefix_heat: Optional[PrefixHeatRecorder] = \
+            prefix_heat_from_env(block_size=config.block_size)
         # KV-event stream gap detection (indexer.py): a missed event means
         # the index diverged from the worker's real cache until its blocks
         # churn out. Count per worker; log once per worker so a lossy bus
@@ -173,8 +166,16 @@ class KvRouter:
 
     def register_metrics(self, registry) -> None:
         """Adopt the router metrics into a runtime registry; the prefix-
-        index gauges refresh at scrape time."""
+        index gauges refresh at scrape time. The prefix-plane metrics
+        register only when DYN_PREFIX_HEAT armed the recorder, so the
+        unarmed /metrics surface is unchanged."""
         self.metrics.register(registry, index_stats=self.index_stats)
+        ph = self.prefix_heat
+        if ph is not None:
+            def refresh() -> None:
+                ph.observe_index(self.indexer)
+                ph.refresh_gauges()
+            ph.metrics.register(registry, callback=refresh)
 
     # -- worker membership (fed by instance watch) --------------------------
 
@@ -259,6 +260,18 @@ class KvRouter:
             self.recorder.record_decision(
                 request_id, result, candidates, mode=mode,
                 tokens_saved=max(saved, 0), n_tokens=len(token_ids))
+        if self.prefix_heat is not None:
+            # shadow counterfactual (prefix_plane.py): re-score through
+            # a tier-aware augmented index; never changes `result` and
+            # never touches self.selector.rng
+            self.prefix_heat.observe_decision(
+                request_id=request_id,
+                seq_hashes=compute_seq_hashes(
+                    token_ids, self.config.block_size),
+                request_blocks=request_blocks,
+                candidates=candidates, result=result,
+                config=self.selector.config,
+                n_tokens=len(token_ids), mode=mode)
         if update_states:
             self.sequences.add_request(
                 request_id, result.worker,
@@ -287,8 +300,10 @@ class KvRouter:
     # -- introspection -------------------------------------------------------
 
     def index_stats(self) -> dict:
-        """Prefix-index composition for the scrape-time gauges: per-worker
-        cached block counts plus event totals."""
+        """Prefix-index composition for /debug/router and the scrape-time
+        gauges: per-worker cached block counts plus event totals, and
+        which radix tree serves the index (`tree`: "native", the C++ tree
+        of `native/radix.cpp`, or "python")."""
         tree = getattr(self.indexer, "tree", None)
         blocks: dict[str, int] = {}
         if tree is not None:
@@ -300,6 +315,8 @@ class KvRouter:
             "index_blocks": blocks,
             "total_blocks": sum(blocks.values()),
         }
+        if tree is not None:
+            out["tree"] = tree.kind
         applied = getattr(self.indexer, "events_applied", None)
         if applied is not None:
             out["events_applied"] = applied
@@ -328,6 +345,9 @@ class KvPushRouter:
         self._tasks: list[asyncio.Task] = []
         self._started = False
         self._events_since_snapshot = 0
+        # live KV-event capture (router/recorder.py), armed by config or
+        # DYN_KV_RECORD at start(); replayable into any KvIndexer
+        self.kv_recorder: Optional[KvRecorder] = None
         # consumer crash-proofing: first failure per stream logs with a
         # traceback, the rest only count in events_dropped
         self._logged_streams: set[str] = set()
@@ -346,6 +366,10 @@ class KvPushRouter:
             self.router.add_worker(
                 inst.instance_id, inst.metadata.get("dp_size", 1))
         self.client.on_change(self._on_instance_change)
+        record_path = self.config.kv_record_path \
+            or os.environ.get("DYN_KV_RECORD")
+        if record_path:
+            self.kv_recorder = KvRecorder(record_path)
         reg = getattr(self.client.endpoint.runtime, "metrics", None)
         if reg is not None:
             # one /metrics scrape renders the router metrics; first
@@ -372,6 +396,9 @@ class KvPushRouter:
         for t in self._tasks:
             t.cancel()
         self._tasks.clear()
+        if self.kv_recorder is not None:
+            await self.kv_recorder.close()
+            self.kv_recorder = None
 
     def _on_instance_change(self, kind: str, inst: Instance) -> None:
         if kind == DELETE:
@@ -460,6 +487,8 @@ class KvPushRouter:
             try:
                 ev = KvCacheEvent.from_dict(msg["payload"])
                 self.router.apply_kv_event(ev)
+                if self.kv_recorder is not None:
+                    self.kv_recorder.record(ev)
                 m.events.inc(stream="kv")
             except Exception:
                 self._drop("kv", "malformed KV event")

@@ -347,15 +347,11 @@ async def amain(inp: str, out: str, args) -> None:
 
 
 def main(argv: Optional[list[str]] = None) -> None:
-    from dynamo_tpu_torch.cli_util import (
-        RUNTIME_REFUSED,
-        refuse_unported,
-        setup_logging,
-    )
+    from dynamo_tpu_torch.cli_util import export_faults, setup_logging
 
     inp, out, rest = parse_io(list(argv if argv is not None
                                    else sys.argv[1:]))
     args = parse_args(rest)
-    refuse_unported(args, RUNTIME_REFUSED, PROG)
+    export_faults(args)        # before the engine's injector is built
     setup_logging(args.log_level)
     asyncio.run(amain(inp, out, args))

@@ -18,13 +18,17 @@ Keys are per-INSTANCE (the endpoint subject), not per-address: in tests and
 single-host deploys many instances share one transport address, and one
 wedged engine must not open the breaker for its healthy neighbours.
 
-The clock is injectable so tests can step time deterministically.
+The clock is injectable so fault-injection tests can step time
+deterministically (`runtime/faults.py` / `DYN_FAULTS`).
 """
 
 from __future__ import annotations
 
+import logging
 import time
-from typing import Callable
+from typing import Callable, Optional
+
+logger = logging.getLogger(__name__)
 
 CLOSED = "closed"
 OPEN = "open"
@@ -49,6 +53,12 @@ class CircuitBreaker:
         self._entries: dict[str, _Entry] = {}
         # lifetime transition counters, exported via service stats/metrics
         self.transitions = {CLOSED: 0, OPEN: 0, HALF_OPEN: 0}
+        # observer for state changes: fn(key, old_state, new_state).
+        # Set by the runtime to publish breaker events on the event
+        # plane (frontends shed load before dialing a dead worker).
+        # Must not raise into the request path.
+        self.on_transition: Optional[
+            Callable[[str, str, str], None]] = None
 
     def _entry(self, key: str) -> _Entry:
         e = self._entries.get(key)
@@ -58,8 +68,15 @@ class CircuitBreaker:
 
     def _transition(self, key: str, e: _Entry, state: str) -> None:
         if e.state != state:
+            old = e.state
             e.state = state
             self.transitions[state] += 1
+            if self.on_transition is not None:
+                try:
+                    self.on_transition(key, old, state)
+                except Exception:
+                    logger.exception(
+                        "breaker on_transition observer failed")
 
     # -- routing hooks -------------------------------------------------------
 
@@ -106,6 +123,10 @@ class CircuitBreaker:
         return self._entries.pop(key, None) is not None
 
     # -- introspection -------------------------------------------------------
+
+    def state(self, key: str) -> str:
+        e = self._entries.get(key)
+        return e.state if e is not None else CLOSED
 
     def open_count(self) -> int:
         return sum(1 for e in self._entries.values() if e.state != CLOSED)

@@ -1,7 +1,6 @@
 """Key-value store abstraction — the control plane seam.
 
-Port of `dynamo_tpu/runtime/store.py` (the port keeps its own copy),
-without the reference's fault-injection seam.
+Port of `dynamo_tpu/runtime/store.py` (the port keeps its own copy).
 
 Reference: `lib/runtime/src/storage/key_value_store.rs` (trait with EtcdStore /
 MemoryStore / NatsStore impls) plus the etcd transport's lease + watch
@@ -138,8 +137,18 @@ class MemoryStore(KeyValueStore):
         self._revision = 0
         self._lease_ids = itertools.count(1)
         self._reaper_task: Optional[asyncio.Task] = None
+        # seeded chaos seam (runtime/faults.py kind=store_outage): when
+        # set, public ops consult it and raise ConnectionError while an
+        # outage rule fires — the in-process model of an unreachable
+        # coordinator. None (the default) costs one attribute check.
+        self.fault_injector = None
 
     # -- internals ---------------------------------------------------------
+
+    def _check(self, op: str, key: Optional[str] = None) -> None:
+        inj = self.fault_injector
+        if inj is not None and inj.on_store_op(op, key) is not None:
+            raise ConnectionError(f"[fault] store outage: {op}")
 
     def _next_rev(self) -> int:
         self._revision += 1
@@ -163,15 +172,22 @@ class MemoryStore(KeyValueStore):
 
     async def _reap_loop(self) -> None:
         while self._leases:
-            now = time.monotonic()
-            for lease in list(self._leases.values()):
-                if lease.expires_at <= now:
-                    await self.revoke_lease(lease.lease_id)
+            # a down coordinator expires nothing — keepalives simply
+            # never arrive — so the reaper pauses while an injected
+            # outage is active rather than reaping leases whose owners
+            # are healthy but cut off
+            inj = self.fault_injector
+            if inj is None or not inj.outage_active():
+                now = time.monotonic()
+                for lease in list(self._leases.values()):
+                    if lease.expires_at <= now:
+                        await self.revoke_lease(lease.lease_id)
             await asyncio.sleep(0.2)
 
     # -- KeyValueStore -----------------------------------------------------
 
     async def put(self, key: str, value: bytes, lease_id: int = 0) -> int:
+        self._check("put", key)
         return await self._put(key, value, lease_id)
 
     async def _put(self, key: str, value: bytes, lease_id: int = 0) -> int:
@@ -192,18 +208,22 @@ class MemoryStore(KeyValueStore):
         return rev
 
     async def create(self, key: str, value: bytes, lease_id: int = 0) -> bool:
+        self._check("create", key)
         if key in self._data:
             return False
         await self._put(key, value, lease_id)
         return True
 
     async def get(self, key: str) -> Optional[KeyValue]:
+        self._check("get", key)
         return self._data.get(key)
 
     async def get_prefix(self, prefix: str) -> list[KeyValue]:
+        self._check("get_prefix", prefix)
         return [kv for k, kv in sorted(self._data.items()) if k.startswith(prefix)]
 
     async def delete(self, key: str) -> bool:
+        self._check("delete", key)
         return await self._delete(key)
 
     async def _delete(self, key: str) -> bool:
@@ -216,18 +236,21 @@ class MemoryStore(KeyValueStore):
         return True
 
     async def delete_prefix(self, prefix: str) -> int:
+        self._check("delete_prefix", prefix)
         keys = [k for k in self._data if k.startswith(prefix)]
         for k in keys:
             await self._delete(k)
         return len(keys)
 
     async def create_lease(self, ttl: float) -> int:
+        self._check("create_lease")
         lease_id = next(self._lease_ids)
         self._leases[lease_id] = _Lease(lease_id, ttl, time.monotonic() + ttl)
         self._ensure_reaper()
         return lease_id
 
     async def keep_alive(self, lease_id: int) -> bool:
+        self._check("keep_alive")
         lease = self._leases.get(lease_id)
         if lease is None:
             return False
@@ -242,6 +265,7 @@ class MemoryStore(KeyValueStore):
             await self._delete(key)
 
     async def watch_prefix(self, prefix: str, replay: bool = True) -> Watch:
+        self._check("watch_prefix", prefix)
         watch = Watch()
         if replay:
             for kv in self._data.values():
@@ -334,7 +358,13 @@ async def watch_key(store: KeyValueStore, key: str, *, replay: bool = True,
 async def connect_store(url: str) -> KeyValueStore:
     """Open a store from a config URL: "memory" or "tcp://host:port"."""
     if url == "memory":
-        return MemoryStore()
+        store = MemoryStore()
+        # arm the seeded chaos seam for in-process stores; networked
+        # stores inject at their own client/server layer instead
+        from dynamo_tpu_torch.runtime.faults import FaultInjector
+
+        store.fault_injector = FaultInjector.from_env()
+        return store
     if url.startswith("tcp://"):
         from dynamo_tpu_torch.runtime.store_net import StoreClient
 

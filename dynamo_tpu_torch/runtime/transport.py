@@ -7,7 +7,9 @@ packages' clients and servers interoperate. A request's W3C
 (`runtime/tracing.py`): the client puts the caller's current span there,
 and the server's `serve <subject>` span continues that trace, so a port
 frontend in front of a JAX-package worker, or the reverse, gives one
-trace. The reference's fault injector hooks are left out.
+trace. The fault injector (`runtime/faults.py`) hooks the client side
+as the reference's does: each dial asks `check_connect`, each response
+frame `on_frame` (drop, kill the connection, delay, or an error frame).
 
 Reference analog: NATS service request + TCP response stream with prologue /
 sentinel framing (`lib/runtime/src/pipeline/network/{egress,ingress}/`,
@@ -36,6 +38,7 @@ from typing import Any, AsyncIterator, Callable, Optional
 from dynamo_tpu_torch.runtime import codec
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
+from dynamo_tpu_torch.runtime.faults import FaultInjector
 from dynamo_tpu_torch.runtime.tracing import TRACEPARENT, inject_headers, tracer
 
 logger = logging.getLogger(__name__)
@@ -286,11 +289,15 @@ class TransportServer:
 class _Connection:
     """One pooled client connection; demultiplexes response streams."""
 
-    def __init__(self, address: str, stats: Optional[dict] = None) -> None:
+    def __init__(self, address: str,
+                 injector: Optional[FaultInjector] = None,
+                 stats: Optional[dict] = None) -> None:
         self.address = address
         self._reader: Optional[asyncio.StreamReader] = None
         self._writer: Optional[asyncio.StreamWriter] = None
         self._streams: dict[str, asyncio.Queue] = {}
+        self._subjects: dict[str, str] = {}  # rid → subject (fault matching)
+        self._injector = injector
         self._rx_task: Optional[asyncio.Task] = None
         self._write_lock = asyncio.Lock()
         self._stats = stats
@@ -298,6 +305,8 @@ class _Connection:
         self.closed = False
 
     async def connect(self) -> None:
+        if self._injector is not None:
+            self._injector.check_connect(self.address)
         host, _, port = self.address.rpartition(":")
         self._reader, self._writer = await asyncio.open_connection(host, int(port))
         self._rx_task = asyncio.get_running_loop().create_task(self._rx_loop())
@@ -327,7 +336,21 @@ class _Connection:
                     break
                 if self._stats is not None:
                     self._stats["frames"] += 1
-                q = self._streams.get(msg.get("rid"))
+                rid = msg.get("rid")
+                if self._injector is not None:
+                    action = self._injector.on_frame(
+                        self.address, self._subjects.get(rid), rid, msg)
+                    if action is not None:
+                        if action[0] == "drop":
+                            continue          # silently stalled stream
+                        if action[0] == "kill":
+                            break             # as if the peer vanished
+                        if action[0] == "delay":
+                            await asyncio.sleep(action[1])
+                        elif action[0] == "err":
+                            msg = {"t": "err", "rid": rid,
+                                   "error": action[1]}
+                q = self._streams.get(rid)
                 if q is not None:
                     q.put_nowait(msg)
         except asyncio.CancelledError:
@@ -346,13 +369,17 @@ class _Connection:
             codec.write_frame(self._writer, obj)
             await self._writer.drain()
 
-    def open_stream(self, rid: str) -> asyncio.Queue:
+    def open_stream(self, rid: str, subject: Optional[str] = None
+                    ) -> asyncio.Queue:
         q: asyncio.Queue = asyncio.Queue()
         self._streams[rid] = q
+        if subject is not None:
+            self._subjects[rid] = subject
         return q
 
     def close_stream(self, rid: str) -> None:
         self._streams.pop(rid, None)
+        self._subjects.pop(rid, None)
 
     def close(self) -> None:
         self.closed = True
@@ -390,7 +417,8 @@ class TransportClient:
                  connect_backoff_base: float = 0.05,
                  connect_backoff_max: float = 2.0,
                  connect_neg_cache: float = 0.25,
-                 idle_timeout_provider=None) -> None:
+                 idle_timeout_provider=None,
+                 fault_injector: Optional[FaultInjector] = None) -> None:
         self._conns: dict[str, _Connection] = {}
         self._rids = itertools.count(1)
         # Per-address locks: a black-holed host must not head-of-line-block
@@ -411,6 +439,9 @@ class TransportClient:
         self.connect_backoff_max = connect_backoff_max
         self.connect_neg_cache = connect_neg_cache
         self._rng = random.Random()
+        # seeded chaos seam (runtime/faults.py): dials and response frames
+        # consult it; None (no DYN_FAULTS) costs one attribute check
+        self.fault_injector = fault_injector or FaultInjector.from_env()
         # client-side robustness counters (scraped via the server's
         # `_sys.stats` extras + exported through runtime metrics), and
         # the response frames received: one per engine output item, the
@@ -466,7 +497,8 @@ class TransportClient:
                         last = asyncio.TimeoutError(
                             "request deadline elapsed while dialing")
                     break
-                conn = _Connection(address, stats=self.stats)
+                conn = _Connection(address, injector=self.fault_injector,
+                                   stats=self.stats)
                 try:
                     if budget is None:
                         await conn.connect()
@@ -533,7 +565,7 @@ class TransportClient:
         rid = f"{ctx.request_id}.{next(self._rids)}"
         cancel_task = None
         try:
-            q = conn.open_stream(rid)
+            q = conn.open_stream(rid, subject)
             headers = inject_headers(dict(ctx.headers))
             if expires is not None:
                 # stamp the REMAINING time, not the configured total: the

@@ -39,6 +39,10 @@ that component on an LM worker's card so the frontend sends its image
 parts there (`:170`, `:251-254`, `:382-405`). A Mixtral checkpoint or
 config serves like any other; `--expert-parallel-size` is accepted at 1,
 the reference's default (`:113`), and refused above it.
+`--mock` serves the mocker (`mocker/engine.py`: card `mock-model`, the
+word tokenizer, the instance id as its `worker_id`; `--mock-speedup`,
+`--mock-decode-ms`, `--mock-total-blocks`), which needs no device and
+makes no CUDA context (`:161-179`).
 One flag is the port's own: `--device` (default cuda; the worker raises
 without a card unless `--device cpu` asks for the CPU). The reference's
 flags for parts the port has not ported yet are parsed under their names
@@ -66,7 +70,6 @@ import os
 import time
 
 from dynamo_tpu_torch.cli_util import (
-    RUNTIME_REFUSED,
     add_refused,
     add_runtime_args,
     refuse_unported,
@@ -79,8 +82,6 @@ logger = logging.getLogger(__name__)
 
 PROG = "python -m dynamo_tpu_torch.worker"
 MULTI = "the multi-device paths (ROADMAP queue 1: TP, PP, SP)"
-MOCK = ("the mocker engine, which the port does not carry (--echo serves "
-        "without a model)")
 WORKER_REFUSED = {
     "--sp-degree": (MULTI, "value"),
     "--sp-threshold": (MULTI, "value"),
@@ -93,10 +94,6 @@ WORKER_REFUSED = {
     "--num-nodes": (MULTI, "int>1"),
     "--node-rank": (MULTI, "value"),
     "--leader-addr": (MULTI, "value"),
-    "--mock": (MOCK, "store_true"),
-    "--mock-speedup": (MOCK, "value"),
-    "--mock-decode-ms": (MOCK, "value"),
-    "--mock-total-blocks": (MOCK, "value"),
 }
 
 
@@ -107,6 +104,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     eng = p.add_mutually_exclusive_group()
     eng.add_argument("--model", default=None,
                      help="checkpoint dir or cached HF name (TorchEngine)")
+    eng.add_argument("--mock", action="store_true",
+                     help="serve the mocker engine (no device needed)")
     eng.add_argument("--echo", action="store_true",
                      help="serve the token-echo engine")
     eng.add_argument("--encode-worker", action="store_true",
@@ -181,6 +180,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "tightens --kvbm-offload-queue when both are set "
                         "(default: DYN_KVBM_OFFLOAD_QUEUE_BYTES or 0 = "
                         "block count only)")
+    # mocker knobs
+    p.add_argument("--mock-speedup", type=float, default=1.0)
+    p.add_argument("--mock-decode-ms", type=float, default=4.0)
+    p.add_argument("--mock-total-blocks", type=int, default=1024)
     add_refused(p, WORKER_REFUSED)
     return p.parse_args(argv)
 
@@ -192,27 +195,28 @@ def check_args(args: argparse.Namespace) -> None:
 
     from dynamo_tpu_torch.engine.watchdog import watchdog_from_env
 
-    refuse_unported(args, {**RUNTIME_REFUSED, **WORKER_REFUSED}, PROG)
+    refuse_unported(args, WORKER_REFUSED, PROG)
     try:
         check_router_mode(args.router_mode)
         watchdog_from_env(None)     # DYN_WATCHDOG_* read before the build
     except ValueError as e:
         raise SystemExit(f"{PROG}: {e}") from None
-    if not args.model and not args.echo and not args.encode_worker:
-        raise SystemExit(f"{PROG}: one of --model / --echo / "
+    if not (args.model or args.mock or args.echo or args.encode_worker):
+        raise SystemExit(f"{PROG}: one of --model / --mock / --echo / "
                          f"--encode-worker is required")
     if args.is_prefill_worker and args.enable_disagg:
         raise SystemExit(f"{PROG}: --is-prefill-worker and --enable-disagg "
                          f"name the two sides; give one")
-    if args.echo and (args.is_prefill_worker or args.enable_disagg):
+    fake = "echo" if args.echo else "mocker" if args.mock else None
+    if fake and (args.is_prefill_worker or args.enable_disagg):
         raise SystemExit(f"{PROG}: disaggregated serving needs --model (the "
-                         f"echo engine holds no KV)")
-    if args.echo and args.kvbm_host_blocks:
-        raise SystemExit(f"{PROG}: KVBM needs --model (the echo engine "
+                         f"{fake} engine holds no KV)")
+    if fake and args.kvbm_host_blocks:
+        raise SystemExit(f"{PROG}: KVBM needs --model (the {fake} engine "
                          f"holds no KV)")
-    if args.echo and args.draft_model:
+    if fake and args.draft_model:
         raise SystemExit(f"{PROG}: speculative decoding needs --model (the "
-                         f"echo engine has no target to verify)")
+                         f"{fake} engine has no target to verify)")
 
 
 def instance_id_of(args: argparse.Namespace) -> int:
@@ -228,6 +232,26 @@ def build_engine_and_card(args: argparse.Namespace):
     # the reference's component suffix for the prefill pool (:159)
     component = args.component + ("_prefill" if args.is_prefill_worker
                                   else "")
+    if args.mock:
+        from dynamo_tpu_torch.mocker.engine import (
+            MockEngine,
+            MockEngineConfig,
+        )
+
+        name = args.served_model_name or "mock-model"
+        card = ModelDeploymentCard(
+            name=name, namespace=args.namespace, component=component,
+            endpoint=args.endpoint, tokenizer_kind="word",
+            tokenizer_path=name, migration_limit=args.migration_limit,
+            router_mode=args.router_mode,
+            encode_component=args.encode_component)
+        engine = MockEngine(MockEngineConfig(
+            block_size=card.kv_block_size,
+            total_kv_blocks=args.mock_total_blocks,
+            speedup=args.mock_speedup,
+            decode_ms_per_iter=args.mock_decode_ms,
+            worker_id=instance_id_of(args)))
+        return engine, card
     if args.echo:
         from dynamo_tpu_torch.engines import EchoEngine
 

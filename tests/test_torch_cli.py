@@ -1,20 +1,22 @@
 """The port's worker and frontend CLIs refuse what they cannot serve: each
-reference flag whose subsystem is not ported yet, set, exits with a
-message that names what it waits for (none is ignored); the `kv` router
-mode and the frontend's KV-router flags are accepted; the status server,
+reference flag whose subsystem is not ported yet (the multi-device
+flags, `--grpc-port`), set, exits with a message that names what it
+waits for (none is ignored); the `kv` router mode and the frontend's
+KV-router flags are accepted; `--faults` / `--faults-seed` are served by
+every component and `--mock*` by the worker; the status server,
 health-check and adaptive-idle flags parse and reach the runtime's
 config on both CLIs; `--telemetry-interval` (worker and frontend) and
 the frontend's eight `--slo-*` flags parse into the runtime's config and
 reach the telemetry publisher and the SLO monitor; the worker on
 `--device cuda` without a card raises instead of serving on the CPU."""
 
+import asyncio
 import os
 import subprocess
 import sys
 
 import pytest
 
-from dynamo_tpu_torch.cli_util import RUNTIME_REFUSED
 from dynamo_tpu_torch.frontend import __main__ as frontend_main
 from dynamo_tpu_torch.worker import main as worker_main
 
@@ -26,11 +28,9 @@ def _value(kind: str) -> list:
     return {"store_true": [], "int>1": ["2"], "value": ["1"]}[kind]
 
 
-@pytest.mark.parametrize(
-    "flag", sorted({**RUNTIME_REFUSED, **worker_main.WORKER_REFUSED}))
+@pytest.mark.parametrize("flag", sorted(worker_main.WORKER_REFUSED))
 def test_worker_refuses_unported_flag(flag):
-    waits_for, kind = {**RUNTIME_REFUSED,
-                       **worker_main.WORKER_REFUSED}[flag]
+    waits_for, kind = worker_main.WORKER_REFUSED[flag]
     args = worker_main.parse_args(BASE + [flag] + _value(kind))
     with pytest.raises(SystemExit) as e:
         worker_main.check_args(args)
@@ -72,11 +72,9 @@ def test_worker_serves_kvbm_and_queue_flags(flag, monkeypatch):
                 BASE + [flag] + value))
 
 
-@pytest.mark.parametrize(
-    "flag", sorted({**RUNTIME_REFUSED, **frontend_main.FRONTEND_REFUSED}))
+@pytest.mark.parametrize("flag", sorted(frontend_main.FRONTEND_REFUSED))
 def test_frontend_refuses_unported_flag(flag, monkeypatch):
-    waits_for, kind = {**RUNTIME_REFUSED,
-                       **frontend_main.FRONTEND_REFUSED}[flag]
+    waits_for, kind = frontend_main.FRONTEND_REFUSED[flag]
     started = []
     monkeypatch.setattr(frontend_main, "run_until_signal",
                         lambda *a, **k: started.append(a))
@@ -187,7 +185,6 @@ def test_status_and_health_flags_are_served(flag, monkeypatch):
     from dynamo_tpu_torch.runtime.config import RuntimeConfig
 
     value, field, want = STATUS_FLAGS[flag]
-    assert flag not in RUNTIME_REFUSED
     args = worker_main.parse_args(BASE + [flag] + value)
     worker_main.check_args(args)
     assert getattr(runtime_config_from_args(args), field) == want
@@ -229,7 +226,6 @@ def test_observability_flags_are_served(cli, flag, monkeypatch):
     holds the objective (an objective flag alone arms it; a window, burn
     or ratio flag is read beside a TTFT objective) and its loop runs at
     the check interval."""
-    import asyncio
 
     from dynamo_tpu_torch.cli_util import runtime_config_from_args
     from dynamo_tpu_torch.engines import EchoEngine
@@ -238,7 +234,6 @@ def test_observability_flags_are_served(cli, flag, monkeypatch):
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
     value, field, want = OBSERVABILITY_FLAGS[(cli, flag)]
-    assert flag not in RUNTIME_REFUSED
     assert flag not in frontend_main.FRONTEND_REFUSED
     if cli == "worker":
         args = worker_main.parse_args(BASE + [flag, value])
@@ -285,3 +280,97 @@ def test_observability_flags_are_served(cli, flag, monkeypatch):
             await rt.close()
 
     assert asyncio.run(asyncio.wait_for(main(), 30)) == want
+
+
+# the components that take --faults / --faults-seed since the fault
+# injector's wire, store and engine hooks were ported
+FAULT_CLIS = ("worker", "frontend", "router", "coordinator", "run")
+
+
+class _RuntimeReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("cli", FAULT_CLIS)
+def test_faults_flags_are_served(cli, monkeypatch):
+    """`--faults SPEC --faults-seed N` parse on every component and reach
+    the environment as DYN_FAULTS / DYN_FAULTS_SEED (what every injector
+    of the process and its children reads), as the reference's
+    cli_util exports them. The frontend and the router are driven up to
+    `DistributedRuntime.create`, which builds the TransportClient and its
+    injector: the spec must be exported by then."""
+    from dynamo_tpu_torch.coordinator import __main__ as coord_main
+    from dynamo_tpu_torch.router import __main__ as router_main
+    from dynamo_tpu_torch.run import main as run_main
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.faults import FaultInjector
+
+    spec = "kind=connect_refused,addr=*:1,times=1;kind=disconnect,after=2"
+    flags = ["--faults", spec, "--faults-seed", "7"]
+    for var in ("DYN_FAULTS", "DYN_FAULTS_SEED"):
+        # recorded by setenv, so the exported spec is undone afterwards
+        monkeypatch.setenv(var, "")
+        monkeypatch.delenv(var)
+    if cli == "worker":
+        args = worker_main.parse_args(BASE + flags)
+        worker_main.check_args(args)
+        worker_main.runtime_config_from_args(args)
+    elif cli in ("frontend", "router"):
+        mod = frontend_main if cli == "frontend" else router_main
+        seen = {}
+
+        async def create(*a, **k):
+            seen.update({v: os.environ.get(v)
+                         for v in ("DYN_FAULTS", "DYN_FAULTS_SEED")})
+            raise _RuntimeReached
+
+        monkeypatch.setattr(DistributedRuntime, "create", create)
+        monkeypatch.setattr(mod, "run_until_signal",
+                            lambda start, **k: asyncio.run(start()))
+        with pytest.raises(_RuntimeReached):
+            mod.main(flags)
+        assert seen == {"DYN_FAULTS": spec, "DYN_FAULTS_SEED": "7"}
+    elif cli == "coordinator":
+        monkeypatch.setattr(coord_main.asyncio, "run",
+                            lambda coro: coro.close())
+        coord_main.main(flags)
+    else:
+        monkeypatch.setattr(run_main.asyncio, "run",
+                            lambda coro: coro.close())
+        run_main.main(["in=text:hi", "out=torch:/nope"] + flags)
+    assert os.environ["DYN_FAULTS"] == spec
+    assert os.environ["DYN_FAULTS_SEED"] == "7"
+    inj = FaultInjector.from_env()
+    assert [r.kind for r in inj.rules] == ["connect_refused", "disconnect"]
+
+
+MOCK_FLAGS = {"--mock-speedup": (["8"], "speedup", 8.0),
+              "--mock-decode-ms": (["2.5"], "decode_ms_per_iter", 2.5),
+              "--mock-total-blocks": (["96"], "total_kv_blocks", 96)}
+
+
+@pytest.mark.parametrize("flag", sorted(MOCK_FLAGS))
+def test_worker_serves_mock_flags(flag):
+    """`--mock` and its knobs parse under the reference's names and
+    defaults and build the mocker: card `mock-model` with the word
+    tokenizer, the instance id as the engine's worker id; the mocker
+    holds no KV a disagg or KVBM worker could move."""
+    from dynamo_tpu_torch.mocker import MockEngine
+
+    value, field, want = MOCK_FLAGS[flag]
+    assert flag not in worker_main.WORKER_REFUSED
+    defaults = worker_main.parse_args(["--mock"])
+    assert (defaults.mock_speedup, defaults.mock_decode_ms,
+            defaults.mock_total_blocks) == (1.0, 4.0, 1024)
+    args = worker_main.parse_args(["--mock", "--instance-id", "5", flag]
+                                  + value)
+    worker_main.check_args(args)
+    engine, card = worker_main.build_engine_and_card(args)
+    assert isinstance(engine, MockEngine)
+    assert getattr(engine.config, field) == want
+    assert (card.name, card.tokenizer_kind, engine.config.worker_id,
+            engine.config.block_size) == ("mock-model", "word", 5,
+                                          card.kv_block_size)
+    with pytest.raises(SystemExit, match="mocker engine holds no KV"):
+        worker_main.check_args(worker_main.parse_args(
+            ["--mock", "--kvbm-host-blocks", "4"]))

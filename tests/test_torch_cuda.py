@@ -47,7 +47,9 @@ with both recorders armed gives the unarmed engine's streams bit for bit
 with the same captures, replays and launches. Request tracing: an engine
 under an enabled tracer gives the untraced engine's streams, captures,
 replays and launches, and every span it hands the drain carries host
-values only (ints, strings, bools, floats; never a tensor).
+values only (ints, strings, bools, floats; never a tensor). The router's
+native radix tree builds on the card's machine and serves by default; a
+`--mock` worker process holds no CUDA context.
 """
 
 import asyncio
@@ -2715,3 +2717,80 @@ def test_armed_tracing_replays_like_unarmed(cuda_device, tmp_path, impl):
     # the first dispatches captured graphs: their compile events ride the
     # roots of the lanes they carried
     assert any(e["name"] == "compile" for r in roots for e in r["events"])
+
+
+# --- the native radix index and the mocker on the card's machine -------------
+
+def test_native_radix_builds_on_card_machine(cuda_device):
+    """The router's C++ radix tree builds with the machine's g++ under
+    `_build/dynamo_tpu_torch/` and serves the indexer by default, with
+    the Python tree's answers."""
+    from dynamo_tpu_torch import native
+    from dynamo_tpu_torch.native import radix
+    from dynamo_tpu_torch.protocols import KvCacheEvent, StoredBlock
+    from dynamo_tpu_torch.router.indexer import KvIndexer, RadixTree
+
+    assert radix.native_radix_available()
+    assert native.library_path("radix").exists()
+    idx = KvIndexer(16)
+    assert idx.tree.kind == "native"
+    ev = KvCacheEvent(kind="stored", worker_id=1,
+                      blocks=[StoredBlock(11, 1), StoredBlock(12, 2)])
+    py = RadixTree()
+    for t in (idx.tree, py):
+        t.apply_event(ev)
+    assert idx.tree.find_matches([1, 2]).scores == \
+        py.find_matches([1, 2]).scores == {(1, 0): 2}
+
+
+def test_mock_worker_holds_no_cuda_context(cuda_device, tmp_path):
+    """A `--mock` worker process beside a coordinator registers and never
+    takes device memory (a CUDA context costs hundreds of MiB), while a
+    process that touches the card does: the card's used memory, from
+    nvidia-smi, is the witness (in a container the compute-process list
+    may show pids of another namespace)."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from dynamo_tpu_torch.runtime.distributed import free_port
+
+    def used_mib() -> int:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30, check=True).stdout.split()
+        return int(out[torch.cuda.current_device()])
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    port = free_port()
+    procs = []
+    try:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.coordinator", "--port",
+             str(port)], env=env, stdout=subprocess.PIPE, text=True))
+        assert procs[0].stdout.readline().startswith("COORDINATOR_READY")
+        time.sleep(0.5)
+        before = used_mib()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.worker", "--mock",
+             "--store", f"tcp://127.0.0.1:{port}"], env=env,
+            stdout=subprocess.PIPE, text=True))
+        assert procs[1].stdout.readline().startswith("WORKER_READY")
+        time.sleep(1.0)
+        with_mock = used_mib()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             "import time, torch; torch.zeros(1, device='cuda'); "
+             "print('up', flush=True); time.sleep(60)"],
+            env=env, stdout=subprocess.PIPE, text=True))
+        assert procs[2].stdout.readline().strip() == "up"
+        with_context = used_mib()
+        assert with_mock <= before, (before, with_mock)
+        assert with_context - with_mock >= 100, (with_mock, with_context)
+    finally:
+        for p in reversed(procs):
+            p.terminate()
+            p.wait(30)

@@ -1,26 +1,28 @@
 """The port's `/debug` routes (`dynamo_tpu_torch/llm/http_service.py`)
 held against the JAX package's frontend (`dynamo_tpu/llm/http_service.py`
 `_debug_index` `:794`, `_debug_profile` `:905`, `_debug_kv`,
-`_debug_memory` `:979`, `_debug_router`).
+`_debug_memory` `:979`, `_debug_router`, `_debug_prefixes` `:1125`).
 
 - In process (the worker and the frontend on one runtime, as `run
   in=http` deploys them), a tiny fp32 model with the same weights on both
   packages (`params_from_jax`), `DYN_STEP_PROFILE`, `DYN_MEM_LEDGER`,
-  `DYN_KV_LIFECYCLE` and `DYN_ROUTER_LOG` armed, `kv` routing: the same
+  `DYN_KV_LIFECYCLE`, `DYN_ROUTER_LOG` and `DYN_PREFIX_HEAT` armed, `kv`
+  routing: the same
   chat requests, one at a time, through each frontend. Then every route
   answers 200 on both; the port's index lists exactly the routes it
   serves, each row equal to the reference's (the memory row's text says
   "device" where the reference's says "HBM"); the step recorders'
   per-entry dispatch counts and good and work tokens are equal, and so
   are the ledgers' classes, the KV lifecycle bodies' keys and the router
-  bodies' decision counters and ring lengths;
+  bodies' decision counters and ring lengths, and the prefix planes'
+  decision counts and record keys;
   `?format=chrome` is a Chrome trace of the same events; `?limit` bounds
   the rings; `?capture_s=0.2` runs a `torch.profiler` window on the CPU
   and writes its trace while a chat streams; a bad `capture_s` is a 400.
 - Without `profile_engines` (an `HttpService` no deployment wired) the
   engine routes answer 503, as the reference's, while `/debug/requests`
   (always on) stays available; the reference's routes the port does not
-  serve (mesh, control, tenants, classes, prefixes) are 404.
+  serve (mesh, control, tenants, classes) are 404.
 - In a fresh interpreter with both recorders, the tracer, the audit bus,
   the SLO monitor and the telemetry publisher armed, `run in=text`
   serves and an in-process deployment answers `/debug/profile`,
@@ -52,9 +54,9 @@ from tests.test_torch_serving import _engines, _renew_lease, call
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_ROUTES = {"/debug/requests", "/debug/profile", "/debug/router",
-               "/debug/kv", "/debug/memory"}
+               "/debug/kv", "/debug/memory", "/debug/prefixes"}
 UNSERVED = ("/debug/mesh", "/debug/control", "/debug/tenants",
-            "/debug/classes", "/debug/prefixes")
+            "/debug/classes")
 PROMPTS = ["profile me please", "a much longer prompt that spans pages",
            "hi"]
 
@@ -64,7 +66,7 @@ def armed(monkeypatch):
     prev = jattn._impl
     jattn.set_attention_impl("auto")
     for var in ("DYN_STEP_PROFILE", "DYN_MEM_LEDGER", "DYN_KV_LIFECYCLE",
-                "DYN_ROUTER_LOG"):
+                "DYN_ROUTER_LOG", "DYN_PREFIX_HEAT"):
         monkeypatch.setenv(var, "1")
     monkeypatch.delenv("DYN_OOM_EXIT", raising=False)
     yield
@@ -107,7 +109,7 @@ async def _serve_and_read(port, model, capture: bool):
     for path in ("/debug", "/debug/profile", "/debug/profile?limit=2",
                  "/debug/profile?format=chrome", "/debug/memory",
                  "/debug/memory?limit=1", "/debug/kv", "/debug/router",
-                 "/debug/profile?capture_s=nope"):
+                 "/debug/prefixes", "/debug/profile?capture_s=nope"):
         out[path] = await _get(port, path)
     if capture:
         # a capture window while a chat streams
@@ -215,6 +217,13 @@ def test_debug_routes_in_process_match_jax_package(armed, tmp_path,
     assert router["mode"] == "kv_events" and router["enabled"] is True
     assert len(router["records"]) == len(ref_router["records"]) == 3
     assert set(router["summary"]) == set(ref_router["summary"])
+    pfx = got["/debug/prefixes"][1]["models"][0]
+    ref_pfx = want["/debug/prefixes"][1]["models"][0]
+    assert pfx["enabled"] is True and set(pfx) == set(ref_pfx)
+    assert pfx["summary"]["decisions"] == ref_pfx["summary"]["decisions"] \
+        == 3
+    assert [set(r) for r in pfx["records"]] == \
+        [set(r) for r in ref_pfx["records"]]
     # the capture wrote its trace while the chat streamed
     cap = got["capture"][1]["capture"]
     assert cap["captured_s"] == 0.2 and cap["bytes"] > 0
@@ -232,7 +241,8 @@ def test_engine_routes_are_503_without_profile_engines():
         try:
             got = {p: (await _get(http.port, p))
                    for p in ("/debug", "/debug/profile", "/debug/memory",
-                             "/debug/kv", "/debug/router")}
+                             "/debug/kv", "/debug/router",
+                             "/debug/prefixes")}
             got["post"] = await call(http.port, "POST", "/debug/profile")
         finally:
             await http.stop()
@@ -247,7 +257,7 @@ def test_engine_routes_are_503_without_profile_engines():
                    for p, row in idx.items() if p != "/debug/requests")
     assert idx["/debug/requests"]["available"]
     for p in ("/debug/profile", "/debug/memory", "/debug/kv",
-              "/debug/router"):
+              "/debug/router", "/debug/prefixes"):
         assert got[p][0] == 503 and got[p][1]["status"] == "unavailable"
     assert got["post"][0] == 405
 

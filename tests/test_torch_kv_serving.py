@@ -21,8 +21,10 @@
   and load. An event the router cannot apply is counted as dropped and
   the consumer lives; `gap_resync` rebuilds a gapped worker's slice of
   the index as the reference's router does.
-- Refusals and knobs: `--no-kv-events` serves through `ApproxKvIndexer`;
-  `DYN_KV_RECORD` / `kv_record_path` and `DYN_PREFIX_HEAT` raise by name.
+- Knobs: `--no-kv-events` serves through `ApproxKvIndexer`;
+  `DYN_KV_RECORD` / `kv_record_path` (and the router CLI's `--kv-record`)
+  capture the consumed events and `DYN_PREFIX_HEAT` arms the prefix-heat
+  recorder.
 - Subprocesses: the coordinator, a `--router-mode kv` worker, a `kv`
   frontend, `python -m dynamo_tpu_torch.router` and `run in=http
   --router-mode kv` serve on the CPU and load no jax, no `dynamo_tpu`, no
@@ -169,12 +171,24 @@ def _who(taps, text) -> int:
     return hits[0]
 
 
-async def _settled(router, taps) -> None:
+async def _settled(router, taps, holder=None, prompt=None) -> None:
     """Wait until the router's index holds every block the workers
-    registered."""
+    registered and, with `holder` (a tap) and `prompt` (token ids it
+    served), credits that tap's worker with every full block of the
+    prompt; and until no request is still booked as active load (a stream
+    the client has read to its end may free its booking a moment later,
+    and booked load can outweigh a prefix's overlap)."""
+    r = router.router
     want = sum(len(t.inner.pool._registered) for t in taps)
-    for _ in range(500):
-        if sum(router.router.index_stats()["index_blocks"].values()) >= want:
+    for _ in range(1000):
+        booked = [r.sequences.peek(w) for w in r.worker_keys()]
+        if (sum(r.index_stats()["index_blocks"].values()) >= want
+                and (holder is None or r.indexer.find_matches_for_tokens(
+                    prompt).scores.get((holder.inner.config.worker_id, 0),
+                                       0) >= len(prompt) // BS)
+                and not any(s is not None and (s.active_blocks
+                                               or s.active_prefill_tokens)
+                            for s in booked)):
             return
         await asyncio.sleep(0.01)
     raise AssertionError("the KV events never reached the index")
@@ -204,7 +218,12 @@ async def _kv_round(port, model, taps, router) -> tuple:
             t.hold = None
     both = await both_f
     who = [_who(taps, PREFIX), _who(taps, OTHER)]
-    await _settled(router, taps)
+    holder = taps[who[0]]
+    a_bytes = list(PREFIX.encode())
+    a_prompt = next(p for p in reversed(holder.prompts)
+                    if any(p[j:j + len(a_bytes)] == a_bytes
+                           for j in range(len(p))))
+    await _settled(router, taps, holder, a_prompt)
     third = await call(port, "POST", "/v1/chat/completions",
                        _chat(model, PREFIX + " and more"))
     who.append(_who(taps, PREFIX + " and more"))
@@ -584,23 +603,62 @@ def test_no_kv_events_serves_through_the_approx_indexer():
 
 
 @pytest.mark.parametrize("env,config,name", [
-    ({"DYN_KV_RECORD": "/tmp/never.jsonl"}, {}, "DYN_KV_RECORD"),
-    ({}, {"kv_record_path": "/tmp/never.jsonl"}, "kv_record_path"),
+    ({"DYN_KV_RECORD": "{path}"}, {}, "DYN_KV_RECORD"),
+    ({}, {"kv_record_path": "{path}"}, "kv_record_path"),
     ({"DYN_PREFIX_HEAT": "1"}, {}, "DYN_PREFIX_HEAT"),
 ])
-def test_unported_router_options_raise_by_name(monkeypatch, env, config,
-                                               name):
+def test_router_options_are_served(monkeypatch, tmp_path, env, config,
+                                   name):
+    """The router options the port refused before its recorders were
+    ported arm them: `kv_record_path` / `DYN_KV_RECORD` capture the KV
+    events the router consumes (one JSONL row per event), and
+    `DYN_PREFIX_HEAT` the prefix-heat recorder."""
+    from dynamo_tpu_torch.protocols import KvCacheEvent, StoredBlock
+
+    path = str(tmp_path / "cap.jsonl")
+    monkeypatch.delenv("DYN_KV_RECORD", raising=False)
+    monkeypatch.delenv("DYN_PREFIX_HEAT", raising=False)
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(t_router.RouterOptionUnavailable, match=name):
-        t_router.KvRouter(t_router.KvRouterConfig(**config))
+        monkeypatch.setenv(k, v.format(path=path))
+    config = {k: v.format(path=path) for k, v in config.items()}
+
+    async def main():
+        rt = await t_dist.DistributedRuntime.create(t_config.RuntimeConfig())
+        client = await rt.namespace("dynamo").component("backend") \
+            .endpoint("generate").client()
+        kv = await t_router.KvPushRouter(client, rt.events,
+                                         t_router.KvRouterConfig(
+                                             block_size=BS, **config)).start()
+        ev_sink, _ = t_entry.wire_engine_events(rt, _kv_card(t_card))
+        ev_sink(KvCacheEvent(kind="stored", worker_id=1, event_id=1,
+                             blocks=[StoredBlock(11, 12)]))
+        while kv.router.indexer.events_applied < 1:
+            await asyncio.sleep(0.01)
+        rec = kv.kv_recorder
+        await kv.stop()
+        await client.stop()
+        await rt.close()
+        return kv.router.prefix_heat, rec
+
+    heat, rec = asyncio.run(asyncio.wait_for(main(), 30))
+    if name == "DYN_PREFIX_HEAT":
+        assert heat is not None and rec is None
+    else:
+        assert heat is None and rec is not None and rec.event_count == 1
+        with open(path) as f:
+            assert len(f.readlines()) == 1
 
 
-def test_router_cli_refuses_kv_record():
+def test_router_cli_serves_kv_record(monkeypatch):
     from dynamo_tpu_torch.router import __main__ as router_main
 
-    with pytest.raises(SystemExit, match="--kv-record"):
-        router_main.main(["--kv-record", "/tmp/x.jsonl"])
+    started = []
+    monkeypatch.setattr(router_main, "run_until_signal",
+                        lambda *a, **k: started.append(a))
+    router_main.main(["--kv-record", "/tmp/x.jsonl"])
+    assert len(started) == 1
+    assert router_main.parse_args(
+        ["--kv-record", "/tmp/x.jsonl"]).kv_record == "/tmp/x.jsonl"
 
 
 def test_deployment_with_the_kv_router_loads_no_foreign_module(tmp_path):

@@ -132,7 +132,9 @@ def _replay(ops, prompts):
     """Apply `ops` to both KvIndexers; after every event, every prompt's
     scores must agree. Returns (port indexer, reference indexer, gaps
     seen by each on_gap)."""
-    ours, ref = ti.KvIndexer(BS), ri.KvIndexer(BS, use_native=False)
+    # both Python trees (the native one: tests/test_torch_native_radix.py)
+    ours, ref = ti.KvIndexer(BS, use_native=False), \
+        ri.KvIndexer(BS, use_native=False)
     seen_o, seen_r = [], []
     ours.on_gap = lambda w, n: seen_o.append((w, n))
     ref.on_gap = lambda w, n: seen_r.append((w, n))
@@ -354,7 +356,11 @@ def test_kv_router_matches_reference(use_kv_events):
             if update and rng.random() < 0.3:
                 for r in (ours, ref):
                     r.free(f"q{i}")
-    assert ours.index_stats() == ref.index_stats()
+    # the port's stats also name the tree that serves: the native one by
+    # default (the reference's default too), the Python one when approx
+    stats = ours.index_stats()
+    assert stats.pop("tree") == ("native" if use_kv_events else "python")
+    assert stats == ref.index_stats()
     # the reference's router may run its native tree, which dumps in
     # another order
     assert sorted(map(repr, ours.dump_snapshot())) == \
@@ -372,7 +378,11 @@ def test_kv_router_matches_reference(use_kv_events):
     ours.remove_worker(1)
     ref.remove_worker(1)
     assert ours.worker_keys() == ref.worker_keys() == [(2, 0)]
-    assert ours.index_stats() == ref.index_stats()
+    # the port's stats also name the tree that serves: the native one by
+    # default (the reference's default too), the Python one when approx
+    stats = ours.index_stats()
+    assert stats.pop("tree") == ("native" if use_kv_events else "python")
+    assert stats == ref.index_stats()
 
 
 def test_router_metrics_names_match_reference():

@@ -225,14 +225,18 @@ async def test_watchdog_trips_on_wedged_dispatch():
 @pytest.mark.parametrize("pkg", sorted(PKGS))
 async def test_watchdog_idle_engine_never_trips(pkg):
     """No work pending ⇒ silence is idleness, not a wedge (the port on a
-    tiny TorchEngine, which also serves a request first)."""
+    tiny TorchEngine). The engine serves a request first and the watchdog
+    arms once it is idle: a first dispatch on a loaded host may itself
+    outlast the 0.1 s threshold, which is a stall, not idleness."""
     P = PKGS[pkg]
     eng = mock_engine() if pkg == "ref" else torch_engine()
     wd = P.wd.DispatchWatchdog(eng, 0.1, instance="idle")
     try:
-        wd.start()
         async for _ in eng.generate(request([1, 2, 3], 2), P.ctx.Context()):
             pass
+        while eng._running or eng._waiting:
+            await asyncio.sleep(0.01)
+        wd.start()
         await asyncio.sleep(0.5)   # many stall windows, zero work
         assert wd.tripped is None
     finally:
