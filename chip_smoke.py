@@ -362,6 +362,51 @@ on):
     whose triggering dispatch is "prefill" 1x512x1, with its last
     snapshot, step tail and `format_oom_attribution`. (8f arms the ledger
     on its engines and prints the KVBM providers' peaks.)
+ 8k. the admission and control planes (`tenancy/`, `serving_classes/`,
+    `control/`) at Llama-3-8B bf16 on phase 8's weights: first an unarmed
+    phase engine (batch 8, ADMISSION_PAGES pages, prefill all) serves
+    wave 1's 16 chats (and a 32-token standard chat) in process, as the
+    frontend's preprocessor renders them. Then the same engine config
+    armed with DYN_TENANCY (gold weight 3; bronze weight 1 and a KV page
+    budget of two requests' pages, decode growth included; capped: a
+    token bucket that admits one request and refuses the next), DYN_CLASSES
+    (the three default classes, brownout hold 1 s, recover 3 s),
+    DYN_CONTROL=all every 0.5 s, DYN_STEP_PROFILE and DYN_KV_LIFECYCLE,
+    served behind `start_frontend` in one runtime (run in=http's wiring,
+    kv routing; the SLO loop parked: random weights feed it nothing).
+    Wave 1: 8 bronze then 8 gold streamed greedy chats (16 tokens, top-8
+    logprobs) queued while the engine's device lock is held, then
+    released: the first 8 admissions hold 6 +- 1 gold (FIFO would admit 8
+    bronze), bronze's live KV pages never above its budget while gold
+    runs (polled), capped's second chat a 429 with Retry-After and the
+    engine's arrivals unmoved; every 200 stream equal to the unarmed
+    engine's or parting at a near-tie (BF16_TIE_TOL). Wave 2, the
+    brownout, walked up through the machine's SLO entry point (the call
+    the frontend's SLO loop makes, one `breach` of ttft:interactive per
+    hold): at stage 1 a batch chat is a 503 with Retry-After equal to
+    recover_s and an interactive chat a 200; at stage 2 a standard chat
+    asking 64 tokens gets at most 32; at stage 3 the engine's spec_shrink
+    is set (inert: no draft); an `ok` then lets the control plane's tick
+    walk it back to 0 one stage per recover_s (the first step too: the
+    machine and the plane share one clock), each step in /debug/control's
+    action ring, all six transitions on the brownout_events subject and
+    counted in /debug/classes, /fleet/status carrying the brownout and
+    control blocks. Wave 3, meanwhile: wave 1's chats again over the small
+    pool until the KV lifecycle recorder counts premature evictions; the
+    KVBM tuner's watermark actions (step 0.01, floor 0.80, each with its
+    evidence window; the engine's watermark equal to the last action's
+    `to`) and the bucket autotuner's proposals (0: the engine labels a
+    prefill (width, tokens, aligned), and the tuner takes two-dim labels
+    only). Then its mechanism by hand: 8 in-process prompts of
+    RUNG_PROMPT_LENS tokens run in the 384 bucket; a rung of RUNG is
+    proposed to the engine's ladder while a long request decodes; the
+    scheduler adopts it at its safe point; the same 8 prompts run at the
+    new shape (its first dispatch warms up, captures and replays; a third
+    pass replays), the prefill padding share falls, and the streams equal
+    those before the rung or part at a near-tie. Printed: the tenant and
+    class tables, the transitions with their times, the control actions,
+    the rung's captures with seconds, the longest queue wait during them,
+    each wave's wall, the launch counts (K1-K4 > 0).
  9. quantized main path: every other request of the batch (5; cut since
     8g was added) on the phase path through
     `build_torch_engine(quantize="w8a8")`, then `quantize="int4"` (the
@@ -403,7 +448,8 @@ on):
     added; the ragged path's since 8g, the phase path's first batch since
     8h); the quantized bursts'
     eager and graphed runs profiled QUANT_PROFILE_REPS times (cut from 2
-    and 5 since 8h was added)
+    and 5 since 8h was added, and to none since 8k was added: walls, the
+    11a check and the replays' CUDA-event times only)
 12. kernel path vs plain path at 2 layers, full width, fp32: greedy
     streams over 16 steps x 3 requests across phase-kernel, phase-plain,
     ragged-kernel and ragged-plain — identical unquantized, and under
@@ -441,6 +487,7 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import concurrent.futures
 import contextlib
 import gc
 import itertools
@@ -1073,18 +1120,21 @@ class Service:
         self._err.close()
 
 
-def http_chat_stream(port: int, body: dict) -> dict:
-    """One streamed chat request through the frontend: its tokens, top-k
-    logprobs, finish reason, and client-side seconds to the first token
-    chunk and to `data: [DONE]`. Raises on anything but HTTP 200 with
-    well-formed SSE that ends in [DONE] after a finish_reason."""
+def http_chat_stream(port: int, body: dict,
+                     headers: dict | None = None) -> dict:
+    """One streamed chat request through the frontend (`headers` beside
+    its content type): its tokens, top-k logprobs, finish reason, and
+    client-side seconds to the first token chunk and to `data: [DONE]`.
+    Raises on anything but HTTP 200 with well-formed SSE that ends in
+    [DONE] after a finish_reason."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.perf_counter()
     try:
         conn.request("POST", "/v1/chat/completions", json.dumps(body),
-                     {"Content-Type": "application/json"})
+                     {"Content-Type": "application/json",
+                      **(headers or {})})
         r = conn.getresponse()
         if r.status != 200 or r.getheader("Content-Type") != \
                 "text/event-stream":
@@ -3541,10 +3591,11 @@ def self_draft_floor(p: float, n_pos: int, n_iters: int,
 # recorders and 8j were added: the eager walls stay), of the bf16 graphed
 # steps (cut from 5 since 8c, 8d, 8f and 8i check the request tracer),
 # and of the quantized bursts' eager and graphed runs (cut from 2 and 5
-# since phase 8h was added)
+# since phase 8h was added, and to none since 8k was added: their walls,
+# graph checks and CUDA-event replay times stay)
 EAGER_PROFILE_REPS = 0
 GRAPH_PROFILE_REPS = 2
-QUANT_PROFILE_REPS = 1
+QUANT_PROFILE_REPS = 0
 
 
 def measure(torch, step, ProfilerActivity, profile, reps: int = 5):
@@ -4845,6 +4896,18 @@ RECORDER_PROMPT_LENS = (24, 150, 300, 700)
 RECORDER_MAX_TOKENS = 16
 # chat texts of phase 8i's HTTP part (bytes, byte tokenizer)
 RECORDER_TEXTS = (60, 260, 610)
+# phase 8k: the admission and control planes on a small pool (96 usable
+# pages of 16, ~192 MiB at 8B bf16: wave 1's 16 prompts hold ~10 pages
+# each, so repeating them evicts)
+ADMISSION_PAGES = 97
+ADMISSION_TEXT_BYTES = 120
+ADMISSION_MAX_TOKENS = 16
+ADMISSION_WAVE = 16                 # 8 bronze, then 8 gold
+ADMISSION_REPEATS = 3               # wave 3's most repeats of wave 1
+# prompts of the 384-token prefill bucket (256 < n <= 384) and the rung
+# proposed for them (page-aligned, covering all of them)
+RUNG_PROMPT_LENS = tuple(range(257, 288, 4))
+RUNG = 288
 # the OOM child: the caching allocator's cap above what it holds once the
 # 2-layer engine has served a short chat; a 512-token prefill's
 # activations alone need more (a (512, 14336) bf16 tensor is 14 MiB)
@@ -5339,6 +5402,588 @@ def recorders_phase(torch, smi: str, work: str, card, model) -> dict:
     out["oom"] = {"triggering": trig,
                   "attribution": format_oom_attribution(report)}
     return out
+
+# -- the admission and control planes (phase 8k) ----------------------------
+
+def http_chat_refused(port: int, body: dict, headers: dict) -> tuple:
+    """A chat the frontend should refuse: (status, Retry-After, the
+    OpenAI error type)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                     {"Content-Type": "application/json", **headers})
+        r = conn.getresponse()
+        raw = r.read()
+        retry = r.getheader("Retry-After")
+    finally:
+        conn.close()
+    err = json.loads(raw).get("error", {}) if raw[:1] == b"{" else {}
+    return r.status, retry, err.get("type")
+
+
+class AdmissionLog(list):
+    """An engine's `_running` list that logs each admission: (tenant,
+    prompt tokens, queue wait s, when)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.log: list = []
+
+    def append(self, seq) -> None:
+        now = time.perf_counter()
+        self.log.append((seq.tenant, len(seq.prompt), now - seq.t_enqueue,
+                         now))
+        super().append(seq)
+
+
+def admission_phase(torch, smi: str, card, model) -> dict:
+    """Phase 8k: the tenancy, serving-class and flight-control planes at
+    Llama-3-8B (see the module docstring). Returns the numbers PERF.md
+    keeps."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine import cuda_build
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.llm.entrypoint import (
+        serve_engine,
+        start_frontend,
+        wire_engine_events,
+    )
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols_openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import make_tokenizer
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.serving_classes import BROWNOUT_EVENTS_SUBJECT
+    from dynamo_tpu_torch.tenancy import estimate_request_tokens
+
+    cfg = model.cfg
+    P = cfg.page_size
+    c = dataclasses.replace(card, namespace="dynamo", component="run",
+                            router_mode="kv")
+    pre = OpenAIPreprocessor(
+        make_tokenizer(c.tokenizer_kind, c.tokenizer_path), c.name)
+    texts = ["".join(chr(97 + (i * 7 + 3 * n) % 26)
+                     for i in range(ADMISSION_TEXT_BYTES))
+             for n in range(ADMISSION_WAVE)]
+
+    def body(text: str, max_tokens: int = ADMISSION_MAX_TOKENS) -> dict:
+        return {"model": c.name, "stream": True, "max_tokens": max_tokens,
+                **GREEDY_FIELDS,
+                "messages": [{"role": "user", "content": text}]}
+
+    def engine_request(b: dict) -> dict:
+        """What the frontend's preprocessor hands the engine for `b`."""
+        return pre.preprocess_chat(ChatCompletionRequest.from_dict(
+            b)).to_dict()
+
+    # wave 1's chats, then the brownout's standard chat capped to 32
+    want_bodies = [body(t) for t in texts] + [body(texts[1], 32)]
+    prompts = [engine_request(b) for b in want_bodies]
+    plen = len(prompts[0]["token_ids"])
+    # two requests' pages at their largest: prompt, the tokens out and
+    # two bursts of page growth ahead of the position
+    budget = 2 * -(-(plen + ADMISSION_MAX_TOKENS + 16) // P)
+    capped_tokens = estimate_request_tokens(body(texts[0]))
+    tenancy = {"tenants": [
+        {"name": "gold", "weight": 3.0},
+        {"name": "bronze", "weight": 1.0, "kv_block_budget": budget},
+        {"name": "capped", "token_rate": 1.0,
+         "token_burst": float(capped_tokens)}]}
+    classes = {"brownout_hold_s": 1.0, "brownout_recover_s": 3.0}
+    out: dict = {"budget": budget, "prompt_tokens": plen}
+
+    def make_engine():
+        return TorchEngine(TorchEngineConfig(
+            model=cfg, num_pages=ADMISSION_PAGES, max_batch_size=8,
+            attention_impl="phase", device="cuda"), model=model)
+
+    async def collect(eng, req: dict) -> tuple:
+        toks, tops = [], []
+        async for o in eng.generate(req, Context()):
+            if o.get("finish_reason") == "error":
+                raise AssertionError(f"8k request failed: {o}")
+            toks.extend(o.get("token_ids", ()))
+            tops.extend(o.get("top_logprobs") or ())
+        return toks, tops
+
+    # the unarmed reference ------------------------------------------------
+    async def unarmed() -> list:
+        eng = make_engine()
+        try:
+            return list(await asyncio.gather(
+                *(collect(eng, r) for r in prompts)))
+        finally:
+            await eng.close()
+
+    t0 = time.perf_counter()
+    want = asyncio.run(unarmed())
+    out["unarmed_wall"] = time.perf_counter() - t0
+    log(f"[admission] unarmed phase engine ({ADMISSION_PAGES} pages, batch "
+        f"8): {len(want)} chats of {plen} prompt tokens in "
+        f"{out['unarmed_wall']:.1f} s (first batch, captures inside); on "
+        f"{smi}")
+
+    async def armed() -> dict:
+        rt = await DistributedRuntime.create(RuntimeConfig(
+            store_url="memory", slo_check_interval=3600.0))
+        eng = make_engine()
+        if eng.fair is None or eng.classes is None or \
+                eng.step_recorder is None or eng.kv_lifecycle is None:
+            raise AssertionError("8k: the engine's planes are not armed")
+        eng.attach_sinks(*wire_engine_events(rt, c))
+        eng._running = adm = AdmissionLog()
+        clients = concurrent.futures.ThreadPoolExecutor(2 * ADMISSION_WAVE)
+        handle = fe = None
+        res: dict = {}
+        try:
+            handle = await serve_engine(rt, eng, c,
+                                        instance_id=eng.config.worker_id)
+            fe = await start_frontend(rt, port=0)
+            for _ in range(500):
+                if c.name in fe.manager.model_names():
+                    break
+                await asyncio.sleep(0.01)
+            svc, plane, bo = fe.http, fe.control, fe.http.brownout
+            if svc.quota is None or plane is None or bo is None or \
+                    sorted(x.name for x in plane.controllers) != [
+                        "brownout", "bucket", "kvbm", "router"]:
+                raise AssertionError("8k: the frontend's planes are not "
+                                     "armed")
+            port = svc.port
+
+            def get(path: str) -> dict:
+                st, raw = _http_status(port, path)
+                if st != 200:
+                    raise AssertionError(f"8k GET {path}: HTTP {st} "
+                                         f"{raw[:300]!r}")
+                return json.loads(raw)
+
+            async def chat(i: int, tenant=None, cls=None, max_tokens=None):
+                hdrs = {}
+                if tenant:
+                    hdrs["x-dyn-tenant"] = tenant
+                if cls:
+                    hdrs["x-dyn-class"] = cls
+                b = body(texts[i], max_tokens or ADMISSION_MAX_TOKENS)
+                # a client thread each: the default executor has fewer
+                # threads than a wave has chats on an 8-core host
+                return await asyncio.get_running_loop().run_in_executor(
+                    clients, http_chat_stream, port, b, hdrs)
+
+            cuda_build.reset_launch_counts()
+
+            # wave 1: fair share -------------------------------------------
+            t_w = time.perf_counter()
+            peak = {"bronze": 0, "samples": 0}
+
+            async def poll_bronze():
+                while True:
+                    if any(s.tenant == "gold" for s in eng._running):
+                        peak["bronze"] = max(peak["bronze"],
+                                             eng._tenant_pages("bronze"))
+                        peak["samples"] += 1
+                    await asyncio.sleep(0.005)
+
+            async def queued(n: int):
+                for _ in range(3000):
+                    if len(eng._waiting) + len(eng._running) >= n:
+                        return
+                    await asyncio.sleep(0.01)
+                raise AssertionError(f"8k: {n} requests never queued")
+
+            poller = asyncio.ensure_future(poll_bronze())
+            await eng._device_lock.acquire()
+            try:
+                bronze = [asyncio.ensure_future(chat(i, "bronze"))
+                          for i in range(8)]
+                await queued(8)
+                gold = [asyncio.ensure_future(chat(i, "gold"))
+                        for i in range(8, 16)]
+                await queued(16)
+            finally:
+                eng._device_lock.release()
+            wave1 = list(await asyncio.gather(*bronze, *gold))
+            poller.cancel()
+            res["wave1_wall"] = time.perf_counter() - t_w
+            res["order"] = [t for t, *_ in adm.log[:ADMISSION_WAVE]]
+            res["bronze_peak"] = dict(peak)
+            # capped: one admitted, the next refused before any engine work
+            capped1 = await chat(0, "capped")
+            arrivals = eng._arrivals
+            res["capped"] = await asyncio.to_thread(
+                http_chat_refused, port, body(texts[0]),
+                {"x-dyn-tenant": "capped"})
+            res["capped_arrivals"] = (arrivals, eng._arrivals)
+            res["wave1"] = wave1 + [capped1]
+
+            # wave 2: the brownout, walked up ------------------------------
+            t_w = time.perf_counter()
+            stages = []      # (s after the first escalation, stage name)
+
+            seen = [bo.transitions]
+
+            async def watch_stages():
+                while True:
+                    if bo.transitions != seen[0]:
+                        seen[0] = bo.transitions
+                        stages.append((time.perf_counter() - t_w,
+                                       bo.state()["stage_name"]))
+                    await asyncio.sleep(0.005)
+
+            watcher = asyncio.ensure_future(watch_stages())
+
+            async def escalate(stage: int):
+                ev = {"objective": "ttft:interactive", "from": "ok",
+                      "to": "breach", "fast_burn": 99.0, "slow_burn": 9.0,
+                      "threshold_s": 0.5}
+                for _ in range(400):
+                    if bo.on_slo_event(ev) and bo.stage == stage:
+                        return
+                    await asyncio.sleep(0.01)
+                raise AssertionError(f"8k: the brownout never reached "
+                                     f"stage {stage} ({bo.state()})")
+
+            await escalate(1)
+            res["shed"] = await asyncio.to_thread(
+                http_chat_refused, port, body(texts[2]),
+                {"x-dyn-class": "batch"})
+            res["interactive"] = await chat(0, cls="interactive")
+            await escalate(2)
+            res["standard"] = await chat(1, max_tokens=64)
+            await escalate(3)
+            res["spec_shrink"] = eng.spec_shrink
+            bo.on_slo_event({"objective": "ttft:interactive",
+                             "from": "breach", "to": "ok"})
+            res["clean_at"] = time.perf_counter() - t_w
+
+            # wave 3 meanwhile: repeats over the small pool ----------------
+            t_r = time.perf_counter()
+            repeats = []
+            for _ in range(ADMISSION_REPEATS):
+                repeats.append(list(await asyncio.gather(
+                    *(chat(i, "bronze" if i < 8 else "gold")
+                      for i in range(ADMISSION_WAVE)))))
+                prem = eng.kv_lifecycle.summary()["premature_evictions"]
+                if prem and any(e["controller"] == "kvbm"
+                                for e in plane.events()):
+                    break
+            res["repeats_wall"] = time.perf_counter() - t_r
+            res["repeats"] = repeats
+            for _ in range(3000):
+                if bo.stage == 0:
+                    break
+                await asyncio.sleep(0.01)
+            await asyncio.sleep(0.01)
+            watcher.cancel()
+            res["stages"] = stages
+            res["wave2_wall"] = time.perf_counter() - t_w
+            res["kv"] = eng.kv_lifecycle.summary()
+            # the brownout's transitions, all of them, from the event bus
+            sub = await rt.events.subscribe(BROWNOUT_EVENTS_SUBJECT,
+                                            from_start=True)
+            bus = []
+            while not sub.queue.empty():
+                bus.append(sub.queue.get_nowait()["payload"])
+            res["bus"] = bus
+            res["tenants"] = await asyncio.to_thread(get, "/debug/tenants")
+            res["classes"] = await asyncio.to_thread(get, "/debug/classes")
+            res["fleet"] = await asyncio.to_thread(get, "/fleet/status")
+
+            # wave 3b: a rung proposed mid-serving -------------------------
+            gen = random.Random(23)
+            rung_reqs = [{"token_ids": [gen.randrange(cfg.vocab_size)
+                                        for _ in range(n)],
+                          "sampling": {"temperature": 0.0,
+                                       "top_logprobs": 8},
+                          "stop": {"max_tokens": 8}}
+                         for n in RUNG_PROMPT_LENS]
+
+            async def rung_wave():
+                eng.clear_kv_blocks()
+                t = time.perf_counter()
+                got = list(await asyncio.gather(
+                    *(collect(eng, r) for r in rung_reqs)))
+                return got, time.perf_counter() - t
+
+            before, res["rung_wall_a"] = await rung_wave()
+            ladder = eng.bucket_ladder
+            if ladder is None:
+                raise AssertionError("8k: the bucket autotuner installed "
+                                     "no ladder on the engine")
+            long_req = {"token_ids": rung_reqs[0]["token_ids"][:40],
+                        "sampling": {"temperature": 0.0},
+                        "stop": {"max_tokens": 64}}
+            n_log = len(adm.log)
+            bg = asyncio.ensure_future(collect(eng, long_req))
+            for _ in range(3000):
+                if any(s.prefilled for s in eng._running):
+                    break
+                await asyncio.sleep(0.005)
+            if not ladder.propose([RUNG]):
+                raise AssertionError("8k: the rung was not staged")
+            staged = time.perf_counter()
+            rec = eng.step_recorder
+            n_rec = rec.recorded
+            after, res["rung_wall_b"] = await rung_wave()
+            res["rung_waits"] = [w for t, n, w, _ in adm.log[n_log:]
+                                 if n in RUNG_PROMPT_LENS]
+            # every capture the wave met, its decode bursts' new lane
+            # counts and table widths beside the prefill rounds' new T
+            res["wave_b_captures"] = [
+                (r["entry"], r["shape"], r["host_s"])
+                for r in rec.snapshot(rec.recorded - n_rec)
+                if r["compiled"]]
+            await bg
+            again, res["rung_wall_c"] = await rung_wave()
+            res["rung"] = (before, after, again, ladder.state(),
+                           time.perf_counter() - staged)
+            res["launches"] = cuda_build.launch_counts()
+            rows = {}
+            for r in eng.step_recorder.snapshot():
+                if r["entry"] == "prefill":
+                    row = rows.setdefault(r["shape"], [0, 0, 0.0, 0, 0])
+                    row[0] += 1
+                    row[1] += 1 if r["compiled"] else 0
+                    row[2] += r["host_s"] if r["compiled"] else 0.0
+                    row[3] += r["good_tokens"]
+                    row[4] += r["work_tokens"]
+            res["prefill_rows"] = rows
+            res["control"] = await asyncio.to_thread(
+                get, "/debug/control?limit=256")
+            # read together, no await between: the plane ticks on this loop
+            kv_moves = [e for e in plane.events()
+                        if e["controller"] == "kvbm"]
+            res["kvbm_moves"] = kv_moves
+            res["watermark"] = eng.config.watermark
+            res["plane_summary"] = plane.summary()
+            return res
+        finally:
+            if fe is not None:
+                await fe.stop()
+            if handle is not None:
+                await handle.stop()
+            await eng.close()
+            await rt.close()
+            clients.shutdown()
+
+    with env_set(DYN_TENANCY=json.dumps(tenancy),
+                 DYN_CLASSES=json.dumps(classes), DYN_CONTROL="all",
+                 DYN_CONTROL_INTERVAL_S="0.5", DYN_STEP_PROFILE="1",
+                 DYN_KV_LIFECYCLE="1"):
+        t0 = time.perf_counter()
+        res = asyncio.run(armed())
+        armed_wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # wave 1 ------------------------------------------------------------------
+    order = res["order"]
+    first8 = order[:8]
+    n_gold = first8.count("gold")
+    log(f"[admission] wave 1 ({res['wave1_wall']:.1f} s): 8 bronze then 8 "
+        f"gold queued behind the held device lock; admission order "
+        f"{''.join(t[0] for t in order)} (b bronze, g gold); the first 8 "
+        f"hold {n_gold} gold (FIFO: 0); on {smi}")
+    if abs(n_gold - 6) > 1:
+        raise AssertionError(f"8k: {n_gold} gold in the first 8 "
+                             f"admissions {first8}, want 6 +- 1")
+    peak = res["bronze_peak"]
+    log(f"[admission] bronze's KV pages while gold ran: peak "
+        f"{peak['bronze']} of its budget {budget} ({peak['samples']} "
+        f"samples); prompt {plen} tokens")
+    if not peak["samples"] or peak["bronze"] > budget:
+        raise AssertionError(f"8k: bronze held {peak['bronze']} pages, "
+                             f"budget {budget}")
+    st, retry, etype = res["capped"]
+    a0, a1 = res["capped_arrivals"]
+    log(f"[admission] capped (token_rate 1, burst {capped_tokens}): the "
+        f"first chat 200, the second HTTP {st} Retry-After {retry} "
+        f"({etype}); engine arrivals {a0} -> {a1}")
+    if st != 429 or not retry or int(retry) < 1 or \
+            etype != "rate_limit_exceeded" or a0 != a1:
+        raise AssertionError(f"8k: capped's second chat {res['capped']}, "
+                             f"arrivals {a0} -> {a1}")
+    got1 = [(r["tokens"], r["tops"]) for r in res["wave1"]]
+    # wave 1 is texts 0..15 in order; capped's chat is text 0 again
+    parts = compare_streams(want[:ADMISSION_WAVE] + [want[0]], got1,
+                            "admission wave 1")
+    for rep in res["repeats"]:
+        parts += compare_streams(
+            want[:ADMISSION_WAVE], [(r["tokens"], r["tops"]) for r in rep],
+            "admission repeat")
+    log(f"[admission] {len(got1)} wave-1 streams and "
+        f"{sum(len(r) for r in res['repeats'])} repeats equal to the "
+        f"unarmed engine's token for token but {len(parts)} partings at "
+        f"near-ties; on {smi}")
+
+    # wave 2 ------------------------------------------------------------------
+    st, retry, etype = res["shed"]
+    inter, std = res["interactive"], res["standard"]
+    log(f"[admission] brownout stage 1: batch chat HTTP {st} Retry-After "
+        f"{retry} ({etype}), interactive chat 200 ({len(inter['tokens'])} "
+        f"tokens); stage 2: standard chat asked 64, got "
+        f"{std['usage']['completion_tokens']} ({std['finish']}); stage 3: "
+        f"spec_shrink {res['spec_shrink']} (no draft: inert)")
+    if st != 503 or retry != "3" or etype != "overloaded":
+        raise AssertionError(f"8k: the shed batch chat {res['shed']}")
+    if std["usage"]["completion_tokens"] > 32 or (
+            std["finish"] == "length"
+            and std["usage"]["completion_tokens"] != 32):
+        raise AssertionError(f"8k: the capped standard chat {std['usage']}")
+    if res["spec_shrink"] is not True:
+        raise AssertionError("8k: stage 3 did not set spec_shrink")
+    parts += compare_streams([want[0], want[ADMISSION_WAVE]],
+                             [(inter["tokens"], inter["tops"]),
+                              (std["tokens"], std["tops"])],
+                             "admission brownout")
+    bus = res["bus"]
+    moves = [(e["from"], e["to"]) for e in bus]
+    log("[admission] brownout transitions (s into wave 2; the `ok` at "
+        f"{res['clean_at']:.2f} s): "
+        + "; ".join(f"{t:.2f} -> {name}" for t, name in res["stages"])
+        + "; reasons: " + "; ".join(f"{e['from']} -> {e['to']} "
+                                    f"({e['reason']})" for e in bus))
+    want_moves = [("ok", "shed_batch"), ("shed_batch", "cap_standard"),
+                  ("cap_standard", "shrink_spec"),
+                  ("shrink_spec", "cap_standard"),
+                  ("cap_standard", "shed_batch"), ("shed_batch", "ok")]
+    if moves != want_moves:
+        raise AssertionError(f"8k: brownout transitions {moves}")
+    ring = [e for e in res["control"]["events"]
+            if e["controller"] == "brownout"]
+    if [(e["from"], e["to"]) for e in ring] != want_moves[3:]:
+        raise AssertionError(f"8k: /debug/control's brownout actions "
+                             f"{ring}")
+    # the machine and the plane tick on one clock: each step down waits
+    # recover_s of clean time, the first one counted from the `ok`
+    recover = classes["brownout_recover_s"]
+    downs = [t for t, _ in res["stages"][3:]]
+    if not downs or downs[0] - res["clean_at"] < recover - 0.05 or any(
+            not recover <= e["evidence"]["clean_s"] < recover + 2.0
+            for e in ring):
+        raise AssertionError(
+            f"8k: the walk-back did not wait recover_s {recover}: the "
+            f"`ok` at {res['clean_at']:.3f} s, steps down at {downs}, "
+            f"clean_s {[e['evidence']['clean_s'] for e in ring]}")
+    cls = res["classes"]
+    fleet = res["fleet"]
+    if cls["brownout"]["transitions"] != 6 or cls["brownout"]["stage"] != 0 \
+            or fleet["brownout"]["stage_name"] != "ok" or \
+            "control" not in fleet:
+        raise AssertionError(f"8k: /debug/classes brownout "
+                             f"{cls['brownout']}, /fleet/status "
+                             f"{fleet.get('brownout')}")
+    log(f"[admission] class table: {cls['counters']}; brownout "
+        f"{cls['brownout']}; /fleet/status brownout "
+        f"{fleet['brownout']['stage_name']}, control actions "
+        f"{fleet['control']['actions']}; wave 2 and the repeats "
+        f"{res['wave2_wall']:.1f} s; on {smi}")
+    for name, row in sorted(res["tenants"]["tenants"].items()):
+        log(f"[admission] tenant {name}: admitted {row['admitted']}, "
+            f"rejected {row['rejected']}, live streams "
+            f"{row['live_streams']}, bucket {row['bucket_level']}")
+    for e in res["tenants"]["engines"]:
+        for name, row in sorted(e["tenants"].items()):
+            log(f"[admission] engine tenant {name}: goodput "
+                f"{row.get('goodput_tokens')} tokens, queue wait mean "
+                f"{row.get('queue_wait_mean_s')} s, service "
+                f"{row.get('service')}, deficit "
+                f"{row.get('weighted_deficit')}")
+
+    # wave 3: the controllers ------------------------------------------------
+    kv = res["kv"]
+    kv_moves = res["kvbm_moves"]
+    log(f"[admission] wave 3: {len(res['repeats'])} repeat(s) of wave 1 "
+        f"({res['repeats_wall']:.1f} s) over {ADMISSION_PAGES - 1} pages: "
+        f"{kv['allocations']} allocations, {kv['premature_evictions']} "
+        f"premature evictions, {kv['hits']} hits")
+    for e in res["control"]["events"]:
+        log(f"[admission] control action #{e['seq']} at {e['at']:.3f}: "
+            f"{e['controller']} {e['knob']} {e['from']} -> {e['to']} "
+            f"({e['reason']}); evidence {json.dumps(e['evidence'])[:240]}")
+    if not kv["premature_evictions"] or not kv_moves:
+        raise AssertionError(f"8k: premature evictions "
+                             f"{kv['premature_evictions']}, kvbm actions "
+                             f"{kv_moves}")
+    for e in kv_moves:
+        step = round(abs(e["to"] - e["from"]), 4)
+        if e["knob"] != "watermark/w0" or step != 0.01 or \
+                e["to"] < 0.80 or "window" not in e["evidence"]:
+            raise AssertionError(f"8k: a KVBM action out of bounds: {e}")
+    if res["watermark"] != kv_moves[-1]["to"]:
+        raise AssertionError(f"8k: watermark {res['watermark']} != the "
+                             f"last action's {kv_moves[-1]['to']}")
+    bucket_moves = [e for e in res["control"]["events"]
+                    if e["controller"] == "bucket"]
+    log(f"[admission] bucket autotuner: {len(bucket_moves)} proposals over "
+        f"{res['plane_summary']['ticks']} ticks (its two-dim labels never "
+        f"match the engine's (width, tokens, aligned) prefill rows); KVBM "
+        f"tuner: {len(kv_moves)} watermark moves, the engine's watermark "
+        f"{res['watermark']}")
+    if bucket_moves:
+        raise AssertionError(f"8k: the bucket autotuner proposed "
+                             f"{bucket_moves}")
+    before, after, again, lad, staged_s = res["rung"]
+    rows = res["prefill_rows"]
+    old = {k: v for k, v in rows.items() if f"x{RUNG}x" not in k
+           and "x384x" in k}
+    new = {k: v for k, v in rows.items() if f"x{RUNG}x" in k}
+    for k, (n, nc, cs, g, w) in sorted(rows.items()):
+        log(f"[admission] prefill {k}: {n} dispatches, {nc} captures "
+            f"({cs:.3f} s), padded {100.0 * (w - g) / max(w, 1):.2f}%")
+    if lad["rungs"] != [RUNG] or lad["applied"] != 1 or not new or \
+            sum(v[0] for v in new.values()) <= sum(
+                v[1] for v in new.values()):
+        raise AssertionError(f"8k: the rung {lad}, rows {rows}")
+
+    def padded(group):
+        g = sum(v[3] for v in group.values())
+        w = sum(v[4] for v in group.values())
+        return 100.0 * (w - g) / max(w, 1)
+
+    if not old or padded(new) >= padded(old):
+        raise AssertionError(f"8k: padding {padded(old):.2f}% at 384, "
+                             f"{padded(new):.2f}% at {RUNG}")
+    parts_b = compare_streams(before, after, "admission rung") + \
+        compare_streams(before, again, "admission rung replay")
+    met = ", ".join(f"{e} {sh} {t:.3f} s"
+                    for e, sh, t in res["wave_b_captures"])
+    captures = sum(v[1] for v in new.values())
+    capture_s = sum(v[2] for v in new.values())
+    log(f"[admission] rung {RUNG} proposed while a 64-token request "
+        f"decoded, adopted at the scheduler's safe point ({lad}); prompts "
+        f"of {RUNG_PROMPT_LENS[0]}-{RUNG_PROMPT_LENS[-1]} tokens: padded "
+        f"{padded(old):.2f}% at 384 -> {padded(new):.2f}% at {RUNG}; the "
+        f"new prefill shapes cost {captures} capture(s), {capture_s:.3f} "
+        f"s; the wave met {len(res['wave_b_captures'])} captures in all, "
+        f"{sum(c[2] for c in res['wave_b_captures']):.3f} s ({met}); "
+        f"the longest queue wait of the wave {max(res['rung_waits']):.3f} "
+        f"s; streams before / after / replayed equal but {len(parts_b)} "
+        f"near-tie partings; walls {res['rung_wall_a']:.2f} / "
+        f"{res['rung_wall_b']:.2f} / {res['rung_wall_c']:.2f} s; on {smi}")
+    launches = res["launches"]
+    for k in ("ragged_paged_attention", "paged_kv_write",
+              "paged_kv_write_pages", "paged_attention_decode"):
+        if not launches.get(k):
+            raise AssertionError(f"8k: {k} never launched ({launches})")
+    log(f"[admission] launches over the armed deployment {launches}; "
+        f"armed part {armed_wall:.1f} s; on {smi}")
+    out.update(order=order, n_gold=n_gold, bronze_peak=peak["bronze"],
+               transitions=bus, kvbm_moves=kv_moves,
+               watermark=res["watermark"], rung=lad,
+               padded=(padded(old), padded(new)), captures=captures,
+               capture_s=capture_s, max_wait=max(res["rung_waits"]),
+               wave_b_captures=res["wave_b_captures"],
+               partings=len(parts) + len(parts_b),
+               walls=(res["wave1_wall"], res["wave2_wall"],
+                      res["rung_wall_a"], res["rung_wall_b"],
+                      res["rung_wall_c"]))
+    return out
+
 
 # -- the router's recorders and the mock fleet (phases 8d, 8j) ----------------
 
@@ -6744,6 +7389,11 @@ def main() -> int:
     log(f"[recorders] phase 8i in {time.perf_counter() - t0:.1f} s")
     lap("8i recorders")
 
+    # 8k. the admission and control planes ---------------------------------
+    torch.cuda.empty_cache()
+    admission_phase(torch, smi, card, model)
+    lap("8k admission and control")
+
     # 9. quantized main path -------------------------------------------------
 
     def bare_decode_launches(mdl):
@@ -6994,8 +7644,11 @@ def main() -> int:
             extra = (f"; the replay by CUDA events {event_ms:.2f} ms; graph "
                      f"pool {pool} bytes" if how == "graphed" else "")
             if busy is None:
-                why = ("not profiled: cut since 8j was added" if n_k is None
-                       else "the profiler saw no device activity")
+                why = ("the profiler saw no device activity"
+                       if n_k is not None else
+                       "not profiled: cut since 8j was added"
+                       if mode == "bf16" else
+                       "not profiled: cut since 8k was added")
                 log(f"[profile] {what}, {how}: wall {wall_ms:.2f} ms; device "
                     f"busy not measured ({why}){extra}, on {smi}")
                 continue

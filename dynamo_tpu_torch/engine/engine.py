@@ -137,9 +137,18 @@ device delta; an out-of-memory error in a scheduler iteration dumps its
 forensics (`record_oom`) before the in-flight requests fail. Both are
 None unless armed. The fault injector's `on_dispatch` (`DYN_FAULTS`
 kind=oom / dispatch_wedge) is consulted once per scheduler iteration.
-The reference's other environment planes (`DYN_TENANCY`, `DYN_CLASSES`,
-`DYN_MESH_RECORDER`) are refused at construction
-(`runtime/planes.py`).
+The tenancy plane (`DYN_TENANCY`, `tenancy/`) and the serving-class
+plane (`DYN_CLASSES`, `serving_classes/`) arm at construction as the
+reference's (`:718-745`): with tenancy, each admission round tries one
+candidate per tenant, its FIFO head, least weighted service first
+(`FairScheduler`), a tenant at its `kv_block_budget` is skipped while
+others admit, and the `dynamo_tenant_*` goodput, queue-wait and KV-page
+series attribute by the `x-dyn-tenant` header the frontend stamps; with
+classes too, the class weight divides each admission's charge.
+`admit_lookahead` > 0 without tenancy tries the head and up to that many
+requests behind it; 0 with nothing armed is the head-only order, bit for
+bit. `spec_shrink` is the brownout's stage-3 actuator. The mesh recorder
+(`DYN_MESH_RECORDER`) is refused at construction (`runtime/planes.py`).
 
 Request tracing, as the reference's engine emits it (`:917-938`,
 `:1277-1283`, `:1695-1701`, `:2215`, `:3102-3176`): with the process
@@ -230,6 +239,12 @@ from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.faults import OOM_ERROR, FaultInjector
 from dynamo_tpu_torch.runtime.planes import refuse_unported_planes
 from dynamo_tpu_torch.runtime.tracing import RequestTrace
+from dynamo_tpu_torch.serving_classes import classes_from_env
+from dynamo_tpu_torch.tenancy import (
+    FairScheduler,
+    TenantMetrics,
+    tenancy_from_env,
+)
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger(__name__)
@@ -359,6 +374,12 @@ class TorchEngineConfig:
     draft_model: Optional[LlamaConfig] = None
     spec_gamma: int = 4
     spec_iters_per_sync: int = 8
+    # bounded admission skip-ahead without tenancy: when the waiting
+    # head cannot get pages, try up to this many requests behind it
+    # before the round gives up, so a page-starved giant does not park
+    # smaller admissible work; 0 is the head-only order, bit for bit.
+    # Ignored when DYN_TENANCY arms the fair scheduler (tenant heads)
+    admit_lookahead: int = 0
 
 
 @dataclass
@@ -401,6 +422,11 @@ class _Seq:
     # KVBM: blocking seconds spent in this request's failed admission
     # attempts, observed with the one that admits it
     stall_s: float = 0.0
+    # the resolved tenant (DYN_TENANCY) and serving class (DYN_CLASSES)
+    # names; None when the plane is unarmed, and no unarmed path reads
+    # them
+    tenant: Optional[str] = None
+    cls: Optional[str] = None
 
     @property
     def wants_topk(self) -> bool:
@@ -475,6 +501,19 @@ class TorchEngine:
         itself (a self-draft), and keeps caches of its own either way."""
         refuse_unported_planes("TorchEngine")
         self.config = config or TorchEngineConfig()
+        # the tenancy and serving-class planes: None unless DYN_TENANCY /
+        # DYN_CLASSES; with tenancy the admission round drains tenant
+        # heads by weighted deficit (`_admission_order`), and with both
+        # the class weight scales each admission's charge
+        self.tenancy = tenancy_from_env()
+        self.fair: Optional[FairScheduler] = None
+        self.tenant_metrics: Optional[TenantMetrics] = None
+        if self.tenancy is not None:
+            self.fair = FairScheduler(self.tenancy)
+            self.tenant_metrics = TenantMetrics()
+        self.classes = classes_from_env()
+        if self.classes is not None and self.fair is not None:
+            self.fair.classes = self.classes
         cfg = self.config
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {cfg.attention_impl!r} is not "
@@ -511,8 +550,8 @@ class TorchEngine:
         self.k_cache, self.v_cache = init_cache(self.model_cfg,
                                                 cfg.num_pages, self.device)
         self.draft = self._build_draft(draft)
-        # the brownout actuator of a later control layer: True serves a
-        # draft engine's bursts without speculating
+        # the brownout's stage-3 actuator (serving_classes/brownout.py):
+        # True serves a draft engine's bursts without speculating
         self.spec_shrink = False
         # the scheduler loop's event loop and thread, set at first use
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -714,6 +753,14 @@ class TorchEngine:
         return self.config.attention_impl == "ragged" and self.draft is None
 
     @property
+    def ragged_active(self) -> bool:
+        """The controller-facing name of `ragged` (the reference's
+        `ragged_active`): the bucket autotuner leaves a ragged engine's
+        ladder alone, since its flat-token step buckets on total tokens
+        and has no per-lane padding to tune."""
+        return self.ragged
+
+    @property
     def _burst_lookahead(self) -> int:
         """Positions past prompt+max_tokens the admission guard budgets:
         one burst of decode_steps_per_sync, two with pipelined bursts (one
@@ -796,10 +843,17 @@ class TorchEngine:
             # trace root parented to the transport's serve span (or the
             # caller task's current span in process; the traceparent
             # header otherwise); None when DYN_TRACE is off
-            trace = RequestTrace.begin(
-                "engine.request", getattr(context, "headers", None),
-                {"request.id": context.request_id,
-                 "engine.worker_id": self.config.worker_id})
+            headers = getattr(context, "headers", None)
+            attrs = {"request.id": context.request_id,
+                     "engine.worker_id": self.config.worker_id}
+            tenant = cls = None
+            if self.tenancy is not None:
+                tenant = self.tenancy.tenant_of(headers)
+                attrs["tenant"] = tenant
+            if self.classes is not None:
+                cls = self.classes.class_of(headers)
+                attrs["class"] = cls
+            trace = RequestTrace.begin("engine.request", headers, attrs)
             seq = _Seq(
                 req=req, ctx=context, queue=asyncio.Queue(),
                 token_seq=TokenBlockSequence(mcfg.page_size),
@@ -814,6 +868,8 @@ class TorchEngine:
                 t_enqueue_ns=time.time_ns(),
                 trace=trace,
                 import_kv=import_kv,
+                tenant=tenant,
+                cls=cls,
             )
             if trace is not None:
                 trace.event("enqueued", waiting=len(self._waiting),
@@ -1050,75 +1106,125 @@ class TorchEngine:
                 alloc = self.pool.allocate_sequence(hashes, prompt_len)
         return alloc
 
+    def _admission_order(self) -> list[int]:
+        """Candidate indexes into `_waiting` for one admission round: the
+        head only when nothing is armed (the FIFO order, bit for bit);
+        the head and up to `admit_lookahead` requests behind it; or, with
+        the fair scheduler armed, one index per backlogged tenant (its
+        FIFO head), least weighted service first."""
+        if self.fair is not None:
+            return self.fair.candidate_indexes(
+                [s.tenant for s in self._waiting])
+        la = self.config.admit_lookahead
+        if la > 0:
+            return list(range(min(la + 1, len(self._waiting))))
+        return [0]
+
+    def _tenant_pages(self, tenant: Optional[str]) -> int:
+        """KV pages the tenant's running sequences hold."""
+        return sum(len(s.pages) for s in self._running
+                   if s.tenant == tenant)
+
     def _admit_one(self) -> bool:
-        """One admission attempt on the FIFO head; True when the caller
-        should keep going (admitted, or a dead entry was reaped)."""
-        cand = self._waiting[0]
-        if cand.ctx.is_cancelled():
-            self._waiting.pop(0)
-            self._finish(cand, FINISH_CANCELLED)
-            return True
-        deadline = cand.ctx.deadline
-        if deadline is not None \
-                and asyncio.get_running_loop().time() >= deadline:
-            # its deadline passed while it was queued: drop it before any
-            # prefill, with an in-band error (the request failed; the
-            # worker did not, so nothing migrates or replays it)
-            self._waiting.pop(0)
-            cand.queue.put_nowait(EngineOutput(
-                token_ids=[], finish_reason=FINISH_ERROR,
-                extra={"error": DEADLINE_ADMIT_ERR}).to_dict())
-            self._finish(cand, FINISH_ERROR, emit=False)
-            return True
+        """One admission round over the candidate order; True when the
+        caller should keep going (admitted, or a dead entry was reaped),
+        False when no candidate is admissible. A candidate passed over
+        holds nothing: every check before its allocation only reads, and
+        a failed allocation takes no page."""
         page_size = self.model_cfg.page_size
-        need_pages = (len(cand.prompt) + page_size - 1) // page_size
-        # pinned pages are taken but free themselves without any sequence
-        # finishing (the offload worker's gather lands): net them out
-        occupied = self.pool.active_pages - self.pool.pending_offload_pages
-        if (occupied + need_pages
-                > self.config.watermark * self.pool.capacity
-                and self._running):
-            return False
-        t_adm = time.perf_counter()
-        if cand.import_kv is not None:
-            # disagg import: fresh pages only (the imported KV overwrites
-            # them); the cached length comes from the transfer
-            alloc = self._alloc_admission([], len(cand.prompt))
-            if alloc is None:
-                cand.stall_s += time.perf_counter() - t_adm
-                return False
-            cand.pages, cand.cached_len = alloc[0], cand.import_kv[1]
-        else:
-            alloc = self._alloc_admission(cand.prompt_hashes,
-                                          len(cand.prompt))
-            if alloc is None:
-                cand.stall_s += time.perf_counter() - t_adm
-                return False
-            cand.pages, cand.cached_len = alloc
+        for idx in self._admission_order():
+            cand = self._waiting[idx]
+            if cand.ctx.is_cancelled():
+                self._waiting.pop(idx)
+                self._finish(cand, FINISH_CANCELLED)
+                return True
+            deadline = cand.ctx.deadline
+            if deadline is not None \
+                    and asyncio.get_running_loop().time() >= deadline:
+                # its deadline passed while it was queued: drop it before
+                # any prefill, with an in-band error (the request failed;
+                # the worker did not, so nothing migrates or replays it)
+                self._waiting.pop(idx)
+                cand.queue.put_nowait(EngineOutput(
+                    token_ids=[], finish_reason=FINISH_ERROR,
+                    extra={"error": DEADLINE_ADMIT_ERR}).to_dict())
+                self._finish(cand, FINISH_ERROR, emit=False)
+                return True
+            need_pages = (len(cand.prompt) + page_size - 1) // page_size
+            if self.fair is not None:
+                # a tenant at its page budget is not admissible this
+                # round; other tenants' heads still are (an empty batch
+                # admits anything, so a request over its own budget
+                # cannot starve)
+                budget = self.tenancy.get(cand.tenant).kv_block_budget
+                if (budget > 0 and self._running
+                        and self._tenant_pages(cand.tenant) + need_pages
+                        > budget):
+                    continue
+            # pinned pages are taken but free themselves without any
+            # sequence finishing (the offload worker's gather lands): net
+            # them out
+            occupied = (self.pool.active_pages
+                        - self.pool.pending_offload_pages)
+            if (occupied + need_pages
+                    > self.config.watermark * self.pool.capacity
+                    and self._running):
+                continue
+            t_adm = time.perf_counter()
+            if cand.import_kv is not None:
+                # disagg import: fresh pages only (the imported KV
+                # overwrites them); the cached length comes from the
+                # transfer
+                alloc = self._alloc_admission([], len(cand.prompt))
+                if alloc is None:
+                    cand.stall_s += time.perf_counter() - t_adm
+                    continue
+                cand.pages, cand.cached_len = alloc[0], cand.import_kv[1]
+            else:
+                alloc = self._alloc_admission(cand.prompt_hashes,
+                                              len(cand.prompt))
+                if alloc is None:
+                    cand.stall_s += time.perf_counter() - t_adm
+                    continue
+                cand.pages, cand.cached_len = alloc
+                if self.kvbm is not None:
+                    # blocks past the device prefix hit that the
+                    # host/disk tiers hold are written into the fresh
+                    # pages, so prefill skips them
+                    cand.cached_len = self.kvbm.onboard(cand)
             if self.kvbm is not None:
-                # blocks past the device prefix hit that the host/disk
-                # tiers hold are written into the fresh pages, so prefill
-                # skips them
-                cand.cached_len = self.kvbm.onboard(cand)
-        if self.kvbm is not None:
-            # one sample per admitted request: the blocking work of all
-            # its attempts (inline eviction gathers, a flush of queued
-            # offloads, the onboard's tier reads and device write), not
-            # the wait between them, which is queue wait
-            self.metrics.admission_stall.observe(
-                cand.stall_s + time.perf_counter() - t_adm)
-        self.metrics.queue_wait.observe(time.perf_counter() - cand.t_enqueue)
-        if cand.trace is not None:
-            now_ns = time.time_ns()
-            cand.trace.stage(
-                "engine.queue_wait", cand.t_enqueue_ns, now_ns,
-                cached_len=cand.cached_len, prompt_tokens=len(cand.prompt))
-            cand.trace.event("admitted", running=len(self._running) + 1)
-            cand.t_admit_ns = now_ns
-        cand.prefill_pos = cand.cached_len
-        self._waiting.pop(0)
-        self._running.append(cand)
-        return True
+                # one sample per admitted request: the blocking work of
+                # all its attempts (inline eviction gathers, a flush of
+                # queued offloads, the onboard's tier reads and device
+                # write), not the wait between them, which is queue wait
+                self.metrics.admission_stall.observe(
+                    cand.stall_s + time.perf_counter() - t_adm)
+            wait_s = max(time.perf_counter() - cand.t_enqueue, 0.0)
+            self.metrics.queue_wait.observe(wait_s)
+            if self.fair is not None:
+                self.fair.on_admit(
+                    cand.tenant, len(cand.prompt) + cand.max_tokens,
+                    cls=cand.cls)
+                tm = self.tenant_metrics
+                if cand.tenant is not None:
+                    tm.observe_queue_wait(cand.tenant, wait_s)
+                    tm.kv_blocks.set(
+                        self._tenant_pages(cand.tenant) + len(cand.pages),
+                        tenant=cand.tenant)
+            if cand.trace is not None:
+                now_ns = time.time_ns()
+                cand.trace.stage(
+                    "engine.queue_wait", cand.t_enqueue_ns, now_ns,
+                    cached_len=cand.cached_len,
+                    prompt_tokens=len(cand.prompt))
+                cand.trace.event("admitted",
+                                 running=len(self._running) + 1)
+                cand.t_admit_ns = now_ns
+            cand.prefill_pos = cand.cached_len
+            self._waiting.pop(idx)
+            self._running.append(cand)
+            return True
+        return False
 
     def _admit(self) -> None:
         while self._waiting and \
@@ -2438,6 +2544,8 @@ class TorchEngine:
             seq.next_token = t
         seq.generated += n_emit
         self.metrics.tokens_emitted.inc(n_emit)
+        if self.tenant_metrics is not None and seq.tenant is not None:
+            self.tenant_metrics.goodput.inc(n_emit, tenant=seq.tenant)
         out = EngineOutput(token_ids=emit_toks, finish_reason=finish)
         if lps is not None:
             out.log_probs = [float(x) for x in lps[:n_emit]]
@@ -2480,6 +2588,9 @@ class TorchEngine:
         if release_pages:
             self._release(seq.pages)
         seq.pages = []
+        if self.tenant_metrics is not None and seq.tenant is not None:
+            self.tenant_metrics.kv_blocks.set(
+                self._tenant_pages(seq.tenant), tenant=seq.tenant)
         if emit:
             seq.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=reason).to_dict())

@@ -6,9 +6,14 @@ Port of `dynamo_tpu/llm/entrypoint.py`:
   telemetry collector behind `/fleet/status` (always on) with this
   process's own snapshot publisher when `telemetry_interval` > 0, and the
   SLO monitor fed by the HTTP service's TTFT/ITL samples when an
-  objective is set (`:120-240`). The reference's gRPC frontend,
-  breaker-event counter, serving-class and flight-control planes wait
-  with their subsystems.
+  objective is set (`:120-240`); with `DYN_CLASSES` the deadline gate's
+  `AdmissionEstimator` and the `BrownoutMachine` over the late-bound
+  engines, the per-class objectives (`ttft:<class>`, `itl:<class>`) and
+  the brownout fed by the SLO loop's transitions (`:143-225`); with
+  `DYN_CONTROL` the flight-control plane over the engines, the kv-mode
+  routers and the brownout (`control_plane_from_env`, ticked every
+  `DYN_CONTROL_INTERVAL_S`). The reference's gRPC frontend and
+  breaker-event counter wait with their subsystems.
 - `serve_engine` (`:263`) / `WorkerHandle` (`:245`): serve an engine on
   its card's endpoint, join the engine's metrics (`EngineMetrics` and its
   CUDA-graph counts) to the process's registry, serve the admin endpoints
@@ -17,7 +22,8 @@ Port of `dynamo_tpu/llm/entrypoint.py`:
   with a one-token greedy payload (`:325-334`; probed only when the
   runtime's health manager is on), and with `telemetry_interval` > 0
   publish the worker's MetricsSnapshot on the telemetry subject
-  (`:371-383`). The mesh and tenancy surfaces wait.
+  (`:371-383`); with `DYN_TENANCY` the engine-role `dynamo_tenant_*`
+  series join the scrape (`:319-324`). The mesh surface waits.
 - `wire_engine_events` (`:388`): the sinks that publish an engine's KV
   events and ForwardPassMetrics on the runtime's event bus, under the
   subjects the card's KV router consumes.
@@ -40,9 +46,11 @@ import asyncio
 import inspect
 import logging
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+from dynamo_tpu_torch.control.plane import control_plane_from_env
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine import cuda_build
 from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
@@ -83,6 +91,10 @@ from dynamo_tpu_torch.runtime.telemetry import (
     TelemetryPublisher,
     _publish_best_effort,
 )
+from dynamo_tpu_torch.serving_classes import (
+    AdmissionEstimator,
+    BrownoutMachine,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -100,6 +112,7 @@ class Frontend:
     publisher: object = None     # TelemetryPublisher when interval > 0
     slo: object = None           # SloMonitor when objectives configured
     _slo_task: object = None
+    control: object = None       # ControlPlane when DYN_CONTROL armed
 
     @property
     def url(self) -> str:
@@ -108,6 +121,8 @@ class Frontend:
     async def stop(self) -> None:
         if self._slo_task is not None:
             self._slo_task.cancel()
+        if self.control is not None:
+            await self.control.stop()
         if self.publisher is not None:
             await self.publisher.stop()
         if self.collector is not None:
@@ -150,14 +165,48 @@ async def start_frontend(runtime: DistributedRuntime,
     # the /debug routes read the engines `serve_engine` registered on this
     # runtime (late-bound: an in-process worker may start after the
     # frontend; a frontend-only process lists none)
-    http.profile_engines = \
-        lambda: list(getattr(runtime, "profile_engines", []))
+    def engines_supplier() -> list:
+        return list(getattr(runtime, "profile_engines", []))
+
+    http.profile_engines = engines_supplier
     # Fleet telemetry plane: the frontend always runs the collector (a
     # passive event-plane subscription serving /fleet/status); publishing
     # its own snapshot and the SLO monitor are opt-in via config
     cfg = runtime.config
     collector = TelemetryCollector(runtime.events)
     await collector.start()
+    # serving classes (DYN_CLASSES, parsed by HttpService): the deadline
+    # gate's estimator over the live engines' histograms and, when the
+    # config arms it, the brownout machine, fed by the SLO loop below and
+    # walked back by the control plane's tick (when attached there) or
+    # by the SLO loop itself
+    brownout = None
+    classes_cfg = http.classes
+    if classes_cfg is not None:
+        http.admission = AdmissionEstimator(
+            engines_supplier, classes_cfg.admission_quantile)
+        if classes_cfg.brownout:
+            brownout = BrownoutMachine(
+                classes_cfg, engines=engines_supplier,
+                bus=runtime.events, metrics=http.class_metrics,
+                clock=time.time)
+            http.brownout = brownout
+    # flight control (DYN_CONTROL): None when unset; armed, the plane
+    # observes what this process reaches: the in-process engines, the
+    # kv-mode routers and the brownout machine (a planner's forecast
+    # controller is attached by whoever owns the planner). The plane
+    # ticks the machine at its own `now`, so both run on one clock:
+    # the machine's SLO-event stamps and the plane's tick stamps are
+    # then comparable, and recover_s and hold_s hold across the two.
+    control = control_plane_from_env(
+        runtime, engines=engines_supplier,
+        routers=lambda: manager.kv_routers(), brownout=brownout,
+        now=time.time)
+    if control is not None:
+        control.start()
+        http.control_plane = control
+    brownout_on_plane = (control is not None and brownout is not None
+                         and brownout in control.controllers)
     slo = slo_task = None
     objectives = []
     if cfg.slo_ttft > 0:
@@ -166,6 +215,19 @@ async def start_frontend(runtime: DistributedRuntime,
     if cfg.slo_itl > 0:
         objectives.append(SloObjective(
             "itl", cfg.slo_itl, cfg.slo_target_ratio))
+    if classes_cfg is not None:
+        # per-class objectives, fed by the HTTP path's per-class samples,
+        # so the brownout can fire on one class's burn while the global
+        # windows look healthy
+        for name, c in sorted(classes_cfg.classes.items()):
+            if c.ttft_objective_s > 0:
+                objectives.append(SloObjective(
+                    f"ttft:{name}", c.ttft_objective_s,
+                    cfg.slo_target_ratio))
+            if c.itl_objective_s > 0:
+                objectives.append(SloObjective(
+                    f"itl:{name}", c.itl_objective_s,
+                    cfg.slo_target_ratio))
     if objectives:
         slo = SloMonitor(objectives,
                          fast_window=cfg.slo_fast_window,
@@ -181,11 +243,16 @@ async def start_frontend(runtime: DistributedRuntime,
                 for ev in slo.evaluate():
                     _publish_best_effort(runtime.events,
                                          SLO_EVENTS_SUBJECT, ev)
+                    if brownout is not None:
+                        brownout.on_slo_event(ev)
+                if brownout is not None and not brownout_on_plane:
+                    brownout.tick()
 
         slo_task = asyncio.get_running_loop().create_task(_slo_loop())
-    # the unported control and brownout planes are absent: fleet_status's
-    # defaults (None), as the reference's when they are not armed
-    http.fleet_status_provider = lambda: collector.fleet_status(slo=slo)
+    http.fleet_status_provider = lambda: collector.fleet_status(
+        slo=slo,
+        control=(control.summary if control is not None else None),
+        brownout=(brownout.state if brownout is not None else None))
     publisher = None
     if cfg.telemetry_interval > 0:
         publisher = TelemetryPublisher(
@@ -194,7 +261,7 @@ async def start_frontend(runtime: DistributedRuntime,
             interval=cfg.telemetry_interval)
         publisher.start()
     return Frontend(runtime, manager, watcher, http, collector, publisher,
-                    slo, slo_task)
+                    slo, slo_task, control)
 
 
 @dataclass
@@ -219,12 +286,16 @@ def register_engine_metrics(runtime: DistributedRuntime, engine) -> None:
     tracker's `dynamo_compile_*`), its `KvbmMetrics` (`dynamo_kv_lifecycle_*`,
     `dynamo_kvbm_tier_*`), its `MemoryMetrics` (`dynamo_memory_*`; an
     armed ledger polls at every scrape), its CUDA-graph captures, replays and
-    pool bytes, and the process's kernel launch counts (one source of
-    truth, no second bookkeeping path). Engines without them are
+    pool bytes, the process's kernel launch counts (one source of
+    truth, no second bookkeeping path), and with `DYN_TENANCY` its
+    engine-role `dynamo_tenant_*` series. Engines without them are
     skipped."""
     metrics = getattr(engine, "metrics", None)
     if metrics is not None:
         metrics.register(runtime.metrics)
+    tm = getattr(engine, "tenant_metrics", None)
+    if tm is not None:
+        tm.register(runtime.metrics, role="engine")
     # the KV lifecycle counters and the per-tier occupancy gauges
     # (refreshed per scrape; the recorder stays None unless armed)
     km = getattr(engine, "kv_metrics", None)

@@ -27,7 +27,8 @@ error bodies and SSE framing are the reference's:
   (`router/prefix_plane.py`, `DYN_PREFIX_HEAT`). The engine routes read
   `profile_engines`, which an in-process deployment wires to its engines
   (`llm/entrypoint.py`); without it they answer 503, as /debug/router
-  and /debug/prefixes do with no kv-mode model
+  and /debug/prefixes do with no kv-mode model; /debug/tenants,
+  /debug/classes and /debug/control (the admission and control planes)
 
 Each chat or completion request runs under an `http <endpoint>` span
 (`runtime/tracing.py`; an incoming `traceparent` header is its parent),
@@ -35,11 +36,22 @@ which the transport carries to the worker; its TTFT and ITL samples also
 feed the SLO monitor when one is wired; with `DYN_AUDIT` its stream is
 recorded on the audit bus (`llm/audit.py`) when it ends.
 
-An unknown path answers 404, a known path with another method 405. The
-reference's tenancy and serving class routes and its other /debug
-routes (mesh, control, tenants, classes) wait with their subsystems and
-answer 404; their arming variables (`DYN_TENANCY`, `DYN_CLASSES`) make
-the service refuse to start (`runtime/planes.py`).
+The admission planes, as the reference's (`:127-375`): with
+`DYN_TENANCY` every OpenAI route resolves the tenant (the `x-dyn-tenant`
+header, a bearer API key, the default tenant) and applies its quota
+before any engine work: over quota it answers 429 with `Retry-After`;
+admitted, the request owes one `QuotaGate.release` on every exit path.
+With `DYN_CLASSES` a chat or completion then resolves its serving class
+(`x-dyn-class`, the tenant's default class, the config's) and, in the
+reference's order, the brownout shed (503), the deadline gate (503 with
+`Retry-After`, or a downgrade to a looser class) and the stage-2
+`max_tokens` cap. The resolved tenant and class ride the request's
+context headers to the workers. GET /debug/tenants, /debug/classes and
+/debug/control show the planes (`start_frontend` wires the brownout
+machine, the admission estimator and the flight-control plane) and
+answer 503 with the reference's body when theirs is unarmed; the
+reference's /debug/mesh waits with its recorder and answers 404, as any
+unknown path does; a known path with another method is a 405.
 
 Errors: a malformed request is a 400, an unknown model a 404, a model
 whose workers are all gone a 503; any other failure of the pipeline (an
@@ -87,9 +99,23 @@ from dynamo_tpu_torch.llm.protocols_openai import (
     sse_encode_event,
 )
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.runtime.planes import refuse_unported_planes
 from dynamo_tpu_torch.runtime.push import NoInstancesError, PushRouter
 from dynamo_tpu_torch.runtime.tracing import TRACEPARENT, tracer
+from dynamo_tpu_torch.runtime.transport import DEADLINE_HEADER
+from dynamo_tpu_torch.serving_classes import (
+    CLASS_HEADER,
+    ClassMetrics,
+    classes_from_env,
+)
+from dynamo_tpu_torch.tenancy import (
+    TENANT_HEADER,
+    QuotaGate,
+    TenantMetrics,
+    estimate_request_tokens,
+    retry_after_header,
+    tenancy_from_env,
+    tenant_state,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -217,27 +243,32 @@ def _head(version: str, status: int, headers: dict) -> bytes:
 
 
 class Response:
-    """A whole response: status, body and its content type."""
+    """A whole response: status, body, its content type and any extra
+    headers (a 429's or 503's `Retry-After`)."""
 
     def __init__(self, body: bytes, status: int = 200,
-                 content_type: str = JSON_TYPE) -> None:
+                 content_type: str = JSON_TYPE,
+                 headers: Optional[dict] = None) -> None:
         self.body = body
         self.status = status
         self.content_type = content_type
+        self.headers = headers or {}
 
     async def send(self, writer: asyncio.StreamWriter,
                    keep_alive: bool) -> None:
         writer.write(_head("HTTP/1.1", self.status, {
             "Content-Type": self.content_type,
             "Content-Length": str(len(self.body)),
+            **self.headers,
             "Connection": "keep-alive" if keep_alive else "close"})
             + self.body)
         await writer.drain()
 
 
-def json_response(obj, status: int = 200) -> Response:
+def json_response(obj, status: int = 200,
+                  headers: Optional[dict] = None) -> Response:
     # the reference's aiohttp json_response: json.dumps with its defaults
-    return Response(json.dumps(obj).encode(), status)
+    return Response(json.dumps(obj).encode(), status, headers=headers)
 
 
 class StreamResponse:
@@ -249,13 +280,15 @@ class StreamResponse:
         self.writer = writer
         self.chunked = req.version != "HTTP/1.0"
         self.prepared = False
+        # set before prepare(): a downgraded request's class headers
+        self.headers: dict[str, str] = {}
         # the connection ends with this response: HTTP/1.0 bodies run to
         # the end of it, and a client gone mid-stream left it broken
         self.close_after = not self.chunked
 
     async def prepare(self) -> None:
         headers = {"Content-Type": "text/event-stream",
-                   "Cache-Control": "no-cache"}
+                   "Cache-Control": "no-cache", **self.headers}
         if self.chunked:
             headers["Transfer-Encoding"] = "chunked"
             headers["Connection"] = ("keep-alive" if self.req.keep_alive
@@ -285,9 +318,6 @@ class HttpService:
                  port: int = 0, tls_cert: Optional[str] = None,
                  tls_key: Optional[str] = None,
                  request_template: Optional[dict] = None) -> None:
-        # the reference's tenancy and serving-class admission planes
-        # (DYN_TENANCY, DYN_CLASSES) are refused, not ignored
-        refuse_unported_planes("HttpService")
         self.manager = manager
         self.host = host
         self.port = port
@@ -321,7 +351,34 @@ class HttpService:
             ("GET", "/debug/kv"): self._debug_kv,
             ("GET", "/debug/router"): self._debug_router,
             ("GET", "/debug/prefixes"): self._debug_prefixes,
+            ("GET", "/debug/control"): self._debug_control,
+            ("GET", "/debug/tenants"): self._debug_tenants,
+            ("GET", "/debug/classes"): self._debug_classes,
         }
+        # the tenancy quota plane: None unless DYN_TENANCY; over-quota
+        # requests are 429s here, before any engine work, and the
+        # resolved tenant rides ctx.headers[x-dyn-tenant] to the workers
+        self.tenancy = tenancy_from_env()
+        self.quota: Optional[QuotaGate] = None
+        if self.tenancy is not None:
+            tm = TenantMetrics()
+            tm.register(manager.runtime.metrics, role="frontend")
+            self.quota = QuotaGate(self.tenancy, tm)
+        # the serving-class plane: None unless DYN_CLASSES; brownout-shed,
+        # token-capped and deadline-infeasible requests are bounced (or
+        # downgraded) here, and the resolved class rides
+        # ctx.headers[x-dyn-class]; start_frontend wires the brownout
+        # machine and the admission estimator over the live engines
+        self.classes = classes_from_env()
+        self.class_metrics: Optional[ClassMetrics] = None
+        self.brownout = None               # BrownoutMachine | None
+        self.admission = None              # AdmissionEstimator | None
+        if self.classes is not None:
+            self.class_metrics = ClassMetrics()
+            self.class_metrics.register(manager.runtime.metrics)
+        # the flight-control plane start_frontend wires when DYN_CONTROL
+        # arms a controller; None keeps /debug/control a 503
+        self.control_plane = None          # ControlPlane | None
         # the engines whose flight recorders the /debug routes read: an
         # in-process deployment wires a callable returning them
         # (`llm/entrypoint.py` start_frontend); None on a frontend-only
@@ -363,12 +420,17 @@ class HttpService:
             "request_output_tokens", "completion tokens per request",
             buckets=(1, 4, 16, 64, 128, 256, 512, 1024, 2048, 4096))
 
-    def _observe_latency(self, kind: str, seconds: float) -> None:
+    def _observe_latency(self, kind: str, seconds: float,
+                         cls: Optional[str] = None) -> None:
         """One TTFT/ITL sample into both the histogram and (when
-        configured) the SLO monitor's rolling windows."""
+        configured) the SLO monitor's rolling windows; with a class
+        name, also into the per-class objective's ("ttft:interactive";
+        the monitor ignores names it has no objective for)."""
         (self._ttft if kind == "ttft" else self._itl).observe(seconds)
         if self.slo is not None:
             self.slo.observe(kind, seconds)
+            if cls:
+                self.slo.observe(f"{kind}:{cls}", seconds)
 
     def _observe_usage(self, usage: Optional[dict]) -> None:
         if not usage:
@@ -395,6 +457,108 @@ class HttpService:
                 and body.get("max_completion_tokens") is None \
                 and t.get("max_completion_tokens") is not None:
             body["max_tokens"] = t["max_completion_tokens"]
+
+    # -- admission planes ---------------------------------------------------
+
+    def _tenant_gate(self, request: Request, body, endpoint: str):
+        """Resolve the tenant and apply its quota before any engine work.
+        (tenant_name, None) when admitted: the caller owes exactly one
+        `quota.release(tenant_name)`; (tenant_name, the 429) over quota;
+        (None, None) when tenancy is unarmed."""
+        if self.quota is None:
+            return None, None
+        tenant = self.tenancy.resolve(request.headers.get(TENANT_HEADER),
+                                      request.headers.get("authorization"))
+        tokens = estimate_request_tokens(
+            body if isinstance(body, dict) else {})
+        ok, reason, retry = self.quota.try_admit(tenant, tokens)
+        if ok:
+            return tenant.name, None
+        self._req_counter.inc(endpoint=endpoint, status="429")
+        if self.class_metrics is not None:
+            # shed load shows in the fleet picture beside served load
+            cls_name = self.classes.resolve(
+                request.headers.get(CLASS_HEADER), tenant).name
+            self.class_metrics.on_rejected("quota", cls_name)
+        err = OpenAIError(f"tenant {tenant.name!r} over {reason} quota",
+                          status=429, err_type="rate_limit_exceeded")
+        return tenant.name, json_response(
+            err.body(), status=429,
+            headers={"Retry-After": retry_after_header(retry)})
+
+    def _class_gate(self, request: Request, body, endpoint: str,
+                    tenant: Optional[str]):
+        """Resolve the serving class and apply, before any engine work,
+        the brownout shed, the deadline gate (a 503, or a downgrade when
+        only the class's own deadline is unmeetable) and the stage-2
+        `max_tokens` cap, which may rewrite `body`. (cls_name,
+        downgraded_from, None) when admitted, (cls_name, "", the 503)
+        when not, (None, "", None) when classes are unarmed."""
+        if self.classes is None:
+            return None, "", None
+        tenant_rec = (self.tenancy.get(tenant)
+                      if self.tenancy is not None and tenant else None)
+        cls = self.classes.resolve(request.headers.get(CLASS_HEADER),
+                                   tenant_rec)
+
+        def shed(c):
+            self._req_counter.inc(endpoint=endpoint, status="503")
+            self.class_metrics.on_shed(c.name, reason="brownout")
+            err = OpenAIError(
+                f"class {c.name!r} shed: fleet in brownout stage "
+                f"{self.brownout.state()['stage_name']!r}",
+                status=503, err_type="overloaded")
+            return c.name, "", json_response(
+                err.body(), status=503,
+                headers={"Retry-After":
+                         retry_after_header(self.brownout.recover_s)})
+
+        if self.brownout is not None and self.brownout.sheds(cls):
+            return shed(cls)
+        # deadline feasibility: an explicit remaining-budget header wins,
+        # else the class's implicit deadline; 0 = none
+        explicit = 0.0
+        hdr = request.headers.get(DEADLINE_HEADER)
+        if hdr:
+            try:
+                explicit = float(hdr)
+            except ValueError:
+                explicit = 0.0
+        budget = explicit if explicit > 0 else cls.deadline_s
+        downgraded_from = ""
+        if budget > 0 and self.admission is not None:
+            feasible, est, retry = self.admission.check(budget)
+            if not feasible:
+                if explicit <= 0 and cls.downgrade_to:
+                    # only the class's implicit deadline is unmeetable:
+                    # demote to the looser class instead of bouncing
+                    downgraded_from = cls.name
+                    self.class_metrics.on_downgraded(cls.name)
+                    cls = self.classes.get(cls.downgrade_to)
+                    if self.brownout is not None \
+                            and self.brownout.sheds(cls):
+                        return shed(cls)
+                else:
+                    self._req_counter.inc(endpoint=endpoint, status="503")
+                    self.class_metrics.on_deadline_rejected(cls.name)
+                    err = OpenAIError(
+                        f"deadline unmeetable: estimated TTFT {est:.3f}s "
+                        f"exceeds remaining budget {budget:.3f}s",
+                        status=503, err_type="deadline_unmeetable")
+                    return cls.name, "", json_response(
+                        err.body(), status=503,
+                        headers={"Retry-After": retry_after_header(retry)})
+        # stage-2 brownout: cap the completion budget of new streams of a
+        # cappable class (running streams are never touched)
+        if self.brownout is not None and isinstance(body, dict):
+            cap = self.brownout.cap_for(cls)
+            if cap > 0:
+                cur = (body.get("max_tokens")
+                       or body.get("max_completion_tokens") or 0)
+                if not cur or cur > cap:
+                    body["max_tokens"] = cap
+        self.class_metrics.on_admitted(cls.name)
+        return cls.name, downgraded_from, None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -566,10 +730,45 @@ class HttpService:
             return self._error(endpoint, OpenAIError(
                 f"model {model!r} not found", status=404,
                 err_type="model_not_found"))
+        # the quota gate before any engine work: an over-quota tenant
+        # costs the fleet a dict lookup and a 429
+        tenant, reject = self._tenant_gate(request, body, endpoint)
+        if reject is not None:
+            return reject
+        try:
+            # the class gate after it: a shed or deadline-infeasible
+            # request costs a histogram read and a 503
+            cls, downgraded_from, reject = self._class_gate(
+                request, body, endpoint, tenant)
+            if reject is not None:
+                return reject
+            return await self._serve_admitted(
+                request, conn, kind, endpoint, body, engine, tenant, cls,
+                downgraded_from)
+        finally:
+            # the one release an admitted request owes, on every exit
+            # path: finished, failed, disconnected, cancelled, or bounced
+            # by the class gate
+            if tenant is not None:
+                self.quota.release(tenant)
+
+    async def _serve_admitted(self, request: Request, conn: _Conn,
+                              kind: str, endpoint: str, body: dict, engine,
+                              tenant: Optional[str], cls: Optional[str],
+                              downgraded_from: str):
+        """A chat or completion past the admission planes: the stream or
+        the aggregated response."""
+        model = body.get("model")
         stream = bool(body.get("stream"))
         request_id = new_request_id(
             "chatcmpl" if kind == KIND_CHAT else "cmpl")
         ctx = Context(request_id=request_id)
+        if tenant is not None:
+            ctx.headers[TENANT_HEADER] = tenant
+        if cls is not None:
+            # the post-resolution (and post-downgrade) identity the
+            # engines' fair-share accounting keys on
+            ctx.headers[CLASS_HEADER] = cls
         conn.on_disconnect = ctx.cancel
         pipeline_request = {"_kind": kind, "body": body,
                             "request_id": request_id}
@@ -591,11 +790,15 @@ class HttpService:
                         "request.id": request_id, "model": model})
         span.__enter__()
         rec = {"request_id": request_id, "endpoint": endpoint,
-               "model": model, "stream": stream, "tenant": None,
+               "model": model, "stream": stream, "tenant": tenant,
                "received_at": time.time(),
                "trace_id": span.trace_id if tracer().enabled else None,
                "status": "in_flight", "first_token_s": None,
                "last_token_s": None, "duration_s": None, "usage": None}
+        if cls is not None:
+            rec["class"] = cls
+            if downgraded_from:
+                rec["downgraded_from"] = downgraded_from
         self._dbg_inflight[request_id] = rec
         try:
             chunks = engine.generate(pipeline_request, ctx)
@@ -641,6 +844,11 @@ class HttpService:
         """The SSE stream of a chat or completion; `rec` is the request's
         /debug/requests entry, its timings and status filled in here."""
         resp = StreamResponse(request, writer)
+        if rec.get("downgraded_from"):
+            # tell the client its request was demoted (deadline-infeasible
+            # at its own class) and to what
+            resp.headers["x-dyn-class-downgraded"] = rec["downgraded_from"]
+            resp.headers["x-dyn-class"] = str(rec.get("class", ""))
         error_event = b""
         first_token_at: Optional[float] = None
         last_token_at: Optional[float] = None
@@ -650,10 +858,15 @@ class HttpService:
                     now = time.perf_counter()
                     if first_token_at is None:
                         first_token_at = now
-                        self._observe_latency("ttft", now - start)
+                        self._observe_latency("ttft", now - start,
+                                              cls=rec.get("class"))
                         rec["first_token_s"] = round(now - start, 6)
+                        if self.quota is not None and rec.get("tenant"):
+                            self.quota.metrics.observe_ttft(
+                                rec["tenant"], now - start)
                     elif last_token_at is not None:
-                        self._observe_latency("itl", now - last_token_at)
+                        self._observe_latency("itl", now - last_token_at,
+                                              cls=rec.get("class"))
                     last_token_at = now
                     rec["last_token_s"] = round(now - start, 6)
                 self._observe_usage(chunk.get("usage"))
@@ -722,7 +935,12 @@ class HttpService:
         body, engine = self._engine_of("embeddings", request)
         if body is None:
             return engine
+        tenant, reject = self._tenant_gate(request, body, "embeddings")
+        if reject is not None:
+            return reject
         ctx = Context(request_id=new_request_id("embd"))
+        if tenant is not None:
+            ctx.headers[TENANT_HEADER] = tenant
         conn.on_disconnect = ctx.cancel
         start = time.perf_counter()
         self._inflight.add(1)
@@ -742,6 +960,8 @@ class HttpService:
             return self._error("embeddings", _as_openai_error(e))
         finally:
             self._inflight.add(-1)
+            if tenant is not None:
+                self.quota.release(tenant)
 
     async def _responses(self, request: Request, conn: _Conn):
         """/v1/responses: typed-event SSE, or the unary fold of the
@@ -749,8 +969,13 @@ class HttpService:
         body, engine = self._engine_of("responses", request)
         if body is None:
             return engine
+        tenant, reject = self._tenant_gate(request, body, "responses")
+        if reject is not None:
+            return reject
         request_id = new_request_id("resp")
         ctx = Context(request_id=request_id)
+        if tenant is not None:
+            ctx.headers[TENANT_HEADER] = tenant
         conn.on_disconnect = ctx.cancel
         events = engine.generate({"_kind": KIND_RESPONSES, "body": body,
                                   "request_id": request_id}, ctx)
@@ -772,12 +997,16 @@ class HttpService:
                 self._observe_usage_responses(full.get("usage"))
                 return json_response(full)
             return await self._stream_events(request, conn.writer, events,
-                                             ctx, start)
+                                             ctx, start, tenant)
         finally:
             self._inflight.add(-1)
+            if tenant is not None:
+                self.quota.release(tenant)
 
     async def _stream_events(self, request: Request, writer, events,
-                             ctx: Context, start: float) -> StreamResponse:
+                             ctx: Context, start: float,
+                             tenant: Optional[str] = None
+                             ) -> StreamResponse:
         """The Responses API's typed SSE frames; an error after the stream
         started is an error event, and the stream ends."""
         resp = StreamResponse(request, writer)
@@ -790,6 +1019,9 @@ class HttpService:
                     if first_token_at is None:
                         first_token_at = now
                         self._observe_latency("ttft", now - start)
+                        if self.quota is not None and tenant:
+                            self.quota.metrics.observe_ttft(
+                                tenant, now - start)
                     elif last_token_at is not None:
                         self._observe_latency("itl", now - last_token_at)
                     last_token_at = now
@@ -1012,6 +1244,28 @@ class HttpService:
                 "armed": armed("memory_ledger"),
                 "available": engines is not None,
             },
+            "/debug/control": {
+                "what": "flight-control plane: controller state + "
+                        "knob-change actions with evidence",
+                "arm": "DYN_CONTROL=all|bucket,kvbm,router,forecast",
+                "armed": self.control_plane is not None,
+                "available": self.control_plane is not None,
+            },
+            "/debug/tenants": {
+                "what": "per-tenant quotas, streams, fair-share "
+                        "deficits, KV blocks, goodput",
+                "arm": "DYN_TENANCY=<path|inline json>",
+                "armed": self.quota is not None,
+                "available": True,
+            },
+            "/debug/classes": {
+                "what": "serving-class table, admitted/shed/downgraded "
+                        "counters, deadline-admission estimate, "
+                        "brownout stage",
+                "arm": "DYN_CLASSES=1|<path|inline json>",
+                "armed": self.classes is not None,
+                "available": True,
+            },
             "/debug/prefixes": {
                 "what": "fleet prefix heatmap: cross-worker duplication, "
                         "tier-blind misses, shadow routing "
@@ -1126,6 +1380,61 @@ class HttpService:
         from dynamo_tpu_torch.router.prefix_plane import prefix_payload
 
         return self._per_kv_model(request, prefix_payload)
+
+    async def _debug_control(self, request: Request, conn) -> Response:
+        """The flight-control plane: armed controllers, tick and action
+        counts, each controller's state and the action ring (every knob
+        change with its before and after values and its evidence).
+        `?limit=N` bounds the ring; 503 unless DYN_CONTROL armed a
+        controller in this process."""
+        if self.control_plane is None:
+            return json_response(
+                {"status": "unavailable",
+                 "reason": "flight control not armed "
+                           "(set DYN_CONTROL=all or a controller list)"},
+                status=503)
+        return json_response(
+            self.control_plane.payload(request.int_arg("limit", 64)))
+
+    async def _debug_tenants(self, request: Request, conn) -> Response:
+        """The tenancy plane: each tenant's quota and live usage at this
+        frontend (streams, bucket level, admitted and rejected counts,
+        TTFT p90) and each in-process engine's scheduler state (queue
+        depths, KV pages held, fair-share service and deficit). 503
+        unless DYN_TENANCY armed tenancy in this process."""
+        if self.quota is None:
+            return json_response(
+                {"status": "unavailable",
+                 "reason": "tenancy not configured (set DYN_TENANCY)"},
+                status=503)
+        body = {"enabled": True, **self.quota.payload()}
+        body["engines"] = [st for st in (tenant_state(e)
+                                         for e in self._engines() or [])
+                           if st]
+        return json_response(body)
+
+    async def _debug_classes(self, request: Request, conn) -> Response:
+        """The serving-class plane: the class table and its default, the
+        admitted / shed / downgraded / rejection counters, the deadline
+        gate's TTFT estimate and the brownout machine's stage. 503
+        unless DYN_CLASSES armed classes in this process."""
+        if self.classes is None:
+            return json_response(
+                {"status": "unavailable",
+                 "reason": "serving classes not configured "
+                           "(set DYN_CLASSES)"},
+                status=503)
+        body = {"enabled": True,
+                "default_class": self.classes.default_class,
+                "classes": self.classes.payload(),
+                "counters": self.class_metrics.payload()}
+        if self.admission is not None:
+            body["admission"] = {
+                "quantile": self.admission.quantile,
+                "est_ttft_s": round(self.admission.estimate_s(), 6)}
+        if self.brownout is not None:
+            body["brownout"] = self.brownout.state()
+        return json_response(body)
 
     def _per_kv_model(self, request: Request, payload) -> Response:
         """`payload(router, limit)` of each kv-mode model's router, or a

@@ -14,8 +14,11 @@ recorder (`DYN_STEP_PROFILE`, with `_pow2` / `_ragged_bucket` as the
 bucketing model), the KV lifecycle recorder (`DYN_KV_LIFECYCLE`), the
 memory ledger over its analytic `memory_stats()` (`DYN_MEM_LEDGER`) and
 the fault injector's `on_dispatch` (`dispatch_wedge`, and `oom`, which
-exits rc 45 under `DYN_OOM_EXIT`). The reference's tenancy, serving-class
-and mesh planes are refused at construction (`runtime/planes.py`).
+exits rc 45 under `DYN_OOM_EXIT`), and the tenancy and serving-class
+planes (`DYN_TENANCY`, `DYN_CLASSES`): the same fair-share admission
+over tenant heads, per-tenant KV budgets and `dynamo_tenant_*` series
+as `TorchEngine`, with `spec_shrink` carried inertly (the mock has no
+draft). The mesh plane is refused at construction (`runtime/planes.py`).
 
 Reference: `lib/llm/src/mocker/{engine.rs,scheduler.rs}`.
 """
@@ -48,6 +51,12 @@ from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.faults import OOM_ERROR, FaultInjector
 from dynamo_tpu_torch.runtime.planes import refuse_unported_planes
 from dynamo_tpu_torch.runtime.tracing import RequestTrace
+from dynamo_tpu_torch.serving_classes import classes_from_env
+from dynamo_tpu_torch.tenancy import (
+    FairScheduler,
+    TenantMetrics,
+    tenancy_from_env,
+)
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger(__name__)
@@ -107,8 +116,8 @@ class MockEngineConfig:
     kv_block_bytes: int = 1 << 20
     workspace_bytes_per_token: int = 4096
     unattributed_bytes: int = 0      # deliberate residual for tests
-    # bounded admission skip-ahead (the reference's
-    # TpuEngineConfig.admit_lookahead): 0 = exact head-only order
+    # bounded admission skip-ahead (TorchEngineConfig.admit_lookahead):
+    # 0 = exact head-only order; ignored when DYN_TENANCY arms fair share
     admit_lookahead: int = 0
     # ragged attention cost model (engine/ragged.py analog): steps record
     # the flat-token `ragged_step` entry — work is the total-token bucket
@@ -133,6 +142,10 @@ class _MockRequest:
     t_admit_ns: int = 0
     t_first_ns: int = 0
     t_last_ns: int = 0
+    # resolved tenant / class names when DYN_TENANCY / DYN_CLASSES are
+    # armed, else None (TorchEngine's _Seq contract)
+    tenant: Optional[str] = None
+    cls: Optional[str] = None
 
     @property
     def max_tokens(self) -> int:
@@ -162,8 +175,8 @@ class MockEngine:
         # dispatch sites do, with _pow2 as the bucketing model
         self.step_recorder = recorder_from_env(self.metrics)
         # runtime-resizable bucket rungs (engine/bucketing.py): the
-        # reference's flight-control autotuner installs one; None (the
-        # port has no autotuner yet) keeps the static _pow2 bucketing
+        # flight-control bucket autotuner (control/controllers.py)
+        # installs one; None keeps the static _pow2 bucketing
         self.bucket_ladder = None
         # controller-facing ragged signal (the engines' ragged_active)
         self.ragged_active = self.config.ragged
@@ -177,6 +190,20 @@ class MockEngine:
         self.kv_metrics = KvbmMetrics()
         self.kv_lifecycle = kv_recorder_from_env(self.kv_metrics)
         self.kv.lifecycle = self.kv_lifecycle
+        # tenancy and serving-class parity with TorchEngine: None unless
+        # DYN_TENANCY / DYN_CLASSES, then the same fair-share admission
+        # and per-tenant budgets; spec_shrink is carried inertly (no
+        # draft model) so brownout sees the same surface on mock fleets
+        self.tenancy = tenancy_from_env()
+        self.fair = None
+        self.tenant_metrics = None
+        if self.tenancy is not None:
+            self.fair = FairScheduler(self.tenancy)
+            self.tenant_metrics = TenantMetrics()
+        self.classes = classes_from_env()
+        self.spec_shrink = False
+        if self.classes is not None and self.fair is not None:
+            self.fair.classes = self.classes
         self._waiting: list[_MockRequest] = []
         self._running: list[_MockRequest] = []
         self._arrivals = 0
@@ -274,6 +301,16 @@ class MockEngine:
         attrs = {"request.id": context.request_id,
                  "engine.worker_id": self.config.worker_id,
                  "engine.kind": "mocker"}
+        tenant = None
+        if self.tenancy is not None:
+            tenant = self.tenancy.tenant_of(
+                getattr(context, "headers", None))
+            attrs["tenant"] = tenant
+        cls = None
+        if self.classes is not None:
+            cls = self.classes.class_of(
+                getattr(context, "headers", None))
+            attrs["class"] = cls
         trace = RequestTrace.begin(
             "engine.request", getattr(context, "headers", None), attrs)
         mreq = _MockRequest(
@@ -281,6 +318,8 @@ class MockEngine:
             seq=TokenBlockSequence(self.config.block_size, req.token_ids),
             arrival=self._arrivals,
             trace=trace, t_enqueue_ns=time.time_ns(),
+            tenant=tenant,
+            cls=cls,
         )
         self._arrivals += 1
         if trace is not None:
@@ -359,12 +398,22 @@ class MockEngine:
                 await asyncio.sleep(0.001 / self.config.speedup)
 
     def _admission_order(self) -> list[int]:
-        """Candidate indexes for one admission round: head-only, or a
-        bounded skip-ahead when admit_lookahead > 0."""
+        """Candidate indexes for one admission round (TorchEngine's
+        `_admission_order` contract): head-only, a bounded skip-ahead
+        when admit_lookahead > 0, per-tenant heads by weighted deficit
+        when DYN_TENANCY arms the fair scheduler."""
+        if self.fair is not None:
+            return self.fair.candidate_indexes(
+                [r.tenant for r in self._waiting])
         la = self.config.admit_lookahead
         if la > 0:
             return list(range(min(la + 1, len(self._waiting))))
         return [0]
+
+    def _tenant_blocks(self, tenant: Optional[str]) -> int:
+        """KV blocks the tenant's running sequences hold."""
+        return sum(len(r.seq.seq_hashes()) for r in self._running
+                   if r.tenant == tenant)
 
     def _admit_one(self) -> bool:
         cfg = self.config
@@ -395,6 +444,12 @@ class MockEngine:
                 cand.queue.put_nowait(None)
                 return True
             new_active = self.kv.blocks_to_activate(cand.seq)
+            if self.fair is not None:
+                budget = self.tenancy.get(cand.tenant).kv_block_budget
+                if (budget > 0 and self._running
+                        and self._tenant_blocks(cand.tenant) + new_active
+                        > budget):
+                    continue  # tenant at its KV budget this round
             if (self.kv.active_blocks + new_active
                     > cfg.watermark * cfg.total_kv_blocks
                     and self._running):
@@ -407,10 +462,23 @@ class MockEngine:
             if not cand.t_admit_ns:  # re-admits after preempt: events only
                 wait_s = (now_ns - cand.t_enqueue_ns) / 1e9
                 self.metrics.queue_wait.observe(wait_s)
+                tm = self.tenant_metrics
+                if tm is not None and cand.tenant is not None:
+                    tm.observe_queue_wait(cand.tenant, wait_s)
                 if cand.trace is not None:
                     cand.trace.stage("engine.queue_wait", cand.t_enqueue_ns,
                                      now_ns,
                                      prompt_tokens=len(cand.req.token_ids))
+            if self.fair is not None:
+                self.fair.on_admit(
+                    cand.tenant,
+                    len(cand.req.token_ids) + cand.max_tokens,
+                    cls=cand.cls)
+                tm = self.tenant_metrics
+                if tm is not None and cand.tenant is not None:
+                    # cand is already in _running, so this counts it
+                    tm.kv_blocks.set(self._tenant_blocks(cand.tenant),
+                                     tenant=cand.tenant)
             if cand.trace is not None:
                 cand.trace.event("admitted", running=len(self._running))
             cand.t_admit_ns = now_ns
@@ -530,6 +598,8 @@ class MockEngine:
                 self.metrics.itl.observe((now_ns - r.t_last_ns) / 1e6)
             r.t_last_ns = now_ns
             self.metrics.tokens_emitted.inc()
+            if self.tenant_metrics is not None and r.tenant is not None:
+                self.tenant_metrics.goodput.inc(tenant=r.tenant)
             emitted += 1
             finish = None
             if r.req.stop.stop_token_ids and token in r.req.stop.stop_token_ids:
@@ -575,6 +645,9 @@ class MockEngine:
         if r in self._waiting:  # finished in the same iter it was preempted
             self._waiting.remove(r)
         self.kv.free_sequence(r.seq.seq_hashes())
+        if self.tenant_metrics is not None and r.tenant is not None:
+            self.tenant_metrics.kv_blocks.set(
+                self._tenant_blocks(r.tenant), tenant=r.tenant)
         if emit:
             r.queue.put_nowait(EngineOutput(
                 token_ids=[], finish_reason=reason).to_dict())

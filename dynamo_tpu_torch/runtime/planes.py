@@ -1,13 +1,14 @@
 """The reference's environment-armed planes that the port does not serve
 yet, refused by name.
 
-The reference's engine (`dynamo_tpu/engine/engine.py:718-740`), its
-mocker and its HTTP frontend (`dynamo_tpu/llm/http_service.py:139`,
-`:156`) arm these planes from the environment. A deployment that sets
-one and gets silently nothing (no per-tenant quotas, no class admission)
-would be served wrongly, so the port's `TorchEngine`, `MockEngine` and
-`HttpService` raise `PlaneUnavailable` at construction instead, naming
-the plane and the ROADMAP item it waits for.
+The reference's engine (`dynamo_tpu/engine/engine.py:709-717`) and its
+mocker arm the mesh and collective recorder from `DYN_MESH_RECORDER`. A
+deployment that sets it and gets silently nothing would be served
+wrongly, so the port's `TorchEngine` and `MockEngine` raise
+`PlaneUnavailable` at construction instead, naming the plane and the
+ROADMAP item it waits for. The tenancy (`DYN_TENANCY`), serving-class
+(`DYN_CLASSES`) and flight-control (`DYN_CONTROL`) planes are served
+(`tenancy/`, `serving_classes/`, `control/`).
 """
 
 from __future__ import annotations
@@ -15,19 +16,8 @@ from __future__ import annotations
 import os
 from typing import Mapping, Optional
 
-# variable -> what it arms in the reference and what it waits for; the
-# reference arms DYN_TENANCY and DYN_CLASSES on any value, and
-# DYN_SERVING_CLASSES is refused as the same plane's name
+# variable -> what it arms in the reference and what it waits for
 UNPORTED_PLANES = {
-    "DYN_TENANCY": ("the tenancy plane (dynamo_tpu/tenancy: per-tenant "
-                    "quotas and fair share)",
-                    "ROADMAP queue 1 item 4"),
-    "DYN_CLASSES": ("the serving-class plane (dynamo_tpu/serving_classes: "
-                    "class admission and brownout)",
-                    "ROADMAP queue 1 item 4"),
-    "DYN_SERVING_CLASSES": ("the serving-class plane "
-                            "(dynamo_tpu/serving_classes)",
-                            "ROADMAP queue 1 item 4"),
     "DYN_MESH_RECORDER": ("the mesh and collective recorder "
                           "(engine/collectives.py)",
                           "ROADMAP queue 1 item 6"),

@@ -49,7 +49,11 @@ under an enabled tracer gives the untraced engine's streams, captures,
 replays and launches, and every span it hands the drain carries host
 values only (ints, strings, bools, floats; never a tensor). The router's
 native radix tree builds on the card's machine and serves by default; a
-`--mock` worker process holds no CUDA context.
+`--mock` worker process holds no CUDA context. Flight control's
+mechanism: a bucket rung proposed while a phase engine serves is adopted
+at its safe point, its prefill shape warms up eagerly before its graph
+is captured, a round at that shape replays bit-identically with eager,
+and the fp32 streams equal those of an engine without the rung.
 """
 
 import asyncio
@@ -2794,3 +2798,103 @@ def test_mock_worker_holds_no_cuda_context(cuda_device, tmp_path):
         for p in reversed(procs):
             p.terminate()
             p.wait(30)
+
+
+# --- flight control: a bucket rung adopted mid-serving ---------------------
+
+RUNG_PROMPTS = (33, 35, 37, 39)      # the 48 bucket at page 8, lo 8
+RUNG_T = 40                          # a rung below it, page-aligned
+
+
+def test_rung_round_replays_bit_identical_to_eager(cuda_device):
+    """A "prefill" round at the rung's T (off the static ladder) replayed
+    from its graph equals the eager round, outputs and caches."""
+    from dynamo_tpu_torch.models.llama import prefill_batch
+
+    cfg, model = _graph_model(cuda_device, "bf16")
+    step = (lambda kc, vc, *a: prefill_batch(model, kc, vc, *a,
+                                             aligned=True))
+    with torch.inference_mode():
+        _graph_vs_eager(cuda_device, cfg, step,
+                        [_prefill_inputs(cfg, 4, RUNG_T, True),
+                         _prefill_inputs(cfg, 4, RUNG_T, True, shift=5)])
+
+
+def test_rung_adopted_mid_serving_captures_after_eager(cuda_device):
+    """A 2-layer fp32 phase engine on the card: while a long request
+    decodes, a rung of RUNG_T is proposed to its ladder; the scheduler
+    adopts it at its safe point, the next prompts' prefill rounds run at
+    T = RUNG_T (each new key's step called eagerly, then under capture),
+    a second pass replays them, and both passes' streams equal an
+    engine's without the rung."""
+    from dynamo_tpu_torch.engine.bucketing import BucketLadder
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+    from dynamo_tpu_torch.runtime.context import Context
+
+    mcfg = LlamaConfig.tiny(dtype=torch.float32, head_dim=32, page_size=8,
+                            max_pages_per_seq=16)
+    cpu_model = init_params(mcfg, 0, torch.device("cpu"))
+    # two passes of the same lengths and no shared prefix: the second
+    # meets the first's shapes, not its cached pages (a release deferred
+    # behind the long request's in-flight burst would outlive a clear)
+    passes = [[list(range(3 + i + shift, 3 + i + shift + n))
+               for i, n in enumerate(RUNG_PROMPTS)] for shift in (0, 100)]
+
+    async def serve(rung: bool):
+        eng = TorchEngine(TorchEngineConfig(
+            model=mcfg, num_pages=96, max_batch_size=8, prefill_chunk=64,
+            min_prefill_bucket=8, device="cuda"),
+            model=copy.deepcopy(cpu_model).to(cuda_device))
+        capture = eng.graphs._capture
+        calls = {}
+
+        def spy(fn, inputs):
+            seen = calls.setdefault(len(calls), [])
+
+            def logged(*a):
+                seen.append(torch.cuda.is_current_stream_capturing())
+                return fn(*a)
+            return capture(logged, inputs)
+
+        eng.graphs._capture = spy
+
+        async def one(prompt, n):
+            toks = []
+            async for o in eng.generate(
+                    {"token_ids": prompt, "sampling": {"temperature": 0.0},
+                     "stop": {"max_tokens": n}}, Context()):
+                toks.extend(o.get("token_ids", ()))
+            return toks
+
+        try:
+            long = asyncio.ensure_future(one(list(range(1, 12)), 48))
+            while not any(s.prefilled for s in eng._running):
+                await asyncio.sleep(0.001)
+            if rung:
+                eng.bucket_ladder = BucketLadder()
+                assert eng.bucket_ladder.propose([RUNG_T])
+            first = await asyncio.gather(*(one(p, 6) for p in passes[0]))
+            keys = set(eng.graphs.graphs)
+            replays = eng.graphs.replays
+            second = await asyncio.gather(*(one(p, 6) for p in passes[1]))
+            # the second pass's prefill rounds replay the first's graphs
+            # (its decode bursts may meet new lane counts)
+            assert {k for k in eng.graphs.graphs if k[0] == "prefill"} \
+                == {k for k in keys if k[0] == "prefill"}
+            assert eng.graphs.replays > replays
+            await long
+            return first, second, keys, calls, eng.bucket_ladder
+        finally:
+            await eng.close()
+
+    want, want2, plain_keys, _, _ = asyncio.run(serve(False))
+    got, got2, keys, calls, ladder = asyncio.run(serve(True))
+    assert (got, got2) == (want, want2)
+    assert ladder.state()["rungs"] == [RUNG_T] and ladder.applied == 1
+    rung_keys = [k for k in keys if k[0] == "prefill" and k[1][1] == RUNG_T]
+    assert rung_keys and not any(
+        k[0] == "prefill" and k[1][1] == RUNG_T for k in plain_keys)
+    # every capture ran its step eagerly first, then under capture
+    assert calls and all(seq == [False, True] for seq in calls.values())
+

@@ -21,10 +21,13 @@ held against the JAX package's frontend (`dynamo_tpu/llm/http_service.py`
   and writes its trace while a chat streams; a bad `capture_s` is a 400.
 - Without `profile_engines` (an `HttpService` no deployment wired) the
   engine routes answer 503, as the reference's, while `/debug/requests`
-  (always on) stays available; the reference's routes the port does not
-  serve (mesh, control, tenants, classes) are 404.
+  (always on) stays available; so do `/debug/control`, `/debug/tenants`
+  and `/debug/classes` with their planes unarmed (the latter two listed
+  available, as the reference lists them); the reference's route the
+  port does not serve (mesh) is a 404.
 - In a fresh interpreter with both recorders, the tracer, the audit bus,
-  the SLO monitor and the telemetry publisher armed, `run in=text`
+  the SLO monitor, the telemetry publisher and the tenancy, serving-class
+  and flight-control planes armed, `run in=text`
   serves and an in-process deployment answers `/debug/profile`,
   `/debug/memory`, `/debug/requests` and `/fleet/status`, writes its
   trace and audit files, with no jax and no `dynamo_tpu` module loaded.
@@ -54,9 +57,11 @@ from tests.test_torch_serving import _engines, _renew_lease, call
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_ROUTES = {"/debug/requests", "/debug/profile", "/debug/router",
-               "/debug/kv", "/debug/memory", "/debug/prefixes"}
-UNSERVED = ("/debug/mesh", "/debug/control", "/debug/tenants",
-            "/debug/classes")
+               "/debug/kv", "/debug/memory", "/debug/prefixes",
+               "/debug/control", "/debug/tenants", "/debug/classes"}
+# the admission and control planes, unarmed in these deployments
+PLANES = {"/debug/control", "/debug/tenants", "/debug/classes"}
+UNSERVED = ("/debug/mesh",)
 PROMPTS = ["profile me please", "a much longer prompt that spans pages",
            "hi"]
 
@@ -152,7 +157,9 @@ def test_debug_routes_in_process_match_jax_package(armed, tmp_path,
                                         capture=True)
             missing = {p: (await _get(deployed[1][1].http.port, p))[0]
                        for p in UNSERVED}
-            return want, got, missing
+            planes = [{p: await _get(fe.http.port, p) for p in PLANES}
+                      for _, fe in deployed]
+            return want, got, missing, planes
         finally:
             renew.cancel()
             for handle, fe in deployed:
@@ -163,8 +170,11 @@ def test_debug_routes_in_process_match_jax_package(armed, tmp_path,
             await ref_rt.close()
             await t_rt.close()
 
-    want, got, missing = asyncio.run(asyncio.wait_for(main(), 120))
+    want, got, missing, planes = asyncio.run(asyncio.wait_for(main(), 120))
     assert set(missing.values()) == {404}
+    # unarmed planes: the reference's 503 and body
+    assert planes[1] == planes[0]
+    assert {st for st, _ in planes[1].values()} == {503}
     for path in got:
         if path.endswith("nope"):
             assert got[path][0] == want[path][0] == 400
@@ -182,7 +192,9 @@ def test_debug_routes_in_process_match_jax_package(armed, tmp_path,
                 .replace("the device's memory stats",
                          "device memory_stats") == ref_row.pop("what")
         assert row == ref_row, p
-    assert all(row["armed"] and row["available"] for row in idx.values())
+    assert all(row["armed"] and row["available"]
+               for p, row in idx.items() if p not in PLANES)
+    assert not any(idx[p]["armed"] for p in PLANES)
     # the step recorders saw the same dispatches
     prof = got["/debug/profile"][1]
     assert prof["enabled"] is True
@@ -242,7 +254,8 @@ def test_engine_routes_are_503_without_profile_engines():
             got = {p: (await _get(http.port, p))
                    for p in ("/debug", "/debug/profile", "/debug/memory",
                              "/debug/kv", "/debug/router",
-                             "/debug/prefixes")}
+                             "/debug/prefixes", "/debug/control",
+                             "/debug/tenants", "/debug/classes")}
             got["post"] = await call(http.port, "POST", "/debug/profile")
         finally:
             await http.stop()
@@ -253,11 +266,16 @@ def test_engine_routes_are_503_without_profile_engines():
     got = asyncio.run(asyncio.wait_for(main(), 30))
     assert got["/debug"][0] == 200
     idx = got["/debug"][1]["surfaces"]
-    assert not any(row["available"] or row["armed"]
-                   for p, row in idx.items() if p != "/debug/requests")
-    assert idx["/debug/requests"]["available"]
+    # the reference lists its tenancy and class routes available always
+    always = {"/debug/requests", "/debug/tenants", "/debug/classes"}
+    assert not any(row["available"] for p, row in idx.items()
+                   if p not in always)
+    assert not any(row["armed"] for p, row in idx.items()
+                   if p != "/debug/requests")
+    assert all(idx[p]["available"] for p in always)
     for p in ("/debug/profile", "/debug/memory", "/debug/kv",
-              "/debug/router", "/debug/prefixes"):
+              "/debug/router", "/debug/prefixes", "/debug/control",
+              "/debug/tenants", "/debug/classes"):
         assert got[p][0] == 503 and got[p][1]["status"] == "unavailable"
     assert got["post"][0] == 405
 
@@ -272,6 +290,8 @@ def test_armed_serving_loads_no_jax(tmp_path):
         f"'out=torch:{ckpt}', '--device', 'cpu', '--max-tokens', '4']\n"
         "runpy.run_module('dynamo_tpu_torch.run', run_name='__main__')\n"
         "import dynamo_tpu_torch.llm.perf, dynamo_tpu_torch.llm.audit\n"
+        "import dynamo_tpu_torch.tenancy, dynamo_tpu_torch.serving_classes\n"
+        "import dynamo_tpu_torch.control\n"
         "import dynamo_tpu_torch.runtime.logging_util\n"
         "from dynamo_tpu_torch.llm import entrypoint as e\n"
         "from dynamo_tpu_torch.runtime.config import RuntimeConfig\n"
@@ -288,6 +308,8 @@ def test_armed_serving_loads_no_jax(tmp_path):
         "    h = await e.serve_engine(rt, eng, card, instance_id=1)\n"
         "    fe = await e.start_frontend(rt, port=0)\n"
         "    assert h.publisher is not None and fe.slo is not None\n"
+        "    assert fe.control is not None and fe.http.quota is not None\n"
+        "    assert fe.http.brownout is not None and eng.fair is not None\n"
         "    def get(p):\n"
         "        with urllib.request.urlopen(fe.url + p) as r:\n"
         "            return json.loads(r.read())\n"
@@ -334,7 +356,8 @@ def test_armed_serving_loads_no_jax(tmp_path):
                DYN_AUDIT="1", DYN_AUDIT_SINKS="jsonl",
                DYN_AUDIT_PATH=str(audit), DYN_TELEMETRY_INTERVAL="0.1",
                DYN_SLO_TTFT="0.000001", DYN_SLO_CHECK_INTERVAL="0.1",
-               DYN_LOG_FORMAT="jsonl")
+               DYN_LOG_FORMAT="jsonl", DYN_CLASSES="1", DYN_CONTROL="all",
+               DYN_TENANCY='{"tenants": [{"name": "t"}]}')
     proc = subprocess.run([sys.executable, "-c", probe], env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr

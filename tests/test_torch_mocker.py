@@ -15,11 +15,12 @@ bodies are equal.
   pressure (preemption), with a cancelled request, and with the step
   recorder, the KV lifecycle recorder and the memory ledger armed (their
   per-entry counts, lifecycle summaries and ledger classes equal).
-- The unported environment planes: with `DYN_TENANCY` the reference's
-  mocker refuses an over-quota tenant's request, which the port's
-  engines would have served silently; the port's `MockEngine`,
-  `TorchEngine` and HTTP frontend now refuse the variable (and
-  `DYN_CLASSES`, `DYN_SERVING_CLASSES`, `DYN_MESH_RECORDER`) by name.
+- The environment planes: with `DYN_TENANCY` both packages' quota gates
+  refuse an over-quota tenant's second request, and the port's
+  `MockEngine`, `TorchEngine` and HTTP frontend arm the tenancy plane
+  (and `DYN_CLASSES` the serving-class plane) as the reference's do;
+  `DYN_MESH_RECORDER` is still refused by name, and `DYN_SERVING_CLASSES`
+  (a name the reference never reads) is no plane at all.
 - Mock workers behind a KV-routed frontend, each package's behind the
   other's (over one coordinator): the same bodies, and A + a suffix lands
   on A's worker.
@@ -219,41 +220,50 @@ async def test_armed_recorders_match_reference(monkeypatch):
         assert ("ragged_step" in views[0][0]) == ragged
 
 
-# -- the unported planes -----------------------------------------------------
+# -- the environment planes -------------------------------------------------
 
 TENANCY = ('{"tenants": [{"name": "slow", "token_rate": 1.0, '
            '"token_burst": 1.0}]}')
 
 
-def test_tenancy_plane_armed_in_reference_refused_by_port(monkeypatch):
-    """The fault first: with DYN_TENANCY the reference's frontend bounces
-    an over-quota tenant (its QuotaGate refuses the second request of a
-    1-token bucket); the port's frontend, engines and mocker read no such
-    variable and would serve it. Now each of them refuses the variable by
-    name at construction."""
+def test_tenancy_plane_served_by_port_as_by_reference(monkeypatch):
+    """With DYN_TENANCY both packages' frontends bounce an over-quota
+    tenant (the QuotaGate refuses the second request of a 1-token
+    bucket), and the port's mocker, engine and frontend arm the plane at
+    construction as the reference's mocker does."""
     from dynamo_tpu.tenancy import QuotaGate, TenantMetrics, tenancy_from_env
-    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch import tenancy as t_ten
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
     from dynamo_tpu_torch.llm.http_service import HttpService
-    from dynamo_tpu_torch.runtime.planes import PlaneUnavailable
+    from dynamo_tpu_torch.models import llama as tl
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
     monkeypatch.setenv("DYN_TENANCY", TENANCY)
-    cfg = tenancy_from_env()
-    gate = QuotaGate(cfg, TenantMetrics())
-    slow = cfg.get("slow")
-    first, second = gate.try_admit(slow, 10), gate.try_admit(slow, 10)
-    assert first[0] and second[:2] == (False, "token_rate")
+    decisions = []
+    for ten_env, gate_cls, metrics_cls in (
+            (tenancy_from_env, QuotaGate, TenantMetrics),
+            (t_ten.tenancy_from_env, t_ten.QuotaGate, t_ten.TenantMetrics)):
+        cfg = ten_env()
+        gate = gate_cls(cfg, metrics_cls())
+        slow = cfg.get("slow")
+        decisions.append((gate.try_admit(slow, 10)[:2],
+                          gate.try_admit(slow, 10)[:2]))
+    assert decisions[0] == decisions[1] == ((True, ""),
+                                            (False, "token_rate"))
     assert r_mock.MockEngine().tenancy is not None
-    for build in (lambda: t_mock.MockEngine(), lambda: TorchEngine(),
-                  lambda: HttpService(None)):
-        with pytest.raises(PlaneUnavailable,
-                           match="DYN_TENANCY .*ROADMAP queue 1 item 4"):
-            build()
+    assert t_mock.MockEngine().fair is not None
+    eng = TorchEngine(TorchEngineConfig(model=tl.LlamaConfig.tiny(),
+                                        device="cpu", num_pages=16))
+    assert eng.tenancy.get("slow").token_rate == 1.0
+    manager = type("M", (), {"runtime": type("R", (), {
+        "metrics": MetricsRegistry()})()})()
+    assert HttpService(manager).quota is not None
 
 
-@pytest.mark.parametrize("var,value,item", [
-    ("DYN_CLASSES", "1", "item 4"), ("DYN_SERVING_CLASSES", "1", "item 4"),
-    ("DYN_MESH_RECORDER", "1", "item 6")])
-def test_unported_planes_refused_by_name(monkeypatch, var, value, item):
+@pytest.mark.parametrize("var,value,served", [
+    ("DYN_CLASSES", "1", "classes"), ("DYN_SERVING_CLASSES", "1", None),
+    ("DYN_MESH_RECORDER", "1", "refused")])
+def test_planes_served_or_refused_by_name(monkeypatch, var, value, served):
     from dynamo_tpu_torch.runtime.planes import (
         PlaneUnavailable,
         refuse_unported_planes,
@@ -261,8 +271,17 @@ def test_unported_planes_refused_by_name(monkeypatch, var, value, item):
 
     refuse_unported_planes("here", env={var: "0"})      # off: accepted
     monkeypatch.setenv(var, value)
-    with pytest.raises(PlaneUnavailable, match=f"{var} .*{item}"):
-        t_mock.MockEngine()
+    if served == "refused":
+        with pytest.raises(PlaneUnavailable,
+                           match=f"{var} .*ROADMAP queue 1 item 6"):
+            t_mock.MockEngine()
+        return
+    eng = t_mock.MockEngine()
+    ref = r_mock.MockEngine()
+    # the reference never reads DYN_SERVING_CLASSES: neither package
+    # arms anything for it
+    assert (eng.classes is not None) == (ref.classes is not None) \
+        == (served == "classes")
 
 
 # -- mock fleets behind KV-routed frontends, cross-wired ----------------------
